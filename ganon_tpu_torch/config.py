@@ -1,0 +1,492 @@
+"""Config/flag system: one argparse-backed class for all 7 subcommands.
+
+Mirrors the reference Config (``pirovc/ganon:src/ganon/config.py``):
+same subcommands, flags, choices and Python-tier defaults (e.g. classify
+``--rel-cutoff 0.75 --rel-filter 0.1 --fpr-query 1e-5``, config.py:604-711),
+and the same programmatic construction ``Config(which, **kwargs)``
+(config.py:1226-1247) used by tests and internal chaining.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from ganon_tpu_torch import __version__
+
+
+def unsigned_int(minval=0):
+    def f(value):
+        try:
+            value = int(value)
+        except ValueError:
+            raise argparse.ArgumentTypeError("must be a number")
+        if value < minval:
+            raise argparse.ArgumentTypeError(f"must be >= {minval}")
+        return value
+
+    return f
+
+
+def int_or_float(minval=None, maxval=None):
+    def f(value):
+        try:
+            value = float(value)
+        except ValueError:
+            raise argparse.ArgumentTypeError("must be a number")
+        if value.is_integer():
+            value = int(value)
+        if minval is not None and value < minval:
+            raise argparse.ArgumentTypeError(f"must be >= {minval}")
+        if maxval is not None and value > maxval:
+            raise argparse.ArgumentTypeError(f"must be <= {maxval}")
+        return value
+
+    return f
+
+
+class Config:
+    choices_taxonomy = ["ncbi", "gtdb", "skip"]
+    choices_level = ["assembly", "custom"]
+    choices_input_target = ["file", "sequence"]
+    choices_default_ranks = [
+        "domain", "phylum", "class", "order", "family", "genus", "species",
+        "assembly",
+    ]
+    choices_report_type = ["abundance", "reads", "matches", "dist", "corr"]
+    choices_multiple_matches = ["em", "lca", "skip"]
+    choices_report_output = ["text", "tsv", "csv", "bioboxes"]
+    choices_mode = ["avg", "smaller", "smallest", "faster", "fastest"]
+    choices_filter_type = ["hibf", "ibf"]
+
+    version = __version__
+
+    def __init__(self, which: str = None, **kwargs):
+        parser = self.build_parser()
+        if which is not None:
+            # programmatic API: Config("classify", db_prefix=..., ...) —
+            # start from the subcommand's defaults, then apply kwargs
+            subparser = self._subparsers.get(which)
+            if subparser is None:
+                raise ValueError(f"unknown subcommand: {which}")
+            args = argparse.Namespace()
+            for action in subparser._actions:
+                if action.dest not in ("help",):
+                    setattr(args, action.dest, action.default)
+            args.which = subparser.get_default("which")
+            for k, v in kwargs.items():
+                if not hasattr(args, k):
+                    raise ValueError(f"invalid parameter for {which}: {k}")
+                setattr(args, k, v)
+        else:
+            args = parser.parse_args()
+        for k, v in vars(args).items():
+            setattr(self, k, v)
+        if self.which is None:
+            parser.print_help()
+            raise SystemExit(0)
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def build_parser(cls):
+        parser = argparse.ArgumentParser(
+            prog="ganon-tpu",
+            description="ganon-tpu: TPU-native metagenomics classification",
+        )
+        parser.add_argument(
+            "-v", "--version", action="version",
+            version=f"ganon-tpu {cls.version}",
+        )
+        parser.set_defaults(which=None)
+        sub = parser.add_subparsers()
+        cls._subparsers = {}
+
+        def common_build(p, custom):
+            g = p.add_argument_group("important arguments")
+            g.add_argument("-d", "--db-prefix", type=str, required=True,
+                           help="Database output prefix")
+            # Deliberate default divergence from the reference (which
+            # defaults hibf, config.py:179): the HIBF's hierarchical
+            # descent exists to skip sub-filters and save CPU memory
+            # bandwidth; on TPU the whole table is HBM-resident and the
+            # flat IBF queries in ONE fused branch-free dispatch, while
+            # the forest needs one gather round per sub-filter. With
+            # TPU-tuned sizing the memory gap also narrows. Use hibf for
+            # reference-binary interop or very skewed target sizes.
+            g.add_argument("-x", "--filter-type", type=str, default="ibf",
+                           choices=cls.choices_filter_type,
+                           help="Filter type. Default ibf: on TPU the flat "
+                                "interleaved filter classifies in one fused "
+                                "dispatch and is the fastest path (the "
+                                "reference defaults hibf, whose hierarchical "
+                                "descent only pays on CPUs)")
+            adv = p.add_argument_group("advanced arguments")
+            adv.add_argument("--filter-format", type=str, default="tpu",
+                             choices=["tpu", "tpu-raw", "reference"],
+                             help="On-disk .ibf format: tpu (native npz), "
+                                  "tpu-raw (uncompressed mmap-able — "
+                                  "near-instant load for very large dbs) "
+                                  "or reference (cereal archive "
+                                  "cross-loadable by the reference C++ "
+                                  "binaries)")
+            adv.add_argument("-p", "--max-fp", type=int_or_float(0, 1),
+                             default=None,
+                             help="Max false positive of the filter")
+            adv.add_argument("-f", "--filter-size", type=int_or_float(0),
+                             default=0, help="Fixed filter size (MB)")
+            adv.add_argument("-k", "--kmer-size", type=unsigned_int(1),
+                             default=19, help="k-mer size")
+            adv.add_argument("-w", "--window-size", type=unsigned_int(1),
+                             default=31, help="window (minimizer) size")
+            adv.add_argument("-s", "--hash-functions", type=unsigned_int(0),
+                             default=None, choices=range(6),
+                             help="hash functions (0=auto; default 4, but "
+                                  "--tpu-sizing may lower it for large "
+                                  "filters when not set explicitly)")
+            adv.add_argument("--tpu-sizing", type=str, default="auto",
+                             choices=["auto", "off"],
+                             help="throughput-aware hash-function tuning "
+                                  "for HBM-resident filters (ours-only)")
+            adv.add_argument("--hibf-layout", type=str, default="auto",
+                             choices=["auto", "forest", "pruned"],
+                             help="hierarchical layout for --filter-type "
+                                  "hibf (ours-only): forest = size-"
+                                  "stratified classes, pruned = merged-"
+                                  "bin coarse gate + grouped fine table "
+                                  "(the TPU form of the reference HIBF's "
+                                  "threshold-gated descent); auto picks "
+                                  "pruned at many-targets scale")
+            adv.add_argument("-j", "--mode", type=str, default="avg",
+                             choices=cls.choices_mode,
+                             help="Filter size/speed trade-off mode")
+            adv.add_argument("-y", "--min-length", type=unsigned_int(0),
+                             default=0,
+                             help="Skip sequences shorter than this")
+            adv.add_argument("-t", "--threads", type=unsigned_int(1), default=1)
+            adv.add_argument("--restart", action="store_true", default=False)
+            adv.add_argument("--verbose", action="store_true", default=False)
+            adv.add_argument("--quiet", action="store_true", default=False)
+            adv.add_argument("--write-info-file", action="store_true",
+                             default=False)
+            adv.add_argument("--keep-files", action="store_true", default=False,
+                             help=argparse.SUPPRESS)
+            tx = p.add_argument_group("taxonomy arguments")
+            tx.add_argument("-g", "--taxonomy", type=str, default="ncbi",
+                            help="Taxonomy (ncbi, gtdb, skip)")
+            tx.add_argument("-b", "--taxonomy-files", type=str, nargs="*",
+                            default=[])
+            tx.add_argument("--genome-size-files", type=str, nargs="*",
+                            default=[])
+            tx.add_argument("--skip-genome-size", action="store_true",
+                            default=False)
+            # acquisition URL overrides + hidden compat flags
+            # (reference config.py:514-541)
+            adv.add_argument("--ncbi-url", type=str,
+                             default="https://ftp.ncbi.nlm.nih.gov/",
+                             help=argparse.SUPPRESS)
+            adv.add_argument("--gtdb-url", type=str,
+                             default="https://data.gtdb.ecogenomic.org/"
+                                     "releases/latest/",
+                             help=argparse.SUPPRESS)
+            adv.add_argument("--n-refs", type=unsigned_int(1), default=None,
+                             help=argparse.SUPPRESS)
+            adv.add_argument("--ganon-path", type=str, default="",
+                             help=argparse.SUPPRESS)
+            adv.add_argument("--raptor-path", type=str, default="",
+                             help=argparse.SUPPRESS)
+            return adv
+
+        # build (download + build)
+        build = sub.add_parser("build", help="Download and build a database")
+        cls._subparsers["build"] = build
+        build.set_defaults(which="build")
+        common_build(build, custom=False)
+        build.add_argument("-o", "--organism-group", nargs="*", type=str,
+                           default=[])
+        build.add_argument("-a", "--taxid", nargs="*", type=str, default=[])
+        build.add_argument("-c", "--complete-genomes", action="store_true")
+        build.add_argument("-r", "--reference-genomes", action="store_true")
+        build.add_argument("-u", "--source", type=str, nargs="*",
+                           default=["refseq"])
+        build.add_argument("--top", type=unsigned_int(0), default=0)
+        build.add_argument("--genome-updater", type=str, default="")
+        build.add_argument("-l", "--level", type=str, default="",
+                           help="Max depth: rank name, 'leaves', 'assembly'")
+        build.add_argument("--download-threads", type=unsigned_int(1),
+                           default=1)
+
+        # build-custom
+        bc = sub.add_parser("build-custom",
+                            help="Build a database from custom input")
+        cls._subparsers["build-custom"] = bc
+        bc.set_defaults(which="build_custom")
+        common_build(bc, custom=True)
+        bc.add_argument("-i", "--input", type=str, nargs="*", default=[],
+                        help="Input files/folders")
+        bc.add_argument("-e", "--input-extension", type=str,
+                        default="fna.gz", help="Extension for input folders")
+        bc.add_argument("--input-recursive", action="store_true",
+                        default=False)
+        bc.add_argument("-n", "--input-file", type=str, default="",
+                        help="file <tab> [target <tab> node <tab> "
+                             "specialization <tab> specialization_name]")
+        bc.add_argument("--input-target", type=str, default="file",
+                        choices=cls.choices_input_target)
+        bc.add_argument("-l", "--level", type=str, default="",
+                        help="Max depth: rank name, 'leaves', 'assembly' "
+                             "or 'custom'")
+        bc.add_argument("--ncbi-sequence-info", type=str, nargs="*",
+                        default=[])
+        bc.add_argument("--ncbi-file-info", type=str, nargs="*", default=[])
+        bc.add_argument("--keep-invalid-taxa", action="store_true",
+                        default=False)
+        bc.add_argument("--convert-taxonomy", type=str, default="")
+        bc.add_argument("-u", "--convert-taxonomy-files", type=str, nargs="*",
+                        default=[],
+                        help="Local taxonomy files for --convert-taxonomy "
+                             "(ncbi: taxdump.tar.gz or nodes.dmp [names.dmp "
+                             "merged.dmp]; gtdb: *taxonomy.tsv.gz)")
+        bc.add_argument("--convert-gtdb-files", type=str, nargs="*",
+                        default=[],
+                        help="Local GTDB conversion files (one per GTDB "
+                             "version in --taxonomy/--convert-taxonomy; "
+                             "multitax data/gtdb format)")
+
+        # update
+        up = sub.add_parser("update", help="Update a database")
+        cls._subparsers["update"] = up
+        up.set_defaults(which="update")
+        common_build(up, custom=True)
+        up.add_argument("-i", "--input", type=str, nargs="*", default=[])
+        up.add_argument("-e", "--input-extension", type=str, default="fna.gz")
+        up.add_argument("--input-recursive", action="store_true", default=False)
+        up.add_argument("-n", "--input-file", type=str, default="")
+        up.add_argument("--input-target", type=str, default="file",
+                        choices=cls.choices_input_target)
+        up.add_argument("-l", "--level", type=str, default="")
+        up.add_argument("--ncbi-sequence-info", type=str, nargs="*", default=[])
+        up.add_argument("--ncbi-file-info", type=str, nargs="*", default=[])
+        up.add_argument("--keep-invalid-taxa", action="store_true",
+                        default=False)
+        up.add_argument("--convert-taxonomy", type=str, default="")
+        up.add_argument("-u", "--convert-taxonomy-files", type=str, nargs="*",
+                        default=[])
+        up.add_argument("--convert-gtdb-files", type=str, nargs="*",
+                        default=[])
+        up.add_argument("-o", "--output-db-prefix", type=str, default="")
+
+        # classify
+        cl = sub.add_parser("classify", help="Classify reads against database")
+        cls._subparsers["classify"] = cl
+        cl.set_defaults(which="classify")
+        cl.add_argument("-d", "--db-prefix", type=str, nargs="*",
+                        required=True)
+        cl.add_argument("-s", "--single-reads", type=str, nargs="*",
+                        default=[])
+        cl.add_argument("-p", "--paired-reads", type=str, nargs="*",
+                        default=[])
+        cl.add_argument("--batch-reads", type=str, nargs="*", default=[])
+        cl.add_argument("-o", "--output-prefix", type=str, default="")
+        cl.add_argument("-c", "--rel-cutoff", type=int_or_float(0, 1),
+                        nargs="*", default=[0.75])
+        cl.add_argument("-e", "--rel-filter", type=int_or_float(0, 1),
+                        nargs="*", default=[0.1])
+        cl.add_argument("-q", "--fpr-query", type=int_or_float(0, 1),
+                        nargs="*", default=[1e-5])
+        cl.add_argument("-l", "--hierarchy-labels", type=str, nargs="*",
+                        default=[])
+        cl.add_argument("-m", "--multiple-matches", type=str, default="em",
+                        choices=cls.choices_multiple_matches)
+        cl.add_argument("--binning", action="store_true", default=False,
+                        help="Optimized parameters for binning "
+                             "(--rel-cutoff 0.25 --rel-filter 0 --min-count 0 "
+                             "--report-type reads). Reports sequence "
+                             "abundances instead of taxonomic abundance")
+        cl.add_argument("--ranks", type=str, nargs="*", default=[])
+        cl.add_argument("--min-count", type=int_or_float(0), default=0)
+        cl.add_argument("--report-type", type=str, default="abundance",
+                        choices=cls.choices_report_type)
+        cl.add_argument("--reassign-max-iter", type=unsigned_int(0),
+                        default=10)
+        cl.add_argument("--reassign-threshold", type=int_or_float(0),
+                        default=0.0)
+        cl.add_argument("--skip-report", action="store_true", default=False)
+        cl.add_argument("--output-one", action="store_true", default=False)
+        cl.add_argument("--output-all", action="store_true", default=False)
+        cl.add_argument("--output-unclassified", action="store_true",
+                        default=False)
+        cl.add_argument("--output-stats", action="store_true", default=False)
+        cl.add_argument("--output-single", action="store_true", default=False)
+        cl.add_argument("--tax-root-node", type=str, default="1")
+        cl.add_argument("-t", "--threads", type=unsigned_int(1), default=1)
+        # 0 = auto by table regime (engine.ClassifyConfig.n_reads)
+        cl.add_argument("--n-reads", type=unsigned_int(0), default=0,
+                        help=argparse.SUPPRESS)
+        cl.add_argument("--n-batches", type=unsigned_int(1), default=1000,
+                        help=argparse.SUPPRESS)
+        # TPU pipeline tuning (hidden, like the reference's n-reads tier)
+        cl.add_argument("--pipeline-depth", type=unsigned_int(1), default=4,
+                        help=argparse.SUPPRESS)
+        cl.add_argument("--top-k-matches", type=unsigned_int(1), default=128,
+                        help=argparse.SUPPRESS)
+        cl.add_argument("--no-length-bucketing", action="store_true",
+                        default=False, help=argparse.SUPPRESS)
+        cl.add_argument("--hibf", action="store_true", default=False,
+                        help=argparse.SUPPRESS)
+        cl.add_argument("--longreads", action="store_true", default=False,
+                        help="Use 32-bit counters (reads with >65535 "
+                             "minimizers)")
+        cl.add_argument("--distributed", action="store_true", default=False,
+                        help="Initialize the jax multi-host runtime; read "
+                             "files are partitioned per host and outputs "
+                             "written under {prefix}.h{host}")
+        cl.add_argument("--verbose", action="store_true", default=False)
+        cl.add_argument("--quiet", action="store_true", default=False)
+
+        # reassign
+        rs = sub.add_parser("reassign", help="EM reassignment of multi-matches")
+        cls._subparsers["reassign"] = rs
+        rs.set_defaults(which="reassign")
+        rs.add_argument("-i", "--input-prefix", type=str, nargs="*",
+                        required=True)
+        rs.add_argument("-o", "--output-prefix", type=str, default="")
+        rs.add_argument("-e", "--max-iter", type=unsigned_int(0), default=10)
+        rs.add_argument("-s", "--threshold", type=int_or_float(0), default=0.0)
+        rs.add_argument("--remove-all", action="store_true", default=False)
+        rs.add_argument("--skip-one", action="store_true", default=False)
+        rs.add_argument("--skip-rep", action="store_true", default=False,
+                        help=argparse.SUPPRESS)
+        rs.add_argument("--verbose", action="store_true", default=False)
+        rs.add_argument("--quiet", action="store_true", default=False)
+
+        # report
+        rp = sub.add_parser("report", help="Generate taxonomic reports (.tre)")
+        cls._subparsers["report"] = rp
+        rp.set_defaults(which="report")
+        rp.add_argument("-i", "--input", type=str, nargs="*", required=True)
+        rp.add_argument("-e", "--input-extension", type=str, default="rep")
+        rp.add_argument("-o", "--output-prefix", type=str, required=True)
+        rp.add_argument("-d", "--db-prefix", type=str, nargs="*", default=[])
+        rp.add_argument("-x", "--taxonomy", type=str, default="ncbi",
+                        choices=cls.choices_taxonomy)
+        rp.add_argument("-b", "--taxonomy-files", type=str, nargs="*",
+                        default=[])
+        rp.add_argument("--genome-size-files", type=str, nargs="*", default=[])
+        rp.add_argument("--skip-genome-size", action="store_true",
+                        default=False)
+        rp.add_argument("-f", "--output-format", type=str, default="tsv",
+                        choices=cls.choices_report_output)
+        rp.add_argument("-t", "--report-type", type=str, default="abundance",
+                        choices=cls.choices_report_type)
+        rp.add_argument("-r", "--ranks", type=str, nargs="*", default=[])
+        rp.add_argument("-s", "--sort", type=str, default="")
+        rp.add_argument("-a", "--no-orphan", action="store_true", default=False)
+        rp.add_argument("-y", "--split-hierarchy", action="store_true",
+                        default=False)
+        rp.add_argument("-p", "--skip-hierarchy", type=str, nargs="*",
+                        default=[])
+        rp.add_argument("-k", "--keep-hierarchy", type=str, nargs="*",
+                        default=[])
+        rp.add_argument("-c", "--top-percentile", type=int_or_float(0, 1),
+                        default=0)
+        rp.add_argument("--min-count", type=int_or_float(0), default=0)
+        rp.add_argument("--max-count", type=int_or_float(0), default=0)
+        rp.add_argument("--taxids", type=str, nargs="*", default=[])
+        rp.add_argument("--names", type=str, nargs="*", default=[])
+        rp.add_argument("--names-with", type=str, nargs="*", default=[])
+        rp.add_argument("--normalize", action="store_true", default=False)
+        rp.add_argument("--verbose", action="store_true", default=False)
+        rp.add_argument("--quiet", action="store_true", default=False)
+
+        # table
+        tb = sub.add_parser("table", help="Merge reports into a table")
+        cls._subparsers["table"] = tb
+        tb.set_defaults(which="table")
+        tb.add_argument("-i", "--input", type=str, nargs="*", required=True)
+        tb.add_argument("-e", "--input-extension", type=str, default="tre")
+        tb.add_argument("-o", "--output-file", type=str, required=True)
+        tb.add_argument("-l", "--output-value", type=str, default="counts",
+                        choices=["percentage", "counts"])
+        tb.add_argument("-f", "--output-format", type=str, default="tsv",
+                        choices=["tsv", "csv"])
+        tb.add_argument("-t", "--top-sample", type=unsigned_int(0), default=0)
+        tb.add_argument("-a", "--top-all", type=unsigned_int(0), default=0)
+        tb.add_argument("-m", "--min-frequency", type=int_or_float(0),
+                        default=0)
+        tb.add_argument("-r", "--rank", type=str, default="")
+        tb.add_argument("--header", type=str, default="name",
+                        choices=["name", "taxid", "lineage"])
+        tb.add_argument("--unclassified-label", type=str, default="")
+        tb.add_argument("--filtered-label", type=str, default="")
+        tb.add_argument("--skip-zeros", action="store_true", default=False)
+        tb.add_argument("--transpose", action="store_true", default=False)
+        tb.add_argument("--no-root", action="store_true", default=False)
+        tb.add_argument("--min-count", type=int_or_float(0), default=0)
+        tb.add_argument("--max-count", type=int_or_float(0), default=0)
+        tb.add_argument("--taxids", type=str, nargs="*", default=[])
+        tb.add_argument("--names", type=str, nargs="*", default=[])
+        tb.add_argument("--names-with", type=str, nargs="*", default=[])
+        tb.add_argument("--verbose", action="store_true", default=False)
+        tb.add_argument("--quiet", action="store_true", default=False)
+
+        return parser
+
+    # ------------------------------------------------------------------
+    def validate(self) -> bool:
+        """Cross-parameter validation/defaults (reference set_defaults +
+        validate, config.py:1256-1493)."""
+        if self.which in ("build", "build_custom", "update"):
+            if self.max_fp is None:
+                # hibf default fp 0.001, ibf 0.05 (config.py:1256-1267)
+                self.max_fp = 0.001 if self.filter_type == "hibf" else 0.05
+            if getattr(self, "hash_functions", None) is None:
+                # reference default 4; record that it was defaulted so
+                # --tpu-sizing auto may re-tune it for HBM-regime filters
+                self.hash_functions = 4
+                self.hash_functions_defaulted = True
+            else:
+                self.hash_functions_defaulted = False
+            if self.filter_size and self.max_fp:
+                self.max_fp = 0  # filter-size wins when both given
+            if self.window_size < self.kmer_size:
+                raise ValueError("--window-size must be >= --kmer-size")
+        if self.which in ("build_custom", "update") and getattr(
+            self, "convert_taxonomy", ""
+        ):
+            # conversion file count per direction (config.py:1326-1348)
+            pair = (self.taxonomy.split("-")[0],
+                    self.convert_taxonomy.split("-")[0])
+            need = {("gtdb", "gtdb"): 2, ("gtdb", "ncbi"): 1,
+                    ("ncbi", "gtdb"): 1}.get(pair)
+            if need and self.convert_gtdb_files and len(
+                self.convert_gtdb_files
+            ) != need:
+                raise ValueError(
+                    f"--convert-gtdb-files requires {need} file(s) for "
+                    f"[{self.taxonomy} -> {self.convert_taxonomy}]"
+                )
+            if self.taxonomy == "skip":
+                raise ValueError(
+                    "--convert-taxonomy requires --taxonomy ncbi or gtdb"
+                )
+        if self.which == "classify":
+            if self.binning:
+                # binning preset (reference set_defaults, config.py:1263-1267)
+                self.rel_cutoff = [0.25]
+                self.rel_filter = [0]
+                self.min_count = 0
+                self.report_type = "reads"
+            if not (self.single_reads or self.paired_reads or self.batch_reads):
+                raise ValueError(
+                    "--single-reads, --paired-reads or --batch-reads required"
+                )
+            if not self.output_prefix and (
+                self.output_all or self.output_unclassified
+            ):
+                raise ValueError("--output-prefix required for output files")
+            # detect hibf vs ibf per db prefix
+            for dbp in self.db_prefix:
+                if os.path.isfile(dbp + ".hibf"):
+                    self.hibf = True
+        return True

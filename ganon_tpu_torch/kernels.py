@@ -1,0 +1,142 @@
+"""Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
+
+The four kernels compile with ``nvcc`` into one content-addressed shared
+library under the checkout's ``build/`` directory at first use, with a
+plain C interface loaded through ctypes (no torch headers, so a build
+takes seconds). Every pointer and the stream are passed as
+``ctypes.c_void_p``; kernels launch on ``torch.cuda.current_stream()``
+and each C entry returns ``cudaGetLastError()``, which :func:`launch`
+turns into an exception.
+
+``LAUNCHES`` counts kernel launches per kernel (one per :func:`launch`),
+so a run can show that its main path went through the kernels.
+Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+from ganon_tpu_torch import BUILD_DIR
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = ("extract.cu", "count.cu", "select.cu", "scatter.cu")
+HEADERS = ("ibf_hash.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _L, _U, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_uint64, ctypes.c_double)
+# C entry points: name -> argtypes (the stream is always the last pointer)
+_SIGNATURES = {
+    # inbuf, B, row_bytes, L1, L2, k, w, mc, hashes, n, overflow
+    "extract": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P),
+    # tbl, R, W8, byte_starts, byte_ends, T, hashes, B, M, n_hashes,
+    # bin_size, h, shift, counts
+    "count": (_P, _L, _L, _P, _P, _I, _P, _L, _I, _P, _U, _I, _I, _P),
+    # counts, B, T, n_hashes, overflow, rel_cutoff, rel_filter,
+    # hashes_limit, K, emit_matches_t, packed
+    "select": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P),
+    # bits, R, W, hashes, bins, N, bin_size, h, shift
+    "scatter": (_P, _L, _L, _P, _P, _L, _U, _I, _I),
+}
+
+LAUNCHES = {name: 0 for name in _SIGNATURES}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path() -> str:
+    """Content-addressed path of the kernel library (sources + flags)."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"ganon_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels unless the content-addressed library exists."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(_CSRC, s) for s in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, f"ganon_{name}")
+            fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.ganon_set_device.argtypes = [ctypes.c_int]
+        lib.ganon_set_device.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_cuda(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous and on one CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA tensors given but no CUDA device is available")
+    devs = {t.device for t in tensors}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"tensors must share one CUDA device, got {devs}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("kernel arguments must be contiguous tensors")
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current stream and count it.
+
+    Tensor arguments pass their data pointers; the caller keeps them
+    alive (they are its outputs or inputs) while the kernel runs.
+    """
+    lib = library()
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    # the library's CUDA runtime keeps its own current device
+    err = lib.ganon_set_device(device.index)
+    if err != 0:
+        raise RuntimeError(f"cudaSetDevice({device.index}) failed: error {err}")
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, f"ganon_{name}")(*cargs, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+    LAUNCHES[name] += 1

@@ -1,0 +1,348 @@
+"""Interleaved Bloom filter bit-matrix: hash family and bulk-count query.
+
+Port of ``ganon_tpu.ops.ibf_query``. The IBF is a dense bit-matrix
+``uint32[bin_size, n_words]`` (bin ``b`` in word ``b // 32``, bit
+``b % 32``). Hash family (build and query must agree)::
+
+    g  = ((h * seed_i) ^ ((h * seed_i) >> hash_shift)) * GOLDEN   (mod 2^64)
+    row = mulhi64(g, bin_size)          # fastrange to [0, bin_size)
+
+with ``hash_shift = clz64(bin_size)``. The query table is
+``pack_table_u8``'s byte-aligned layout: every target's technical bins
+occupy a contiguous byte range, so per-target counts are per-byte
+popcounts summed over that range.
+
+This module holds the two classify kernels' wrappers:
+
+* :func:`extract` — 2-bit unpack, canonical minimizers, mate join and
+  compaction (``csrc/extract.cu``); plain version :func:`extract_plain`.
+* :func:`target_counts` — hash rows, gather + AND, byte popcount,
+  per-target segment sum and clamp (``csrc/count.cu``); plain version
+  :func:`bulk_target_counts`.
+
+A wrapper given CPU tensors runs the plain torch version; given CUDA
+tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ganon_tpu_torch import kernels
+from ganon_tpu_torch.ops.minimizers import as_i64, lsr, minimizers_masked
+
+# 2^64 / golden ratio — spreads the xor-folded value over the full range.
+GOLDEN = 0x9E3779B97F4A7C15
+# seqan3 IBF hash seeds (fixed family constants, max 5 hash functions)
+HASH_SEEDS = (
+    13572355802537770549,  # 2**64 / (e/2)
+    13043817825332782213,  # 2**64 / sqrt(2)
+    10650232656628343401,  # 2**64 / sqrt(5)
+    16499269484942379435,  # 2**64 / (sqrt(3)/2)
+    4893150838803335377,  # 2**64 / (3/(2*sqrt(e)))
+)
+MAX_HASH_FUNCTIONS = 5
+_M32 = 0xFFFFFFFF
+
+
+def clz64(x: int) -> int:
+    """Count leading zeros of a 64-bit value (host-side, static)."""
+    assert 0 < x < 1 << 64
+    return 64 - x.bit_length()
+
+
+def ibf_row_indices_np(hashes: np.ndarray, *, bin_size: int, hash_functions: int):
+    """NumPy twin of :func:`ibf_row_indices` (used by the host-side builder)."""
+    h = hashes.astype(np.uint64)
+    shift = np.uint64(clz64(bin_size))
+    rows = np.empty(h.shape + (hash_functions,), dtype=np.int64)
+    with np.errstate(over="ignore"):
+        for i in range(hash_functions):
+            g = h * np.uint64(HASH_SEEDS[i])
+            g = g ^ (g >> shift)
+            g = g * np.uint64(GOLDEN)
+            # mulhi via 32-bit limbs
+            m32 = np.uint64(0xFFFFFFFF)
+            s32 = np.uint64(32)
+            ah, al = g >> s32, g & m32
+            b = np.uint64(bin_size)
+            bh, bl = b >> s32, b & m32
+            lo = al * bl
+            m1 = ah * bl
+            m2 = al * bh
+            carry = ((lo >> s32) + (m1 & m32) + (m2 & m32)) >> s32
+            rows[..., i] = (ah * bh + (m1 >> s32) + (m2 >> s32) + carry).astype(
+                np.int64
+            )
+    return rows
+
+
+def pack_table_u8(bits: np.ndarray, bin_to_target: np.ndarray,
+                  num_targets: int, row_chunk: int = 4096):
+    """Repack the interleaved bit-matrix into the byte-aligned query layout.
+
+    Layout: ``uint8[bin_size, W8]`` with every target's technical bins
+    moved to a byte-aligned contiguous range (padding bins are zero).
+    Returns ``(tbl8, byte_starts, byte_ends)`` with int32 [T] byte ranges.
+    The on-disk format keeps the compact interleaved u32 layout; this
+    expansion costs at most 7 padding bins per target and happens once
+    at load.
+    """
+    b2t = np.asarray(bin_to_target)
+    R = bits.shape[0]
+    order = np.argsort(b2t, kind="stable")
+    sorted_t = b2t[order]
+    starts = np.searchsorted(sorted_t, np.arange(num_targets), side="left")
+    ends = np.searchsorted(sorted_t, np.arange(num_targets), side="right")
+    widths = ends - starts
+    pad_w = (widths + 7) // 8 * 8
+    pstarts = np.concatenate([[0], np.cumsum(pad_w)[:-1]])
+    TBP = int(np.sum(pad_w))
+    W8 = max(TBP // 8, 1)
+
+    # destination bit position for every real source bin; real bins sort
+    # before padding bins (id == num_targets), so they occupy [0, n_real)
+    n_real = int(widths.sum())
+    src_bins = order[:n_real]
+    local = np.arange(n_real, dtype=np.int64) - np.repeat(starts, widths)
+    dst_bits = np.repeat(pstarts, widths) + local
+
+    tbl8 = np.zeros((R, W8), dtype=np.uint8)
+    for r0 in range(0, R, row_chunk):
+        r1 = min(r0 + row_chunk, R)
+        chunk_bytes = bits[r0:r1].view(np.uint8).reshape(r1 - r0, -1)
+        unpacked = np.unpackbits(chunk_bytes, axis=1, bitorder="little")
+        out = np.zeros((r1 - r0, W8 * 8), dtype=np.uint8)
+        out[:, dst_bits] = unpacked[:, src_bins]
+        tbl8[r0:r1] = np.packbits(out, axis=1, bitorder="little")
+    byte_starts = (pstarts // 8).astype(np.int32)
+    byte_ends = ((pstarts + pad_w) // 8).astype(np.int32)
+    return tbl8, byte_starts, byte_ends
+
+
+def table_as_u32(tbl8: np.ndarray) -> np.ndarray:
+    """View the u8 query table as little-endian u32 words (pads W8 to x4).
+
+    Same bytes, same target byte ranges — only the element type changes.
+    The ``count`` kernel reads rows as u32 words, so the device table is
+    stored with ``W8`` padded this way.
+    """
+    R, W8 = tbl8.shape
+    W8p = -(-W8 // 4) * 4
+    if W8p != W8:
+        tbl8 = np.pad(tbl8, ((0, 0), (0, W8p - W8)))
+    return np.ascontiguousarray(tbl8).view(np.uint32)
+
+
+# --- plain torch versions ------------------------------------------------------
+
+
+def _mulhi64(a: torch.Tensor, b: int) -> torch.Tensor:
+    """High 64 bits of the unsigned product ``a * b`` (32-bit limbs).
+
+    ``a`` holds u64 bit patterns in int64; every intermediate stays below
+    2^63 or is only shifted logically, so no sign bit leaks in.
+    """
+    ah, al = lsr(a, 32), a & _M32
+    bh, bl = b >> 32, b & _M32
+    lo = al * bl
+    m1 = ah * bl
+    m2 = al * bh
+    carry = lsr(lsr(lo, 32) + (m1 & _M32) + (m2 & _M32), 32)
+    return ah * bh + lsr(m1, 32) + lsr(m2, 32) + carry
+
+
+def ibf_row_indices(hashes: torch.Tensor, *, bin_size: int,
+                    hash_functions: int) -> torch.Tensor:
+    """Row indices into the bit-matrix for each hash and hash function.
+
+    ``hashes`` int64 ``[...]`` (u64 bit patterns) -> int64
+    ``[..., hash_functions]`` rows in ``[0, bin_size)``.
+    """
+    shift = clz64(bin_size)
+    rows = []
+    for i in range(hash_functions):
+        g = hashes * as_i64(HASH_SEEDS[i])
+        g = g ^ lsr(g, shift)
+        g = g * as_i64(GOLDEN)
+        rows.append(_mulhi64(g, bin_size))
+    return torch.stack(rows, dim=-1)
+
+
+def compact_hashes(hashes: torch.Tensor, mask: torch.Tensor, *,
+                   max_compact: int):
+    """Stable partition of the emitted hashes into ``max_compact`` slots.
+
+    Plain version of ``ganon_tpu.ops.ibf_query.compact_hashes``: emitted
+    values keep their position order; slots past the emission count are
+    0. Returns ``(hashes int64 [B, max_compact], n int32 [B],
+    overflow bool [B])``; an overflowing read keeps its first
+    ``max_compact`` emissions.
+    """
+    B = hashes.shape[0]
+    n = mask.sum(dim=1, dtype=torch.int32)
+    pos = torch.cumsum(mask.to(torch.int64), dim=1) - 1
+    # non-emitted and past-capacity entries land in a discarded column
+    dst = torch.where(mask & (pos < max_compact), pos,
+                      torch.full_like(pos, max_compact))
+    out = torch.zeros((B, max_compact + 1), dtype=torch.int64,
+                      device=hashes.device)
+    out.scatter_(1, dst, torch.where(mask, hashes, torch.zeros_like(hashes)))
+    return out[:, :max_compact].contiguous(), n, n > max_compact
+
+
+def unpack_batch_input(inbuf: torch.Tensor, L1: int, L2: int):
+    """Split the per-batch input buffer of ``classify.device.pack_batch_direct``.
+
+    ``[B, L1/4 | L2/4 | 4 (len1 le-i32) | 4 (len2 le-i32)]`` u8 ->
+    ``(codes1 [B, L1], len1 int32 [B], codes2 | None, len2 | None)``
+    with codes as dna4 ranks.
+    """
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=inbuf.device)
+    B = inbuf.shape[0]
+
+    def codes(o, L):
+        packed = inbuf[:, o : o + L // 4]
+        return ((packed[:, :, None] >> shifts) & 3).reshape(B, L)
+
+    def lens(o):
+        return inbuf[:, o : o + 4].contiguous().view(torch.int32).reshape(B)
+
+    o2 = L1 // 4
+    ol = o2 + L2 // 4
+    if not L2:
+        return codes(0, L1), lens(ol), None, None
+    return codes(0, L1), lens(ol), codes(o2, L2), lens(ol + 4)
+
+
+def extract_plain(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
+                  mc: int):
+    """Plain version of the ``extract`` kernel (see :func:`extract`)."""
+    codes1, len1, codes2, len2 = unpack_batch_input(inbuf, L1, L2)
+    m1 = max(L1 - w + 1, 1)
+    h1, e1, n1 = minimizers_masked(codes1, len1, k=k, w=w)
+    hashes, mask, n = h1[:, :m1], e1[:, :m1], n1
+    if L2:
+        m2 = max(L2 - w + 1, 1)
+        h2, e2, n2 = minimizers_masked(codes2, len2, k=k, w=w)
+        hashes = torch.cat([hashes, h2[:, :m2]], dim=1)
+        mask = torch.cat([mask, e2[:, :m2]], dim=1)
+        n = n + n2
+    read_ok = len1 >= w
+    mask = mask & read_ok[:, None]
+    hc, n, overflow = compact_hashes(hashes, mask, max_compact=mc)
+    return hc, n, overflow.to(torch.uint8)
+
+
+def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
+            mc: int):
+    """Minimizers of a packed (paired or single-end) batch, compacted.
+
+    Replaces ``ganon_tpu.classify.device._unpack_batch_input`` +
+    ``unpack_codes_2bit`` + ``extract_hashes`` + ``compact_hashes``
+    (and, with ``L2 == 0`` and ``mc`` = every window position, the
+    build's ``_extract_packed``). ``inbuf`` u8 ``[B, L1/4 + L2/4 + 4 (+4)]``;
+    ``L2 == 0`` means single-end. A read whose mate 1 is shorter than
+    ``w`` yields nothing; mate 2 counts only when ``len2 >= w``.
+
+    Returns ``(hashes int64 [B, mc], n_hashes int32 [B], overflow u8 [B])``:
+    the emitted values in position order (mate 1, then mate 2), zeros
+    past ``min(n, mc)``; ``overflow`` marks ``n > mc``.
+    """
+    if L1 % 4 or L2 % 4 or L1 <= 0 or L2 < 0:
+        raise ValueError(f"L1={L1}, L2={L2}: lengths must be multiples of 4")
+    if not 0 < k <= 32 or w < k:
+        raise ValueError(f"invalid k={k}, w={w}")
+    row = L1 // 4 + L2 // 4 + 4 + (4 if L2 else 0)
+    if inbuf.dtype != torch.uint8 or inbuf.dim() != 2 or inbuf.shape[1] != row:
+        raise ValueError(f"inbuf must be u8 [B, {row}], got "
+                         f"{inbuf.dtype} {tuple(inbuf.shape)}")
+    if mc <= 0:
+        raise ValueError("mc must be positive")
+    if inbuf.device.type == "cpu":
+        return extract_plain(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc)
+    kernels.check_cuda(inbuf)
+    B = inbuf.shape[0]
+    hashes = torch.empty((B, mc), dtype=torch.int64, device=inbuf.device)
+    n = torch.empty((B,), dtype=torch.int32, device=inbuf.device)
+    overflow = torch.empty((B,), dtype=torch.uint8, device=inbuf.device)
+    if B == 0:
+        return hashes, n, overflow
+    kernels.launch(
+        "extract", inbuf, B, row, L1, L2, k, w, mc, hashes, n, overflow
+    )
+    return hashes, n, overflow
+
+
+def _popcount_u8(x: torch.Tensor) -> torch.Tensor:
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x + (x >> 4)) & 0x0F
+
+
+def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
+                       byte_ends: torch.Tensor, hashes: torch.Tensor,
+                       n_hashes: torch.Tensor, *, bin_size: int,
+                       hash_functions: int) -> torch.Tensor:
+    """Plain version of the ``count`` kernel (see :func:`target_counts`).
+
+    ``counts[b, t] = min(n_hashes[b], sum_m popcount(AND_s
+    tbl8[row_s(h[b, m]), byte_starts[t]:byte_ends[t]]))`` over the first
+    ``min(n_hashes[b], M)`` slots.
+    """
+    B, M = hashes.shape
+    rows = ibf_row_indices(hashes, bin_size=bin_size,
+                           hash_functions=hash_functions)
+    member = tbl8[rows[:, :, 0]]  # [B, M, W8]
+    for s in range(1, hash_functions):
+        member = member & tbl8[rows[:, :, s]]
+    valid = torch.arange(M, device=hashes.device)[None, :] < n_hashes[:, None]
+    member = torch.where(valid[:, :, None], member, torch.zeros_like(member))
+    cw = _popcount_u8(member).sum(dim=1, dtype=torch.int64)  # [B, W8]
+    cs = torch.nn.functional.pad(torch.cumsum(cw, dim=1), (1, 0))
+    counts = cs[:, byte_ends.to(torch.int64)] - cs[:, byte_starts.to(torch.int64)]
+    return torch.minimum(counts, n_hashes[:, None].to(torch.int64)).to(torch.int32)
+
+
+def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
+                  byte_ends: torch.Tensor, hashes: torch.Tensor,
+                  n_hashes: torch.Tensor, *, bin_size: int,
+                  hash_functions: int) -> torch.Tensor:
+    """Per-target clamped counts of compacted hashes: int32 ``[B, T]``.
+
+    Replaces ``ganon_tpu.ops.ibf_query.ibf_row_indices`` +
+    ``bulk_target_counts_u8``/``_u32`` + ``_segment_matmul`` and the
+    clamp of ``classify.device.classify_counts_fused``. ``tbl8`` is the
+    ``pack_table_u8`` table with ``W8`` padded to a multiple of 4
+    (``table_as_u32``'s padding); slots ``>= min(n_hashes, M)`` of
+    ``hashes`` are ignored.
+    """
+    if tbl8.dtype != torch.uint8 or tbl8.dim() != 2 or tbl8.shape[1] % 4:
+        raise ValueError("tbl8 must be u8 [R, W8] with W8 % 4 == 0")
+    if hashes.dtype != torch.int64 or hashes.dim() != 2:
+        raise ValueError("hashes must be int64 [B, M]")
+    if n_hashes.dtype != torch.int32 or n_hashes.shape != hashes.shape[:1]:
+        raise ValueError("n_hashes must be int32 [B]")
+    T = byte_starts.shape[0]
+    if (byte_starts.dtype != torch.int32 or byte_ends.dtype != torch.int32
+            or byte_ends.shape != (T,)):
+        raise ValueError("byte_starts/byte_ends must be int32 [T]")
+    if not 1 <= hash_functions <= MAX_HASH_FUNCTIONS or bin_size > tbl8.shape[0]:
+        raise ValueError("invalid hash_functions or bin_size")
+    if tbl8.device.type == "cpu":
+        return bulk_target_counts(
+            tbl8, byte_starts, byte_ends, hashes, n_hashes,
+            bin_size=bin_size, hash_functions=hash_functions,
+        )
+    kernels.check_cuda(tbl8, byte_starts, byte_ends, hashes, n_hashes)
+    B, M = hashes.shape
+    counts = torch.zeros((B, T), dtype=torch.int32, device=hashes.device)
+    if B == 0 or T == 0:
+        return counts
+    kernels.launch(
+        "count", tbl8, tbl8.shape[0], tbl8.shape[1], byte_starts, byte_ends,
+        T, hashes, B, M, n_hashes, bin_size, hash_functions, clz64(bin_size),
+        counts,
+    )
+    return counts
