@@ -5,27 +5,45 @@
 
 Phases, one output line each:
 
-1. env      the card (nvidia-smi name and power limit), torch, nvcc, and
-            the time to build the four CUDA kernels from ``csrc/``;
-2. build    1024 targets x 1 Mbp of random genomes (seeded): minimizers
-            through the ``extract`` kernel, the IBF through ``scatter``,
-            saved as ``db.ibf`` with a ``db.tax`` of 32 genera;
-3. kernels  the saved filter loaded and repacked, then each kernel
-            against its plain torch version on the same CUDA tensors at
-            main-path shapes (8192 pairs of 150 bp on that table), required
-            equal, both timed with CUDA events;
-4. classify 524,288 read pairs through ``python -m ganon_tpu_torch.cli
-            classify`` (run in this process, so the launch counts are
-            readable; the filter loaded in phase 3 stays cached), then
-            once more through ``run_classify`` under ``torch.profiler``
-            for the engine's time split and the card's busy share;
-5. checks   every kernel launched on the main path (build + CLI run),
-            every pair lists its true target in ``.all``, and on the
-            first 4096 pairs the CUDA and ``device="cpu"`` runs write
-            identical sorted ``.all``, ``.one`` and ``.rep``.
+1. env       the card (nvidia-smi name and power limit), torch, nvcc, and
+             the time to build the five CUDA kernels from ``csrc/``;
+2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
+             through the ``extract`` kernel, the IBF through ``scatter``,
+             saved as ``db.ibf`` with a ``db.tax`` of 32 genera; then
+             (line ``build_hierarchy``) the hierarchy's databases the same
+             way: ``host.hibf``, a native forest of 256 targets of skewed
+             lengths (64 each of 0.25, 0.5, 1 and 2 Mbp), and ``db_b.ibf``,
+             512 targets x 1 Mbp whose first 64 are ``T0..T63`` of
+             ``db.ibf`` (names and genomes), each with a ``.tax``;
+3. kernels   the saved filters loaded and repacked, then each kernel (and
+             kernel mode) against its plain torch version on the same CUDA
+             tensors at main-path shapes (8192 pairs of 150 bp; count on
+             ``db.ibf`` and, in forest mode, on the forest's last sub; merge
+             and select with winners on the 1024 + 448 union of ``db`` and
+             ``db_b``), required equal, both timed with CUDA events;
+4. classify  524,288 read pairs through ``python -m ganon_tpu_torch.cli
+             classify`` (run in this process, so the launch counts are
+             readable; the filters loaded in phase 3 stay cached), then
+             once more through ``run_classify`` under ``torch.profiler``
+             for the engine's time split and the card's busy share;
+hierarchy    524,288 pairs (25% from the forest's targets, 70% from the
+             level-2 targets, 5% random) through the CLI with
+             ``--db-prefix host db db_b --hierarchy-labels 1_host 2_refs
+             2_refs``, then profiled the same way; every forest pair lists
+             its true target in ``1_host.all`` and not in ``2_refs.all``,
+             every level-2 pair its true target in ``2_refs.all``, random
+             pairs land in ``.unc``, and on the first 4096 pairs the CUDA and
+             ``device="cpu"`` runs write identical sorted per-level files,
+             ``.rep`` and a byte-equal ``.sta``;
+5. checks    every kernel mode launched on the main paths (builds + the two
+             CLI runs), every flat pair lists its true target in ``.all``,
+             and on its first 4096 pairs the CUDA and ``device="cpu"`` runs
+             write identical sorted ``.all``, ``.one`` and ``.rep``.
 
-Then one JSON line per kernel, and last the device line. Any failure
-raises (exit code 1); without CUDA the script exits 2 before any work.
+Then one JSON line of every kernel mode, and last the device line. Any
+failure raises (exit code 1); without CUDA the script exits 2 before any
+work. If a run nears the time limit, shrink ``--pairs`` (the flat phase)
+before the hierarchy.
 """
 
 from __future__ import annotations
@@ -127,6 +145,50 @@ def _sorted_rows(path):
         return sorted(line for line in f if line.strip())
 
 
+def _write_tax(path, names, genus_of):
+    """A .tax of root, the given genera and one species per target."""
+    with open(path, "w") as f:
+        f.write("1\t0\tno rank\troot\n")
+        for g in sorted(set(genus_of)):
+            f.write(f"{g}\t1\tgenus\t{g}\n")
+        for name, g in zip(names, genus_of):
+            f.write(f"{name}\t{g}\tspecies\t{name}\n")
+
+
+def _hashes(named_genomes, k, w, device):
+    """Per-target minimizers through the extract kernel (the build path)."""
+    from ganon_tpu_torch.index.builder import _HashExtractor
+
+    ex = _HashExtractor(k, w, device=device)
+    for name, g in named_genomes:
+        ex.add_encoded(name, g)
+    return ex.finish()
+
+
+def _true_target_rows(path):
+    """{read id: set of listed targets} of a .all file."""
+    rows = {}
+    if os.path.exists(path):
+        with open(path) as fh:
+            for line in fh:
+                rid, target, _ = line.split("\t")
+                rows.setdefault(rid, set()).add(target)
+    return rows
+
+
+def _run_cli(argv):
+    from ganon_tpu_torch.cli import main_cli
+
+    saved, sys.argv = sys.argv, argv
+    try:
+        main_cli()
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise RuntimeError(f"classify CLI exited {e.code}") from e
+    finally:
+        sys.argv = saved
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--targets", type=int, default=1024)
@@ -136,6 +198,12 @@ def main() -> int:
     ap.add_argument("--check-pairs", type=int, default=4096)
     ap.add_argument("--read-len", type=int, default=150)
     ap.add_argument("--seed", type=int, default=43)
+    # the hierarchy: a forest of 4 length classes (unit x 1, 2, 4, 8 bp),
+    # per_class targets each, and db_b's target count
+    ap.add_argument("--forest-per-class", type=int, default=64)
+    ap.add_argument("--forest-unit", type=int, default=250_000)
+    ap.add_argument("--b-targets", type=int, default=512)
+    ap.add_argument("--hier-pairs", type=int, default=524_288)
     ap.add_argument("--workdir", default=os.path.join("build", "chip_smoke"))
     args = ap.parse_args()
 
@@ -150,9 +218,8 @@ def main() -> int:
     from ganon_tpu_torch import kernels
     from ganon_tpu_torch.classify import device as dev
     from ganon_tpu_torch.classify.engine import ClassifyConfig, run_classify
-    from ganon_tpu_torch.cli import main_cli
     from ganon_tpu_torch.index import sizing
-    from ganon_tpu_torch.index.builder import _HashExtractor
+    from ganon_tpu_torch.index.hibf import build_hibf
     from ganon_tpu_torch.index.ibf import (
         SCATTER_CHUNK, _scatter_bits, build_ibf, scatter_hashes,
     )
@@ -193,10 +260,7 @@ def main() -> int:
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ex = _HashExtractor(k, w, device=cuda)
-    for name, g in zip(names, genomes):
-        ex.add_encoded(name, g)
-    target_hashes = ex.finish()
+    target_hashes = _hashes(zip(names, genomes), k, w, cuda)
     t_extract = time.perf_counter() - t0
     ibf = build_ibf(target_hashes, kmer_size=k, window_size=w, max_fp=0.05,
                     device=cuda)
@@ -205,12 +269,7 @@ def main() -> int:
     build_launches = dict(kernels.LAUNCHES)
     db = os.path.join(work, "db")
     ibf.save(db + ".ibf")
-    with open(db + ".tax", "w") as f:
-        f.write("1\t0\tno rank\troot\n")
-        for g in range(32):
-            f.write(f"G{g}\t1\tgenus\tG{g}\n")
-        for t, name in enumerate(names):
-            f.write(f"{name}\tG{t % 32}\tspecies\t{name}\n")
+    _write_tax(db + ".tax", names, [f"G{t % 32}" for t in range(args.targets)])
     cfg = ibf.ibf_config
     bp = args.targets * args.genome_len
     print("phase=build " + json.dumps({
@@ -225,13 +284,74 @@ def main() -> int:
         "launches": build_launches,
     }), flush=True)
 
-    # 3. kernels vs plain at main-path shapes --------------------------------
-    # the saved filter, loaded and repacked into the query layout once;
-    # the CLI run below finds it in the process's filter cache
+    # the hierarchy's databases: a native forest of skewed lengths and a
+    # second flat filter overlapping db's first targets
+    lengths = [args.forest_unit * m for m in (1, 2, 4, 8)]
+    forest = [rng.integers(0, 4, size=(args.forest_per_class, n),
+                           dtype=np.uint8) for n in lengths]
+    forest_names = [[f"F{c}_{i}" for i in range(args.forest_per_class)]
+                    for c in range(len(lengths))]
+    flat_forest_names = [n for c in forest_names for n in c]
+    n_shared = min(64, args.targets, args.b_targets)
+    new_b = rng.integers(0, 4, size=(args.b_targets - n_shared,
+                                     args.genome_len), dtype=np.uint8)
+    b_names = names[:n_shared] + [f"U{i}" for i in
+                                  range(n_shared, args.b_targets)]
+    kernels.reset_launches()
     t0 = time.perf_counter()
-    f = dev.load_device_filter(db + ".ibf", cuda)
+    hibf = build_hibf(
+        _hashes(((n, g) for c in range(len(lengths))
+                 for n, g in zip(forest_names[c], forest[c])), k, w, cuda),
+        kmer_size=k, window_size=w, max_fp=0.05, device=cuda,
+    )
     torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    forest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ibf_b = build_ibf(
+        _hashes(zip(b_names, list(genomes[:n_shared]) + list(new_b)), k, w,
+                cuda),
+        kmer_size=k, window_size=w, max_fp=0.05, device=cuda,
+    )
+    torch.cuda.synchronize()
+    db_b_s = time.perf_counter() - t0
+    hier_build_launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    host, db_b = os.path.join(work, "host"), os.path.join(work, "db_b")
+    hibf.save(host + ".hibf")
+    ibf_b.save(db_b + ".ibf")
+    save_s = time.perf_counter() - t0
+    _write_tax(host + ".tax", flat_forest_names,
+               [f"H{i % 8}" for i in range(len(flat_forest_names))])
+    _write_tax(db_b + ".tax", b_names,
+               [f"G{i % 32}" for i in range(args.b_targets)])
+    print("phase=build_hierarchy " + json.dumps({
+        "forest_build_s": forest_s, "db_b_build_s": db_b_s,
+        "npz_save_s": save_s,
+        "forest_targets": len(flat_forest_names),
+        "forest_bp": int(sum(n * args.forest_per_class for n in lengths)),
+        "forest_subs": len(hibf.subs),
+        "forest_sub_targets": [len(x.targets()) for x in hibf.subs],
+        "forest_sub_bin_size_bits": [x.ibf_config.bin_size_bits
+                                     for x in hibf.subs],
+        "db_b_targets": args.b_targets, "db_b_shared_with_db": n_shared,
+        "launches": hier_build_launches,
+    }), flush=True)
+    if len(hibf.subs) < 2:
+        raise AssertionError("the forest has one sub: K11 is not exercised")
+
+    # 3. kernels vs plain at main-path shapes --------------------------------
+    # the saved filters, loaded and repacked into the query layout once;
+    # the CLI runs below find them in the process's filter cache
+    load_s = {}
+    for key, path in (("db", db + ".ibf"), ("host", host + ".hibf"),
+                      ("db_b", db_b + ".ibf")):
+        t0 = time.perf_counter()
+        dev.load_device_filter(path, cuda)
+        torch.cuda.synchronize()
+        load_s[key] = time.perf_counter() - t0
+    f = dev.load_device_filter(db + ".ibf", cuda)
+    fh = dev.load_device_filter(host + ".hibf", cuda)
+    fb = dev.load_device_filter(db_b + ".ibf", cuda)
     tgt, r1, r2 = _sample_pairs(np.random.default_rng(args.seed + 2), genomes,
                                 args.bench_pairs, args.read_len)
     lens = np.full(args.bench_pairs, args.read_len, np.int32)
@@ -274,6 +394,46 @@ def main() -> int:
                                       hashes, n_hashes, bin_size=bin_size,
                                       hash_functions=h),), 20, 3,
     )
+    # forest mode: the forest's last sub into its columns (col0 > 0) of
+    # the forest's [B, T] matrix, zeroed as DeviceHIBF.counts does
+    sub, col0 = fh.subs[-1], int(fh.sub_cols[-1][0])
+    sub_args = (sub.tbl8, sub.byte_starts, sub.byte_ends, hashes, n_hashes)
+    sub_kw = dict(bin_size=sub.ibf_config.bin_size_bits,
+                  hash_functions=sub.ibf_config.hash_functions, col0=col0)
+    fout_k = torch.zeros((args.bench_pairs, fh.num_targets),
+                         dtype=torch.int32, device=cuda)
+    fout_p = torch.zeros_like(fout_k)
+    compare(
+        "count_forest", "ganon_tpu_torch/csrc/count.cu",
+        "ganon_tpu/classify/device.py:432",
+        lambda: (q.target_counts(*sub_args, out=fout_k.zero_(), **sub_kw),),
+        lambda: (q.bulk_target_counts(*sub_args, out=fout_p.zero_(),
+                                      **sub_kw),), 20, 3,
+    )
+    # the union step of the 2_refs level: db then db_b into 1024 + 448
+    # columns (zeroing both [B, U] tensors, as the main path does)
+    counts_b = fb.counts(hashes, n_hashes)
+    U = f.num_targets + fb.num_targets - n_shared
+    cols = [torch.arange(f.num_targets, dtype=torch.int32, device=cuda),
+            torch.cat([torch.arange(n_shared, dtype=torch.int32),
+                       torch.arange(f.num_targets, U, dtype=torch.int32)
+                       ]).to(cuda)]
+    uk = [torch.zeros((args.bench_pairs, U), dtype=torch.int32, device=cuda)
+          for _ in range(4)]
+
+    def union(fn, uc, uw):
+        uc.zero_()
+        uw.zero_()
+        for fi, (c, cl) in enumerate(zip((counts, counts_b), cols)):
+            fn(c, n_hashes, 0.75, 65535, cl, fi, uc, uw)
+        return uc, uw
+
+    ucounts, uwin = compare(
+        "merge", "ganon_tpu_torch/csrc/merge.cu",
+        "ganon_tpu/classify/device.py:542",
+        lambda: union(dev.merge, uk[0], uk[1]),
+        lambda: union(dev.merge_plain, uk[2], uk[3]), 20, 5,
+    )
     K = min(32, f.num_targets)
     sel_args = (counts, n_hashes, overflow, 0.75, 0.1, 65535)
     compare(
@@ -283,6 +443,18 @@ def main() -> int:
         lambda: (dev._pack_result(
             dev.threshold_topk(*sel_args[:2], *sel_args[3:], top_k=K,
                                emit_matches_t=False),
+            n_hashes, overflow.to(torch.int32)),), 20, 5,
+    )
+    KU = min(32, U)
+    usel = (ucounts, n_hashes, overflow, 0.0, 0.1, 65535)
+    compare(
+        "select_winners", "ganon_tpu_torch/csrc/select.cu",
+        "ganon_tpu/classify/device.py:801",
+        lambda: (dev.select(*usel, top_k=KU, emit_matches_t=False,
+                            uwin=uwin),),
+        lambda: (dev._pack_result(
+            dev.threshold_topk(*usel[:2], *usel[3:], top_k=KU,
+                               emit_matches_t=False, winners=uwin),
             n_hashes, overflow.to(torch.int32)),), 20, 5,
     )
     # one main-path scatter chunk: the build's first SCATTER_CHUNK pairs
@@ -312,12 +484,16 @@ def main() -> int:
             "ganon_tpu/index/ibf.py:231", scatter_kernel, scatter_plain, 10, 3)
     print("phase=kernels " + json.dumps({
         "pairs": args.bench_pairs, "L1": L1, "L2": L2, "mc": mc,
-        "filter_load_s": load_s, "table_bytes": int(f.tbl8.numel()),
+        "filter_load_s": load_s["db"],
+        "filter_load_s_host_db_b": [load_s["host"], load_s["db_b"]],
+        "table_bytes": int(f.tbl8.numel()),
+        "forest_sub_col0": col0, "union_targets": U,
         "scatter_pairs": int(sh.numel()),
         "equal": [r["name"] for r in rows],
         "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
     }), flush=True)
-    del f, bits_k, bits_p, counts, hashes
+    del f, fh, fb, sub, sub_args, bits_k, bits_p, counts, counts_b, hashes
+    del fout_k, fout_p, uk, ucounts, uwin, sel_args, usel
     torch.cuda.empty_cache()
 
     # 4. classify through the CLI (main path, part 2) -------------------------
@@ -328,23 +504,14 @@ def main() -> int:
     _write_fastq(fq1, ids, r1)
     _write_fastq(fq2, ids, r2)
     out = os.path.join(work, "out")
-    argv = ["ganon-tpu-torch", "classify", "--db-prefix", db,
-            "--paired-reads", fq1, fq2, "--output-prefix", out,
-            "--multiple-matches", "lca", "--output-one", "--output-all",
-            "--output-unclassified", "--skip-report"]
     kernels.reset_launches()
-    saved, sys.argv = sys.argv, argv
     t0 = time.perf_counter()
-    try:
-        main_cli()
-    except SystemExit as e:
-        if e.code not in (0, None):
-            raise RuntimeError(f"classify CLI exited {e.code}") from e
-    finally:
-        sys.argv = saved
+    _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", db,
+              "--paired-reads", fq1, fq2, "--output-prefix", out,
+              "--multiple-matches", "lca", "--output-one", "--output-all",
+              "--output-unclassified", "--skip-report"])
     cli_s = time.perf_counter() - t0
-    launches = {name: build_launches[name] + n
-                for name, n in kernels.LAUNCHES.items()}
+    cli_launches = dict(kernels.LAUNCHES)
     mbp = args.pairs * 2 * args.read_len / 1e6
     # the same reads through run_classify under torch.profiler: the
     # engine's time split and the card's busy share of the wall clock
@@ -364,27 +531,132 @@ def main() -> int:
         "reads_per_s": args.pairs / cli_s,
         "mbp_per_min": mbp / (cli_s / 60),
         "filter": "packed table cached in-process (load: phase kernels)",
+        "launches": cli_launches,
         "profiled_split_s": timing,
         "profiled_device_busy_share":
             busy_us / 1e6 / timing["total"] if busy_us else None,
         "profiled_device_us": kernel_us,
     }), flush=True)
 
+    # hierarchy: forest level, then two flat filters on one level ----------
+    hrng = np.random.default_rng(args.seed + 3)
+    nh = args.hier_pairs
+    n_forest, n_rand = nh // 4, nh // 20
+    n_l2 = nh - n_forest - n_rand
+    parts = []  # (true target names, r1, r2)
+    for c, g in enumerate(forest):
+        n_c = n_forest // 4 + (c < n_forest % 4)
+        t_c, a, b = _sample_pairs(hrng, g, n_c, args.read_len)
+        parts.append(([forest_names[c][t] for t in t_c], a, b))
+    n_l2b = n_l2 * len(new_b) // (args.targets + len(new_b))
+    for pool, pool_names, n_p in ((genomes, names, n_l2 - n_l2b),
+                                  (new_b, b_names[n_shared:], n_l2b)):
+        if n_p:
+            t_p, a, b = _sample_pairs(hrng, pool, n_p, args.read_len)
+            parts.append(([pool_names[t] for t in t_p], a, b))
+    rand = hrng.integers(0, 4, size=(2, n_rand, args.read_len),
+                         dtype=np.uint8)
+    parts.append((["rnd"] * n_rand, rand[0], rand[1]))
+    truth = [t for p in parts for t in p[0]]
+    perm = hrng.permutation(nh)
+    hr1 = np.concatenate([p[1] for p in parts])[perm]
+    hr2 = np.concatenate([p[2] for p in parts])[perm]
+    truth = [truth[j] for j in perm]
+    hids = [b"h%d|%s" % (i, t.encode()) for i, t in enumerate(truth)]
+    hq1, hq2 = os.path.join(work, "h1.fq"), os.path.join(work, "h2.fq")
+    _write_fastq(hq1, hids, hr1)
+    _write_fastq(hq2, hids, hr2)
+    hout = os.path.join(work, "hout")
+    labels = ["1_host", "2_refs", "2_refs"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", host, db, db_b,
+              "--hierarchy-labels", *labels, "--paired-reads", hq1, hq2,
+              "--output-prefix", hout, "--multiple-matches", "lca",
+              "--output-one", "--output-all", "--output-unclassified",
+              "--output-stats", "--skip-report"])
+    hier_s = time.perf_counter() - t0
+    hier_launches = dict(kernels.LAUNCHES)
+    hier_files = dict(ibf=[host + ".hibf", db + ".ibf", db_b + ".ibf"],
+                      tax=[host + ".tax", db + ".tax", db_b + ".tax"],
+                      hierarchy_labels=labels, rel_cutoff=[0.75],
+                      rel_filter=[0.1], fpr_query=[1e-5], output_lca=True,
+                      output_all=True, output_unclassified=True,
+                      output_stats=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        htiming = run_classify(ClassifyConfig(
+            paired_reads=[hq1, hq2], output_prefix=os.path.join(work, "hprof"),
+            **hier_files))["timing"]
+    hbusy_us, hkernel_us = _device_busy(prof)
+    # checks: forest pairs at level 1 only, level-2 pairs at level 2,
+    # random pairs unclassified
+    all1 = _true_target_rows(hout + ".1_host.all")
+    all2 = _true_target_rows(hout + ".2_refs.all")
+    with open(hout + ".unc") as fh_:
+        unc = {line.strip() for line in fh_ if line.strip()}
+    forest_set = set(flat_forest_names)
+    bad = {"forest": 0, "forest_at_level_2": 0, "level_2": 0, "random": 0}
+    for rid in hids:
+        rid = rid.decode()
+        t = rid.split("|")[1]
+        if t in forest_set:
+            bad["forest"] += t not in all1.get(rid, ())
+            bad["forest_at_level_2"] += rid in all2
+        elif t == "rnd":
+            bad["random"] += rid not in unc
+        else:
+            bad["level_2"] += t not in all2.get(rid, ())
+    if any(bad.values()):
+        raise AssertionError(f"hierarchy pairs misplaced: {bad}")
+    # the first pairs on the card and through the plain versions on the CPU
+    nc = args.check_pairs
+    hs1, hs2 = (os.path.join(work, f"hsub{m}.fq") for m in (1, 2))
+    _write_fastq(hs1, hids[:nc], hr1[:nc])
+    _write_fastq(hs2, hids[:nc], hr2[:nc])
+    hsubs = {}
+    for device in ("cuda", "cpu"):
+        d = os.path.join(work, f"hsub_{device}")
+        os.makedirs(d)
+        run_classify(ClassifyConfig(paired_reads=[hs1, hs2], device=device,
+                                    output_prefix=os.path.join(d, "o"),
+                                    **hier_files))
+        hsubs[device] = {
+            fn: (open(os.path.join(d, fn), "rb").read() if fn.endswith(".sta")
+                 else _sorted_rows(os.path.join(d, fn)))
+            for fn in sorted(os.listdir(d))
+        }
+    if hsubs["cuda"] != hsubs["cpu"]:
+        diff = [fn for fn in set(hsubs["cuda"]) | set(hsubs["cpu"])
+                if hsubs["cuda"].get(fn) != hsubs["cpu"].get(fn)]
+        raise AssertionError(f"hierarchy: cuda and cpu runs differ in {diff}")
+    hmbp = nh * 2 * args.read_len / 1e6
+    print("phase=hierarchy " + json.dumps({
+        "pairs": nh, "forest_pairs": n_forest, "level_2_pairs": n_l2,
+        "random_pairs": n_rand, "seconds": hier_s,
+        "reads_per_s": nh / hier_s, "mbp_per_min": hmbp / (hier_s / 60),
+        "classified_level_1": len(all1), "classified_level_2": len(all2),
+        "unclassified": len(unc), "launches": hier_launches,
+        "profiled_split_s": htiming,
+        "profiled_device_busy_share":
+            hbusy_us / 1e6 / htiming["total"] if hbusy_us else None,
+        "profiled_device_us": hkernel_us,
+        "cuda_equals_cpu_pairs": nc,
+        "cuda_equals_cpu_files": sorted(hsubs["cuda"]),
+    }), flush=True)
+
     # 5. checks ------------------------------------------------------------
+    launches = {name: build_launches[name] + hier_build_launches[name]
+                + cli_launches[name] + hier_launches[name]
+                for name in kernels.LAUNCHES}
     missing = [name for name, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    found = set()
-    with open(out + ".all") as fh:
-        for line in fh:
-            rid, target, _ = line.split("\t")
-            if rid.split("|")[1] == target:
-                found.add(rid)
+    found = {rid for rid, ts in _true_target_rows(out + ".all").items()
+             if rid.split("|")[1] in ts}
     if len(found) != args.pairs:
         raise AssertionError(
             f"{args.pairs - len(found)} pairs lack their true target in .all")
     sub1, sub2 = (os.path.join(work, f"sub{m}.fq") for m in (1, 2))
-    nc = args.check_pairs
     _write_fastq(sub1, ids[:nc], r1[:nc])
     _write_fastq(sub2, ids[:nc], r2[:nc])
     subs = {}

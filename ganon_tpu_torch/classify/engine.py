@@ -1,18 +1,20 @@
-"""Classification pipeline for one hierarchy level with one flat IBF.
+"""Classification pipeline: hierarchy levels, thresholds, outputs.
 
-Port of ``ganon_tpu.classify.engine`` for the flat-IBF slice: the same
-ClassifyConfig, thresholds, tallies, LCA and ``.rep``/``.one``/``.all``/
-``.unc``/``.sta`` writers, with the device work running as the
-extract -> count -> select kernels on ``cfg.device``. Batches are
+Port of ``ganon_tpu.classify.engine``: the same ClassifyConfig,
+multi-level hierarchies with leftover requeue (the cross-level
+scheduler), levels of several databases (union targets, per-filter
+rel-cutoff, winner-aware fpr-query), flat ``.ibf`` and native forest
+``.hibf`` filters, tallies, LCA and the ``.rep``/``.one``/``.all``/
+``.unc``/``.sta`` writers, with the device work running as the kernels
+of :mod:`ganon_tpu_torch.classify.device` on ``cfg.device``. Batches are
 pipelined ``pipeline_depth`` deep: each dispatch enqueues its kernels and
 a non-blocking copy of the packed result into pinned host memory, and
 the host finishes the oldest batch after waiting on its copy's event.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): several hierarchy levels or several filters in one level, HIBF
-files, multi-device meshes, and the 32-bit counter layout (more than
-65,535 targets, or ``hashes_limit`` above 65,535 as ``--longreads``
-sets).
+item): raptor and pruned ``.hibf`` files, the 32-bit counter layout
+(more than 65,535 targets in one filter, or ``hashes_limit`` above
+65,535 as ``--longreads`` sets) and multi-GPU meshes.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ganon_tpu_torch.classify import device as dev
 from ganon_tpu_torch.classify.lca import LCA, build_lca
 from ganon_tpu_torch.classify.thresholds import FprQueryMinCount
 from ganon_tpu_torch.io.pipeline import (
+    BatchCoalescer,
     EncodedBatch,
     ThreadedBatchSource,
     bucketed_batches,
@@ -261,27 +264,61 @@ class Rep:
 
 
 class LevelContext:
-    """The loaded filter + target table + LCA for the (single) level."""
+    """Loaded filters + union target table + LCA for one hierarchy level."""
 
     def __init__(self, level: HierarchyLevel, cfg: ClassifyConfig):
         self.level = level
         self.specs = level.filters
-        if len(level.filters) != 1:
-            raise NotImplementedError(
-                "several filters in one hierarchy level are not ported yet "
-                "(ROADMAP queue 1, item 7 'Hierarchies and multi-filter levels')"
-            )
-        spec = level.filters[0]
-        self.filters = [dev.load_device_filter(spec.ibf_file, cfg.device)]
-        taxes = [load_tax(spec.tax_file)] if spec.tax_file else []
-        f = self.filters[0]
-        self.kmer_size = f.ibf_config.kmer_size
-        self.window_size = f.ibf_config.window_size
+        self.filters = []
+        taxes = []
+        for spec in level.filters:
+            self.filters.append(dev.load_device_filter(spec.ibf_file,
+                                                       cfg.device))
+            if spec.tax_file:
+                taxes.append(load_tax(spec.tax_file))
+        for f in self.filters:
+            if f.num_targets > 0xFFFF:
+                raise NotImplementedError(
+                    "more than 65535 targets in one filter need the 32-bit "
+                    "counter layout, not ported yet (ROADMAP queue 1, item 10)"
+                )
+        k = self.filters[0].ibf_config.kmer_size
+        w = self.filters[0].ibf_config.window_size
+        for f in self.filters[1:]:
+            if f.ibf_config.kmer_size != k or f.ibf_config.window_size != w:
+                raise ValueError(
+                    "databases on the same hierarchy must share k-mer/window sizes"
+                )
+        self.kmer_size, self.window_size = k, w
 
-        self.union_targets: list[str] = list(f.targets)
-        self.union_fprs = [
-            np.asarray([f.target_fpr[t] for t in f.targets], dtype=np.float64)
+        # union target table (deterministic: filter order, then target order)
+        self.union_targets: list[str] = []
+        index: dict[str, int] = {}
+        self.filter_cols: list[np.ndarray] = []
+        self.filter_fprs: list[np.ndarray] = []
+        for f in self.filters:
+            cols = np.empty(f.num_targets, dtype=np.int64)
+            fprs = np.empty(f.num_targets, dtype=np.float64)
+            for j, t in enumerate(f.targets):
+                if t not in index:
+                    index[t] = len(self.union_targets)
+                    self.union_targets.append(t)
+                cols[j] = index[t]
+                fprs[j] = f.target_fpr[t]
+            self.filter_cols.append(cols)
+            self.filter_fprs.append(fprs)
+        # the union columns on the filters' device (the merge kernel's map)
+        self.filter_cols_dev = [
+            torch.from_numpy(c.astype(np.int32)).to(self.filters[0].device)
+            for c in self.filter_cols
         ]
+        # per-filter fpr indexed by UNION column: the winning filter's fpr
+        # rides with each match of a multi-filter level
+        self.union_fprs: list[np.ndarray] = []
+        for cols, fprs in zip(self.filter_cols, self.filter_fprs):
+            u = np.zeros(len(self.union_targets), dtype=np.float64)
+            u[cols] = fprs
+            self.union_fprs.append(u)
         # level-scoped fpr-query threshold cache
         self.fpr_min = FprQueryMinCount(level.fpr_query)
         # adaptive compact-output width: start small and escalate to
@@ -289,7 +326,7 @@ class LevelContext:
         start_k = 4 if len(self.union_targets) >= 4096 else 32
         self.top_k_current = min(start_k, cfg.top_k_matches)
 
-        # taxonomy: add missing targets under root
+        # taxonomy: merge (first filter wins), add missing targets under root
         self.tax: dict[str, tuple[str, str, str]] = {}
         for t in reversed(taxes):
             self.tax.update(t)
@@ -425,13 +462,8 @@ class _Out:
         self._files.clear()
 
 
-def _check_supported(cfg: ClassifyConfig, levels: dict) -> None:
-    """Raise NotImplementedError for what this slice does not port."""
-    if len(levels) != 1:
-        raise NotImplementedError(
-            "several hierarchy levels are not ported yet (ROADMAP queue 1, "
-            "item 7 'Hierarchies and multi-filter levels')"
-        )
+def _check_supported(cfg: ClassifyConfig) -> None:
+    """Raise NotImplementedError for what this port does not cover yet."""
     if cfg.hashes_limit > 0xFFFF:
         raise NotImplementedError(
             "hashes_limit above 65535 (--longreads) needs the 32-bit counter "
@@ -450,19 +482,41 @@ def _check_supported(cfg: ClassifyConfig, levels: dict) -> None:
             )
 
 
+class _Runner:
+    """One hierarchy level in the cross-level scheduler."""
+
+    __slots__ = (
+        "li", "label", "level", "first", "last", "ctx", "rep", "coalescer",
+        "source_done", "inflight", "complete", "ready", "one_files",
+        "all_files", "finish_args",
+    )
+
+    def __init__(self, li: int, label: str, level: HierarchyLevel,
+                 n_levels: int):
+        self.li, self.label, self.level = li, label, level
+        self.first = li == 0
+        self.last = li == n_levels - 1
+        self.ctx: LevelContext | None = None
+        self.rep: dict = {}
+        self.coalescer = None
+        self.source_done = False
+        self.inflight = 0
+        self.complete = False
+        self.ready: deque = deque()
+
+
 def run_classify(cfg: ClassifyConfig) -> dict:
     """Run the full classification; returns collected stats (for tests)."""
     t_start = _time.monotonic()
     cfg.validate()
     levels = parse_hierarchy(cfg)
-    _check_supported(cfg, levels)
+    _check_supported(cfg)
     reads_config = parse_reads_config(cfg)
     prefixes = list(reads_config.keys())
-    label, level = next(iter(levels.items()))
 
     totals: dict[str, Total] = {p: Total() for p in prefixes}
     hierarchy_totals: dict[str, dict[str, Total]] = {
-        label: {p: Total() for p in prefixes}
+        lbl: {p: Total() for p in prefixes} for lbl in levels
     }
     # wall-clock split of the main loop ("finish" includes the "fetch"
     # wait for the device result)
@@ -475,26 +529,37 @@ def run_classify(cfg: ClassifyConfig) -> dict:
         if cfg.output_unclassified:
             out.get(cfg.output_prefix + p + ".unc")
 
-    ctx = LevelContext(level, cfg)
-    if ctx.filters[0].num_targets > 0xFFFF:
-        raise NotImplementedError(
-            "more than 65535 targets need the 32-bit counter layout, not "
-            "ported yet (ROADMAP queue 1, item 10)"
-        )
+    # Cross-level scheduler (ganon_tpu.classify.engine.run_classify): every
+    # level is a runner with its own ready queue; a level's leftovers
+    # coalesce into the next level's batches as its batches finish, so the
+    # next level dispatches while this one still has results in flight.
+    # Lower levels have dispatch priority; a level completes (and writes
+    # its .rep section) once its source is done and nothing of it is
+    # queued or in flight.
     n_reads = cfg.n_reads or 8192  # run-local: never mutate the caller's config
-    rep: dict = {}
-    one_files = {p: cfg.output_prefix + p + "." + level.output_file_one
-                 for p in prefixes}
-    all_files = {p: cfg.output_prefix + p + "." + level.output_file_all
-                 for p in prefixes}
-    if cfg.output_lca and not cfg.skip_lca:
-        for p in prefixes:
-            out.get(one_files[p])
-    if cfg.output_all:
-        for p in prefixes:
-            out.get(all_files[p])
-    finish_args = (ctx, cfg, rep, hierarchy_totals[label], out, one_files,
-                   all_files)
+    runners = [_Runner(li, label, levels[label], len(levels))
+               for li, label in enumerate(levels)]
+
+    def ensure_ctx(r: _Runner) -> LevelContext:
+        if r.ctx is not None:
+            return r.ctx
+        r.ctx = LevelContext(r.level, cfg)
+        file_mode = "w" if (r.first or not cfg.output_single) else "a"
+        r.one_files = {p: cfg.output_prefix + p + "." + r.level.output_file_one
+                       for p in prefixes}
+        r.all_files = {p: cfg.output_prefix + p + "." + r.level.output_file_all
+                       for p in prefixes}
+        if cfg.output_lca and not cfg.skip_lca:
+            for p in prefixes:
+                out.get(r.one_files[p], file_mode)
+        if cfg.output_all:
+            for p in prefixes:
+                out.get(r.all_files[p], file_mode)
+        r.finish_args = (r.ctx, cfg, r.rep, hierarchy_totals[r.label],
+                         r.first, r.last, out, r.one_files, r.all_files)
+        return r.ctx
+
+    ensure_ctx(runners[0])
 
     def produce():
         for prefix, files in reads_config.items():
@@ -506,24 +571,86 @@ def run_classify(cfg: ClassifyConfig) -> dict:
         stream = strided_batches(stream, cfg.read_stride, cfg.read_offset)
     if cfg.length_bucketing:
         stream = bucketed_batches(stream, n_reads, bp_budget=n_reads * 1024)
-    source = iter(ThreadedBatchSource(stream))
+    lvl0 = iter(ThreadedBatchSource(stream))
 
     depth = max(1, cfg.pipeline_depth)
-    pending: deque = deque()  # (batch, disp) in dispatch order
+    pending: deque = deque()  # (runner, batch, disp) in dispatch order
+
+    def route_leftover(r: _Runner, lo) -> None:
+        if lo is None or not len(lo):
+            return
+        nxt = runners[r.li + 1]
+        if cfg.length_bucketing:
+            # leftovers are ragged sub-batches: coalesce them back to full
+            # batches, re-bucketed by length
+            if nxt.coalescer is None:
+                nxt.coalescer = BatchCoalescer(n_reads,
+                                               bp_budget=n_reads * 1024)
+            nxt.ready.extend(nxt.coalescer.add(lo))
+        else:
+            nxt.ready.append(lo)
+
+    def maybe_complete(r: _Runner) -> None:
+        while (not r.complete and r.source_done and not r.inflight
+               and not r.ready):
+            r.complete = True
+            # fold per-level totals and reports into the global stats
+            for p in prefixes:
+                t = hierarchy_totals[r.label][p]
+                tt = totals[p]
+                for fld in _TOTAL_FIELDS:
+                    if fld != "input_seqs":
+                        setattr(tt, fld, getattr(tt, fld) + getattr(t, fld))
+            if r.ctx is not None:
+                _fold_tallies(r.rep, r.ctx)
+                _write_rep(r.rep, r.ctx, cfg, r.label, out)
+            if r.li + 1 >= len(runners):
+                return
+            nxt = runners[r.li + 1]
+            if nxt.coalescer is not None:
+                nxt.ready.extend(nxt.coalescer.flush())
+            nxt.source_done = True
+            r = nxt
 
     def finish_oldest() -> None:
-        batch, disp = pending.popleft()
+        r, batch, disp = pending.popleft()
         t0 = _time.monotonic()
-        _finish_batch_fast((batch, disp), *finish_args, timing=timing)
+        lo = _finish_batch_fast((batch, disp), *r.finish_args, timing=timing)
         timing["finish"] += _time.monotonic() - t0
+        if not r.last:
+            route_leftover(r, lo)
+        r.inflight -= 1
+        maybe_complete(r)
+
+    def next_ready():
+        """(runner, batch) to dispatch next, or None when nothing is ready;
+        the batch counts as in flight from the moment it leaves a queue."""
+        r0 = runners[0]
+        if not r0.source_done:
+            t0 = _time.monotonic()
+            batch = next(lvl0, None)
+            timing["input_wait"] += _time.monotonic() - t0
+            if batch is not None:
+                totals[batch.prefix].input_seqs += len(batch)
+                r0.inflight += 1
+                return r0, batch
+            r0.source_done = True
+            maybe_complete(r0)
+        for r in runners:
+            if r.ready:
+                r.inflight += 1
+                return r, r.ready.popleft()
+        return None
 
     while True:
-        t0 = _time.monotonic()
-        batch = next(source, None)
-        timing["input_wait"] += _time.monotonic() - t0
-        if batch is None:
+        nb = next_ready()
+        if nb is None:
+            if pending:
+                finish_oldest()
+                continue
             break
-        totals[batch.prefix].input_seqs += len(batch)
+        r, batch = nb
+        ctx = ensure_ctx(r)
         t0 = _time.monotonic()
         disp = _dispatch_batch_fast(batch, ctx, cfg)
         timing["dispatch"] += _time.monotonic() - t0
@@ -531,23 +658,16 @@ def run_classify(cfg: ClassifyConfig) -> dict:
             t0 = _time.monotonic()
             while pending:
                 finish_oldest()
-            _classify_batch(batch, *finish_args)
+            lo = _classify_batch(batch, *r.finish_args)
             timing["finish"] += _time.monotonic() - t0
+            if not r.last:
+                route_leftover(r, lo)
+            r.inflight -= 1
+            maybe_complete(r)
         else:
             if len(pending) >= depth:
                 finish_oldest()
-            pending.append((batch, disp))
-    while pending:
-        finish_oldest()
-
-    for p in prefixes:
-        t = hierarchy_totals[label][p]
-        tt = totals[p]
-        for fld in _TOTAL_FIELDS:
-            if fld != "input_seqs":
-                setattr(tt, fld, getattr(tt, fld) + getattr(t, fld))
-    _fold_tallies(rep, ctx)
-    _write_rep(rep, ctx, cfg, label, out)
+            pending.append((r, batch, disp))
 
     # .rep totals trailer
     for p in prefixes:
@@ -575,24 +695,58 @@ def run_classify(cfg: ClassifyConfig) -> dict:
 
 def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
                          cfg: ClassifyConfig):
-    """Enqueue one batch's kernels and its result copy; None when device
-    thresholding is off (the batch then takes :func:`_classify_batch`).
-    Returns the in-flight host copy + unpack dims."""
+    """Enqueue one batch's kernels and its result copy. Returns the
+    in-flight host copy + unpack dims, or None when the level has no fast
+    path (device thresholding off, a level mixing a forest with other
+    filters, a union wider than 0xFFFF): the batch then takes
+    :func:`_classify_batch`."""
     if not cfg.device_thresholding:
         return None
+    if len(ctx.filters) != 1:
+        return _dispatch_batch_fast_multi(batch, ctx, cfg)
     f = ctx.filters[0]
+    is_forest = isinstance(f, dev.DeviceHIBF) and f.contiguous and f.subs
+    if not isinstance(f, dev.DeviceFilter) and not is_forest:
+        return None
     batch_pad = dev.bucket_len(len(batch), minimum=64)
     inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
     K = min(ctx.top_k_current, f.num_targets)
     # per-batch [T] matches_t is only consumed when fpr-query is off
     emit_mt = ctx.level.fpr_query >= 1.0
-    packed = dev.classify_batch_packed(
+    run = dev.classify_batch_packed_forest if is_forest else (
+        dev.classify_batch_packed)
+    packed = run(
         f, torch.from_numpy(inbuf).to(f.device),
         ctx.specs[0].rel_cutoff, ctx.level.rel_filter, cfg.hashes_limit,
         k=ctx.kmer_size, w=ctx.window_size, L1=L1, L2=L2,
         top_k=K, emit_matches_t=emit_mt,
     )
-    return (_start_host_copy(packed), batch_pad, K, f.num_targets, emit_mt)
+    return (_start_host_copy(packed), batch_pad, K, f.num_targets, emit_mt,
+            False)
+
+
+def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
+                               cfg: ClassifyConfig):
+    """The fast path of a level with several flat filters (per-filter
+    cutoffs, union merge and winners on the card). None when a filter is
+    not a flat IBF or the union exceeds the 16-bit packed layout."""
+    if not all(type(f) is dev.DeviceFilter for f in ctx.filters):
+        return None
+    U = len(ctx.union_targets)
+    if U > 0xFFFF:
+        return None
+    batch_pad = dev.bucket_len(len(batch), minimum=64)
+    inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
+    K = min(ctx.top_k_current, U)
+    emit_mt = ctx.level.fpr_query >= 1.0
+    packed = dev.classify_batch_packed_multi(
+        ctx.filters, ctx.filter_cols_dev,
+        torch.from_numpy(inbuf).to(ctx.filters[0].device),
+        [s.rel_cutoff for s in ctx.specs], ctx.level.rel_filter,
+        cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1, L2=L2,
+        num_union=U, top_k=K, emit_matches_t=emit_mt,
+    )
+    return (_start_host_copy(packed), batch_pad, K, U, emit_mt, True)
 
 
 def _start_host_copy(packed: torch.Tensor):
@@ -619,15 +773,16 @@ def _fetch(handle, timing=None) -> np.ndarray:
     return host.numpy()
 
 
-def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, out, one_files,
-                       all_files, timing=None):
+def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
+                       out, one_files, all_files, timing=None):
     """Fetch + finish an in-flight batch; escalates the compact width on
     top-K overflow (sticky for the level), falls back to the exact full
-    path on compaction overflow."""
-    batch, (handle, B_pad, K, T, emit_mt) = pending
+    path on compaction overflow. Returns the leftover (unclassified)
+    reads unless the level is the last."""
+    batch, (handle, B_pad, K, T, emit_mt, has_win) = pending
     B0 = len(batch)
     res = dev.unpack_batch_result(_fetch(handle, timing), B_pad, K, T,
-                                  has_matches_t=emit_mt)
+                                  has_matches_t=emit_mt, has_win=has_win)
     if not res["overflow"][:B0].any() and (
         res["n_matches"][:B0] > K
     ).any() and ctx.top_k_current < cfg.top_k_matches:
@@ -635,22 +790,24 @@ def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, out, one_files,
         # configured cap and re-dispatch this batch
         ctx.top_k_current = cfg.top_k_matches
         disp = _dispatch_batch_fast(batch, ctx, cfg)
-        return _finish_batch_fast(
-            (batch, disp), ctx, cfg, rep, level_totals, out, one_files,
-            all_files, timing=timing,
-        )
+        if disp is not None:
+            return _finish_batch_fast(
+                (batch, disp), ctx, cfg, rep, level_totals, first, last,
+                out, one_files, all_files, timing=timing,
+            )
     if (res["overflow"][:B0].any()
             or (res["n_matches"][:B0] > K).any()):
         return _classify_batch(
-            batch, ctx, cfg, rep, level_totals, out, one_files, all_files,
+            batch, ctx, cfg, rep, level_totals, first, last, out, one_files,
+            all_files,
         )
     nh = res["n_hashes"][:B0].astype(np.int64)
     l1 = batch.len1.astype(np.int64)
     l2 = (batch.len2.astype(np.int64) if batch.paired
           else np.zeros(B0, np.int64))
     return _finish_batch_compact(
-        batch, ctx, cfg, rep, level_totals, out, one_files, all_files, res,
-        nh, l1, l2,
+        batch, ctx, cfg, rep, level_totals, first, last, out, one_files,
+        all_files, res, nh, l1, l2,
     )
 
 
@@ -660,20 +817,25 @@ def _classify_batch(
     cfg: ClassifyConfig,
     rep: dict,
     level_totals: dict[str, Total],
+    first: bool,
+    last: bool,
     out: _Out,
     one_files: dict,
     all_files: dict,
-) -> None:
-    """Classify one batch exactly: uncompacted hashes (no overflow), then
-    device thresholds with the configured top-K, or the full-matrix host
-    path when that overflows too (or device thresholding is off)."""
+) -> EncodedBatch | None:
+    """Classify one batch exactly at one level: uncompacted hashes (no
+    overflow), then, for a single filter, device thresholds with the
+    configured top-K, or else (several filters, top-K overflow, device
+    thresholding off) the full-matrix host path with the per-filter
+    cutoffs and the strict-greater union merge. Returns the leftover
+    (unclassified) reads unless the level is the last."""
     B0 = len(batch)
     w = ctx.window_size
-    f = ctx.filters[0]
+    f0 = ctx.filters[0]
     batch_pad = dev.bucket_len(B0, minimum=64)
     inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
     hashes, n_hashes_d, _ = dev.extract_hashes(
-        torch.from_numpy(inbuf).to(f.device), k=ctx.kmer_size, w=w,
+        torch.from_numpy(inbuf).to(f0.device), k=ctx.kmer_size, w=w,
         L1=L1, L2=L2,
     )
     # bound the plain count's [rows, M, W8] gather for long reads
@@ -681,10 +843,13 @@ def _classify_batch(
     step = Bp
     if M > 2048:
         step = max(1, min(Bp, _FALLBACK_GATHER_ROWS // M))
-    counts_d = torch.cat([
-        f.counts(hashes[i:i + step], n_hashes_d[i:i + step])
-        for i in range(0, Bp, step)
-    ])
+    counts_dev = [
+        torch.cat([
+            f.counts(hashes[i:i + step], n_hashes_d[i:i + step])
+            for i in range(0, Bp, step)
+        ])
+        for f in ctx.filters
+    ]
     nh = n_hashes_d.cpu().numpy()[:B0].astype(np.int64)
     l1 = batch.len1.astype(np.int64)
     l2 = (
@@ -693,43 +858,55 @@ def _classify_batch(
         else np.zeros(B0, np.int64)
     )
 
-    if cfg.device_thresholding:
+    # single filter: thresholds + top-K compaction on the card
+    if len(ctx.filters) == 1 and cfg.device_thresholding:
         emit_mt = ctx.level.fpr_query >= 1.0
-        K = min(cfg.top_k_matches, f.num_targets)
+        K = min(cfg.top_k_matches, f0.num_targets)
         packed = dev.select(
-            counts_d, n_hashes_d,
+            counts_dev[0], n_hashes_d,
             torch.zeros_like(n_hashes_d, dtype=torch.uint8),
             ctx.specs[0].rel_cutoff, ctx.level.rel_filter, cfg.hashes_limit,
             top_k=cfg.top_k_matches, emit_matches_t=emit_mt,
         )
         res = dev.unpack_batch_result(
-            packed.cpu().numpy(), Bp, K, f.num_targets, has_matches_t=emit_mt
+            packed.cpu().numpy(), Bp, K, f0.num_targets,
+            has_matches_t=emit_mt,
         )
         if not (res["n_matches"][:B0] > K).any():
             return _finish_batch_compact(
-                batch, ctx, cfg, rep, level_totals, out, one_files,
-                all_files, res, nh, l1, l2,
+                batch, ctx, cfg, rep, level_totals, first, last, out,
+                one_files, all_files, res, nh, l1, l2,
             )
         # top-K overflow: fall through to the full-matrix path
 
-    counts = counts_d.cpu().numpy()[:B0].astype(np.int64)
+    counts_list = [c.cpu().numpy()[:B0].astype(np.int64) for c in counts_dev]
 
     small = l1 < w
     big = (~small) & (nh > cfg.hashes_limit)
     ok = (~small) & (~big)
 
     tot = level_totals[batch.prefix]
-    tot.seqs_skipped_small += int(small.sum())
-    tot.seqs_skipped_big += int(big.sum())
-    tot.seqs_processed += int(ok.sum())
-    tot.length_processed += int((l1 + l2)[ok].sum())
-    tot.kmers_processed += int(nh[ok].sum())
+    if first:
+        tot.seqs_skipped_small += int(small.sum())
+        tot.seqs_skipped_big += int(big.sum())
+        tot.seqs_processed += int(ok.sum())
+        tot.length_processed += int((l1 + l2)[ok].sum())
+        tot.kmers_processed += int(nh[ok].sum())
 
-    spec = ctx.specs[0]
-    cutoff = np.maximum(np.ceil(nh * spec.rel_cutoff), 1).astype(np.int64)
-    kept = (counts >= cutoff[:, None]) & ok[:, None]
-    union_counts = np.where(kept, counts, 0)
-    union_fpr = np.where(kept, ctx.union_fprs[0][None, :], 0.0)
+    # per-filter cutoff, then the strict-greater union merge (the first
+    # filter wins ties; the winner's fpr rides with the count)
+    U = len(ctx.union_targets)
+    union_counts = np.zeros((B0, U), dtype=np.int64)
+    union_fpr = np.zeros((B0, U), dtype=np.float64)
+    for fi, counts in enumerate(counts_list):
+        cutoff = np.maximum(np.ceil(nh * ctx.specs[fi].rel_cutoff),
+                            1).astype(np.int64)
+        kept = (counts >= cutoff[:, None]) & ok[:, None]
+        uf = np.zeros((B0, U), dtype=np.int64)
+        uf[:, ctx.filter_cols[fi]] = np.where(kept, counts, 0)
+        better = uf > union_counts
+        union_counts = np.where(better, uf, union_counts)
+        union_fpr = np.where(better, ctx.union_fprs[fi][None, :], union_fpr)
 
     kept_any = union_counts > 0
     max_count = union_counts.max(axis=1)
@@ -847,20 +1024,24 @@ def _classify_batch(
         out.submit(one_files[prefix], _fmt_one)
 
     left = np.nonzero(~classified)[0]
-    if cfg.output_unclassified and len(left):
-        out.submit(
-            cfg.output_prefix + prefix + ".unc",
-            lambda left=left, ids=ids: "".join(
-                ids[i] + "\n" for i in left.tolist()
-            ),
-        )
+    if last:
+        if cfg.output_unclassified and len(left):
+            out.submit(
+                cfg.output_prefix + prefix + ".unc",
+                lambda left=left, ids=ids: "".join(
+                    ids[i] + "\n" for i in left.tolist()
+                ),
+            )
+        return None
+    return batch.select(left.astype(np.int64))
 
 
 def _finish_batch_compact(
-    batch, ctx, cfg, rep, level_totals, out, one_files, all_files, res, nh,
-    l1, l2,
-) -> None:
-    """Host finish for the device-thresholded compact path."""
+    batch, ctx, cfg, rep, level_totals, first, last, out, one_files,
+    all_files, res, nh, l1, l2,
+) -> EncodedBatch | None:
+    """Host finish for the device-thresholded compact path; returns the
+    leftover (unclassified) reads unless the level is the last."""
     B0 = len(batch)
     w = ctx.window_size
     prefix = batch.prefix
@@ -869,11 +1050,12 @@ def _finish_batch_compact(
     small = l1 < w
     big = (~small) & (nh > cfg.hashes_limit)
     ok = (~small) & (~big)
-    tot.seqs_skipped_small += int(small.sum())
-    tot.seqs_skipped_big += int(big.sum())
-    tot.seqs_processed += int(ok.sum())
-    tot.length_processed += int((l1 + l2)[ok].sum())
-    tot.kmers_processed += int(nh[ok].sum())
+    if first:  # leftovers were counted as processed at the first level
+        tot.seqs_skipped_small += int(small.sum())
+        tot.seqs_skipped_big += int(big.sum())
+        tot.seqs_processed += int(ok.sum())
+        tot.length_processed += int((l1 + l2)[ok].sum())
+        tot.kmers_processed += int(nh[ok].sum())
 
     top_vals = res["top_vals"][:B0].copy()
     top_idx = res["top_idx"][:B0].copy()
@@ -892,7 +1074,13 @@ def _finish_batch_compact(
         # one array comparison + stable left-compaction of survivors
         Kc = top_vals.shape[1]
         valid = np.arange(Kc)[None, :] < n_matches[:, None]
-        fpr_mat = ctx.union_fprs[0][top_idx]
+        # a multi-filter level: the winning filter's fpr (reference
+        # GanonClassify.cpp:533); a single filter: its own
+        top_win = res.get("top_win")
+        if top_win is not None:
+            fpr_mat = np.stack(ctx.union_fprs)[top_win[:B0], top_idx]
+        else:
+            fpr_mat = ctx.union_fprs[0][top_idx]
         ii, jj = np.nonzero(valid)
         if len(ii):
             cmin = ctx.fpr_min.min_count_arr(nh[ii], fpr_mat[ii, jj])
@@ -991,13 +1179,16 @@ def _finish_batch_compact(
         out.submit(one_files[prefix], _fmt_one)
 
     left = np.nonzero(n_matches == 0)[0]
-    if cfg.output_unclassified and len(left):
-        out.submit(
-            cfg.output_prefix + prefix + ".unc",
-            lambda left=left, ids=ids: "".join(
-                ids[i] + "\n" for i in left.tolist()
-            ),
-        )
+    if last:
+        if cfg.output_unclassified and len(left):
+            out.submit(
+                cfg.output_prefix + prefix + ".unc",
+                lambda left=left, ids=ids: "".join(
+                    ids[i] + "\n" for i in left.tolist()
+                ),
+            )
+        return None
+    return batch.select(left.astype(np.int64))
 
 
 def _write_rep(rep, ctx: LevelContext, cfg: ClassifyConfig, label, out: _Out):

@@ -1,8 +1,9 @@
-"""Top-level command orchestration: ``classify`` (flat-IBF slice).
+"""Top-level command orchestration: ``classify``.
 
-Port of ``ganon_tpu.commands.classify``: database detection, then the
-engine. Reassignment (``--multiple-matches em``) and the chained
-``report`` are not ported yet and raise before any work starts.
+Port of ``ganon_tpu.commands.classify``: database detection (``.hibf``
+before ``.ibf`` for each ``--db-prefix``), then the engine. Reassignment
+(``--multiple-matches em``) and the chained ``report`` are not ported
+yet and raise before any work starts.
 """
 
 from __future__ import annotations

@@ -27,6 +27,12 @@
 // add into the read's output row; the last tile of a target clamps it.
 // The block owns its output row, so no atomics are needed; the segment
 // sum the TPU ran as a one-hot matmul is a short loop here.
+//
+// Forest mode (K11, ganon_tpu/classify/device.py:432
+// classify_batch_packed_forest): the output row is ``counts + b * ldc +
+// col0``, so each sub-IBF of a forest counts straight into its own column
+// range of one shared [B, ldc] matrix (a flat filter passes ldc = T,
+// col0 = 0). The caller zeroes the matrix: tiles add into the row.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,7 +52,8 @@ count_kernel(const unsigned* __restrict__ tbl, long long W32,
              const int* __restrict__ byte_ends, int T,
              const long long* __restrict__ hashes, int M,
              const int* __restrict__ n_hashes, unsigned long long bin_size,
-             int h, int shift, int* __restrict__ counts) {
+             int h, int shift, int* __restrict__ counts, long long ldc,
+             int col0) {
     __shared__ int cnt[kTileWords * 4];
     __shared__ unsigned long long rows[kHashChunk * kMaxH];
     __shared__ int t_first;
@@ -55,7 +62,7 @@ count_kernel(const unsigned* __restrict__ tbl, long long W32,
     const int n = n_hashes[b];
     const int nvalid = min(n, M);
     const long long* hrow = hashes + b * M;
-    int* orow = counts + b * T;
+    int* orow = counts + b * ldc + col0;
 
     for (long long w0 = 0; w0 < W32; w0 += kTileWords) {
         const int tw = (int)min((long long)kTileWords, W32 - w0);
@@ -119,12 +126,14 @@ extern "C" int ganon_count(const void* tbl, long long R, long long W8,
                            const void* byte_starts, const void* byte_ends,
                            int T, const void* hashes, long long B, int M,
                            const void* n_hashes, unsigned long long bin_size,
-                           int h, int shift, void* counts, void* stream) {
+                           int h, int shift, void* counts, long long ldc,
+                           int col0, void* stream) {
     (void)R;
-    if (h < 1 || h > kMaxH || W8 % 4) return (int)cudaErrorInvalidValue;
+    if (h < 1 || h > kMaxH || W8 % 4 || col0 < 0 || col0 + (long long)T > ldc)
+        return (int)cudaErrorInvalidValue;
     count_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
         (const unsigned*)tbl, W8 / 4, (const int*)byte_starts,
         (const int*)byte_ends, T, (const long long*)hashes, M,
-        (const int*)n_hashes, bin_size, h, shift, (int*)counts);
+        (const int*)n_hashes, bin_size, h, shift, (int*)counts, ldc, col0);
     return (int)cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 //
 // Replaces the JAX device programs
 //   ganon_tpu/classify/device.py:801 threshold_topk            (K6),
-//   ganon_tpu/classify/device.py:255 _pack_result, dense pack16 (K7).
+//   ganon_tpu/classify/device.py:255 _pack_result, dense pack16 (K7),
+// and, with the winners payload, the select step of
+//   ganon_tpu/classify/device.py:542 classify_batch_packed_multi (K13).
 //
 // Per read (reference GanonClassify.cpp:719-758, in double as the JAX
 // package computes it): cutoff = max(1, ceil(n * rel_cutoff)); the read is
@@ -15,7 +17,8 @@
 // both JAX tiers (full sort, and iterative argmax at k <= 8, T >= 4096).
 //
 // Output, one int32 buffer (unpack_batch_result's dense layout):
-//   [B*K] (count << 16 | target) | [B] n_matches | [B] max_count |
+//   [B*K] (count << 16 | target) | [B*K] winners (when uwin is given) |
+//   [B] n_matches | [B] max_count |
 //   [B] n_hashes | [B] overflow | [T] disc_t | [T] matches_t (optional) |
 //   3 scalars (seqs_classified, kmers_from_classified, kmers_matches).
 //
@@ -30,6 +33,13 @@
 // below the previous one (keys are unique, so nothing is modified), and
 // the remaining slots take the lowest-index non-final targets through a
 // block prefix count. The read's row stays in L1/L2 between passes.
+//
+// Winners (multi-filter levels): uwin [B, T] holds the filter that won
+// each union column (merge.cu); every entry of the top block, the
+// zero-count padding entries included, carries uwin[b, target] in the
+// winners block. JAX sorts the winners along as a payload of unique keys
+// (device.py:886-893; the argmax tier takes them at the argmax,
+// :874-884), so each entry's winner is that of its own target.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -67,7 +77,7 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
               const int* __restrict__ n_hashes,
               const unsigned char* __restrict__ overflow, double rel_cutoff,
               double rel_filter, long long hashes_limit, int K, int emit_mt,
-              int* __restrict__ out) {
+              const int* __restrict__ uwin, int* __restrict__ out) {
     __shared__ unsigned scratch[kWarps];
     const long long b = blockIdx.x;
     const int* row = counts + b * T;
@@ -93,7 +103,9 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
     const int thr = (int)((double)max_count -
                           ceil((double)(max_count - min_count) * rel_filter));
 
-    int* tallies = out + B * (long long)K + 4 * B;  // disc_t, then matches_t
+    // the side arrays follow the matches (and the winners)
+    const long long BK = B * (long long)K * (uwin ? 2 : 1);
+    int* tallies = out + BK + 4 * B;  // disc_t, then matches_t
     // pass 2: final matches and per-target tallies
     unsigned nm = 0;
     if (valid) {
@@ -113,6 +125,8 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
 
     // top entries: the final targets by descending key
     int* mrow = out + b * K;
+    int* wrow = uwin ? out + B * (long long)K + b * K : nullptr;
+    const int* urow = uwin ? uwin + b * T : nullptr;
     const int kf = min(K, n_matches);
     unsigned long long prev = 1ULL << 32;  // above every 32-bit key
     for (int j = 0; j < kf; ++j) {
@@ -126,8 +140,11 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
         }
         best = block_reduce(best, MaxOp(), scratch);
         prev = best;
-        if (threadIdx.x == 0)
-            mrow[j] = (int)((best & 0xFFFF0000u) | (0xFFFFu - (best & 0xFFFFu)));
+        if (threadIdx.x == 0) {
+            const int t = (int)(0xFFFFu - (best & 0xFFFFu));
+            mrow[j] = (int)((best & 0xFFFF0000u) | (unsigned)t);
+            if (wrow) wrow[j] = urow[t];
+        }
     }
     // remaining slots: non-final targets in ascending index order
     const int need = K - kf;
@@ -152,12 +169,14 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
             total += scratch[i];
         }
         const int rank = base + before + in_warp;
-        if (nonfinal && rank < need) mrow[kf + rank] = t;  // count 0 << 16
+        if (nonfinal && rank < need) {
+            mrow[kf + rank] = t;  // count 0 << 16
+            if (wrow) wrow[kf + rank] = urow[t];
+        }
         base += total;
     }
 
     if (threadIdx.x == 0) {
-        const long long BK = B * (long long)K;
         out[BK + b] = n_matches;
         out[BK + B + b] = max_count;
         out[BK + 2 * B + b] = n;
@@ -177,10 +196,10 @@ extern "C" int ganon_select(const void* counts, long long B, int T,
                             const void* n_hashes, const void* overflow,
                             double rel_cutoff, double rel_filter,
                             long long hashes_limit, int K, int emit_matches_t,
-                            void* packed, void* stream) {
+                            const void* uwin, void* packed, void* stream) {
     select_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
         (const int*)counts, B, T, (const int*)n_hashes,
         (const unsigned char*)overflow, rel_cutoff, rel_filter, hashes_limit,
-        K, emit_matches_t, (int*)packed);
+        K, emit_matches_t, (const int*)uwin, (int*)packed);
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-The four kernels compile with ``nvcc`` into one content-addressed shared
+The five kernels compile with ``nvcc`` into one content-addressed shared
 library under the checkout's ``build/`` directory at first use, with a
 plain C interface loaded through ctypes (no torch headers, so a build
 takes seconds). Every pointer and the stream are passed as
@@ -8,8 +8,10 @@ takes seconds). Every pointer and the stream are passed as
 and each C entry returns ``cudaGetLastError()``, which :func:`launch`
 turns into an exception.
 
-``LAUNCHES`` counts kernel launches per kernel (one per :func:`launch`),
-so a run can show that its main path went through the kernels.
+``LAUNCHES`` counts kernel launches (one per :func:`launch`) per kernel
+and mode: ``count_forest`` is ``count`` writing into a column range of a
+shared matrix, ``select_winners`` is ``select`` with the winners payload.
+A run can so show that its main path went through every kernel mode.
 Nothing here runs at import: the CPU tests import every module.
 """
 
@@ -26,7 +28,7 @@ import torch
 from ganon_tpu_torch import BUILD_DIR
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("extract.cu", "count.cu", "select.cu", "scatter.cu")
+SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu")
 HEADERS = ("ibf_hash.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,16 +42,22 @@ _SIGNATURES = {
     # inbuf, B, row_bytes, L1, L2, k, w, mc, hashes, n, overflow
     "extract": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P),
     # tbl, R, W8, byte_starts, byte_ends, T, hashes, B, M, n_hashes,
-    # bin_size, h, shift, counts
-    "count": (_P, _L, _L, _P, _P, _I, _P, _L, _I, _P, _U, _I, _I, _P),
+    # bin_size, h, shift, counts, ldc, col0
+    "count": (_P, _L, _L, _P, _P, _I, _P, _L, _I, _P, _U, _I, _I, _P, _L,
+              _I),
+    # counts, B, T_f, n_hashes, rel_cutoff, hashes_limit, cols, f,
+    # ucounts, uwin, U
+    "merge": (_P, _L, _I, _P, _D, _L, _P, _I, _P, _P, _I),
     # counts, B, T, n_hashes, overflow, rel_cutoff, rel_filter,
-    # hashes_limit, K, emit_matches_t, packed
-    "select": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P),
+    # hashes_limit, K, emit_matches_t, uwin (NULL = no winners), packed
+    "select": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P, _P),
     # bits, R, W, hashes, bins, N, bin_size, h, shift
     "scatter": (_P, _L, _L, _P, _P, _L, _U, _I, _I),
 }
 
-LAUNCHES = {name: 0 for name in _SIGNATURES}
+# launch counters: each kernel, plus the modes counted apart
+LAUNCHES = {name: 0 for name in (*_SIGNATURES, "count_forest",
+                                 "select_winners")}
 
 _lib = None
 
@@ -122,11 +130,13 @@ def check_cuda(*tensors: torch.Tensor) -> None:
         raise ValueError("kernel arguments must be contiguous tensors")
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on the current stream and count it.
+def launch(name: str, *args, counter: str | None = None) -> None:
+    """Launch kernel ``name`` on the current stream and count it (under
+    ``counter``, default ``name``).
 
-    Tensor arguments pass their data pointers; the caller keeps them
-    alive (they are its outputs or inputs) while the kernel runs.
+    Tensor arguments pass their data pointers (``None`` passes NULL);
+    the caller keeps them alive (they are its outputs or inputs) while
+    the kernel runs.
     """
     lib = library()
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
@@ -139,4 +149,4 @@ def launch(name: str, *args) -> None:
     err = getattr(lib, f"ganon_{name}")(*cargs, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter or name] += 1

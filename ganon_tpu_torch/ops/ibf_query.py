@@ -284,12 +284,14 @@ def _popcount_u8(x: torch.Tensor) -> torch.Tensor:
 def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
                        byte_ends: torch.Tensor, hashes: torch.Tensor,
                        n_hashes: torch.Tensor, *, bin_size: int,
-                       hash_functions: int) -> torch.Tensor:
+                       hash_functions: int, out: torch.Tensor | None = None,
+                       col0: int = 0) -> torch.Tensor:
     """Plain version of the ``count`` kernel (see :func:`target_counts`).
 
     ``counts[b, t] = min(n_hashes[b], sum_m popcount(AND_s
     tbl8[row_s(h[b, m]), byte_starts[t]:byte_ends[t]]))`` over the first
-    ``min(n_hashes[b], M)`` slots.
+    ``min(n_hashes[b], M)`` slots; written into ``out[:, col0:col0 + T]``
+    when ``out`` is given (and ``out`` returned).
     """
     B, M = hashes.shape
     rows = ibf_row_indices(hashes, bin_size=bin_size,
@@ -302,13 +304,19 @@ def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
     cw = _popcount_u8(member).sum(dim=1, dtype=torch.int64)  # [B, W8]
     cs = torch.nn.functional.pad(torch.cumsum(cw, dim=1), (1, 0))
     counts = cs[:, byte_ends.to(torch.int64)] - cs[:, byte_starts.to(torch.int64)]
-    return torch.minimum(counts, n_hashes[:, None].to(torch.int64)).to(torch.int32)
+    counts = torch.minimum(counts, n_hashes[:, None].to(torch.int64)).to(
+        torch.int32)
+    if out is None:
+        return counts
+    out[:, col0:col0 + counts.shape[1]] = counts
+    return out
 
 
 def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
                   byte_ends: torch.Tensor, hashes: torch.Tensor,
                   n_hashes: torch.Tensor, *, bin_size: int,
-                  hash_functions: int) -> torch.Tensor:
+                  hash_functions: int, out: torch.Tensor | None = None,
+                  col0: int = 0) -> torch.Tensor:
     """Per-target clamped counts of compacted hashes: int32 ``[B, T]``.
 
     Replaces ``ganon_tpu.ops.ibf_query.ibf_row_indices`` +
@@ -317,6 +325,10 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
     ``pack_table_u8`` table with ``W8`` padded to a multiple of 4
     (``table_as_u32``'s padding); slots ``>= min(n_hashes, M)`` of
     ``hashes`` are ignored.
+
+    Forest mode: with ``out`` (int32 ``[B, ldc]``, zero in the written
+    columns) the counts go straight into ``out[:, col0:col0 + T]`` and
+    ``out`` is returned, so a forest's sub-IBFs share one matrix.
     """
     if tbl8.dtype != torch.uint8 or tbl8.dim() != 2 or tbl8.shape[1] % 4:
         raise ValueError("tbl8 must be u8 [R, W8] with W8 % 4 == 0")
@@ -330,19 +342,28 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
         raise ValueError("byte_starts/byte_ends must be int32 [T]")
     if not 1 <= hash_functions <= MAX_HASH_FUNCTIONS or bin_size > tbl8.shape[0]:
         raise ValueError("invalid hash_functions or bin_size")
+    B, M = hashes.shape
+    if out is not None and (
+        out.dtype != torch.int32 or out.dim() != 2 or out.shape[0] != B
+        or not 0 <= col0 <= out.shape[1] - T or not out.is_contiguous()
+    ):
+        raise ValueError(f"out must be contiguous int32 [{B}, >= col0 + {T}]")
     if tbl8.device.type == "cpu":
         return bulk_target_counts(
             tbl8, byte_starts, byte_ends, hashes, n_hashes,
-            bin_size=bin_size, hash_functions=hash_functions,
+            bin_size=bin_size, hash_functions=hash_functions, out=out,
+            col0=col0,
         )
-    kernels.check_cuda(tbl8, byte_starts, byte_ends, hashes, n_hashes)
-    B, M = hashes.shape
-    counts = torch.zeros((B, T), dtype=torch.int32, device=hashes.device)
+    counter = "count" if out is None else "count_forest"
+    if out is None:
+        out, col0 = torch.zeros((B, T), dtype=torch.int32,
+                                device=hashes.device), 0
+    kernels.check_cuda(tbl8, byte_starts, byte_ends, hashes, n_hashes, out)
     if B == 0 or T == 0:
-        return counts
+        return out
     kernels.launch(
         "count", tbl8, tbl8.shape[0], tbl8.shape[1], byte_starts, byte_ends,
         T, hashes, B, M, n_hashes, bin_size, hash_functions, clz64(bin_size),
-        counts,
+        out, out.shape[1], col0, counter=counter,
     )
-    return counts
+    return out

@@ -1,8 +1,11 @@
-"""The four CUDA kernels against their plain torch versions, on the card.
+"""The five CUDA kernels against their plain torch versions, on the card.
 
 Edge shapes beyond the main path: windows of one k-mer, k = 32, long
 reads, overflowing compaction, table rows spanning several count tiles,
-more hashes than one shared-memory chunk, wide target sets and large K.
+more hashes than one shared-memory chunk, wide target sets and large K;
+count into a column range of a wider matrix (forest mode), merge with
+ties and with a one-target filter, select with winners at K = 1 and
+K = T.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
@@ -111,3 +114,81 @@ def test_scatter_kernel_matches_plain(cuda, hf):
     _scatter_bits(b, h, bins, bin_size=R, hash_functions=hf)
     assert kernels.LAUNCHES["scatter"] == before + 1
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("col0", [0, 37])
+def test_count_kernel_forest_mode_matches_plain(cuda, col0):
+    """Counts written into columns col0.. of a wider matrix, with the
+    other columns left as they were."""
+    rng = np.random.default_rng(col0)
+    R, T, ldc = 1024, 300, 400
+    widths = rng.integers(1, 20, size=T)
+    tbl8 = torch.from_numpy(rng.integers(
+        0, 256, size=(R, -(-int(((widths + 7) // 8).sum()) // 4) * 4),
+        dtype=np.uint8))
+    ends = np.cumsum((widths + 7) // 8).astype(np.int32)
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int32)
+    B, M = 70, 60
+    h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M)))
+    n = torch.from_numpy(rng.integers(0, M + 5, size=B).astype(np.int32))
+    args = [x.to(cuda) for x in (tbl8, torch.from_numpy(starts),
+                                 torch.from_numpy(ends), h, n)]
+    fill = torch.full((B, ldc), -7, dtype=torch.int32, device=cuda)
+    fill[:, col0:col0 + T] = 0
+    got, want = fill.clone(), fill.clone()
+    before = kernels.LAUNCHES["count_forest"]
+    q.target_counts(*args, bin_size=R, hash_functions=2, out=got, col0=col0)
+    q.bulk_target_counts(*args, bin_size=R, hash_functions=2, out=want,
+                         col0=col0)
+    assert kernels.LAUNCHES["count_forest"] == before + 1
+    assert torch.equal(got, want)
+    assert (got[:, col0 + T:] == -7).all()
+
+
+def test_merge_kernel_matches_plain(cuda):
+    """Three filters in order: a tie with an earlier filter keeps it, a
+    one-target filter, cutoffs, invalid reads and an over-limit read."""
+    rng = np.random.default_rng(3)
+    B, U = 300, 50
+    n = rng.integers(0, 60, size=B).astype(np.int32)
+    n[:3] = [0, 70, 1]
+    colss = [rng.permutation(U)[:40], np.array([7]), rng.permutation(U)[:25]]
+    base = np.minimum(rng.integers(0, 60, size=(B, U)), n[:, None])
+    got_c = torch.zeros((B, U), dtype=torch.int32, device=cuda)
+    got_w, want_c, want_w = (torch.zeros_like(got_c) for _ in range(3))
+    nn = torch.from_numpy(n).to(cuda)
+    for f, (cols, rc) in enumerate(zip(colss, (0.2, 0.5, 0.0))):
+        c = base[:, cols].copy()  # ties: every filter reads the same base
+        c[rng.random(c.shape) < 0.3] += 1
+        c = np.minimum(c, n[:, None]).astype(np.int32)
+        c_d = torch.from_numpy(c).to(cuda)
+        cols_d = torch.from_numpy(cols.astype(np.int32)).to(cuda)
+        dev.merge(c_d, nn, rc, 65, cols_d, f, got_c, got_w)
+        dev.merge_plain(c_d, nn, rc, 65, cols_d, f, want_c, want_w)
+        torch.cuda.synchronize()
+        assert torch.equal(got_c, want_c) and torch.equal(got_w, want_w)
+    assert (got_w == 1).any() and (got_w == 2).any()
+
+
+@pytest.mark.parametrize("top_k", [1, 5000])
+def test_select_kernel_winners_matches_plain(cuda, top_k):
+    rng = np.random.default_rng(top_k)
+    B, T = 129, 600
+    n = rng.integers(0, 80, size=B).astype(np.int32)
+    counts = np.minimum(rng.integers(0, 80, size=(B, T)),
+                        n[:, None]).astype(np.int32)
+    counts[:, : T // 3] = n[:, None]
+    counts[rng.random((B, T)) < 0.5] = 0
+    win = rng.integers(0, 4, size=(B, T)).astype(np.int32)
+    ovf = (rng.random(B) < 0.2).astype(np.uint8)
+    c, nn, o, wn = (torch.from_numpy(x).to(cuda)
+                    for x in (counts, n, ovf, win))
+    for cuts in ((0.0, 0.1, 65535), (0.0, 1.0, 70)):
+        for emit in (True, False):
+            got = dev.select(c, nn, o, *cuts, top_k=top_k,
+                             emit_matches_t=emit, uwin=wn)
+            want = dev._pack_result(
+                dev.threshold_topk(c, nn, *cuts, top_k=top_k,
+                                   emit_matches_t=emit, winners=wn),
+                nn, o.to(torch.int32))
+            assert torch.equal(got, want)

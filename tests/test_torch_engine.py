@@ -1,11 +1,13 @@
 """The port's engine against ``ganon_tpu``'s on the same seeded databases.
 
 One ClassifyConfig drives both engines (the port runs with
-``device="cpu"``, the plain versions of its kernels). ``.rep``, ``.all``,
-``.one`` and ``.unc`` must be equal after sorting rows (row order is not
-canonical) and ``.sta`` byte for byte.
+``device="cpu"``, the plain versions of its kernels). Every output file
+(``.rep``, ``.all``, ``.one``, ``.unc``, per level where there are
+several) must be equal after sorting rows (row order is not canonical)
+and ``.sta`` byte for byte.
 """
 
+import os
 import random
 
 import pytest
@@ -59,9 +61,11 @@ def _tax(path, refs, n_genera):
     return write_tax(path, rows)
 
 
-def _run_both(tmp_path, monkeypatch, **kw):
-    """Run both engines; returns the output prefixes and how often the
-    port dispatched a batch and took the exact fallback."""
+def run_both(tmp_path, monkeypatch, **kw):
+    """Run both engines on one config; every output file (per level and
+    per prefix) must agree: sorted rows, ``.sta`` byte for byte.
+    Returns the port's output prefix and how often it dispatched a batch
+    and took the exact fallback."""
     calls = {"dispatch": 0, "fallback": 0}
     for fn, key in (("_dispatch_batch_fast", "dispatch"),
                     ("_classify_batch", "fallback")):
@@ -72,18 +76,21 @@ def _run_both(tmp_path, monkeypatch, **kw):
     outs = {}
     for name, cfg in (("jax", JaxConfig(use_mesh=False, **kw)),
                       ("port", ClassifyConfig(device="cpu", **kw))):
-        cfg.output_prefix = str(tmp_path / name)
+        d = tmp_path / name
+        d.mkdir()
+        cfg.output_prefix = str(d / "out")
         (jax_run_classify if name == "jax" else run_classify)(cfg)
-        outs[name] = cfg.output_prefix
-    for ext in (".rep", ".all", ".one", ".unc"):
-        a = sorted(map(tuple, read_tsv(outs["jax"] + ext)))
-        b = sorted(map(tuple, read_tsv(outs["port"] + ext)))
-        assert b == a, ext
-    if kw.get("output_stats"):
-        with open(outs["jax"] + ".sta", "rb") as f1, \
-                open(outs["port"] + ".sta", "rb") as f2:
-            assert f2.read() == f1.read()
-    return outs, calls
+        outs[name] = d
+    files = sorted(os.listdir(outs["jax"]))
+    assert sorted(os.listdir(outs["port"])) == files
+    for fn in files:
+        a, b = outs["jax"] / fn, outs["port"] / fn
+        if fn.endswith(".sta"):
+            assert b.read_bytes() == a.read_bytes(), fn
+        else:
+            assert (sorted(map(tuple, read_tsv(b)))
+                    == sorted(map(tuple, read_tsv(a)))), fn
+    return str(outs["port"] / "out"), calls
 
 
 @pytest.fixture(scope="module")
@@ -105,10 +112,10 @@ def family_db(tmp_path_factory):
 ], ids=["cli-defaults", "rel-filter-1"])
 def test_engine_matches_jax_with_lca(tmp_path, monkeypatch, family_db,
                                     thresholds):
-    outs, _ = _run_both(tmp_path, monkeypatch, **family_db, **thresholds,
-                        output_lca=True, output_all=True,
-                        output_unclassified=True, output_stats=True)
-    assert read_tsv(outs["port"] + ".one")  # the case classifies reads
+    port, _ = run_both(tmp_path, monkeypatch, **family_db, **thresholds,
+                       output_lca=True, output_all=True,
+                       output_unclassified=True, output_stats=True)
+    assert read_tsv(port + ".one")  # the case classifies reads
 
 
 @pytest.mark.parametrize("top_k,fpr", [(128, 1.0), (4, 1e-2)],
@@ -126,12 +133,12 @@ def test_engine_matches_jax_topk(tmp_path_factory, tmp_path, monkeypatch,
              for i, s in enumerate(range(0, 280, 20))}
     reads.update({f"own{i}": refs[f"T{i:02d}"][420:540] for i in range(10)})
     write_fastq(tmp / "r.fq", reads)
-    outs, calls = _run_both(
+    port, calls = run_both(
         tmp_path, monkeypatch, ibf=[db], single_reads=[str(tmp / "r.fq")],
         rel_cutoff=[0.5], rel_filter=[1.0], fpr_query=[fpr],
         top_k_matches=top_k, output_all=True, output_unclassified=True,
         output_stats=True)
-    n_core = sum(1 for r in read_tsv(outs["port"] + ".all")
+    n_core = sum(1 for r in read_tsv(port + ".all")
                  if r[0] == "core0")
     assert n_core > 32
     if top_k > 32:  # one batch, dispatched again at the wider K
@@ -149,7 +156,7 @@ def test_engine_matches_jax_compaction_overflow(tmp_path, monkeypatch):
     r1, r2 = _paired_reads(rng, refs, 60, w=20)
     write_fastq(tmp_path / "r1.fq", r1)
     write_fastq(tmp_path / "r2.fq", r2)
-    _, calls = _run_both(
+    _, calls = run_both(
         tmp_path, monkeypatch, ibf=[db],
         paired_reads=[str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq")],
         rel_cutoff=[0.3], rel_filter=[0.2], fpr_query=[1.0],
@@ -173,14 +180,14 @@ def test_engine_matches_jax_short_reads(tmp_path, monkeypatch, seed):
         write_fastq(tmp_path / "r2.fq", reads2)
         files = dict(paired_reads=[str(tmp_path / "r1.fq"),
                                    str(tmp_path / "r2.fq")])
-    _run_both(tmp_path, monkeypatch, ibf=[db], **files, rel_cutoff=[0.3],
+    run_both(tmp_path, monkeypatch, ibf=[db], **files, rel_cutoff=[0.3],
               rel_filter=[0.5], fpr_query=[1e-2], output_all=True,
               output_unclassified=True, output_stats=True)
 
 
 def test_device_thresholding_off_matches_jax(tmp_path, monkeypatch,
                                              family_db):
-    _, calls = _run_both(
+    _, calls = run_both(
         tmp_path, monkeypatch, **family_db, rel_cutoff=[0.5],
         rel_filter=[0.1], fpr_query=[1e-5], device_thresholding=False,
         output_lca=True, output_all=True, output_stats=True)

@@ -28,6 +28,7 @@ def test_port_imports_without_jax_and_pandas():
         "sys.modules['pandas'] = None\n"
         "import ganon_tpu_torch.cli, ganon_tpu_torch.classify.engine\n"
         "import ganon_tpu_torch.index.builder, ganon_tpu_torch.index.ibf\n"
+        "import ganon_tpu_torch.index.hibf\n"
         "assert not any(m == 'ganon_tpu' or m.startswith('ganon_tpu.')"
         " for m in sys.modules)\n"
         "print('ok')\n"
