@@ -6,7 +6,8 @@
 Phases, one output line each:
 
 1. env       the card (nvidia-smi name and power limit), torch, nvcc, and
-             the time to build the five CUDA kernels from ``csrc/``;
+             the time to build the seven CUDA kernels from ``csrc/`` (one
+             nvcc per source, all started together);
 2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
              through the ``extract`` kernel, the IBF through ``scatter``,
              saved as ``db.ibf`` with a ``db.tax`` of 32 genera; then
@@ -35,15 +36,32 @@ hierarchy    524,288 pairs (25% from the forest's targets, 70% from the
              pairs land in ``.unc``, and on the first 4096 pairs the CUDA and
              ``device="cpu"`` runs write identical sorted per-level files,
              ``.rep`` and a byte-equal ``.sta``;
-5. checks    every kernel mode launched on the main paths (builds + the two
-             CLI runs), every flat pair lists its true target in ``.all``,
-             and on its first 4096 pairs the CUDA and ``device="cpu"`` runs
-             write identical sorted ``.all``, ``.one`` and ``.rep``.
+pruned       the merged-bin pruned forest at the JAX benchmark's T8192
+             shape: 8192 targets x 20 kbp (group size 64), minimizers
+             through ``extract``, the tables built by ``scatter`` in pruned
+             mode (``build_pruned(device=True)``) and on the host, required
+             byte-equal, saved raw as ``pruned.hibf`` with a ``.tax`` of 64
+             genera (line ``pruned_build``); ``gate``, ``fine``, ``fine``
+             probe-all, ``select`` in lanes mode and ``scatter`` in pruned
+             mode (4M pairs) against their plain versions at 8192 pairs
+             (line ``pruned_kernels``, rows of the kernels line); then
+             1,048,576 pairs (95% sampled, 5% random) through the CLI,
+             profiled again with the count of batches that took the exact
+             probe-all path; every sampled pair lists its true target in
+             ``.all``, random pairs land in ``.unc``, and the first 4096
+             pairs at rel-cutoff 0.2 give the same sorted files and
+             byte-equal ``.sta`` on the card (S = 2, and S = 1, which forces
+             the probe-all path) and with ``device="cpu"``;
+5. checks    every kernel mode launched on the main paths (builds, the
+             three CLI runs and the pruned phase's card runs), every flat
+             pair lists its true target in ``.all``, and on its first 4096
+             pairs the CUDA and ``device="cpu"`` runs write identical sorted
+             ``.all``, ``.one`` and ``.rep``.
 
 Then one JSON line of every kernel mode, and last the device line. Any
 failure raises (exit code 1); without CUDA the script exits 2 before any
 work. If a run nears the time limit, shrink ``--pairs`` (the flat phase)
-before the hierarchy.
+before the hierarchy and the pruned phase.
 """
 
 from __future__ import annotations
@@ -204,6 +222,11 @@ def main() -> int:
     ap.add_argument("--forest-unit", type=int, default=250_000)
     ap.add_argument("--b-targets", type=int, default=512)
     ap.add_argument("--hier-pairs", type=int, default=524_288)
+    # the pruned forest: the JAX benchmark's T8192 regime (bench.py:79)
+    # and its soak size (bench.py:743-756)
+    ap.add_argument("--pruned-targets", type=int, default=8192)
+    ap.add_argument("--pruned-genome-len", type=int, default=20_000)
+    ap.add_argument("--pruned-pairs", type=int, default=1_048_576)
     ap.add_argument("--workdir", default=os.path.join("build", "chip_smoke"))
     args = ap.parse_args()
 
@@ -217,14 +240,19 @@ def main() -> int:
 
     from ganon_tpu_torch import kernels
     from ganon_tpu_torch.classify import device as dev
+    from ganon_tpu_torch.classify import engine as eng
     from ganon_tpu_torch.classify.engine import ClassifyConfig, run_classify
     from ganon_tpu_torch.index import sizing
     from ganon_tpu_torch.index.hibf import build_hibf
     from ganon_tpu_torch.index.ibf import (
         SCATTER_CHUNK, _scatter_bits, build_ibf, scatter_hashes,
     )
+    from ganon_tpu_torch.index.pruned import (
+        build_pruned, scatter_pruned, scatter_pruned_plain,
+    )
     from ganon_tpu_torch.io.pipeline import EncodedBatch
     from ganon_tpu_torch.ops import ibf_query as q
+    from ganon_tpu_torch.ops import pruned_query as pq
     from ganon_tpu_torch.ops.minimizers import u64_to_torch
 
     cuda = torch.device("cuda")
@@ -644,9 +672,278 @@ def main() -> int:
         "cuda_equals_cpu_files": sorted(hsubs["cuda"]),
     }), flush=True)
 
+    # pruned: a merged-bin pruned forest at the T8192 shape ------------------
+    # build: minimizers through extract, the tables through scatter's
+    # pruned mode (device=True) and on the host (device=False), equal
+    prng = np.random.default_rng(args.seed + 4)
+    pgen = prng.integers(0, 4, size=(args.pruned_targets,
+                                     args.pruned_genome_len), dtype=np.uint8)
+    pnames = [f"P{t}" for t in range(args.pruned_targets)]
+    pbp = args.pruned_targets * args.pruned_genome_len
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    phashes = _hashes(zip(pnames, pgen), k, w, cuda)
+    torch.cuda.synchronize()
+    p_extract_s = time.perf_counter() - t0
+    pkw = dict(kmer_size=k, window_size=w, max_fp=0.05, group_size=64)
+    t0 = time.perf_counter()
+    pf = build_pruned(phashes, device=True, **pkw)
+    p_dev_s = time.perf_counter() - t0
+    pbuild_launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    pf_host = build_pruned(phashes, device=False, **pkw)
+    p_host_s = time.perf_counter() - t0
+    for name in ("fine", "coarse", "grp_bin_size", "grp_row_off",
+                 "grp_ntargets"):
+        if not np.array_equal(getattr(pf, name), getattr(pf_host, name)):
+            raise AssertionError(f"pruned build: device and host {name} differ")
+    if (pf.targets() != pf_host.targets()
+            or pf.coarse_bin_size != pf_host.coarse_bin_size):
+        raise AssertionError("pruned build: device and host layouts differ")
+    del pf_host
+    pdb = os.path.join(work, "pruned")
+    t0 = time.perf_counter()
+    pf.save_raw(pdb + ".hibf")
+    p_save_s = time.perf_counter() - t0
+    _write_tax(pdb + ".tax", pnames,
+               [f"Q{t % 64}" for t in range(args.pruned_targets)])
+    t0 = time.perf_counter()
+    fp = dev.load_device_filter(pdb + ".hibf", cuda)
+    torch.cuda.synchronize()
+    p_load_s = time.perf_counter() - t0
+    print("phase=pruned_build " + json.dumps({
+        "targets": args.pruned_targets, "bp": pbp, "groups": pf.num_groups,
+        "group_size": pf.group_size, "extract_s": p_extract_s,
+        "device_build_s": p_dev_s, "host_build_s": p_host_s,
+        # table builds alone, and with the minimizer extraction
+        "device_build_mbp_per_min": pbp / 1e6 / (p_dev_s / 60),
+        "host_build_mbp_per_min": pbp / 1e6 / (p_host_s / 60),
+        "device_build_with_extract_mbp_per_min":
+            pbp / 1e6 / ((p_extract_s + p_dev_s) / 60),
+        "hashes": int(sum(len(x) for x in phashes.values())),
+        "fine_bytes": int(pf.fine.nbytes),
+        "coarse_bytes": int(pf.coarse.nbytes),
+        "coarse_bin_size": pf.coarse_bin_size, "save_raw_s": p_save_s,
+        "filter_load_s": p_load_s, "device_equals_host": True,
+        "launches": pbuild_launches,
+    }), flush=True)
+
+    # the pruned kernels against their plain versions at main-path shapes:
+    # CLI-default cutoffs, S = 2 slots, K = 4 (the start width at >= 4096
+    # targets)
+    _, pr1, pr2 = _sample_pairs(np.random.default_rng(args.seed + 5), pgen,
+                                args.bench_pairs, args.read_len)
+    pbatch = EncodedBatch(prefix="", paired=True,
+                          ids=[str(i) for i in range(args.bench_pairs)],
+                          codes1=pr1, len1=lens, codes2=pr2, len2=lens)
+    pin_np, pL1, pL2 = dev.pack_batch_direct(pbatch, args.bench_pairs)
+    ph, pn, povf = dev._extract_compact(torch.from_numpy(pin_np).to(cuda),
+                                        k=k, w=w, L1=pL1, L2=pL2)
+    S, gs = 2, fp.group_size
+    gate_kw = dict(coarse_bin_size=fp.coarse_bin_size, coarse_h=fp.coarse_h,
+                   num_groups=fp.num_groups, rel_cutoff=0.75,
+                   hashes_limit=65535, max_groups=S, overflow=povf)
+    gsel, slot_ok, govf = compare(
+        "gate", "ganon_tpu_torch/csrc/gate.cu",
+        "ganon_tpu/classify/device.py:1067",
+        lambda: pq.gate(fp.ctbl, ph, pn, **gate_kw)[:3],
+        lambda: pq.gate_plain(fp.ctbl, ph, pn, **gate_kw)[:3], 20, 5,
+    )
+    fargs = (fp.ftbl, ph, pn, fp.grp_row_off, fp.grp_bin_size, fp.grp_shift)
+    fkw = dict(fine_h=fp.fine_h, group_size=gs)
+    (lane_counts,) = compare(
+        "fine", "ganon_tpu_torch/csrc/fine.cu",
+        "ganon_tpu/classify/device.py:1088",
+        lambda: (pq.fine_counts(*fargs, gsel=gsel, slot_ok=slot_ok, **fkw),),
+        lambda: (pq.fine_counts_plain(*fargs, gsel=gsel, slot_ok=slot_ok,
+                                      **fkw),), 20, 5,
+    )
+    # probe-all: counts_gated's survive mask (no hashes limit, no slots)
+    surv = pq.gate(fp.ctbl, ph, pn, **{**gate_kw, "max_groups": 0,
+                                        "overflow": None,
+                                        "hashes_limit": pq.NO_HASHES_LIMIT},
+                   want_surv=True)[3]
+    akw = dict(surv=surv, num_targets=fp.num_targets, **fkw)
+    compare(
+        "fine_all", "ganon_tpu_torch/csrc/fine.cu",
+        "ganon_tpu/classify/device.py:1394",
+        lambda: (pq.fine_counts(*fargs, **akw),),
+        lambda: (pq.fine_counts_plain(*fargs, **akw),), 10, 2,
+    )
+    PK = min(4, S * gs)
+    lc = lane_counts.reshape(args.bench_pairs, -1)
+    lsel = (lc, pn, govf, gsel, slot_ok, fp.grp_ntargets, 0.75, 0.1, 65535)
+    compare(
+        "select_lanes", "ganon_tpu_torch/csrc/select.cu",
+        "ganon_tpu/classify/device.py:1310",
+        lambda: (dev.select_lanes(*lsel, group_size=gs,
+                                  num_targets=fp.num_targets, top_k=PK,
+                                  emit_matches_t=False),),
+        lambda: (dev._pack_result(
+            dev.threshold_topk(lc, pn, 0.75, 0.1, 65535, top_k=PK,
+                               emit_matches_t=False,
+                               lanes=(gsel, slot_ok, fp.grp_ntargets, gs,
+                                      fp.num_targets)),
+            pn, govf.to(torch.int32), dev.group_words(gsel, slot_ok)),),
+        20, 5,
+    )
+    # one main-path scatter chunk of the fine table: the first 4M hashes
+    # of the build's group-major member stream
+    fh_, fg_, fj_, n = [], [], [], 0
+    for t, name in enumerate(pf.targets()):
+        part = phashes[name]
+        fh_.append(part)
+        fg_.append(np.full(len(part), t // gs, np.int32))
+        fj_.append(np.full(len(part), t % gs, np.int32))
+        n += len(part)
+        if n >= SCATTER_CHUNK:
+            break
+    sph = u64_to_torch(np.concatenate(fh_)[:SCATTER_CHUNK]).to(cuda)
+    spg = torch.from_numpy(np.concatenate(fg_)[:SCATTER_CHUNK]).to(cuda)
+    spj = torch.from_numpy(np.concatenate(fj_)[:SCATTER_CHUNK]).to(cuda)
+    fparams = (fp.grp_bin_size, fp.grp_shift, fp.grp_row_off)
+    fine_k = torch.zeros((pf.fine.shape[0], -(-pf.fine.shape[1] // 4)),
+                         dtype=torch.int32, device=cuda)
+    fine_p = torch.zeros_like(fine_k)
+
+    def scatter_pruned_kernel():
+        scatter_pruned(fine_k, sph, spg, spj, *fparams, fp.fine_h)
+        return (fine_k,)
+
+    def scatter_pruned_run_plain():
+        scatter_pruned_plain(fine_p, sph, spg, spj, *fparams, fp.fine_h)
+        return (fine_p,)
+
+    compare("scatter_pruned", "ganon_tpu_torch/csrc/scatter.cu",
+            "ganon_tpu/index/pruned.py:283", scatter_pruned_kernel,
+            scatter_pruned_run_plain, 10, 3)
+    print("phase=pruned_kernels " + json.dumps({
+        "pairs": args.bench_pairs, "L1": pL1, "L2": pL2, "S": S, "K": PK,
+        "gate_overflow_reads": int(govf.sum()),
+        "live_slots": int(slot_ok.sum()),
+        "scatter_pairs": int(sph.numel()),
+        "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows[-5:]},
+    }), flush=True)
+    del ph, pn, povf, gsel, slot_ok, govf, lane_counts, lc, lsel, surv
+    del fine_k, fine_p, sph, spg, spj, fargs, akw, phashes
+    torch.cuda.empty_cache()
+
+    # classify: 95% sampled pairs, 5% random, through the CLI, then profiled
+    np_ = args.pruned_pairs
+    n_prand = np_ // 20
+    crng = np.random.default_rng(args.seed + 6)
+    ptgt, pq1, pq2 = _sample_pairs(crng, pgen, np_ - n_prand, args.read_len)
+    prand = crng.integers(0, 4, size=(2, n_prand, args.read_len),
+                          dtype=np.uint8)
+    ptruth = [pnames[t] for t in ptgt.tolist()] + ["rnd"] * n_prand
+    perm = crng.permutation(np_)
+    pq1 = np.concatenate([pq1, prand[0]])[perm]
+    pq2 = np.concatenate([pq2, prand[1]])[perm]
+    ptruth = [ptruth[j] for j in perm]
+    pids = [b"p%d|%s" % (i, t.encode()) for i, t in enumerate(ptruth)]
+    pf1, pf2 = os.path.join(work, "p1.fq"), os.path.join(work, "p2.fq")
+    _write_fastq(pf1, pids, pq1)
+    _write_fastq(pf2, pids, pq2)
+    pout = os.path.join(work, "pout")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", pdb,
+              "--paired-reads", pf1, pf2, "--output-prefix", pout,
+              "--multiple-matches", "lca", "--output-one", "--output-all",
+              "--output-unclassified", "--skip-report"])
+    p_cli_s = time.perf_counter() - t0
+    p_cli_launches = dict(kernels.LAUNCHES)
+    # which batches take the exact probe-all path (group overflow)
+    paths = {"fast": 0, "exact": 0}
+    real_fast, real_exact = eng._dispatch_batch_fast, eng._classify_batch
+
+    def fast(*a, **kw_):
+        paths["fast"] += 1
+        return real_fast(*a, **kw_)
+
+    def exact(*a, **kw_):
+        paths["exact"] += 1
+        return real_exact(*a, **kw_)
+
+    pfiles = dict(ibf=[pdb + ".hibf"], tax=[pdb + ".tax"], rel_cutoff=[0.75],
+                  rel_filter=[0.1], fpr_query=[1e-5], output_lca=True,
+                  output_all=True, output_unclassified=True)
+    eng._dispatch_batch_fast, eng._classify_batch = fast, exact
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            ptiming = run_classify(ClassifyConfig(
+                paired_reads=[pf1, pf2],
+                output_prefix=os.path.join(work, "pprof"), **pfiles))["timing"]
+    finally:
+        eng._dispatch_batch_fast, eng._classify_batch = real_fast, real_exact
+    pbusy_us, pkernel_us = _device_busy(prof)
+    pall = _true_target_rows(pout + ".all")
+    with open(pout + ".unc") as fh_:
+        punc = {line.strip() for line in fh_ if line.strip()}
+    pbad = {"sampled": 0, "random": 0}
+    for rid in pids:
+        rid = rid.decode()
+        t = rid.split("|")[1]
+        if t == "rnd":
+            pbad["random"] += rid not in punc
+        else:
+            pbad["sampled"] += t not in pall.get(rid, ())
+    if any(pbad.values()):
+        raise AssertionError(f"pruned pairs misplaced: {pbad}")
+    # the first pairs at cutoff 0.2 on the card (S = 2, then S = 1: the
+    # probe-all fallback) and through the plain versions on the CPU
+    nc = args.check_pairs
+    ps1, ps2 = (os.path.join(work, f"psub{m}.fq") for m in (1, 2))
+    _write_fastq(ps1, pids[:nc], pq1[:nc])
+    _write_fastq(ps2, pids[:nc], pq2[:nc])
+    psubs, peq_launches = {}, {}
+    for key, device, s_max in (("cuda", "cuda", 2), ("cuda_s1", "cuda", 1),
+                               ("cpu", "cpu", 2)):
+        d = os.path.join(work, f"psub_{key}")
+        os.makedirs(d)
+        kernels.reset_launches()
+        run_classify(ClassifyConfig(
+            ibf=[pdb + ".hibf"], tax=[pdb + ".tax"], paired_reads=[ps1, ps2],
+            rel_cutoff=[0.2], output_lca=True, output_all=True,
+            output_unclassified=True, output_stats=True, device=device,
+            pruned_max_groups=s_max, output_prefix=os.path.join(d, "o")))
+        if device == "cuda":
+            peq_launches[key] = dict(kernels.LAUNCHES)
+        psubs[key] = {
+            fn: (open(os.path.join(d, fn), "rb").read() if fn.endswith(".sta")
+                 else _sorted_rows(os.path.join(d, fn)))
+            for fn in sorted(os.listdir(d))
+        }
+    for key in ("cuda", "cuda_s1"):
+        if psubs[key] != psubs["cpu"]:
+            diff = [fn for fn in set(psubs[key]) | set(psubs["cpu"])
+                    if psubs[key].get(fn) != psubs["cpu"].get(fn)]
+            raise AssertionError(f"pruned: {key} and cpu runs differ in {diff}")
+    if peq_launches["cuda_s1"]["fine_all"] <= 0:
+        raise AssertionError("pruned: S = 1 run took no probe-all batch")
+    pmbp = np_ * 2 * args.read_len / 1e6
+    print("phase=pruned " + json.dumps({
+        "pairs": np_, "random_pairs": n_prand, "seconds": p_cli_s,
+        "reads_per_s": np_ / p_cli_s, "mbp_per_min": pmbp / (p_cli_s / 60),
+        "classified": len(pall), "unclassified": len(punc),
+        "launches": p_cli_launches,
+        "profiled_batches": paths,
+        "profiled_split_s": ptiming,
+        "profiled_device_busy_share":
+            pbusy_us / 1e6 / ptiming["total"] if pbusy_us else None,
+        "profiled_device_us": pkernel_us,
+        "cuda_equals_cpu_pairs": nc,
+        "cuda_equals_cpu_files": sorted(psubs["cpu"]),
+        "cuda_equals_cpu_launches": peq_launches,
+    }), flush=True)
+    del fp, pf, pgen
+    torch.cuda.empty_cache()
+
     # 5. checks ------------------------------------------------------------
-    launches = {name: build_launches[name] + hier_build_launches[name]
-                + cli_launches[name] + hier_launches[name]
+    main_runs = (build_launches, hier_build_launches, cli_launches,
+                 hier_launches, pbuild_launches, p_cli_launches,
+                 *peq_launches.values())
+    launches = {name: sum(r[name] for r in main_runs)
                 for name in kernels.LAUNCHES}
     missing = [name for name, n in launches.items() if n <= 0]
     if missing:

@@ -1,7 +1,8 @@
 """Device-side classify compute: extract, count, (merge,) select.
 
-Port of ``ganon_tpu.classify.device`` for flat IBFs, native HIBF forests
-and levels of several flat filters. A batch costs one host->device
+Port of ``ganon_tpu.classify.device`` for flat IBFs, native HIBF forests,
+merged-bin pruned forests and levels of several flat filters. A batch
+costs one host->device
 buffer (:func:`pack_batch_direct`), the kernels of its filter kind and
 one int32 result buffer, whose dense layout :func:`unpack_batch_result`
 splits:
@@ -13,18 +14,25 @@ splits:
   (:func:`classify_batch_packed_forest`);
 * several flat filters on one level: ``extract``, then per filter
   ``count`` and ``merge`` into the union counts and winners, then
-  ``select`` with the winners payload (:func:`classify_batch_packed_multi`).
+  ``select`` with the winners payload (:func:`classify_batch_packed_multi`);
+* a pruned forest (:class:`DevicePrunedForest`): ``extract``, ``gate``
+  (coarse group counts, top-S surviving groups), ``fine`` on those
+  groups' lanes, then ``select`` in lanes mode with the group words
+  (:func:`classify_batch_packed_pruned`); its exact fallback counts every
+  group through ``gate`` and ``fine`` in probe-all mode
+  (:meth:`DevicePrunedForest.counts_gated`).
 
 Every function takes tensors on one explicit device; on the CPU the
-kernels' plain torch versions run. Not ported yet: raptor and pruned
-``.hibf`` files (:func:`load_device_filter` raises naming their ROADMAP
-items), the 32-bit counter layout, multi-GPU meshes.
+kernels' plain torch versions run. Not ported yet: raptor ``.hibf`` files
+(:func:`load_device_filter` raises naming their ROADMAP item), the 32-bit
+counter layout, multi-GPU meshes.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import warnings
 import zipfile
 
 import numpy as np
@@ -32,10 +40,17 @@ import torch
 
 from ganon_tpu_torch import kernels
 from ganon_tpu_torch.ops.ibf_query import (
+    clz64,
     extract,
     pack_table_u8,
     table_as_u32,
     target_counts,
+)
+from ganon_tpu_torch.ops.pruned_query import (
+    MAX_GROUPS,
+    NO_HASHES_LIMIT,
+    fine_counts,
+    gate,
 )
 
 
@@ -137,10 +152,19 @@ def extract_hashes(inbuf: torch.Tensor, *, k: int, w: int, L1: int, L2: int,
                    mc=m1 + m2 if mc is None else mc)
 
 
+def _lane_live(gsel: torch.Tensor, slot_ok: torch.Tensor,
+               grp_ntargets: torch.Tensor, group_size: int) -> torch.Tensor:
+    """bool ``[B, S*gs]``: the live lanes of the chosen groups."""
+    nt = torch.where(slot_ok.bool(), grp_ntargets[gsel.to(torch.int64)], 0)
+    lane = torch.arange(group_size, device=gsel.device)
+    return (lane[None, None, :] < nt[:, :, None]).reshape(gsel.shape[0], -1)
+
+
 def threshold_topk(counts: torch.Tensor, n_hashes: torch.Tensor,
                    rel_cutoff: float, rel_filter: float, hashes_limit: int, *,
                    top_k: int, emit_matches_t: bool = True,
-                   winners: torch.Tensor | None = None) -> dict:
+                   winners: torch.Tensor | None = None,
+                   lanes: tuple | None = None) -> dict:
     """Plain version of the ``select`` kernel's thresholds and top-K.
 
     Reference threshold semantics (GanonClassify.cpp:719-758) with the
@@ -152,6 +176,13 @@ def threshold_topk(counts: torch.Tensor, n_hashes: torch.Tensor,
     ``winners[b, top_idx]``. Returns the dict of
     ``ganon_tpu.classify.device.threshold_topk`` (int32 arrays; the three
     scalars as int64).
+
+    Lanes mode (``ganon_tpu.classify.device.threshold_topk_ids`` with the
+    pruned kernel's group tallies): ``lanes = (gsel, slot_ok,
+    grp_ntargets, group_size, num_targets)`` makes the columns the
+    ``C = S * group_size`` lanes of the chosen groups. Dead lanes are
+    never kept and take the sentinel id ``C`` in the key; ``disc_t`` and
+    ``matches_t`` are ``[num_targets]``, added at ``gsel * gs + lane``.
     """
     T = counts.shape[1]
     c = counts.to(torch.int64)
@@ -160,6 +191,13 @@ def threshold_topk(counts: torch.Tensor, n_hashes: torch.Tensor,
     cutoff = torch.clamp(torch.ceil(nh * rel_cutoff), min=1.0).to(torch.int64)
     valid = (n > 0) & (n <= hashes_limit)
     kept = (c >= cutoff[:, None]) & valid[:, None]
+    idx = torch.arange(T, device=counts.device)
+    ids = idx[None, :]
+    if lanes is not None:
+        gsel, slot_ok, grp_ntargets, gs, num_targets = lanes
+        live = _lane_live(gsel, slot_ok, grp_ntargets, gs)
+        kept = kept & live
+        ids = torch.where(live, idx[None, :], T)
     max_count = torch.where(kept, c, 0).max(dim=1).values
     big = torch.iinfo(torch.int32).max
     min_count = torch.minimum(n, torch.where(kept, c, big).min(dim=1).values)
@@ -171,22 +209,37 @@ def threshold_topk(counts: torch.Tensor, n_hashes: torch.Tensor,
     n_matches = final.sum(dim=1)
     fvals = torch.where(final, c, 0)
     k = min(top_k, T)
-    idx = torch.arange(T, device=counts.device)
-    key = (fvals << 16) | (0xFFFF - idx)
-    top = torch.topk(key, k, dim=1).values  # keys are unique per row
+    key = (fvals << 16) | (0xFFFF - ids)
+    # keys are unique per row but for the sentinel entries, which are equal
+    top = torch.topk(key, k, dim=1).values
     classified = n_matches > 0
     out = {
         "top_vals": (top >> 16).to(torch.int32),
         "top_idx": (0xFFFF - (top & 0xFFFF)).to(torch.int32),
         "n_matches": n_matches.to(torch.int32),
         "max_count": max_count.to(torch.int32),
-        "disc_t": (kept & ~final).sum(dim=0).to(torch.int32),
         "seqs_classified": classified.sum(),
         "kmers_from_classified": torch.where(classified, n, 0).sum(),
         "kmers_matches": torch.where(classified, max_count, 0).sum(),
     }
-    if emit_matches_t:
-        out["matches_t"] = final.sum(dim=0).to(torch.int32)
+    disc = kept & ~final
+    if lanes is None:
+        out["disc_t"] = disc.sum(dim=0).to(torch.int32)
+        if emit_matches_t:
+            out["matches_t"] = final.sum(dim=0).to(torch.int32)
+    else:
+        # global target of each lane (live lanes only carry a tally)
+        B = counts.shape[0]
+        g = gsel.to(torch.int64)[:, :, None] * gs + torch.arange(
+            gs, device=counts.device)
+        tgt = g.reshape(B, -1)
+        for name, m in (("disc_t", disc), ("matches_t", final)):
+            if name == "matches_t" and not emit_matches_t:
+                continue
+            t = torch.zeros((num_targets,), dtype=torch.int64,
+                            device=counts.device)
+            t.index_add_(0, tgt[m], torch.ones_like(tgt[m]))
+            out[name] = t.to(torch.int32)
     if winners is not None:
         out["top_win"] = torch.gather(
             winners, 1, out["top_idx"].to(torch.int64)).to(torch.int32)
@@ -194,13 +247,15 @@ def threshold_topk(counts: torch.Tensor, n_hashes: torch.Tensor,
 
 
 def _pack_result(res: dict, n_hashes: torch.Tensor,
-                 overflow: torch.Tensor) -> torch.Tensor:
+                 overflow: torch.Tensor,
+                 extra_rows: tuple = ()) -> torch.Tensor:
     """Dense pack16 layout of ``ganon_tpu.classify.device._pack_result``
     (``match_cap=0``; ``with_win`` when ``res`` holds ``top_win``).
 
     ``[B*K] (count << 16 | target) | [B*K] winners (with top_win) |
     [B] n_matches | [B] max_count | [B] n_hashes | [B] overflow |
-    [T] disc_t | [T] matches_t (when emitted) | 3 scalars``, all int32.
+    [B] per extra row | [T] disc_t | [T] matches_t (when emitted) |
+    3 scalars``, all int32.
     """
     m = (res["top_vals"].to(torch.int64) << 16) | res["top_idx"].to(torch.int64)
     m = torch.where(m >= 1 << 31, m - (1 << 32), m)  # the int32 bit pattern
@@ -208,7 +263,7 @@ def _pack_result(res: dict, n_hashes: torch.Tensor,
     if "top_win" in res:
         parts.append(res["top_win"])
     parts += [res["n_matches"], res["max_count"], n_hashes, overflow,
-              res["disc_t"]]
+              *extra_rows, res["disc_t"]]
     if "matches_t" in res:
         parts.append(res["matches_t"])
     parts.append(torch.stack([res["seqs_classified"],
@@ -259,6 +314,78 @@ def select(counts: torch.Tensor, n_hashes: torch.Tensor,
         float(rel_filter),
         int(hashes_limit), K, int(bool(emit_matches_t)), uwin, packed,
         counter="select" if uwin is None else "select_winners",
+    )
+    return packed
+
+
+def group_words(gsel: torch.Tensor, slot_ok: torch.Tensor) -> tuple:
+    """The pruned result's ``ceil(S/2)`` int32 ``[B]`` rows of chosen
+    groups: ``gsel[2i] | gsel[2i+1] << 16``, 0xFFFF for a dead slot and
+    for the missing high half of an odd S."""
+    g = torch.where(slot_ok.bool(), gsel.to(torch.int64), 0xFFFF)
+    S = g.shape[1]
+    words = []
+    for i in range(-(-S // 2)):
+        hi = g[:, 2 * i + 1] if 2 * i + 1 < S else 0xFFFF
+        w = g[:, 2 * i] | (hi << 16)
+        words.append(torch.where(w >= 1 << 31, w - (1 << 32), w))
+    return tuple(w.to(torch.int32) for w in words)
+
+
+def select_lanes(counts: torch.Tensor, n_hashes: torch.Tensor,
+                 overflow: torch.Tensor, gsel: torch.Tensor,
+                 slot_ok: torch.Tensor, grp_ntargets: torch.Tensor,
+                 rel_cutoff: float, rel_filter: float, hashes_limit: int, *,
+                 group_size: int, num_targets: int, top_k: int,
+                 emit_matches_t: bool = True) -> torch.Tensor:
+    """Thresholds, top-K, group tallies and group words of a pruned
+    forest's lane counts, packed (int32).
+
+    Replaces ``ganon_tpu.classify.device.threshold_topk_ids``
+    (``tallies=False``) and the lane ids, group-indexed tallies, group
+    words and ``_pack_result(extra_rows=...)`` of
+    ``classify_batch_packed_pruned``. ``counts`` int32 ``[B, C]`` with
+    ``C = S * group_size`` (the ``fine`` kernel's ``[B, S, gs]``),
+    ``gsel``/``slot_ok`` the gate's ``[B, S]``, ``grp_ntargets`` int32
+    ``[G]``. Top entries are lane ids (``slot * gs + j``, sentinel ``C``
+    for dead lanes); ``disc_t``/``matches_t`` are ``[num_targets]``.
+    Layout: :func:`_pack_result` with ``ceil(S/2)`` extra rows.
+    """
+    B, C = counts.shape
+    S = gsel.shape[1] if gsel.dim() == 2 else -1
+    if counts.dtype != torch.int32 or n_hashes.dtype != torch.int32:
+        raise ValueError("counts and n_hashes must be int32")
+    if n_hashes.shape != (B,) or overflow.shape != (B,) or (
+            overflow.dtype != torch.uint8):
+        raise ValueError("n_hashes int32 [B], overflow u8 [B]")
+    if (gsel.dtype != torch.int32 or gsel.shape != (B, S)
+            or slot_ok.dtype != torch.uint8 or slot_ok.shape != (B, S)
+            or grp_ntargets.dtype != torch.int32):
+        raise ValueError("gsel int32 [B, S], slot_ok u8 [B, S], "
+                         "grp_ntargets int32 [G]")
+    if not 1 <= S <= MAX_GROUPS or C != S * group_size:
+        raise ValueError(f"counts must be [B, S * group_size], S <= {MAX_GROUPS}")
+    if C > 0xFFFF or hashes_limit > 0xFFFF:
+        raise ValueError("the packed layout needs C and hashes_limit <= 0xFFFF")
+    K = min(top_k, C)
+    if counts.device.type == "cpu":
+        res = threshold_topk(
+            counts, n_hashes, rel_cutoff, rel_filter, hashes_limit, top_k=K,
+            emit_matches_t=emit_matches_t,
+            lanes=(gsel, slot_ok, grp_ntargets, group_size, num_targets))
+        return _pack_result(res, n_hashes, overflow.to(torch.int32),
+                            group_words(gsel, slot_ok))
+    kernels.check_cuda(counts, n_hashes, overflow, gsel, slot_ok,
+                       grp_ntargets)
+    size = (B * K + (4 + -(-S // 2)) * B
+            + num_targets * (2 if emit_matches_t else 1) + 3)
+    packed = torch.zeros((size,), dtype=torch.int32, device=counts.device)
+    if B == 0:
+        return packed
+    kernels.launch(
+        "select_lanes", counts, B, C, n_hashes, overflow, float(rel_cutoff),
+        float(rel_filter), int(hashes_limit), K, int(bool(emit_matches_t)),
+        gsel, slot_ok, grp_ntargets, S, group_size, num_targets, packed,
     )
     return packed
 
@@ -397,11 +524,46 @@ def classify_batch_packed_multi(filters: list, cols: list, inbuf: torch.Tensor,
                   top_k=top_k, emit_matches_t=emit_matches_t, uwin=uwin)
 
 
+def classify_batch_packed_pruned(f: "DevicePrunedForest",
+                                 inbuf: torch.Tensor, rel_cutoff: float,
+                                 rel_filter: float, hashes_limit: int, *,
+                                 k: int, w: int, L1: int, L2: int,
+                                 max_groups: int, top_k: int,
+                                 emit_matches_t: bool = True) -> torch.Tensor:
+    """One batch against a merged-bin pruned forest: one int32 buffer.
+
+    Port of ``ganon_tpu.classify.device.classify_batch_packed_pruned``
+    with ``match_cap=0`` and ``pair_cap=0``: ``extract`` (compacted), the
+    ``gate`` (coarse counts, the top ``S = max_groups`` surviving groups;
+    ``n_surv > S`` sets the read's overflow, so the engine re-runs it on
+    the exact probe-all path), ``fine`` on the chosen groups (a dead slot
+    costs nothing, so there is no pair compaction), then ``select`` in
+    lanes mode. Layout: :func:`unpack_batch_result` with
+    ``K = min(top_k, S * group_size)``, ``T = num_targets`` and
+    ``n_extra = ceil(S/2)``; top entries carry lane ids.
+    """
+    hashes, n_hashes, overflow = _extract_compact(inbuf, k=k, w=w, L1=L1,
+                                                  L2=L2)
+    gsel, slot_ok, overflow, _ = gate(
+        f.ctbl, hashes, n_hashes, coarse_bin_size=f.coarse_bin_size,
+        coarse_h=f.coarse_h, num_groups=f.num_groups, rel_cutoff=rel_cutoff,
+        hashes_limit=hashes_limit, max_groups=max_groups, overflow=overflow)
+    counts = fine_counts(
+        f.ftbl, hashes, n_hashes, f.grp_row_off, f.grp_bin_size, f.grp_shift,
+        fine_h=f.fine_h, group_size=f.group_size, gsel=gsel, slot_ok=slot_ok)
+    return select_lanes(
+        counts.reshape(counts.shape[0], -1), n_hashes, overflow, gsel,
+        slot_ok, f.grp_ntargets, rel_cutoff, rel_filter, hashes_limit,
+        group_size=f.group_size, num_targets=f.num_targets, top_k=top_k,
+        emit_matches_t=emit_matches_t)
+
+
 def unpack_batch_result(packed: np.ndarray, B: int, K: int, T: int,
                         has_matches_t: bool = True,
-                        has_win: bool = False) -> dict:
+                        has_win: bool = False, n_extra: int = 0) -> dict:
     """Split a packed batch result back into the result dict
-    (``top_win`` is None unless ``has_win``)."""
+    (``top_win`` is None unless ``has_win``; ``extra_rows`` holds the
+    ``n_extra`` u32 ``[B]`` rows after the overflow block)."""
     o = 0
 
     def take(n, shape=None):
@@ -419,6 +581,7 @@ def unpack_batch_result(packed: np.ndarray, B: int, K: int, T: int,
         "max_count": take(B),
         "n_hashes": take(B),
         "overflow": take(B).astype(bool),
+        "extra_rows": [take(B).view(np.uint32) for _ in range(n_extra)],
         "disc_t": take(T),
     }
     if has_matches_t:
@@ -535,6 +698,86 @@ class DeviceHIBF:
         return out
 
 
+class DevicePrunedForest:
+    """A merged-bin pruned forest on one device.
+
+    Port of ``ganon_tpu.classify.device.DevicePrunedForest`` (no mesh).
+    Fast path: :func:`classify_batch_packed_pruned`; exact fallback:
+    :meth:`counts_gated` (every group, the same gate). Built from a
+    ``PrunedForest``'s arrays (either package's object, or either
+    package's file loaded by ``ganon_tpu_torch.index.pruned``): the fine
+    and coarse tables go to ``device`` as they are, rows padded to whole
+    u32 words (zero padding lanes, never counted); nothing is repacked.
+    ``grp_row_off`` is int64, so the fine table has no 2^31-row bound.
+    """
+
+    def __init__(self, pf, device="cuda"):
+        self.device = _resolve_device(device)
+        self.ibf_config = pf.ibf_config
+        self.targets = pf.targets()
+        self.num_targets = len(self.targets)
+        self.target_fpr = pf.target_fpr()
+        self.group_size = int(pf.group_size)
+        self.fine_h = int(pf.fine_h)
+        self.coarse_h = int(pf.coarse_h)
+        self.coarse_bin_size = int(pf.coarse_bin_size)
+        self.num_groups = len(pf.grp_bin_size)
+
+        def table(t):
+            # a raw file's tables are read-only memmaps; the tables are
+            # only ever read, so they upload (or alias on the CPU) as is
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "The given NumPy array is "
+                                        "not writable")
+                return torch.from_numpy(
+                    table_as_u32(np.ascontiguousarray(t)).view(np.uint8)
+                ).to(self.device)
+
+        self.ftbl = table(pf.fine)
+        self.ctbl = table(pf.coarse)
+        bsz = np.asarray(pf.grp_bin_size, dtype=np.int64)
+        self.grp_row_off = torch.from_numpy(
+            np.asarray(pf.grp_row_off, dtype=np.int64)).to(self.device)
+        self.grp_bin_size = torch.from_numpy(bsz).to(self.device)
+        self.grp_shift = torch.tensor([clz64(int(b)) for b in bsz],
+                                      dtype=torch.int32, device=self.device)
+        self.grp_ntargets = torch.from_numpy(
+            np.asarray(pf.grp_ntargets, dtype=np.int32)).to(self.device)
+
+    def to(self, device) -> "DevicePrunedForest":
+        """The same forest with its tables on ``device``."""
+        out = copy.copy(self)
+        out.device = _resolve_device(device)
+        for name in ("ftbl", "ctbl", "grp_row_off", "grp_bin_size",
+                     "grp_shift", "grp_ntargets"):
+            setattr(out, name, getattr(self, name).to(out.device))
+        return out
+
+    def _all_counts(self, hashes, n_hashes, surv):
+        return fine_counts(
+            self.ftbl, hashes, n_hashes, self.grp_row_off, self.grp_bin_size,
+            self.grp_shift, fine_h=self.fine_h, group_size=self.group_size,
+            surv=surv, num_targets=self.num_targets)
+
+    def counts_gated(self, hashes: torch.Tensor, n_hashes: torch.Tensor,
+                     rel_cutoff: float) -> torch.Tensor:
+        """Counts of every target (int32 ``[B, T]``) under the forest's
+        gated semantics: groups whose coarse count is below the read's
+        cutoff read 0. The gate takes no hashes limit here (as JAX
+        passes 0x7FFFFFFF), so only reads without hashes are invalid."""
+        _, _, _, surv = gate(
+            self.ctbl, hashes, n_hashes,
+            coarse_bin_size=self.coarse_bin_size, coarse_h=self.coarse_h,
+            num_groups=self.num_groups, rel_cutoff=rel_cutoff,
+            hashes_limit=NO_HASHES_LIMIT, max_groups=0, want_surv=True)
+        return self._all_counts(hashes, n_hashes, surv)
+
+    def counts(self, hashes: torch.Tensor, n_hashes: torch.Tensor) -> torch.Tensor:
+        """Ungated counts of every target (diagnostics: the forest's
+        defined semantics are the gated ones)."""
+        return self._all_counts(hashes, n_hashes, None)
+
+
 # filters of recently opened files, keyed by (path, mtime, size) as the
 # JAX package memoizes them: repacking a multi-GB filter costs tens of
 # seconds and uploading it a fraction of one, and runs in one process
@@ -545,19 +788,16 @@ _FILTER_CACHE_CAP = 4
 
 
 def _open_filter(path: str, device):
-    """A fresh device filter for ``path`` (flat ``.ibf`` or native forest)."""
-    from ganon_tpu_torch.index.hibf import (
-        HIBF, is_pruned_file, is_raptor_hibf,
-    )
+    """A fresh device filter for ``path`` (flat ``.ibf``, native or
+    pruned forest)."""
+    from ganon_tpu_torch.index.hibf import HIBF, is_raptor_hibf
     from ganon_tpu_torch.index.ibf import IBF
+    from ganon_tpu_torch.index.pruned import PrunedForest, is_pruned_file
 
     if not path.endswith(".hibf"):
         return DeviceFilter(IBF.load(path), device)
     if is_pruned_file(path):
-        raise NotImplementedError(
-            f"{path}: pruned HIBF forests are not ported yet (ROADMAP "
-            "queue 1, item 9 'Pruned forest')"
-        )
+        return DevicePrunedForest(PrunedForest.load(path), device)
     if not zipfile.is_zipfile(path) and is_raptor_hibf(path):
         raise NotImplementedError(
             f"{path}: raptor-format HIBF files are not ported yet (ROADMAP "
@@ -568,11 +808,12 @@ def _open_filter(path: str, device):
 
 
 def load_device_filter(path: str, device="cuda"):
-    """Open a flat ``.ibf`` or a native forest ``.hibf`` on ``device``.
+    """Open a flat ``.ibf`` or a forest ``.hibf`` on ``device``.
 
-    Both come as npz or raw containers. ``.hibf`` files are sniffed as
-    the JAX package does: a pruned forest or a raptor archive raises
-    NotImplementedError naming its ROADMAP item; anything else opens as
+    All come as npz or raw containers. ``.hibf`` files are sniffed as
+    the JAX package does: a pruned forest opens as a
+    :class:`DevicePrunedForest`, a raptor archive raises
+    NotImplementedError naming its ROADMAP item, anything else opens as
     a :class:`DeviceHIBF`.
     """
     device = _resolve_device(device)

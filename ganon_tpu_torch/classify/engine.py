@@ -3,18 +3,21 @@
 Port of ``ganon_tpu.classify.engine``: the same ClassifyConfig,
 multi-level hierarchies with leftover requeue (the cross-level
 scheduler), levels of several databases (union targets, per-filter
-rel-cutoff, winner-aware fpr-query), flat ``.ibf`` and native forest
-``.hibf`` filters, tallies, LCA and the ``.rep``/``.one``/``.all``/
+rel-cutoff, winner-aware fpr-query), flat ``.ibf``, native forest and
+merged-bin pruned forest ``.hibf`` filters, tallies, LCA and the
+``.rep``/``.one``/``.all``/
 ``.unc``/``.sta`` writers, with the device work running as the kernels
 of :mod:`ganon_tpu_torch.classify.device` on ``cfg.device``. Batches are
 pipelined ``pipeline_depth`` deep: each dispatch enqueues its kernels and
 a non-blocking copy of the packed result into pinned host memory, and
 the host finishes the oldest batch after waiting on its copy's event.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): raptor and pruned ``.hibf`` files, the 32-bit counter layout
-(more than 65,535 targets in one filter, or ``hashes_limit`` above
-65,535 as ``--longreads`` sets) and multi-GPU meshes.
+A pruned forest has no bound on its targets (its matches travel as
+lane ids plus per-read group words); its fast path needs at most 65,535
+groups. Not ported yet (each raises NotImplementedError naming its
+ROADMAP item): raptor ``.hibf`` files, the 32-bit counter layout (more
+than 65,535 targets in a flat filter or forest, or ``hashes_limit``
+above 65,535 as ``--longreads`` sets) and multi-GPU meshes.
 """
 
 from __future__ import annotations
@@ -83,9 +86,12 @@ class ClassifyConfig:
     # regroup read batches by length bucket before padding
     length_bucketing: bool = True
     hashes_limit: int = 65535  # uint16 counter limit; raise for long reads
-    # pruned-forest options (kept for config parity; pruned forests are
-    # not ported yet)
+    # pruned-forest fast path: surviving-group slots per read (a read
+    # with more surviving groups takes the exact probe-all path)
     pruned_max_groups: int = 2
+    # kept for parity with the JAX config and ignored: the TPU program
+    # compacts (read, slot) pairs to a static cap, while a dead slot costs
+    # the card nothing, so there is no cap and no spill to retry
     pruned_pair_frac: float = 1.0
     device_thresholding: bool = True  # on-device cutoff/filter + top-K
     top_k_matches: int = 128  # compact output width (falls back if exceeded)
@@ -277,7 +283,10 @@ class LevelContext:
             if spec.tax_file:
                 taxes.append(load_tax(spec.tax_file))
         for f in self.filters:
-            if f.num_targets > 0xFFFF:
+            # a pruned forest's bound is on its groups (the fast path's
+            # u16 group words), checked at dispatch
+            if (f.num_targets > 0xFFFF
+                    and not isinstance(f, dev.DevicePrunedForest)):
                 raise NotImplementedError(
                     "more than 65535 targets in one filter need the 32-bit "
                     "counter layout, not ported yet (ROADMAP queue 1, item 10)"
@@ -698,31 +707,47 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
     """Enqueue one batch's kernels and its result copy. Returns the
     in-flight host copy + unpack dims, or None when the level has no fast
     path (device thresholding off, a level mixing a forest with other
-    filters, a union wider than 0xFFFF): the batch then takes
-    :func:`_classify_batch`."""
+    filters, a union wider than 0xFFFF, a pruned forest of more than
+    0xFFFF groups): the batch then takes :func:`_classify_batch`."""
     if not cfg.device_thresholding:
         return None
     if len(ctx.filters) != 1:
         return _dispatch_batch_fast_multi(batch, ctx, cfg)
     f = ctx.filters[0]
     is_forest = isinstance(f, dev.DeviceHIBF) and f.contiguous and f.subs
-    if not isinstance(f, dev.DeviceFilter) and not is_forest:
+    is_pruned = isinstance(f, dev.DevicePrunedForest)
+    if is_pruned and f.num_groups > 0xFFFF:
+        # group ids travel as u16 halves of the group words
+        return None
+    if not isinstance(f, dev.DeviceFilter) and not is_forest and not is_pruned:
         return None
     batch_pad = dev.bucket_len(len(batch), minimum=64)
     inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
-    K = min(ctx.top_k_current, f.num_targets)
+    inbuf_d = torch.from_numpy(inbuf).to(f.device)
     # per-batch [T] matches_t is only consumed when fpr-query is off
     emit_mt = ctx.level.fpr_query >= 1.0
-    run = dev.classify_batch_packed_forest if is_forest else (
-        dev.classify_batch_packed)
-    packed = run(
-        f, torch.from_numpy(inbuf).to(f.device),
-        ctx.specs[0].rel_cutoff, ctx.level.rel_filter, cfg.hashes_limit,
-        k=ctx.kmer_size, w=ctx.window_size, L1=L1, L2=L2,
-        top_k=K, emit_matches_t=emit_mt,
-    )
+    pinfo = None
+    if is_pruned:
+        # matches are lane ids (slot * gs + lane), mapped on the host
+        S = cfg.pruned_max_groups
+        K = min(ctx.top_k_current, S * f.group_size)
+        packed = dev.classify_batch_packed_pruned(
+            f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
+            cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
+            L2=L2, max_groups=S, top_k=K, emit_matches_t=emit_mt,
+        )
+        pinfo = (S, f.group_size, -(-S // 2))
+    else:
+        K = min(ctx.top_k_current, f.num_targets)
+        run = dev.classify_batch_packed_forest if is_forest else (
+            dev.classify_batch_packed)
+        packed = run(
+            f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
+            cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
+            L2=L2, top_k=K, emit_matches_t=emit_mt,
+        )
     return (_start_host_copy(packed), batch_pad, K, f.num_targets, emit_mt,
-            False)
+            False, pinfo)
 
 
 def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
@@ -746,7 +771,7 @@ def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
         cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1, L2=L2,
         num_union=U, top_k=K, emit_matches_t=emit_mt,
     )
-    return (_start_host_copy(packed), batch_pad, K, U, emit_mt, True)
+    return (_start_host_copy(packed), batch_pad, K, U, emit_mt, True, None)
 
 
 def _start_host_copy(packed: torch.Tensor):
@@ -777,12 +802,14 @@ def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
                        out, one_files, all_files, timing=None):
     """Fetch + finish an in-flight batch; escalates the compact width on
     top-K overflow (sticky for the level), falls back to the exact full
-    path on compaction overflow. Returns the leftover (unclassified)
-    reads unless the level is the last."""
-    batch, (handle, B_pad, K, T, emit_mt, has_win) = pending
+    path on compaction overflow (and on a pruned forest's group overflow:
+    the exact path counts every group). Returns the leftover
+    (unclassified) reads unless the level is the last."""
+    batch, (handle, B_pad, K, T, emit_mt, has_win, pinfo) = pending
     B0 = len(batch)
     res = dev.unpack_batch_result(_fetch(handle, timing), B_pad, K, T,
-                                  has_matches_t=emit_mt, has_win=has_win)
+                                  has_matches_t=emit_mt, has_win=has_win,
+                                  n_extra=pinfo[2] if pinfo else 0)
     if not res["overflow"][:B0].any() and (
         res["n_matches"][:B0] > K
     ).any() and ctx.top_k_current < cfg.top_k_matches:
@@ -801,6 +828,22 @@ def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
             batch, ctx, cfg, rep, level_totals, first, last, out, one_files,
             all_files,
         )
+    if pinfo is not None:
+        # pruned matches carry lane ids (slot * gs + lane): rebuild each
+        # read's chosen groups from its u16 group words and map to global
+        # targets; entries past n_matches are clamped (every consumer
+        # masks by n_matches)
+        S, gs = pinfo[0], pinfo[1]
+        gsel = np.empty((B_pad, S), np.int64)
+        for i, wd in enumerate(res["extra_rows"]):
+            gsel[:, 2 * i] = wd & 0xFFFF
+            if 2 * i + 1 < S:
+                gsel[:, 2 * i + 1] = wd >> 16
+        lanes = res["top_idx"]
+        slot = np.minimum(lanes // gs, S - 1)
+        g = np.take_along_axis(gsel, slot, axis=1)
+        res["top_idx"] = np.minimum(g * gs + lanes % gs, T - 1).astype(
+            np.int32)
     nh = res["n_hashes"][:B0].astype(np.int64)
     l1 = batch.len1.astype(np.int64)
     l2 = (batch.len2.astype(np.int64) if batch.paired
@@ -843,12 +886,20 @@ def _classify_batch(
     step = Bp
     if M > 2048:
         step = max(1, min(Bp, _FALLBACK_GATHER_ROWS // M))
+
+    def counts(f, spec, h, n):
+        # a pruned forest applies its coarse gate (its defined semantics),
+        # so this path equals its fast path
+        if isinstance(f, dev.DevicePrunedForest):
+            return f.counts_gated(h, n, spec.rel_cutoff)
+        return f.counts(h, n)
+
     counts_dev = [
         torch.cat([
-            f.counts(hashes[i:i + step], n_hashes_d[i:i + step])
+            counts(f, spec, hashes[i:i + step], n_hashes_d[i:i + step])
             for i in range(0, Bp, step)
         ])
-        for f in ctx.filters
+        for f, spec in zip(ctx.filters, ctx.specs)
     ]
     nh = n_hashes_d.cpu().numpy()[:B0].astype(np.int64)
     l1 = batch.len1.astype(np.int64)
@@ -858,8 +909,11 @@ def _classify_batch(
         else np.zeros(B0, np.int64)
     )
 
-    # single filter: thresholds + top-K compaction on the card
-    if len(ctx.filters) == 1 and cfg.device_thresholding:
+    # single filter: thresholds + top-K compaction on the card (16-bit
+    # target ids: a wider pruned forest takes the exact host path below,
+    # where JAX's threshold_topk(sort16=False) gives the same outputs)
+    if (len(ctx.filters) == 1 and cfg.device_thresholding
+            and f0.num_targets <= 0xFFFF):
         emit_mt = ctx.level.fpr_query >= 1.0
         K = min(cfg.top_k_matches, f0.num_targets)
         packed = dev.select(

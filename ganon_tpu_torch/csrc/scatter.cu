@@ -13,6 +13,18 @@
 // idempotent and commutative, so duplicates need no sort and no dedup —
 // the JAX program sorted and deduplicated (ops/bigsort.py columnsort)
 // only because XLA scatters by ADD. The matrix is updated in place.
+//
+// Pruned mode (K16: ganon_tpu/index/pruned.py:283 _pruned_scatter_jit
+// .step, driven by :337 _device_scatter_table): the pruned forest's fine
+// table has a bin size per group, so each pair names a parameter set p
+// (grp[i], or set 0 when grp is NULL) of [P] arrays (bin_size, shift =
+// clz64(bin_size), row_off) and a bit column; it sets bit `bit` of row
+// ganon_ibf_row(x, s, bin_size[p], shift[p]) + row_off[p] for each hash
+// function s. The fine table passes one set per group and the lane in the
+// group; the coarse table one set of all its rows and the group as the
+// bit. Rows are u32 words of the little-endian byte table (row bytes
+// padded to x4), so bit c of a row is bit c & 31 of word c >> 5. One
+// thread per pair, atomicOr: no sort, no dedup.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -37,7 +49,48 @@ __global__ void scatter_kernel(unsigned* __restrict__ bits, long long W,
     }
 }
 
+__global__ void scatter_pruned_kernel(unsigned* __restrict__ bits, long long W,
+                                      const long long* __restrict__ hashes,
+                                      const int* __restrict__ grp,
+                                      const int* __restrict__ bit, long long N,
+                                      const long long* __restrict__ bin_size,
+                                      const int* __restrict__ shift,
+                                      const long long* __restrict__ row_off,
+                                      int h) {
+    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i >= N) return;
+    const int p = grp ? grp[i] : 0;
+    const unsigned long long x = (unsigned long long)hashes[i];
+    const unsigned long long bsz = (unsigned long long)bin_size[p];
+    const int sh = shift[p];
+    const long long off = row_off[p];
+    const int c = bit[i];
+    const unsigned mask = 1u << (c & 31);
+    const long long word = c >> 5;
+    for (int s = 0; s < h; ++s) {
+        const long long row = (long long)ganon_ibf_row(x, s, bsz, sh) + off;
+        atomicOr(bits + row * W + word, mask);
+    }
+}
+
 }  // namespace
+
+extern "C" int ganon_scatter_pruned(void* bits, long long R, long long W,
+                                    const void* hashes, const void* grp,
+                                    const void* bit, long long N,
+                                    const void* bin_size, const void* shift,
+                                    const void* row_off, int h, void* stream) {
+    (void)R;
+    if (h < 1 || h > 5) return (int)cudaErrorInvalidValue;
+    const int threads = 256;
+    const long long blocks = (N + threads - 1) / threads;
+    scatter_pruned_kernel<<<(unsigned)blocks, threads, 0,
+                            (cudaStream_t)stream>>>(
+        (unsigned*)bits, W, (const long long*)hashes, (const int*)grp,
+        (const int*)bit, N, (const long long*)bin_size, (const int*)shift,
+        (const long long*)row_off, h);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int ganon_scatter(void* bits, long long R, long long W,
                              const void* hashes, const void* bins, long long N,

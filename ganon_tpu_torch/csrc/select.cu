@@ -40,6 +40,18 @@
 // winners block. JAX sorts the winners along as a payload of unique keys
 // (device.py:886-893; the argmax tier takes them at the argmax,
 // :874-884), so each entry's winner is that of its own target.
+//
+// Lanes mode (K14: ganon_tpu/classify/device.py:1309 threshold_topk_ids
+// with tallies=False, the lane ids, group tallies and group words of
+// :1119 classify_batch_packed_pruned, :1255-1306): the columns are the
+// pruned forest's C = S * gs lanes (slot s = c / gs, lane j = c % gs of
+// the group gsel[b, s]). A lane is live when its slot is and j is below
+// the group's target count; dead lanes never count as kept, and after the
+// final lanes and the live non-final lanes (ascending) the top block is
+// filled with the sentinel lane C (count 0). Tallies go to the global
+// target gsel * gs + j of the [T] arrays, and ceil(S/2) group words per
+// read (gsel[2i] | gsel[2i+1] << 16, 0xFFFF for a dead or missing slot)
+// follow the [B] overflow block, one [B] row per word.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -49,6 +61,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxS = 32;
 
 template <typename Op>
 __device__ unsigned block_reduce(unsigned v, Op op, unsigned* scratch) {
@@ -72,25 +85,52 @@ struct AddOp {
     __device__ unsigned operator()(unsigned a, unsigned b) const { return a + b; }
 };
 
+// The pruned forest's lanes (NULL gsel: flat mode, every column is live).
+struct Lanes {
+    const int* gsel;                 // [B, S] chosen groups
+    const unsigned char* slot_ok;    // [B, S]
+    const int* grp_ntargets;         // [G]
+    int S, gs, n_extra;
+    int T;                           // tally width: the forest's targets
+};
+
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const int* __restrict__ counts, long long B, int T,
               const int* __restrict__ n_hashes,
               const unsigned char* __restrict__ overflow, double rel_cutoff,
               double rel_filter, long long hashes_limit, int K, int emit_mt,
-              const int* __restrict__ uwin, int* __restrict__ out) {
+              const int* __restrict__ uwin, int* __restrict__ out,
+              Lanes ln) {
     __shared__ unsigned scratch[kWarps];
+    __shared__ int s_grp[kMaxS];  // the slot's group, -1 when dead
+    __shared__ int s_nt[kMaxS];   // live lanes of the slot
     const long long b = blockIdx.x;
     const int* row = counts + b * T;
     const int n = n_hashes[b];
     const int cutoff = (int)fmax(ceil((double)n * rel_cutoff), 1.0);
     const bool valid = n > 0 && (long long)n <= hashes_limit;
+    const bool lanes = ln.gsel != nullptr;
+    if (lanes) {
+        if (threadIdx.x < ln.S) {
+            const long long i = b * ln.S + threadIdx.x;
+            const bool ok = ln.slot_ok[i] != 0;
+            s_grp[threadIdx.x] = ok ? ln.gsel[i] : -1;
+            s_nt[threadIdx.x] = ok ? ln.grp_ntargets[ln.gsel[i]] : 0;
+        }
+        __syncthreads();
+    }
+    auto live = [&](int t) -> bool {
+        if (!lanes) return true;
+        const int s = t / ln.gs;
+        return t - s * ln.gs < s_nt[s];
+    };
 
     // pass 1: max and min of the kept counts (counts are >= 0)
     unsigned mx = 0, mn = INT_MAX;
     if (valid) {
         for (int t = threadIdx.x; t < T; t += blockDim.x) {
             const int c = row[t];
-            if (c >= cutoff) {
+            if (c >= cutoff && live(t)) {
                 mx = max(mx, (unsigned)c);
                 mn = min(mn, (unsigned)c);
             }
@@ -103,20 +143,27 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
     const int thr = (int)((double)max_count -
                           ceil((double)(max_count - min_count) * rel_filter));
 
-    // the side arrays follow the matches (and the winners)
+    // the side arrays follow the matches (and the winners); in lanes mode
+    // the group words follow the side arrays
     const long long BK = B * (long long)K * (uwin ? 2 : 1);
-    int* tallies = out + BK + 4 * B;  // disc_t, then matches_t
+    const int TT = lanes ? ln.T : T;  // tally width
+    int* tallies = out + BK + (4 + (lanes ? ln.n_extra : 0)) * B;
     // pass 2: final matches and per-target tallies
     unsigned nm = 0;
     if (valid) {
         for (int t = threadIdx.x; t < T; t += blockDim.x) {
             const int c = row[t];
-            if (c < cutoff) continue;
+            if (c < cutoff || !live(t)) continue;
+            int tt = t;  // the tally's target
+            if (lanes) {
+                const int s = t / ln.gs;
+                tt = s_grp[s] * ln.gs + (t - s * ln.gs);
+            }
             if (c >= thr) {
                 ++nm;
-                if (emit_mt) atomicAdd(tallies + T + t, 1);
+                if (emit_mt) atomicAdd(tallies + TT + tt, 1);
             } else {
-                atomicAdd(tallies + t, 1);
+                atomicAdd(tallies + tt, 1);
             }
         }
     }
@@ -133,7 +180,7 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
         unsigned best = 0;
         for (int t = threadIdx.x; t < T; t += blockDim.x) {
             const int c = row[t];
-            if (c >= cutoff && c >= thr) {  // valid holds: n_matches > 0
+            if (c >= cutoff && c >= thr && live(t)) {  // valid: n_matches > 0
                 const unsigned key = ((unsigned)c << 16) | (0xFFFFu - (unsigned)t);
                 if ((unsigned long long)key < prev && key > best) best = key;
             }
@@ -146,13 +193,13 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
             if (wrow) wrow[j] = urow[t];
         }
     }
-    // remaining slots: non-final targets in ascending index order
+    // remaining slots: (live) non-final targets in ascending index order
     const int need = K - kf;
     int base = 0;
     for (int c0 = 0; c0 < T && base < need; c0 += blockDim.x) {
         const int t = c0 + threadIdx.x;
         bool nonfinal = false;
-        if (t < T) {
+        if (t < T && live(t)) {
             const int c = row[t];
             nonfinal = !(valid && c >= cutoff && c >= thr);
         }
@@ -175,14 +222,23 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
         }
         base += total;
     }
+    // lanes mode: the dead lanes, all reading the sentinel lane C (= T)
+    for (int i = kf + base + threadIdx.x; i < K; i += blockDim.x) mrow[i] = T;
 
+    if (lanes && threadIdx.x < ln.n_extra) {
+        const int i = threadIdx.x;
+        const int lo = s_grp[2 * i], hi = 2 * i + 1 < ln.S ? s_grp[2 * i + 1] : -1;
+        const unsigned w = (lo >= 0 ? (unsigned)lo : 0xFFFFu) |
+                           ((hi >= 0 ? (unsigned)hi : 0xFFFFu) << 16);
+        out[BK + (4 + i) * B + b] = (int)w;
+    }
     if (threadIdx.x == 0) {
         out[BK + b] = n_matches;
         out[BK + B + b] = max_count;
         out[BK + 2 * B + b] = n;
         out[BK + 3 * B + b] = overflow[b];
         if (n_matches > 0) {
-            int* scalars = tallies + (emit_mt ? 2 : 1) * (long long)T;
+            int* scalars = tallies + (emit_mt ? 2 : 1) * (long long)TT;
             atomicAdd(scalars, 1);
             atomicAdd(scalars + 1, n);
             atomicAdd(scalars + 2, max_count);
@@ -200,6 +256,28 @@ extern "C" int ganon_select(const void* counts, long long B, int T,
     select_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
         (const int*)counts, B, T, (const int*)n_hashes,
         (const unsigned char*)overflow, rel_cutoff, rel_filter, hashes_limit,
-        K, emit_matches_t, (const int*)uwin, (int*)packed);
+        K, emit_matches_t, (const int*)uwin, (int*)packed,
+        Lanes{nullptr, nullptr, nullptr, 0, 1, 0, T});
+    return (int)cudaGetLastError();
+}
+
+// Lanes mode: counts [B, C = S * gs] from fine.cu, the gate's gsel and
+// slot_ok [B, S], the forest's grp_ntargets [G] and T targets.
+extern "C" int ganon_select_lanes(const void* counts, long long B, int C,
+                                  const void* n_hashes, const void* overflow,
+                                  double rel_cutoff, double rel_filter,
+                                  long long hashes_limit, int K,
+                                  int emit_matches_t, const void* gsel,
+                                  const void* slot_ok,
+                                  const void* grp_ntargets, int S, int gs,
+                                  int T, void* packed, void* stream) {
+    if (S < 1 || S > kMaxS || gs < 1 || C != S * gs || K > C || K < 1)
+        return (int)cudaErrorInvalidValue;
+    select_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)counts, B, C, (const int*)n_hashes,
+        (const unsigned char*)overflow, rel_cutoff, rel_filter, hashes_limit,
+        K, emit_matches_t, nullptr, (int*)packed,
+        Lanes{(const int*)gsel, (const unsigned char*)slot_ok,
+              (const int*)grp_ntargets, S, gs, (S + 1) / 2, T});
     return (int)cudaGetLastError();
 }

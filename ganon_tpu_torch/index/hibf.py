@@ -13,9 +13,10 @@ other writes: the npz container (JSON header + ``bits{i}`` per class)
 and the mmap-able raw container (``save_raw``).
 
 Two detectors tell the other ``.hibf`` kinds apart without parsing them:
-:func:`is_pruned_file` (the merged-bin pruned forest) and
-:func:`is_raptor_hibf` (the reference's raptor cereal archive). Neither
-format is ported yet (ROADMAP queue 1, items 9 and 5c).
+:func:`is_pruned_file` (the merged-bin pruned forest, whose container
+lives in :mod:`ganon_tpu_torch.index.pruned` and is re-exported here) and
+:func:`is_raptor_hibf` (the reference's raptor cereal archive, not ported
+yet: ROADMAP queue 1, item 5c).
 """
 
 from __future__ import annotations
@@ -29,14 +30,14 @@ import numpy as np
 
 from ganon_tpu_torch.index.config import IBFConfig
 from ganon_tpu_torch.index.ibf import IBF, build_ibf
+from ganon_tpu_torch.index.pruned import MAGIC as PRUNED_MAGIC  # noqa: F401
+from ganon_tpu_torch.index.pruned import RAW_MAGIC as PRUNED_RAW_MAGIC  # noqa: F401
+from ganon_tpu_torch.index.pruned import is_pruned_file  # noqa: F401
 
 MAGIC = "ganon-tpu-hibf-v1"
 # mmap-able raw container (save_raw / --filter-format tpu-raw)
 RAW_MAGIC = b"GANON-TPU-HIBF-RAW1\n"
 RAW_MAGIC_STR = "ganon-tpu-hibf-raw-v1"
-# the pruned forest's container magics (ganon_tpu.index.pruned)
-PRUNED_MAGIC = "ganon-tpu-pruned-v1"
-PRUNED_RAW_MAGIC = b"GANON-TPU-PRUNED-RAW1\n"
 
 
 class HIBF:
@@ -222,23 +223,6 @@ def build_hibf(
         for group in groups
     ]
     return HIBF(subs, kmer_size, window_size, max_fp)
-
-
-def is_pruned_file(path: str) -> bool:
-    """Sniff a ``.hibf`` path for the pruned container (npz or raw)."""
-    try:
-        with open(path, "rb") as f:
-            if f.read(len(PRUNED_RAW_MAGIC)) == PRUNED_RAW_MAGIC:
-                return True
-        if not zipfile.is_zipfile(path):
-            return False
-        with np.load(path, allow_pickle=False) as z:
-            if "header" not in z:
-                return False
-            header = json.loads(bytes(z["header"].tobytes()).decode())
-            return header.get("magic") == PRUNED_MAGIC
-    except Exception:
-        return False
 
 
 def is_raptor_hibf(path: str) -> bool:

@@ -1,0 +1,466 @@
+"""Merged-bin pruned forest: a coarse IBF gates a grouped fine table.
+
+Port of ``ganon_tpu.index.pruned``. Targets are count-sorted into groups
+of ``group_size``:
+
+* the **coarse** IBF holds one bin per group (the union of the group's
+  minimizers, ``coarse_h`` hash functions), bit-packed with ``ceil(G/8)``
+  bytes per row;
+* the **fine** table gives every target exactly one bin. Each group has
+  its own bin size, and the groups flatten into one
+  ``[sum_g bin_size_g, group_size/8]`` byte matrix; group ``g`` carries
+  ``(bin_size, clz64 shift, row_offset)``.
+
+A query counts the coarse IBF, keeps the groups whose count reaches the
+read's rel-cutoff threshold, and counts only those groups' fine rows.
+The semantics are gated: a target is reported only when its fine count
+and its group's coarse count both reach the cutoff (see the JAX module's
+docstring for why gating only ever drops false-positive-only matches).
+
+File formats are the JAX package's (npz with a JSON header, or the raw
+mmap-able container), so either package loads what the other writes.
+The build (:func:`build_pruned`) runs on the host by default; with
+``device`` it sets the bits with the ``scatter`` kernel in pruned mode
+(:func:`scatter_pruned`).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import zipfile
+
+import numpy as np
+import torch
+
+from ganon_tpu_torch import kernels
+from ganon_tpu_torch.index.config import IBFConfig
+from ganon_tpu_torch.index.sizing import bin_size_fp_hf, false_positive
+from ganon_tpu_torch.ops.ibf_query import (
+    MAX_HASH_FUNCTIONS,
+    clz64,
+    ibf_row_dyn,
+    ibf_row_indices_np,
+)
+from ganon_tpu_torch.ops.minimizers import u64_to_torch
+
+MAGIC = "ganon-tpu-pruned-v1"
+RAW_MAGIC = b"GANON-TPU-PRUNED-RAW1\n"
+
+
+def _scatter_or_u8(table: np.ndarray, rows: np.ndarray, bits: np.ndarray):
+    """OR bit ``bits[i]`` of row ``rows[i]`` into a u8 [R, W] matrix
+    (sort and reduce: far faster than ``np.bitwise_or.at``)."""
+    W = table.shape[1]
+    widx = rows.astype(np.int64) * W + (bits >> 3).astype(np.int64)
+    mask = (np.uint8(1) << (bits & 7).astype(np.uint8)).astype(np.uint8)
+    order = np.argsort(widx, kind="stable")
+    widx = widx[order]
+    mask = mask[order]
+    boundaries = np.flatnonzero(np.r_[True, widx[1:] != widx[:-1]])
+    merged = np.bitwise_or.reduceat(mask, boundaries)
+    flat = table.reshape(-1)
+    flat[widx[boundaries]] |= merged
+
+
+class PrunedForest:
+    """Grouped one-bin-per-target fine table + coarse merged-bin IBF."""
+
+    hashes_count_is_estimate = False
+
+    def __init__(
+        self,
+        fine: np.ndarray,          # u8 [R_total, group_size // 8]
+        coarse: np.ndarray,        # u8 [coarse_bin_size, ceil(G/8)]
+        *,
+        targets: list[str],        # count-sorted canonical order
+        hashes_count: dict[str, int],
+        grp_bin_size: np.ndarray,  # int64 [G]
+        grp_row_off: np.ndarray,   # int64 [G]
+        grp_ntargets: np.ndarray,  # int32 [G]
+        group_size: int,
+        coarse_bin_size: int,
+        kmer_size: int,
+        window_size: int,
+        max_fp: float,
+        fine_h: int,
+        coarse_fp: float,
+        coarse_h: int,
+    ):
+        self.fine = fine
+        self.coarse = coarse
+        self._targets = list(targets)
+        self.hashes_count = dict(hashes_count)
+        self.grp_bin_size = np.asarray(grp_bin_size, dtype=np.int64)
+        self.grp_row_off = np.asarray(grp_row_off, dtype=np.int64)
+        self.grp_ntargets = np.asarray(grp_ntargets, dtype=np.int32)
+        self.group_size = int(group_size)
+        self.coarse_bin_size = int(coarse_bin_size)
+        self.max_fp = float(max_fp)
+        self.fine_h = int(fine_h)
+        self.coarse_fp = float(coarse_fp)
+        self.coarse_h = int(coarse_h)
+        fprs = self.target_fpr()
+        self.ibf_config = IBFConfig(
+            kmer_size=kmer_size,
+            window_size=window_size,
+            max_fp=max_fp,
+            n_bins=len(targets),
+            # one bin per target: max_hashes_bin never splits
+            max_hashes_bin=max(hashes_count.values(), default=1),
+            hash_functions=fine_h,
+            bin_size_bits=int(self.grp_bin_size.max(initial=1)),
+            true_max_fp=max(fprs.values(), default=0.0),
+            true_avg_fp=sum(fprs.values()) / len(fprs) if fprs else 0.0,
+        )
+
+    @property
+    def num_groups(self) -> int:
+        return len(self.grp_bin_size)
+
+    def targets(self) -> list[str]:
+        return list(self._targets)
+
+    def target_fpr(self) -> dict[str, float]:
+        """Per-target achieved fp: single fine bin, direct formula."""
+        out = {}
+        for gi in range(len(self.grp_bin_size)):
+            bsz = int(self.grp_bin_size[gi])
+            for j in range(int(self.grp_ntargets[gi])):
+                t = self._targets[gi * self.group_size + j]
+                out[t] = false_positive(bsz, self.fine_h, self.hashes_count[t])
+        return out
+
+    def group_of(self, target: str) -> int:
+        return self._targets.index(target) // self.group_size
+
+    # --- persistence -------------------------------------------------------
+
+    def _header(self) -> dict:
+        return {
+            "magic": MAGIC,
+            "kmer_size": self.ibf_config.kmer_size,
+            "window_size": self.ibf_config.window_size,
+            "max_fp": self.max_fp,
+            "fine_h": self.fine_h,
+            "coarse_fp": self.coarse_fp,
+            "coarse_h": self.coarse_h,
+            "group_size": self.group_size,
+            "coarse_bin_size": self.coarse_bin_size,
+            "targets": self._targets,
+            "hashes_count": [self.hashes_count[t] for t in self._targets],
+            "grp_bin_size": self.grp_bin_size.tolist(),
+            "grp_row_off": self.grp_row_off.tolist(),
+            "grp_ntargets": self.grp_ntargets.tolist(),
+        }
+
+    def save(self, path: str) -> None:
+        arrays = {
+            "header": np.frombuffer(json.dumps(self._header()).encode(),
+                                    dtype=np.uint8),
+            "fine": self.fine,
+            "coarse": self.coarse,
+        }
+        np.savez_compressed(path + ".tmp.npz", **arrays)
+        os.replace(path + ".tmp.npz", path)
+
+    def save_raw(self, path: str) -> None:
+        """mmap-able container: JSON header, then the page-aligned fine
+        and coarse tables (load time independent of table size)."""
+        header = self._header()
+        header["magic"] = MAGIC + "-raw"
+        header["fine_shape"] = list(self.fine.shape)
+        header["coarse_shape"] = list(self.coarse.shape)
+        blob = json.dumps(header).encode()
+        with open(path + ".tmp", "wb") as f:
+            f.write(RAW_MAGIC)
+            f.write(len(blob).to_bytes(8, "little"))
+            f.write(blob)
+            f.write(b"\0" * (-f.tell() % 4096))
+            f.write(np.ascontiguousarray(self.fine).tobytes())
+            f.write(b"\0" * (-f.tell() % 4096))
+            f.write(np.ascontiguousarray(self.coarse).tobytes())
+        os.replace(path + ".tmp", path)
+
+    @classmethod
+    def _from_header(cls, header, fine, coarse) -> "PrunedForest":
+        return cls(
+            fine, coarse,
+            targets=header["targets"],
+            hashes_count=dict(zip(header["targets"], header["hashes_count"])),
+            grp_bin_size=np.asarray(header["grp_bin_size"], np.int64),
+            grp_row_off=np.asarray(header["grp_row_off"], np.int64),
+            grp_ntargets=np.asarray(header["grp_ntargets"], np.int32),
+            group_size=header["group_size"],
+            coarse_bin_size=header["coarse_bin_size"],
+            kmer_size=header["kmer_size"],
+            window_size=header["window_size"],
+            max_fp=header["max_fp"],
+            fine_h=header["fine_h"],
+            coarse_fp=header["coarse_fp"],
+            coarse_h=header["coarse_h"],
+        )
+
+    @classmethod
+    def load(cls, path: str) -> "PrunedForest":
+        if not zipfile.is_zipfile(path):
+            with open(path, "rb") as f:
+                if f.read(len(RAW_MAGIC)) != RAW_MAGIC:
+                    raise ValueError(f"not a ganon-tpu pruned file: {path}")
+                hlen = int.from_bytes(f.read(8), "little")
+                header = json.loads(f.read(hlen).decode())
+                off = len(RAW_MAGIC) + 8 + hlen
+                off += -off % 4096
+            fine = np.memmap(path, mode="r", dtype=np.uint8, offset=off,
+                             shape=tuple(header["fine_shape"]))
+            off2 = off + fine.size
+            off2 += -off2 % 4096
+            coarse = np.memmap(path, mode="r", dtype=np.uint8, offset=off2,
+                               shape=tuple(header["coarse_shape"]))
+            return cls._from_header(header, fine, coarse)
+        with np.load(path, allow_pickle=False) as z:
+            header = json.loads(bytes(z["header"].tobytes()).decode())
+            if header.get("magic") != MAGIC:
+                raise ValueError(f"not a ganon-tpu pruned file: {path}")
+            return cls._from_header(header, z["fine"], z["coarse"])
+
+
+def is_pruned_file(path: str) -> bool:
+    """Sniff a ``.hibf`` path for the pruned container (npz or raw)."""
+    try:
+        with open(path, "rb") as f:
+            if f.read(len(RAW_MAGIC)) == RAW_MAGIC:
+                return True
+        if not zipfile.is_zipfile(path):
+            return False
+        with np.load(path, allow_pickle=False) as z:
+            if "header" not in z:
+                return False
+            header = json.loads(bytes(z["header"].tobytes()).decode())
+            return header.get("magic") == MAGIC
+    except Exception:
+        return False
+
+
+# --- device build: the scatter kernel in pruned mode ---------------------------
+
+
+def scatter_pruned_plain(bits: torch.Tensor, hashes: torch.Tensor,
+                         grp: torch.Tensor | None, bit: torch.Tensor,
+                         bin_size: torch.Tensor, shift: torch.Tensor,
+                         row_off: torch.Tensor, hash_functions: int) -> None:
+    """Plain version of the ``scatter`` kernel's pruned mode (see
+    :func:`scatter_pruned`): deduplicate the flat bit indices, after
+    which OR equals ADD."""
+    R, W = bits.shape
+    p = (torch.zeros_like(bit, dtype=torch.int64) if grp is None
+         else grp.to(torch.int64))
+    bsz, sh, off = bin_size[p], shift[p].to(torch.int64), row_off[p]
+    flat = torch.cat([
+        (ibf_row_dyn(hashes, i, bsz, sh) + off) * (W * 32) + bit.to(torch.int64)
+        for i in range(hash_functions)
+    ])
+    flat = torch.unique(flat)
+    delta = torch.zeros(R * W, dtype=torch.int64, device=bits.device)
+    delta.index_add_(0, flat >> 5, torch.ones_like(flat) << (flat & 31))
+    delta = torch.where(delta >= 1 << 31, delta - (1 << 32), delta)
+    bits |= delta.to(torch.int32).reshape(R, W)
+
+
+def scatter_pruned(bits: torch.Tensor, hashes: torch.Tensor,
+                   grp: torch.Tensor | None, bit: torch.Tensor,
+                   bin_size: torch.Tensor, shift: torch.Tensor,
+                   row_off: torch.Tensor, hash_functions: int) -> None:
+    """OR every (hash, parameter set, bit column) into a table, in place.
+
+    Replaces ``ganon_tpu.index.pruned``'s ``_pruned_scatter_jit`` step.
+    ``bits`` int32 ``[R, W]`` (u32 words of the little-endian byte table,
+    row bytes padded to x4); for each ``i`` and hash function ``s``, bit
+    ``bit[i]`` of row ``fastrange_s(hashes[i], bin_size[p]) + row_off[p]``
+    is set, with ``p = grp[i]`` (``grp`` None: every pair uses set 0).
+    The fine table passes one set per group and the lane in the group;
+    the coarse table one set of all rows and the group as the bit.
+    ``hashes`` int64 ``[N]`` (u64 bit patterns), ``grp``/``bit`` int32
+    ``[N]``, ``bin_size``/``row_off`` int64 ``[P]``, ``shift`` int32
+    ``[P]`` (``clz64(bin_size)``).
+    """
+    if bits.dtype != torch.int32 or bits.dim() != 2 or not bits.is_contiguous():
+        raise ValueError("bits must be a contiguous int32 [R, W] tensor")
+    N = hashes.shape[0]
+    if (hashes.dtype != torch.int64 or bit.dtype != torch.int32
+            or hashes.shape != (N,) or bit.shape != (N,)
+            or (grp is not None and (grp.dtype != torch.int32
+                                     or grp.shape != (N,)))):
+        raise ValueError("hashes int64 [N], grp and bit int32 [N]")
+    P = bin_size.shape[0]
+    if (bin_size.dtype != torch.int64 or row_off.dtype != torch.int64
+            or shift.dtype != torch.int32 or row_off.shape != (P,)
+            or shift.shape != (P,)):
+        raise ValueError("bin_size/row_off int64 [P], shift int32 [P]")
+    if not 1 <= hash_functions <= MAX_HASH_FUNCTIONS:
+        raise ValueError("hash_functions must be in 1..5")
+    if bits.device.type == "cpu":
+        scatter_pruned_plain(bits, hashes, grp, bit, bin_size, shift, row_off,
+                             hash_functions)
+        return
+    kernels.check_cuda(bits, hashes, bit, bin_size, shift, row_off,
+                       *([] if grp is None else [grp]))
+    if N == 0:
+        return
+    kernels.launch("scatter_pruned", bits, bits.shape[0], bits.shape[1],
+                   hashes, grp, bit, N, bin_size, shift, row_off,
+                   hash_functions)
+
+
+# hashes per scatter launch (each sets fine_h + coarse_h bits)
+SCATTER_CHUNK = 4 << 20
+
+
+def _device_tables(dev: torch.device, member_stream, *, R_total: int, Wf: int,
+                   grp_bin_size, grp_row_off, fine_h: int,
+                   coarse_bin_size: int, Wc: int, coarse_h: int):
+    """The fine and coarse u8 tables, set by :func:`scatter_pruned` on
+    ``dev`` in chunks of up to ``SCATTER_CHUNK`` hashes. Row widths pad
+    to x4 bytes for the u32 words and are sliced back."""
+    Wf4, Wc4 = Wf + (-Wf % 4), Wc + (-Wc % 4)
+    fine = torch.zeros((R_total, Wf4 // 4), dtype=torch.int32, device=dev)
+    coarse = torch.zeros((coarse_bin_size, Wc4 // 4), dtype=torch.int32,
+                         device=dev)
+    fparams = (
+        torch.from_numpy(np.asarray(grp_bin_size, np.int64)).to(dev),
+        torch.tensor([clz64(int(b)) for b in grp_bin_size], dtype=torch.int32,
+                     device=dev),
+        torch.from_numpy(np.asarray(grp_row_off, np.int64)).to(dev),
+    )
+    cparams = (
+        torch.tensor([coarse_bin_size], dtype=torch.int64, device=dev),
+        torch.tensor([clz64(coarse_bin_size)], dtype=torch.int32, device=dev),
+        torch.zeros((1,), dtype=torch.int64, device=dev),
+    )
+
+    def flush(acc):
+        h = u64_to_torch(np.concatenate([a[2] for a in acc])).to(dev)
+        sizes = [len(a[2]) for a in acc]
+        g = np.repeat(np.asarray([a[0] for a in acc], np.int32), sizes)
+        j = np.repeat(np.asarray([a[1] for a in acc], np.int32), sizes)
+        g = torch.from_numpy(g).to(dev)
+        scatter_pruned(fine, h, g, torch.from_numpy(j).to(dev), *fparams,
+                       fine_h)
+        scatter_pruned(coarse, h, None, g, *cparams, coarse_h)
+
+    acc, n = [], 0
+    for g, j, hs in member_stream():
+        if not len(hs):
+            continue
+        acc.append((g, j, hs))
+        n += len(hs)
+        if n >= SCATTER_CHUNK:
+            flush(acc)
+            acc, n = [], 0
+    if n:
+        flush(acc)
+
+    def host(t, R, W):
+        return np.ascontiguousarray(
+            t.cpu().numpy().view(np.uint8).reshape(R, -1)[:, :W])
+
+    return host(fine, R_total, Wf), host(coarse, coarse_bin_size, Wc)
+
+
+def build_pruned(
+    target_hashes: dict[str, np.ndarray],
+    *,
+    kmer_size: int,
+    window_size: int,
+    max_fp: float = 0.05,
+    fine_h: int = 1,
+    coarse_fp: float = 0.1,
+    coarse_h: int = 1,
+    group_size: int = 64,
+    device=None,
+) -> PrunedForest:
+    """Build the pruned forest from per-target distinct-minimizer arrays.
+
+    Same signature and tables as ``ganon_tpu.index.pruned.build_pruned``:
+    targets sort by hash count descending (stable), so groups hold
+    similar-sized targets; each group's fine bin size fits its largest
+    member; the coarse bin is sized by the largest sum of member counts
+    (an upper bound on the union) and rounded up to 32 rows.
+
+    ``device``: ``None`` or ``False`` sets the bits on the host (numpy
+    sort-reduce, the JAX package's default too); ``True`` sets them with
+    the ``scatter`` kernel in pruned mode on the current CUDA device; a
+    torch device (or ``"cpu"``, ``"cuda"``) runs that path there (the
+    kernel's plain version on the CPU). Every path gives byte-equal
+    tables: the same insert set, and OR is idempotent.
+    """
+    if not target_hashes:
+        raise ValueError("no targets to build")
+    if group_size % 8:
+        raise ValueError("group_size must be a multiple of 8")
+    names = list(target_hashes.keys())
+    counts = np.asarray([len(target_hashes[t]) for t in names])
+    order = np.argsort(-counts, kind="stable")
+    targets = [names[i] for i in order]
+    hashes_count = {t: int(len(target_hashes[t])) for t in targets}
+
+    G = -(-len(targets) // group_size)
+    grp_bin_size = np.empty(G, dtype=np.int64)
+    grp_ntargets = np.empty(G, dtype=np.int32)
+    grp_sum = np.empty(G, dtype=np.int64)
+    for g in range(G):
+        members = targets[g * group_size:(g + 1) * group_size]
+        grp_ntargets[g] = len(members)
+        mx = max(1, max(hashes_count[t] for t in members))
+        grp_bin_size[g] = max(64, bin_size_fp_hf(max_fp, mx, fine_h))
+        grp_sum[g] = sum(hashes_count[t] for t in members)
+    grp_row_off = np.concatenate([[0], np.cumsum(grp_bin_size)[:-1]])
+    R_total = int(grp_bin_size.sum())
+    Wf = group_size // 8
+    coarse_bin_size = max(
+        64, bin_size_fp_hf(coarse_fp, max(1, int(grp_sum.max())), coarse_h)
+    )
+    # u32-word alignment of the coarse rows (as the JAX build pads them)
+    coarse_bin_size += -coarse_bin_size % 32
+    Wc = -(-G // 8)
+
+    def member_stream():
+        """(group, local_idx, hashes) per target, group-major."""
+        for g in range(G):
+            members = targets[g * group_size:(g + 1) * group_size]
+            for j, t in enumerate(members):
+                yield g, j, np.asarray(target_hashes[t], dtype=np.uint64)
+
+    if device is None or device is False:
+        fine = np.zeros((R_total, Wf), dtype=np.uint8)
+        coarse = np.zeros((coarse_bin_size, Wc), dtype=np.uint8)
+        for g, j, hs in member_stream():
+            if not len(hs):
+                continue
+            rows = ibf_row_indices_np(
+                hs, bin_size=int(grp_bin_size[g]), hash_functions=fine_h
+            ) + int(grp_row_off[g])
+            _scatter_or_u8(fine, rows.reshape(-1),
+                           np.full(rows.size, j, dtype=np.int64))
+            crows = ibf_row_indices_np(hs, bin_size=coarse_bin_size,
+                                       hash_functions=coarse_h)
+            _scatter_or_u8(coarse, crows.reshape(-1),
+                           np.full(crows.size, g, dtype=np.int64))
+    else:
+        dev = torch.device("cuda" if device is True else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not available")
+        fine, coarse = _device_tables(
+            dev, member_stream, R_total=R_total, Wf=Wf,
+            grp_bin_size=grp_bin_size, grp_row_off=grp_row_off, fine_h=fine_h,
+            coarse_bin_size=coarse_bin_size, Wc=Wc, coarse_h=coarse_h)
+
+    return PrunedForest(
+        fine, coarse,
+        targets=targets, hashes_count=hashes_count,
+        grp_bin_size=grp_bin_size, grp_row_off=grp_row_off,
+        grp_ntargets=grp_ntargets, group_size=group_size,
+        coarse_bin_size=coarse_bin_size,
+        kmer_size=kmer_size, window_size=window_size, max_fp=max_fp,
+        fine_h=fine_h, coarse_fp=coarse_fp, coarse_h=coarse_h,
+    )

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-The five kernels compile with ``nvcc`` into one content-addressed shared
+The seven kernels compile with ``nvcc`` into one content-addressed shared
 library under the checkout's ``build/`` directory at first use, with a
 plain C interface loaded through ctypes (no torch headers, so a build
 takes seconds). Every pointer and the stream are passed as
@@ -10,7 +10,10 @@ turns into an exception.
 
 ``LAUNCHES`` counts kernel launches (one per :func:`launch`) per kernel
 and mode: ``count_forest`` is ``count`` writing into a column range of a
-shared matrix, ``select_winners`` is ``select`` with the winners payload.
+shared matrix, ``select_winners`` is ``select`` with the winners payload,
+``fine_all`` is ``fine`` over every group (the pruned forest's probe-all
+path); ``gate``, ``fine``, ``select_lanes`` and ``scatter_pruned`` are the
+pruned forest's.
 A run can so show that its main path went through every kernel mode.
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -28,11 +31,12 @@ import torch
 from ganon_tpu_torch import BUILD_DIR
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu")
+SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
+           "gate.cu", "fine.cu")
 HEADERS = ("ibf_hash.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _L, _U, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -53,11 +57,29 @@ _SIGNATURES = {
     "select": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P, _P),
     # bits, R, W, hashes, bins, N, bin_size, h, shift
     "scatter": (_P, _L, _L, _P, _P, _L, _U, _I, _I),
+    # counts, B, C, n_hashes, overflow, rel_cutoff, rel_filter,
+    # hashes_limit, K, emit_matches_t, gsel, slot_ok, grp_ntargets, S, gs,
+    # T, packed
+    "select_lanes": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P, _P, _P, _I,
+                     _I, _I, _P),
+    # bits, R, W, hashes, grp (NULL = set 0), bit, N, bin_size, shift,
+    # row_off, h
+    "scatter_pruned": (_P, _L, _L, _P, _P, _P, _L, _P, _P, _P, _I),
+    # ctbl, R, W8, hashes, B, M, n_hashes, bin_size, h, shift, G,
+    # rel_cutoff, hashes_limit, S, overflow_in, gsel, slot_ok,
+    # overflow_out, surv (NULL = not written)
+    "gate": (_P, _L, _L, _P, _L, _I, _P, _U, _I, _I, _I, _D, _L, _I, _P, _P,
+             _P, _P, _P),
+    # ftbl, R, W8, hashes, B, M, n_hashes, grp_row_off, grp_bin_size,
+    # grp_shift, G, h, gs, gsel (NULL = probe-all), slot_ok, S, surv
+    # (NULL = ungated), out, T
+    "fine": (_P, _L, _L, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
+             _P, _P, _L),
 }
 
 # launch counters: each kernel, plus the modes counted apart
 LAUNCHES = {name: 0 for name in (*_SIGNATURES, "count_forest",
-                                 "select_winners")}
+                                 "select_winners", "fine_all")}
 
 _lib = None
 
@@ -87,20 +109,41 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless the content-addressed library exists."""
+    """Compile the kernels unless the content-addressed library exists.
+
+    One ``nvcc -c`` per source, all started together, then one link.
+    """
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(_CSRC, s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, so)
+    tag = f"{os.getpid()}.tmp"
+    objs = [f"{so}.{s}.{tag}.o" for s in SOURCES]
+    nvcc = nvcc_path()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(_CSRC, s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    fails = []
+    for c, p in zip(cmds, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            fails.append(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{err}")
+    try:
+        if fails:
+            raise RuntimeError("\n".join(fails))
+        tmp = f"{so}.{tag}"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return so
 
 

@@ -138,11 +138,12 @@ def table_as_u32(tbl8: np.ndarray) -> np.ndarray:
 # --- plain torch versions ------------------------------------------------------
 
 
-def _mulhi64(a: torch.Tensor, b: int) -> torch.Tensor:
+def _mulhi64(a: torch.Tensor, b) -> torch.Tensor:
     """High 64 bits of the unsigned product ``a * b`` (32-bit limbs).
 
-    ``a`` holds u64 bit patterns in int64; every intermediate stays below
-    2^63 or is only shifted logically, so no sign bit leaks in.
+    ``a`` holds u64 bit patterns in int64; ``b`` is a non-negative int or
+    int64 tensor. Every intermediate stays below 2^63 or is only shifted
+    logically, so no sign bit leaks in.
     """
     ah, al = lsr(a, 32), a & _M32
     bh, bl = b >> 32, b & _M32
@@ -168,6 +169,20 @@ def ibf_row_indices(hashes: torch.Tensor, *, bin_size: int,
         g = g * as_i64(GOLDEN)
         rows.append(_mulhi64(g, bin_size))
     return torch.stack(rows, dim=-1)
+
+
+def ibf_row_dyn(hashes: torch.Tensor, i: int, bin_size: torch.Tensor,
+                shift: torch.Tensor) -> torch.Tensor:
+    """Row of hash function ``i`` with per-element ``bin_size`` (int64,
+    positive) and ``shift`` (int64, ``clz64(bin_size)`` in 1..63), all
+    broadcast together: the pruned forest's dynamic fastrange, where each
+    group has its own bin size."""
+    g = hashes * as_i64(HASH_SEEDS[i])
+    # logical right shift by a tensor: clear the bits the sign filled in
+    keep = torch.bitwise_left_shift(torch.ones_like(shift), 64 - shift) - 1
+    g = g ^ ((g >> shift) & keep)
+    g = g * as_i64(GOLDEN)
+    return _mulhi64(g, bin_size)
 
 
 def compact_hashes(hashes: torch.Tensor, mask: torch.Tensor, *,

@@ -1,11 +1,16 @@
-"""The five CUDA kernels against their plain torch versions, on the card.
+"""The seven CUDA kernels against their plain torch versions, on the card.
 
 Edge shapes beyond the main path: windows of one k-mer, k = 32, long
 reads, overflowing compaction, table rows spanning several count tiles,
 more hashes than one shared-memory chunk, wide target sets and large K;
 count into a column range of a wider matrix (forest mode), merge with
 ties and with a one-target filter, select with winners at K = 1 and
-K = T.
+K = T. The pruned forest's modes: gate, fine (dense and probe-all),
+select in lanes mode and scatter in pruned mode, at group counts that
+are not multiples of 8 or 32 (and past one gate counter tile), group
+size 16 (padded rows), a partly full last group, ties, reads with no
+survivor, exactly S and more than S survivors, reads without hashes and
+reads at the hashes limit.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
@@ -18,7 +23,9 @@ import torch
 from ganon_tpu_torch import kernels
 from ganon_tpu_torch.classify import device as dev
 from ganon_tpu_torch.index.ibf import _scatter_bits, scatter_hashes
+from ganon_tpu_torch.index.pruned import scatter_pruned, scatter_pruned_plain
 from ganon_tpu_torch.ops import ibf_query as q
+from ganon_tpu_torch.ops import pruned_query as pq
 
 pytestmark = pytest.mark.cuda
 
@@ -192,3 +199,211 @@ def test_select_kernel_winners_matches_plain(cuda, top_k):
                                    emit_matches_t=emit, winners=wn),
                 nn, o.to(torch.int32))
             assert torch.equal(got, want)
+
+
+def _gate_inputs(rng, G, R, B, M, hf, S):
+    """A random coarse table of G groups (rows padded to x4 bytes), read
+    hashes and hash counts: n = 0, n at the limit (64), n above it and n
+    above M among them. Most groups are sparse; S - 1 are dense and three
+    near the cutoffs, so reads keep fewer than, exactly and more than S."""
+    W8 = -(-(-(-G // 8)) // 4) * 4
+    dens = np.full(W8 * 8, 0.05)
+    hot = rng.permutation(G)[:S + 2]
+    dens[hot[:S - 1]] = 0.95
+    dens[hot[S - 1:]] = 0.45
+    ctbl = (rng.random((R, W8 * 8)) < dens ** (1 / hf)).astype(np.uint8)
+    ctbl = np.packbits(ctbl, axis=1, bitorder="little")
+    h = rng.integers(-2**63, 2**63 - 1, size=(B, M))
+    n = rng.integers(0, M + 8, size=B).astype(np.int32)
+    n[:4] = [0, 64, 65, M + 5]
+    return torch.from_numpy(ctbl), torch.from_numpy(h), torch.from_numpy(n)
+
+
+@pytest.mark.parametrize("G,S,hf", [(37, 2, 2), (200, 3, 1), (9001, 4, 1)])
+def test_gate_kernel_matches_plain(cuda, G, S, hf):
+    rng = np.random.default_rng(G + S)
+    R, B, M = 777, 300, 90
+    ctbl, h, n = (x.to(cuda) for x in _gate_inputs(rng, G, R, B, M, hf, S))
+    ovf = torch.from_numpy((rng.random(B) < 0.1).astype(np.uint8)).to(cuda)
+    seen = set()
+    for cut, limit, s in ((0.3, 64, S), (0.6, 64, S), (0.2, pq.NO_HASHES_LIMIT, 0)):
+        kw = dict(coarse_bin_size=R, coarse_h=hf, num_groups=G, rel_cutoff=cut,
+                  hashes_limit=limit, max_groups=s, want_surv=True)
+        before = kernels.LAUNCHES["gate"]
+        got = pq.gate(ctbl, h, n, overflow=ovf, **kw)
+        want = pq.gate_plain(ctbl, h, n, overflow=ovf, **kw)
+        assert kernels.LAUNCHES["gate"] == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        if s:  # reads with no, fewer than S, exactly S, more than S groups
+            n_surv = want[3].sum(dim=1)
+            seen.update(int(v) for v in torch.sign(n_surv - s).unique())
+            seen.update([2] if (n_surv == 0).any() else [])
+    assert seen == {-1, 0, 1, 2}
+
+
+def test_gate_kernel_ties(cuda):
+    """Every group's coarse bit set in every row: all survivors tie, and
+    the slots take the lowest group ids."""
+    G, R, B, M = 45, 64, 40, 30
+    ctbl = torch.full((R, 8), 0xFF, dtype=torch.uint8, device=cuda)
+    rng = np.random.default_rng(0)
+    h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M))).to(cuda)
+    n = torch.full((B,), M, dtype=torch.int32, device=cuda)
+    kw = dict(coarse_bin_size=R, coarse_h=1, num_groups=G, rel_cutoff=0.5,
+              hashes_limit=65535, max_groups=3)
+    got = pq.gate(ctbl, h, n, **kw)
+    want = pq.gate_plain(ctbl, h, n, **kw)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert (got[0] == torch.tensor([0, 1, 2], device=cuda)).all()
+
+
+def _fine_inputs(rng, G, gs, nt_last, B, M):
+    """A fine table of G groups of random bin sizes (rows padded to x4
+    bytes), its group arrays and read hashes."""
+    bsz = rng.integers(50, 400, size=G).astype(np.int64)
+    off = np.concatenate([[0], np.cumsum(bsz)[:-1]]).astype(np.int64)
+    W8 = -(-(gs // 8) // 4) * 4
+    ftbl = rng.integers(0, 256, size=(int(bsz.sum()), W8), dtype=np.uint8)
+    ftbl &= rng.integers(0, 256, size=ftbl.shape, dtype=np.uint8)  # sparser
+    shift = np.array([q.clz64(int(b)) for b in bsz], np.int32)
+    h = rng.integers(-2**63, 2**63 - 1, size=(B, M))
+    n = rng.integers(0, M + 8, size=B).astype(np.int32)
+    n[:3] = [0, 1, M + 5]
+    t = [torch.from_numpy(x) for x in (ftbl, h, n, off, bsz, shift)]
+    T = (G - 1) * gs + nt_last
+    return t, T
+
+
+@pytest.mark.parametrize("G,gs,hf", [(13, 16, 2), (70, 64, 1)])
+def test_fine_kernel_matches_plain(cuda, G, gs, hf):
+    rng = np.random.default_rng(G * gs)
+    B, M, S = 200, 300, 3
+    (ftbl, h, n, off, bsz, shift), T = (
+        _fine_inputs(rng, G, gs, gs // 2 + 1, B, M))
+    ftbl, h, n, off, bsz, shift = (
+        x.to(cuda) for x in (ftbl, h, n, off, bsz, shift))
+    gsel = torch.from_numpy(rng.integers(0, G, size=(B, S)).astype(np.int32)
+                            ).to(cuda)
+    ok = torch.from_numpy((rng.random((B, S)) < 0.7).astype(np.uint8)).to(cuda)
+    surv = torch.from_numpy((rng.random((B, G)) < 0.4).astype(np.uint8)
+                            ).to(cuda)
+    args = (ftbl, h, n, off, bsz, shift)
+    kw = dict(fine_h=hf, group_size=gs)
+    before = dict(kernels.LAUNCHES)
+    for extra in (dict(gsel=gsel, slot_ok=ok),
+                  dict(surv=surv, num_targets=T), dict(num_targets=T)):
+        got = pq.fine_counts(*args, **kw, **extra)
+        want = pq.fine_counts_plain(*args, **kw, **extra)
+        assert torch.equal(got, want)
+        assert (want > 0).any()
+    assert kernels.LAUNCHES["fine"] == before["fine"] + 1
+    assert kernels.LAUNCHES["fine_all"] == before["fine_all"] + 2
+
+
+@pytest.mark.parametrize("S,gs,top_k", [(1, 64, 4), (3, 16, 48), (2, 64, 128)])
+@pytest.mark.parametrize("emit", [True, False])
+def test_select_lanes_kernel_matches_plain(cuda, S, gs, top_k, emit):
+    rng = np.random.default_rng(S * gs + top_k)
+    B, G = 257, 9
+    C = S * gs
+    nt = np.full(G, gs, np.int32)
+    nt[-1] = gs // 2 - 3  # a partly full last group
+    T = int(nt.sum())
+    n = rng.integers(0, 80, size=B).astype(np.int32)
+    n[:3] = [0, 80, 81]
+    counts = np.minimum(rng.integers(0, 80, size=(B, C)), n[:, None])
+    counts[:, : C // 2] = n[:, None]  # ties and many final lanes
+    gsel = np.stack([rng.permutation(G)[:S] for _ in range(B)]).astype(np.int32)
+    gsel[: B // 3, 0] = G - 1
+    ok = (rng.random((B, S)) < 0.8).astype(np.uint8)
+    ovf = (rng.random(B) < 0.2).astype(np.uint8)
+    c, nn, o, gs_d, ok_d, nt_d = (
+        torch.from_numpy(x).to(cuda)
+        for x in (counts.astype(np.int32), n, ovf, gsel, ok, nt))
+    K = min(top_k, C)
+    for cuts in ((0.2, 0.0, 65535), (0.75, 1.0, 80), (0.0, 0.5, 65535)):
+        args = (c, nn, o, gs_d, ok_d, nt_d, *cuts)
+        before = kernels.LAUNCHES["select_lanes"]
+        got = dev.select_lanes(*args, group_size=gs, num_targets=T, top_k=K,
+                               emit_matches_t=emit)
+        assert kernels.LAUNCHES["select_lanes"] == before + 1
+        want = dev._pack_result(
+            dev.threshold_topk(c, nn, *cuts, top_k=K, emit_matches_t=emit,
+                               lanes=(gs_d, ok_d, nt_d, gs, T)),
+            nn, o.to(torch.int32), dev.group_words(gs_d, ok_d))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hf", [1, 3])
+def test_scatter_pruned_kernel_matches_plain(cuda, hf):
+    """Fine mode (a parameter set per group, the lane as the bit) and
+    coarse mode (one set of all rows, the group as the bit), duplicates
+    included."""
+    rng = np.random.default_rng(hf)
+    G, gs, N = 11, 16, 30000
+    bsz = rng.integers(64, 900, size=G).astype(np.int64)
+    off = np.concatenate([[0], np.cumsum(bsz)[:-1]]).astype(np.int64)
+    shift = np.array([q.clz64(int(b)) for b in bsz], np.int32)
+    hashes = rng.integers(-2**63, 2**63 - 1, size=N)
+    hashes[N // 2:] = hashes[: N // 2]
+    grp = rng.integers(0, G, size=N).astype(np.int32)
+    lane = rng.integers(0, gs, size=N).astype(np.int32)
+    h, g, j = (torch.from_numpy(x).to(cuda) for x in (hashes, grp, lane))
+    fine = (torch.from_numpy(bsz).to(cuda), torch.from_numpy(shift).to(cuda),
+            torch.from_numpy(off).to(cuda))
+    Rc = 4000
+    coarse = (torch.tensor([Rc], dtype=torch.int64, device=cuda),
+              torch.tensor([q.clz64(Rc)], dtype=torch.int32, device=cuda),
+              torch.zeros(1, dtype=torch.int64, device=cuda))
+    for R, W, gg, bit, params in ((int(bsz.sum()), 1, g, j, fine),
+                                  (Rc, 1, None, g, coarse)):
+        a = torch.zeros((R, W), dtype=torch.int32, device=cuda)
+        b = torch.zeros_like(a)
+        before = kernels.LAUNCHES["scatter_pruned"]
+        scatter_pruned(a, h, gg, bit, *params, hf)
+        scatter_pruned_plain(b, h, gg, bit, *params, hf)
+        assert kernels.LAUNCHES["scatter_pruned"] == before + 1
+        assert torch.equal(a, b) and a.any()
+
+
+def test_pruned_batch_cuda_matches_cpu(cuda):
+    """classify_batch_packed_pruned and the probe-all counts: the kernels
+    on the card give the plain versions' outputs on the CPU."""
+    from ganon_tpu_torch.index.builder import _HashExtractor
+    from ganon_tpu_torch.index.pruned import build_pruned
+    from ganon_tpu_torch.io.pipeline import EncodedBatch
+
+    rng = np.random.default_rng(7)
+    genomes = rng.integers(0, 4, size=(150, 2000), dtype=np.uint8)
+    ex = _HashExtractor(19, 31, device="cpu")
+    for t, g in enumerate(genomes):
+        ex.add_encoded(f"T{t}", g)
+    pf = build_pruned(ex.finish(), kmer_size=19, window_size=31, group_size=16)
+    fc = dev.DevicePrunedForest(pf, "cpu")
+    fg = fc.to(cuda)
+    B, L = 128, 150
+    tgt = rng.integers(0, len(genomes), size=B)
+    pos = rng.integers(0, 2000 - L, size=(2, B))
+    idx = np.arange(L)
+    r1 = genomes[tgt[:, None], pos[0][:, None] + idx]
+    r2 = 3 - genomes[tgt[:, None], pos[1][:, None] + idx][:, ::-1]
+    r2[::4] = rng.integers(0, 4, size=r2[::4].shape)  # mates of other origin
+    lens = np.full(B, L, np.int32)
+    batch = EncodedBatch(prefix="", paired=True, ids=[str(i) for i in range(B)],
+                         codes1=r1.astype(np.uint8), len1=lens,
+                         codes2=np.ascontiguousarray(r2, dtype=np.uint8),
+                         len2=lens)
+    inbuf, L1, L2 = dev.pack_batch_direct(batch, B)
+    for S in (1, 2, 3):
+        outs = [dev.classify_batch_packed_pruned(
+            f, torch.from_numpy(inbuf).to(f.device), 0.1, 0.5, 65535, k=19,
+            w=31, L1=L1, L2=L2, max_groups=S, top_k=8) for f in (fc, fg)]
+        assert torch.equal(outs[0], outs[1].cpu())
+    hc, nc, _ = dev._extract_compact(torch.from_numpy(inbuf), k=19, w=31,
+                                     L1=L1, L2=L2)
+    hg, ng = hc.to(cuda), nc.to(cuda)
+    assert torch.equal(fc.counts_gated(hc, nc, 0.2),
+                       fg.counts_gated(hg, ng, 0.2).cpu())
+    assert torch.equal(fc.counts(hc, nc), fg.counts(hg, ng).cpu())

@@ -5,8 +5,9 @@ hashes_count and bin_map; each package loads the npz and raw ``.hibf``
 files the other writes; ``classify_batch_packed_forest`` (extract once,
 count each sub into its columns, select) returns the JAX function's int32
 buffer exactly (``match_cap=0``); and a forest level classifies, alone or
-in a hierarchy, to the JAX engine's outputs. Pruned and raptor ``.hibf``
-files raise NotImplementedError naming their ROADMAP items.
+in a hierarchy, to the JAX engine's outputs. Raptor ``.hibf`` files
+raise NotImplementedError naming their ROADMAP item; pruned ones open as
+the port's ``DevicePrunedForest`` (tested in ``test_torch_pruned.py``).
 """
 
 import random
@@ -94,13 +95,17 @@ def test_hibf_files_cross_load(tmp_path, forest, raw):
 
 
 def test_load_device_filter_refuses_pruned_and_raptor(tmp_path, forest):
+    """A raptor archive is still refused; a pruned forest (ported since)
+    opens as a DevicePrunedForest; a native forest as a DeviceHIBF."""
     genomes, jhibf = forest
     hashes = _hashes(genomes)
     pruned, raptor = str(tmp_path / "p.hibf"), str(tmp_path / "r.hibf")
-    build_pruned(hashes, kmer_size=19, window_size=31).save(pruned)
+    jp = build_pruned(hashes, kmer_size=19, window_size=31)
+    jp.save(pruned)
     export_raptor_hibf(jhibf, hashes, raptor)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdev.load_device_filter(pruned, "cpu")
+    fp = tdev.load_device_filter(pruned, "cpu")
+    assert isinstance(fp, tdev.DevicePrunedForest)
+    assert fp.targets == jp.targets() and fp.num_groups == jp.num_groups
     with pytest.raises(NotImplementedError, match="item 5c"):
         tdev.load_device_filter(raptor, "cpu")
     native = str(tmp_path / "n.hibf")
