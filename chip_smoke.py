@@ -36,10 +36,26 @@ hierarchy    524,288 pairs (25% from the forest's targets, 70% from the
              pairs land in ``.unc``, and on the first 4096 pairs the CUDA and
              ``device="cpu"`` runs write identical sorted per-level files,
              ``.rep`` and a byte-equal ``.sta``;
+raptor       the reference's own files: the flat database written as a
+             cereal ``.ibf`` and read back through ``IBF.load`` (bits,
+             config, hashes_count, bin_map equal); the forest's 256 targets
+             (hashes kept from its build) written as raptor ``.hibf``
+             archives, one in the shape of raptor's DP layout (IBF 0: the
+             64 targets of 2 Mbp as user bins plus one merged bin per other
+             class, the three classes its children; ``raptor.hibf``) and the
+             forest's 2-level export (``rexport.hibf``); ``count`` in
+             column-max mode (K12) against its plain version at 8192 pairs
+             over the layout's four subs, and on a small layout with one
+             user bin in two IBFs (both subs count it); 524,288 pairs (95%
+             sampled, a quarter per class, 5% random) through the CLI with
+             ``--db-prefix raptor``, profiled; every sampled pair lists its
+             true target in ``.all``, random pairs land in ``.unc``, and on
+             the first 4096 pairs both archives give the same sorted files
+             and byte-equal ``.sta`` on the card and with ``device="cpu"``;
 pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              shape: 8192 targets x 20 kbp (group size 64), minimizers
              through ``extract``, the tables built by ``scatter`` in pruned
-             mode (``build_pruned(device=True)``) and on the host, required
+             mode (``build_pruned``'s default) and on the host, required
              byte-equal, saved raw as ``pruned.hibf`` with a ``.tax`` of 64
              genera (line ``pruned_build``); ``gate``, ``fine``, ``fine``
              probe-all, ``select`` in lanes mode and ``scatter`` in pruned
@@ -53,20 +69,24 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              byte-equal ``.sta`` on the card (S = 2, and S = 1, which forces
              the probe-all path) and with ``device="cpu"``;
 5. checks    every kernel mode launched on the main paths (builds, the
-             three CLI runs and the pruned phase's card runs), every flat
+             four CLI runs and the raptor and pruned phases' card runs),
+             every flat
              pair lists its true target in ``.all``, and on its first 4096
              pairs the CUDA and ``device="cpu"`` runs write identical sorted
              ``.all``, ``.one`` and ``.rep``.
 
-Then one JSON line of every kernel mode, and last the device line. Any
-failure raises (exit code 1); without CUDA the script exits 2 before any
-work. If a run nears the time limit, shrink ``--pairs`` (the flat phase)
-before the hierarchy and the pruned phase.
+Then one JSON line of every kernel mode (its time and its plain
+version's, its bound at these inputs, the larger of bytes over 3.35 TB/s
+and operations over 67 T/s, and its launches on the main paths), and last
+the device line. Any failure raises (exit code 1); without CUDA the script
+exits 2 before any work. If a run nears the time limit, shrink ``--pairs``
+(the flat phase) before the later phases.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import shutil
@@ -101,6 +121,74 @@ def _max_abs_err(a, b) -> int:
     if not a.numel():
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+# the least time the card could take for a function's work: the
+# larger of the bytes a function must move (each input read once, each
+# output written once) over the H100 SXM's 3.35 TB/s and its operations
+# over 67 T/s, the data sheet's rate outside the tensor cores (no kernel
+# here uses them; their integer operations are counted at that rate)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+
+def _bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by) of a function moving ``nbytes`` and doing
+    ``ops`` operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _valid(hashes, n):
+    """bool [B, M]: the slots the count kernels read (first min(n, M))."""
+    import torch
+
+    M = hashes.shape[1]
+    return torch.arange(M, device=hashes.device)[None, :] < n[:, None]
+
+
+def _distinct_rows(hashes, n, bin_size: int, h: int) -> int:
+    """Distinct table rows the batch's valid hashes probe (h rows each):
+    the rows a count or gate must gather at least once."""
+    import torch
+
+    from ganon_tpu_torch.ops.ibf_query import ibf_row_indices
+
+    rows = ibf_row_indices(hashes[_valid(hashes, n)], bin_size=bin_size,
+                           hash_functions=h)
+    return int(torch.unique(rows).numel())
+
+
+def _count_work(tbl8, hashes, n, bin_size: int, h: int, out_bytes: int):
+    """(bytes, ops) of one count: its distinct rows of the table, the
+    hashes and n in, ``out_bytes`` out; one operation per table byte
+    gathered (AND or popcount)."""
+    W8 = tbl8.shape[1]
+    nvalid = int(_valid(hashes, n).sum())
+    nbytes = (_distinct_rows(hashes, n, bin_size, h) * W8
+              + _nbytes(hashes, n) + out_bytes)
+    return nbytes, nvalid * h * W8
+
+
+def _fine_work(fp, hashes, n, pairs_b, pairs_g):
+    """(distinct fine-table rows, valid hashes) of the given (read, group)
+    pairs: the rows the fine kernel must gather at least once."""
+    import torch
+
+    from ganon_tpu_torch.ops.ibf_query import ibf_row_dyn
+
+    valid = _valid(hashes, n)[pairs_b]
+    hv = hashes[pairs_b][valid]
+    g = pairs_g[:, None].expand(valid.shape)[valid]
+    size, shift = fp.grp_bin_size[g], fp.grp_shift[g].to(torch.int64)
+    rows = torch.cat([ibf_row_dyn(hv, i, size, shift) + fp.grp_row_off[g]
+                      for i in range(fp.fine_h)])
+    return int(torch.unique(rows).numel()), int(hv.numel())
 
 
 def _write_fastq(path, ids, codes):
@@ -222,6 +310,8 @@ def main() -> int:
     ap.add_argument("--forest-unit", type=int, default=250_000)
     ap.add_argument("--b-targets", type=int, default=512)
     ap.add_argument("--hier-pairs", type=int, default=524_288)
+    # the raptor archives over the forest's targets
+    ap.add_argument("--raptor-pairs", type=int, default=524_288)
     # the pruned forest: the JAX benchmark's T8192 regime (bench.py:79)
     # and its soak size (bench.py:743-756)
     ap.add_argument("--pruned-targets", type=int, default=8192)
@@ -243,10 +333,13 @@ def main() -> int:
     from ganon_tpu_torch.classify import engine as eng
     from ganon_tpu_torch.classify.engine import ClassifyConfig, run_classify
     from ganon_tpu_torch.index import sizing
-    from ganon_tpu_torch.index.hibf import build_hibf
-    from ganon_tpu_torch.index.ibf import (
-        SCATTER_CHUNK, _scatter_bits, build_ibf, scatter_hashes,
+    from ganon_tpu_torch.index.hibf import (
+        RaptorHIBF, build_hibf, export_raptor_hibf,
     )
+    from ganon_tpu_torch.index.ibf import (
+        IBF, SCATTER_CHUNK, _scatter_bits, build_ibf, scatter_hashes,
+    )
+    from ganon_tpu_torch.index.serialize import write_ibf
     from ganon_tpu_torch.index.pruned import (
         build_pruned, scatter_pruned, scatter_pruned_plain,
     )
@@ -254,6 +347,14 @@ def main() -> int:
     from ganon_tpu_torch.ops import ibf_query as q
     from ganon_tpu_torch.ops import pruned_query as pq
     from ganon_tpu_torch.ops.minimizers import u64_to_torch
+    # the tests' layout writer, loaded by its path: a `tests` package
+    # installed on the machine would shadow the repo's directory
+    spec = importlib.util.spec_from_file_location(
+        "raptor_layout", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "raptor_layout.py"))
+    raptor_layout = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(raptor_layout)
+    write_raptor_layout = raptor_layout.write_raptor_layout
 
     cuda = torch.device("cuda")
     work = os.path.abspath(args.workdir)
@@ -327,11 +428,12 @@ def main() -> int:
                                   range(n_shared, args.b_targets)]
     kernels.reset_launches()
     t0 = time.perf_counter()
-    hibf = build_hibf(
-        _hashes(((n, g) for c in range(len(lengths))
-                 for n, g in zip(forest_names[c], forest[c])), k, w, cuda),
-        kmer_size=k, window_size=w, max_fp=0.05, device=cuda,
-    )
+    # the forest's hashes stay for the raptor phase's archives
+    forest_hashes = _hashes(((n, g) for c in range(len(lengths))
+                             for n, g in zip(forest_names[c], forest[c])),
+                            k, w, cuda)
+    hibf = build_hibf(forest_hashes, kmer_size=k, window_size=w, max_fp=0.05,
+                      device=cuda)
     torch.cuda.synchronize()
     forest_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -392,16 +494,23 @@ def main() -> int:
     rows = []
 
     def compare(name, source, replaces, run_kernel, run_plain, reps,
-                plain_reps):
+                plain_reps, work):
+        """Kernel against plain on the same card tensors (equal, or
+        raise), both timed; ``work`` is the function's (bytes, ops) at
+        these inputs, for the bound. No single PyTorch call computes any
+        of these functions, so ``library_ms`` is null (PERF.md says why
+        for each)."""
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         errs = [_max_abs_err(a, b) for a, b in zip(got, want)]
         if any(errs) or not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name}: kernel != plain (max errors {errs})")
+        bound_ms, bound_by = _bound(*work)
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": max(errs),
             "ms": _ms(run_kernel, reps), "plain_ms": _ms(run_plain, plain_reps),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
         return got
 
@@ -410,6 +519,9 @@ def main() -> int:
         "ganon_tpu/ops/minimizers.py:245",
         lambda: q.extract(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc),
         lambda: q.extract_plain(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc), 20, 5,
+        # inbuf in; hashes, n, overflow out; ~8 integer operations per base
+        (_nbytes(inbuf) + args.bench_pairs * (mc * 8 + 5),
+         8 * args.bench_pairs * (L1 + L2)),
     )
     bin_size, h = cfg.bin_size_bits, cfg.hash_functions
     (counts,) = compare(
@@ -421,6 +533,8 @@ def main() -> int:
         lambda: (q.bulk_target_counts(f.tbl8, f.byte_starts, f.byte_ends,
                                       hashes, n_hashes, bin_size=bin_size,
                                       hash_functions=h),), 20, 3,
+        _count_work(f.tbl8, hashes, n_hashes, bin_size, h,
+                    args.bench_pairs * f.num_targets * 4),
     )
     # forest mode: the forest's last sub into its columns (col0 > 0) of
     # the forest's [B, T] matrix, zeroed as DeviceHIBF.counts does
@@ -437,6 +551,9 @@ def main() -> int:
         lambda: (q.target_counts(*sub_args, out=fout_k.zero_(), **sub_kw),),
         lambda: (q.bulk_target_counts(*sub_args, out=fout_p.zero_(),
                                       **sub_kw),), 20, 3,
+        _count_work(sub.tbl8, hashes, n_hashes, sub_kw["bin_size"],
+                    sub_kw["hash_functions"],
+                    args.bench_pairs * sub.num_targets * 4),
     )
     # the union step of the 2_refs level: db then db_b into 1024 + 448
     # columns (zeroing both [B, U] tensors, as the main path does)
@@ -461,6 +578,10 @@ def main() -> int:
         "ganon_tpu/classify/device.py:542",
         lambda: union(dev.merge, uk[0], uk[1]),
         lambda: union(dev.merge_plain, uk[2], uk[3]), 20, 5,
+        # both filters' counts, n and cols in; union counts and winners out
+        (_nbytes(counts, counts_b, n_hashes, *cols)
+         + 2 * args.bench_pairs * U * 4,
+         4 * args.bench_pairs * (counts.shape[1] + counts_b.shape[1])),
     )
     K = min(32, f.num_targets)
     sel_args = (counts, n_hashes, overflow, 0.75, 0.1, 65535)
@@ -472,6 +593,11 @@ def main() -> int:
             dev.threshold_topk(*sel_args[:2], *sel_args[3:], top_k=K,
                                emit_matches_t=False),
             n_hashes, overflow.to(torch.int32)),), 20, 5,
+        # counts, n, overflow in; the packed buffer out; ~4 operations per
+        # count (cutoff, rel-filter, top-K key, tallies)
+        (_nbytes(counts, n_hashes, overflow)
+         + 4 * (args.bench_pairs * (K + 4) + f.num_targets + 3),
+         4 * counts.numel()),
     )
     KU = min(32, U)
     usel = (ucounts, n_hashes, overflow, 0.0, 0.1, 65535)
@@ -484,6 +610,9 @@ def main() -> int:
             dev.threshold_topk(*usel[:2], *usel[3:], top_k=KU,
                                emit_matches_t=False, winners=uwin),
             n_hashes, overflow.to(torch.int32)),), 20, 5,
+        (_nbytes(ucounts, uwin, n_hashes, overflow)
+         + 4 * (args.bench_pairs * (2 * KU + 4) + U + 3),
+         4 * ucounts.numel()),
     )
     # one main-path scatter chunk: the build's first SCATTER_CHUNK pairs
     splits = sizing.split_target_bins(cfg, ibf.hashes_count)
@@ -508,8 +637,14 @@ def main() -> int:
         _scatter_bits(bits_p, sh, sb, bin_size=bin_size, hash_functions=h)
         return (bits_p,)
 
+    # the (hash, bin) pairs in; each distinct u32 word the pairs set, out
+    srows = q.ibf_row_indices(sh, bin_size=bin_size, hash_functions=h)
+    swords = torch.unique(srows * bits_k.shape[1] + (sb // 32)[:, None].to(
+        torch.int64)).numel()
     compare("scatter", "ganon_tpu_torch/csrc/scatter.cu",
-            "ganon_tpu/index/ibf.py:231", scatter_kernel, scatter_plain, 10, 3)
+            "ganon_tpu/index/ibf.py:231", scatter_kernel, scatter_plain, 10, 3,
+            (_nbytes(sh, sb) + swords * 4, srows.numel()))
+    del srows
     print("phase=kernels " + json.dumps({
         "pairs": args.bench_pairs, "L1": L1, "L2": L2, "mc": mc,
         "filter_load_s": load_s["db"],
@@ -672,9 +807,220 @@ def main() -> int:
         "cuda_equals_cpu_files": sorted(hsubs["cuda"]),
     }), flush=True)
 
+    # raptor: the reference's own files over the forest's 256 targets -------
+    # the cereal check: the flat database as `ganon build --filter-type ibf`
+    # writes it, read back through IBF.load's sniffing
+    t0 = time.perf_counter()
+    cereal = os.path.join(work, "cereal.ibf")
+    write_ibf(ibf, cereal)
+    back = IBF.load(cereal)
+    if not (np.array_equal(back.bits, ibf.bits)
+            and back.ibf_config == ibf.ibf_config
+            and back.hashes_count == ibf.hashes_count
+            and back.bin_map == ibf.bin_map):
+        raise AssertionError("cereal .ibf: read back differs from the filter")
+    cereal_s = time.perf_counter() - t0
+    cereal_bytes = os.path.getsize(cereal)
+    os.remove(cereal)
+    del back
+    # two archives: the shape of raptor's DP layout (IBF 0 holds the 64
+    # largest targets as user bins and one merged bin per other class,
+    # each class a child IBF), and the forest's 2-level export
+    rdb, edb = os.path.join(work, "raptor"), os.path.join(work, "rexport")
+    layout = [(forest_names[3], [1, 2, 3]), (forest_names[0], []),
+              (forest_names[1], []), (forest_names[2], [])]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    write_raptor_layout(forest_hashes, layout, rdb + ".hibf", kmer_size=k,
+                        window_size=w, max_fp=0.05, device=cuda)
+    layout_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_raptor_hibf(hibf, forest_hashes, edb + ".hibf", device=cuda)
+    export_s = time.perf_counter() - t0
+    rbuild_launches = dict(kernels.LAUNCHES)
+    rload_s = {}
+    for p_ in (rdb, edb):
+        _write_tax(p_ + ".tax", flat_forest_names,
+                   [f"H{i % 8}" for i in range(len(flat_forest_names))])
+        t0 = time.perf_counter()
+        dev.load_device_filter(p_ + ".hibf", cuda)
+        torch.cuda.synchronize()
+        rload_s[os.path.basename(p_)] = time.perf_counter() - t0
+    fr = dev.load_device_filter(rdb + ".hibf", cuda)
+    if not isinstance(fr, dev.DeviceRaptorHIBF) or len(fr.subs) != 4:
+        raise AssertionError("raptor: the layout did not open as 4 subs")
+    # K12 against its plain version: 8192 pairs over the four classes,
+    # every sub max-merged into one zeroed [B, 256] matrix
+    brng = np.random.default_rng(args.seed + 7)
+    bparts = [_sample_pairs(brng, g, args.bench_pairs // 4
+                            + (c < args.bench_pairs % 4), args.read_len)
+              for c, g in enumerate(forest)]
+    rbatch = EncodedBatch(
+        prefix="", paired=True, ids=[str(i) for i in range(args.bench_pairs)],
+        codes1=np.concatenate([x[1] for x in bparts]), len1=lens,
+        codes2=np.concatenate([x[2] for x in bparts]), len2=lens)
+    rin_np, rL1, rL2 = dev.pack_batch_direct(rbatch, args.bench_pairs)
+    rh, rn, _ = dev._extract_compact(torch.from_numpy(rin_np).to(cuda), k=k,
+                                     w=w, L1=rL1, L2=rL2)
+    rout_k = torch.zeros((args.bench_pairs, fr.num_targets),
+                         dtype=torch.int32, device=cuda)
+    rout_p = torch.zeros_like(rout_k)
+
+    def raptor_counts(fn, out, subs):
+        out.zero_()
+        for sub_ in subs:
+            fn(sub_.tbl8, sub_.byte_starts, sub_.byte_ends, rh, rn,
+               bin_size=sub_.bin_size, hash_functions=sub_.hash_funs,
+               out=out, cols=sub_.cols)
+        return (out,)
+
+    # each sub gathers its own distinct rows; the hashes, n and the
+    # [B, T] output are shared by the four launches and counted once
+    rvalid = int(_valid(rh, rn).sum())
+    compare(
+        "count_raptor", "ganon_tpu_torch/csrc/count.cu",
+        "ganon_tpu/classify/device.py:488",
+        lambda: raptor_counts(q.target_counts, rout_k, fr.subs),
+        lambda: raptor_counts(q.bulk_target_counts, rout_p, fr.subs), 20, 3,
+        (sum(_distinct_rows(rh, rn, s_.bin_size, s_.hash_funs)
+             * s_.tbl8.shape[1] for s_ in fr.subs)
+         + _nbytes(rh, rn, rout_k),
+         sum(rvalid * s_.hash_funs * s_.tbl8.shape[1] for s_ in fr.subs)),
+    )
+    # a small layout where one user bin sits in two IBFs, so the max
+    # really combines two subs' values
+    twin = forest_names[0][0]
+    tdb = os.path.join(work, "twin.hibf")
+    write_raptor_layout(
+        forest_hashes, [(forest_names[3][:4] + [twin], [1]),
+                        (forest_names[0][:4], [])],
+        tdb, kmer_size=k, window_size=w, max_fp=0.05, device=cuda)
+    ft = dev.DeviceRaptorHIBF(RaptorHIBF.load(tdb), cuda)
+    tcol = ft.targets.index(twin)
+    tk, tp = (torch.zeros((args.bench_pairs, ft.num_targets),
+                          dtype=torch.int32, device=cuda) for _ in range(2))
+    raptor_counts(q.target_counts, tk, ft.subs)
+    raptor_counts(q.bulk_target_counts, tp, ft.subs)
+    per_sub = [q.bulk_target_counts(
+        s_.tbl8, s_.byte_starts, s_.byte_ends, rh, rn, bin_size=s_.bin_size,
+        hash_functions=s_.hash_funs)[:, s_.cols.tolist().index(tcol)]
+        for s_ in ft.subs]
+    both = int(((per_sub[0] > 0) & (per_sub[1] > 0)).sum())
+    if not torch.equal(tk, tp) or not both:
+        raise AssertionError(f"raptor twin layout: kernel == plain "
+                             f"{torch.equal(tk, tp)}, reads in both subs "
+                             f"{both}")
+    del ft, tk, tp, per_sub, rout_k, rout_p, rh, rn
+    # 95% of the pairs from the 256 targets (a quarter per class), 5%
+    # random, through the CLI; then profiled
+    nr = args.raptor_pairs
+    n_rrand = nr // 20
+    rrng = np.random.default_rng(args.seed + 8)
+    rparts = []
+    for c, g in enumerate(forest):
+        n_c = (nr - n_rrand) // 4 + (c < (nr - n_rrand) % 4)
+        t_c, a, b = _sample_pairs(rrng, g, n_c, args.read_len)
+        rparts.append(([forest_names[c][t] for t in t_c], a, b))
+    rrand = rrng.integers(0, 4, size=(2, n_rrand, args.read_len),
+                          dtype=np.uint8)
+    rparts.append((["rnd"] * n_rrand, rrand[0], rrand[1]))
+    rtruth = [t for p_ in rparts for t in p_[0]]
+    perm = rrng.permutation(nr)
+    rr1 = np.concatenate([p_[1] for p_ in rparts])[perm]
+    rr2 = np.concatenate([p_[2] for p_ in rparts])[perm]
+    rids = [b"x%d|%s" % (i, rtruth[j].encode()) for i, j in enumerate(perm)]
+    rq1, rq2 = os.path.join(work, "x1.fq"), os.path.join(work, "x2.fq")
+    _write_fastq(rq1, rids, rr1)
+    _write_fastq(rq2, rids, rr2)
+    rout = os.path.join(work, "xout")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", rdb,
+              "--paired-reads", rq1, rq2, "--output-prefix", rout,
+              "--multiple-matches", "lca", "--output-one", "--output-all",
+              "--output-unclassified", "--skip-report"])
+    r_cli_s = time.perf_counter() - t0
+    r_cli_launches = dict(kernels.LAUNCHES)
+    rfiles = dict(ibf=[rdb + ".hibf"], tax=[rdb + ".tax"], rel_cutoff=[0.75],
+                  rel_filter=[0.1], fpr_query=[1e-5], output_lca=True,
+                  output_all=True, output_unclassified=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        rtiming = run_classify(ClassifyConfig(
+            paired_reads=[rq1, rq2], output_prefix=os.path.join(work, "xprof"),
+            **rfiles))["timing"]
+    rbusy_us, rkernel_us = _device_busy(prof)
+    rall = _true_target_rows(rout + ".all")
+    with open(rout + ".unc") as fh_:
+        runc = {line.strip() for line in fh_ if line.strip()}
+    rbad = {"sampled": 0, "random": 0}
+    for rid in rids:
+        rid = rid.decode()
+        t = rid.split("|")[1]
+        if t == "rnd":
+            rbad["random"] += rid not in runc
+        else:
+            rbad["sampled"] += t not in rall.get(rid, ())
+    if any(rbad.values()):
+        raise AssertionError(f"raptor pairs misplaced: {rbad}")
+    # the first pairs on the card and through the plain versions on the
+    # CPU, for both archives
+    nc = args.check_pairs
+    rs1, rs2 = (os.path.join(work, f"xsub{m}.fq") for m in (1, 2))
+    _write_fastq(rs1, rids[:nc], rr1[:nc])
+    _write_fastq(rs2, rids[:nc], rr2[:nc])
+    req_launches = {}
+    for p_ in (rdb, edb):
+        rsubs = {}
+        for device in ("cuda", "cpu"):
+            d = os.path.join(work, f"xsub_{os.path.basename(p_)}_{device}")
+            os.makedirs(d)
+            kernels.reset_launches()
+            run_classify(ClassifyConfig(**{
+                **rfiles, "ibf": [p_ + ".hibf"], "tax": [p_ + ".tax"],
+                "paired_reads": [rs1, rs2], "output_stats": True,
+                "device": device, "output_prefix": os.path.join(d, "o")}))
+            if device == "cuda":
+                req_launches[os.path.basename(p_)] = dict(kernels.LAUNCHES)
+            rsubs[device] = {
+                fn: (open(os.path.join(d, fn), "rb").read()
+                     if fn.endswith(".sta")
+                     else _sorted_rows(os.path.join(d, fn)))
+                for fn in sorted(os.listdir(d))}
+        if rsubs["cuda"] != rsubs["cpu"]:
+            diff = [fn for fn in set(rsubs["cuda"]) | set(rsubs["cpu"])
+                    if rsubs["cuda"].get(fn) != rsubs["cpu"].get(fn)]
+            raise AssertionError(f"raptor {p_}: cuda and cpu runs differ in "
+                                 f"{diff}")
+    rmbp = nr * 2 * args.read_len / 1e6
+    print("phase=raptor " + json.dumps({
+        "cereal_ibf": {"bytes": cereal_bytes, "write_read_s": cereal_s,
+                       "equal": True},
+        "layout_build_s": layout_s, "export_build_s": export_s,
+        "archive_bytes": {os.path.basename(p_): os.path.getsize(p_ + ".hibf")
+                          for p_ in (rdb, edb)},
+        "filter_load_s": rload_s,
+        "subs": [{"targets": int(s_.cols.numel()), "w8": s_.tbl8.shape[1],
+                  "bin_size": s_.bin_size, "h": s_.hash_funs}
+                 for s_ in fr.subs],
+        "twin_reads_in_both_subs": both,
+        "pairs": nr, "random_pairs": n_rrand, "seconds": r_cli_s,
+        "reads_per_s": nr / r_cli_s, "mbp_per_min": rmbp / (r_cli_s / 60),
+        "classified": len(rall), "unclassified": len(runc),
+        "launches": r_cli_launches, "build_launches": rbuild_launches,
+        "profiled_split_s": rtiming,
+        "profiled_device_busy_share":
+            rbusy_us / 1e6 / rtiming["total"] if rbusy_us else None,
+        "profiled_device_us": rkernel_us,
+        "cuda_equals_cpu_pairs": nc,
+        "cuda_equals_cpu_archives": sorted(req_launches),
+        "cuda_equals_cpu_launches": req_launches,
+    }), flush=True)
+    del fr, forest_hashes
+    torch.cuda.empty_cache()
+
     # pruned: a merged-bin pruned forest at the T8192 shape ------------------
     # build: minimizers through extract, the tables through scatter's
-    # pruned mode (device=True) and on the host (device=False), equal
+    # pruned mode (the default) and on the host (device=False), equal
     prng = np.random.default_rng(args.seed + 4)
     pgen = prng.integers(0, 4, size=(args.pruned_targets,
                                      args.pruned_genome_len), dtype=np.uint8)
@@ -687,7 +1033,7 @@ def main() -> int:
     p_extract_s = time.perf_counter() - t0
     pkw = dict(kmer_size=k, window_size=w, max_fp=0.05, group_size=64)
     t0 = time.perf_counter()
-    pf = build_pruned(phashes, device=True, **pkw)
+    pf = build_pruned(phashes, **pkw)  # the default: on the card
     p_dev_s = time.perf_counter() - t0
     pbuild_launches = dict(kernels.LAUNCHES)
     t0 = time.perf_counter()
@@ -748,15 +1094,23 @@ def main() -> int:
         "ganon_tpu/classify/device.py:1067",
         lambda: pq.gate(fp.ctbl, ph, pn, **gate_kw)[:3],
         lambda: pq.gate_plain(fp.ctbl, ph, pn, **gate_kw)[:3], 20, 5,
+        _count_work(fp.ctbl, ph, pn, fp.coarse_bin_size, fp.coarse_h,
+                    args.bench_pairs * (5 * S + 1)),
     )
     fargs = (fp.ftbl, ph, pn, fp.grp_row_off, fp.grp_bin_size, fp.grp_shift)
     fkw = dict(fine_h=fp.fine_h, group_size=gs)
+    Wf = fp.ftbl.shape[1]
+    live_b, live_s = torch.nonzero(slot_ok.bool(), as_tuple=True)
+    frows, fvalid = _fine_work(fp, ph, pn, live_b,
+                               gsel[live_b, live_s].to(torch.int64))
     (lane_counts,) = compare(
         "fine", "ganon_tpu_torch/csrc/fine.cu",
         "ganon_tpu/classify/device.py:1088",
         lambda: (pq.fine_counts(*fargs, gsel=gsel, slot_ok=slot_ok, **fkw),),
         lambda: (pq.fine_counts_plain(*fargs, gsel=gsel, slot_ok=slot_ok,
                                       **fkw),), 20, 5,
+        (frows * Wf + _nbytes(ph, pn, gsel, slot_ok)
+         + args.bench_pairs * S * gs * 4, fvalid * fp.fine_h * Wf),
     )
     # probe-all: counts_gated's survive mask (no hashes limit, no slots)
     surv = pq.gate(fp.ctbl, ph, pn, **{**gate_kw, "max_groups": 0,
@@ -764,11 +1118,15 @@ def main() -> int:
                                         "hashes_limit": pq.NO_HASHES_LIMIT},
                    want_surv=True)[3]
     akw = dict(surv=surv, num_targets=fp.num_targets, **fkw)
+    surv_b, surv_g = torch.nonzero(surv.bool(), as_tuple=True)
+    arows, avalid = _fine_work(fp, ph, pn, surv_b, surv_g)
     compare(
         "fine_all", "ganon_tpu_torch/csrc/fine.cu",
         "ganon_tpu/classify/device.py:1394",
         lambda: (pq.fine_counts(*fargs, **akw),),
         lambda: (pq.fine_counts_plain(*fargs, **akw),), 10, 2,
+        (arows * Wf + _nbytes(ph, pn, surv)
+         + args.bench_pairs * fp.num_targets * 4, avalid * fp.fine_h * Wf),
     )
     PK = min(4, S * gs)
     lc = lane_counts.reshape(args.bench_pairs, -1)
@@ -786,6 +1144,9 @@ def main() -> int:
                                       fp.num_targets)),
             pn, govf.to(torch.int32), dev.group_words(gsel, slot_ok)),),
         20, 5,
+        (_nbytes(lc, pn, govf, gsel, slot_ok, fp.grp_ntargets)
+         + 4 * (args.bench_pairs * (PK + 4 + -(-S // 2)) + fp.num_targets
+                + 3), 4 * lc.numel()),
     )
     # one main-path scatter chunk of the fine table: the first 4M hashes
     # of the build's group-major member stream
@@ -814,9 +1175,19 @@ def main() -> int:
         scatter_pruned_plain(fine_p, sph, spg, spj, *fparams, fp.fine_h)
         return (fine_p,)
 
+    # the (hash, group, lane) triples in; each distinct u32 word set, out
+    pg64 = spg.to(torch.int64)
+    prow = torch.cat([
+        q.ibf_row_dyn(sph, i, fp.grp_bin_size[pg64],
+                      fp.grp_shift[pg64].to(torch.int64))
+        + fp.grp_row_off[pg64] for i in range(fp.fine_h)])
+    pwords = torch.unique(prow * fine_k.shape[1] + (spj // 32).to(
+        torch.int64).repeat(fp.fine_h)).numel()
     compare("scatter_pruned", "ganon_tpu_torch/csrc/scatter.cu",
             "ganon_tpu/index/pruned.py:283", scatter_pruned_kernel,
-            scatter_pruned_run_plain, 10, 3)
+            scatter_pruned_run_plain, 10, 3,
+            (_nbytes(sph, spg, spj) + pwords * 4, prow.numel()))
+    del pg64, prow
     print("phase=pruned_kernels " + json.dumps({
         "pairs": args.bench_pairs, "L1": pL1, "L2": pL2, "S": S, "K": PK,
         "gate_overflow_reads": int(govf.sum()),
@@ -825,6 +1196,7 @@ def main() -> int:
         "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows[-5:]},
     }), flush=True)
     del ph, pn, povf, gsel, slot_ok, govf, lane_counts, lc, lsel, surv
+    del live_b, live_s, surv_b, surv_g
     del fine_k, fine_p, sph, spg, spj, fargs, akw, phashes
     torch.cuda.empty_cache()
 
@@ -941,8 +1313,8 @@ def main() -> int:
 
     # 5. checks ------------------------------------------------------------
     main_runs = (build_launches, hier_build_launches, cli_launches,
-                 hier_launches, pbuild_launches, p_cli_launches,
-                 *peq_launches.values())
+                 hier_launches, r_cli_launches, *req_launches.values(),
+                 pbuild_launches, p_cli_launches, *peq_launches.values())
     launches = {name: sum(r[name] for r in main_runs)
                 for name in kernels.LAUNCHES}
     missing = [name for name, n in launches.items() if n <= 0]

@@ -12,6 +12,10 @@ splits:
 * a forest (:class:`DeviceHIBF`): ``extract``, then ``count`` once per
   sub-IBF into its columns of one matrix, then ``select``
   (:func:`classify_batch_packed_forest`);
+* a raptor ``.hibf`` (:class:`DeviceRaptorHIBF`): ``extract``, then
+  ``count`` in column-max mode once per sub-IBF into one zeroed matrix
+  (a user bin may sit in several sub-IBFs), then ``select``
+  (:func:`classify_batch_packed`, through :meth:`DeviceRaptorHIBF.counts`);
 * several flat filters on one level: ``extract``, then per filter
   ``count`` and ``merge`` into the union counts and winners, then
   ``select`` with the winners payload (:func:`classify_batch_packed_multi`);
@@ -23,14 +27,14 @@ splits:
   (:meth:`DevicePrunedForest.counts_gated`).
 
 Every function takes tensors on one explicit device; on the CPU the
-kernels' plain torch versions run. Not ported yet: raptor ``.hibf`` files
-(:func:`load_device_filter` raises naming their ROADMAP item), the 32-bit
-counter layout, multi-GPU meshes.
+kernels' plain torch versions run. Not ported yet: the 32-bit counter
+layout, multi-GPU meshes.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 import warnings
 import zipfile
@@ -450,7 +454,7 @@ def _extract_compact(inbuf: torch.Tensor, *, k: int, w: int, L1: int,
                           mc=compact_width(m1 + m2))
 
 
-def classify_batch_packed(f: "DeviceFilter | DeviceHIBF",
+def classify_batch_packed(f: "DeviceFilter | DeviceHIBF | DeviceRaptorHIBF",
                           inbuf: torch.Tensor,
                           rel_cutoff: float, rel_filter: float,
                           hashes_limit: int, *, k: int, w: int, L1: int,
@@ -462,7 +466,11 @@ def classify_batch_packed(f: "DeviceFilter | DeviceHIBF",
     ``pack16=True, match_cap=0``: the compaction width is
     ``compact_width(m1 + m2)`` of the bucketed mate widths; overflowing
     reads carry ``overflow`` and are re-run by the engine uncompacted.
-    ``f`` may be a forest (:func:`classify_batch_packed_forest`).
+    ``f`` may be a forest (:func:`classify_batch_packed_forest`) or a
+    raptor ``.hibf``: then this is the port of
+    ``classify_batch_packed_raptor``, whose ``f.counts`` runs ``count`` in
+    column-max mode once per sub-IBF into one ``[B, T]`` matrix zeroed for
+    the batch (JAX's ``counts.at[:, cols].max(c)`` and final clamp).
     """
     hashes, n_hashes, overflow = _extract_compact(inbuf, k=k, w=w, L1=L1,
                                                   L2=L2)
@@ -698,6 +706,88 @@ class DeviceHIBF:
         return out
 
 
+@dataclasses.dataclass
+class RaptorSub:
+    """One sub-IBF of a raptor archive in the query layout: its u8 table
+    (``W8`` padded to whole u32 words), the byte ranges of its user bins,
+    its hash parameters and ``cols``, the global target column of each of
+    its user bins (int32, ascending, distinct)."""
+
+    tbl8: torch.Tensor
+    byte_starts: torch.Tensor
+    byte_ends: torch.Tensor
+    bin_size: int
+    hash_funs: int
+    cols: torch.Tensor
+
+    def to(self, device) -> "RaptorSub":
+        return dataclasses.replace(self, **{
+            name: getattr(self, name).to(device)
+            for name in ("tbl8", "byte_starts", "byte_ends", "cols")})
+
+
+class DeviceRaptorHIBF:
+    """A raptor ``.hibf`` flattened into per-sub-IBF query tables.
+
+    Port of ``ganon_tpu.classify.device.DeviceRaptorHIBF`` (no mesh).
+    Every sub-IBF is counted (see ``index.hibf.RaptorHIBF`` for why that
+    equals the reference's gated descent). Per sub: the technical bins'
+    file positions (``bin_to_filename``, padded with -1 to the technical
+    bins or cut to them), the used positions as its local targets, merged
+    and empty bins mapped to the dropped id ``len(used)`` by
+    ``pack_table_u8``; a routing-only IBF (every bin merged) is skipped.
+    A user bin of several subs takes the largest of its counts.
+    """
+
+    def __init__(self, rhibf, device="cuda"):
+        self.device = _resolve_device(device)
+        self.ibf_config = rhibf.ibf_config
+        self.targets = rhibf.targets()
+        self.num_targets = len(self.targets)
+        self.target_fpr = rhibf.target_fpr()
+        self.subs = []
+        for (bits, _bins, bin_size, hash_funs), b2f in zip(
+                rhibf.ibfs, rhibf.bin_to_filename):
+            tb = bits.shape[1] * 32
+            fpos = np.full(tb, -1, dtype=np.int64)
+            b2f = np.asarray(b2f, dtype=np.int64)[:tb]
+            fpos[:len(b2f)] = b2f
+            used = np.unique(fpos[fpos >= 0])
+            if not len(used):
+                continue  # routing only: its children are counted directly
+            b2t_local = np.searchsorted(used, fpos).astype(np.int32)
+            b2t_local[fpos < 0] = len(used)
+            tbl8, bstarts, bends = pack_table_u8(bits, b2t_local, len(used))
+            self.subs.append(RaptorSub(
+                tbl8=torch.from_numpy(
+                    table_as_u32(tbl8).view(np.uint8)).to(self.device),
+                byte_starts=torch.from_numpy(bstarts).to(self.device),
+                byte_ends=torch.from_numpy(bends).to(self.device),
+                bin_size=int(bin_size), hash_funs=int(hash_funs),
+                cols=torch.from_numpy(used.astype(np.int32)).to(self.device),
+            ))
+
+    def to(self, device) -> "DeviceRaptorHIBF":
+        """The same archive with its tables on ``device`` (no repack)."""
+        out = copy.copy(self)
+        out.device = _resolve_device(device)
+        out.subs = [s.to(out.device) for s in self.subs]
+        return out
+
+    def counts(self, hashes: torch.Tensor, n_hashes: torch.Tensor) -> torch.Tensor:
+        """Clamped counts (int32 ``[B, T]``): each sub max-merges its
+        user bins' counts into their columns (``count`` in column-max
+        mode), as JAX's ``DeviceRaptorHIBF.counts``."""
+        out = torch.zeros((hashes.shape[0], self.num_targets),
+                          dtype=torch.int32, device=hashes.device)
+        for sub in self.subs:
+            target_counts(sub.tbl8, sub.byte_starts, sub.byte_ends, hashes,
+                          n_hashes, bin_size=sub.bin_size,
+                          hash_functions=sub.hash_funs, out=out,
+                          cols=sub.cols)
+        return out
+
+
 class DevicePrunedForest:
     """A merged-bin pruned forest on one device.
 
@@ -788,9 +878,9 @@ _FILTER_CACHE_CAP = 4
 
 
 def _open_filter(path: str, device):
-    """A fresh device filter for ``path`` (flat ``.ibf``, native or
-    pruned forest)."""
-    from ganon_tpu_torch.index.hibf import HIBF, is_raptor_hibf
+    """A fresh device filter for ``path`` (flat ``.ibf`` of any format;
+    pruned, raptor or native forest ``.hibf``, sniffed in that order)."""
+    from ganon_tpu_torch.index.hibf import HIBF, RaptorHIBF, is_raptor_hibf
     from ganon_tpu_torch.index.ibf import IBF
     from ganon_tpu_torch.index.pruned import PrunedForest, is_pruned_file
 
@@ -799,22 +889,18 @@ def _open_filter(path: str, device):
     if is_pruned_file(path):
         return DevicePrunedForest(PrunedForest.load(path), device)
     if not zipfile.is_zipfile(path) and is_raptor_hibf(path):
-        raise NotImplementedError(
-            f"{path}: raptor-format HIBF files are not ported yet (ROADMAP "
-            "queue 1, item 5c 'The cereal codec', then item 8's raptor "
-            "half); convert with ganon_tpu or build a native forest"
-        )
+        return DeviceRaptorHIBF(RaptorHIBF.load(path), device)
     return DeviceHIBF(HIBF.load(path), device)
 
 
 def load_device_filter(path: str, device="cuda"):
     """Open a flat ``.ibf`` or a forest ``.hibf`` on ``device``.
 
-    All come as npz or raw containers. ``.hibf`` files are sniffed as
-    the JAX package does: a pruned forest opens as a
-    :class:`DevicePrunedForest`, a raptor archive raises
-    NotImplementedError naming its ROADMAP item, anything else opens as
-    a :class:`DeviceHIBF`.
+    A flat ``.ibf`` comes as npz, raw container or the reference's cereal
+    archive. ``.hibf`` files are sniffed as the JAX package does: a
+    pruned forest opens as a :class:`DevicePrunedForest`, a raptor
+    archive as a :class:`DeviceRaptorHIBF`, anything else as a
+    :class:`DeviceHIBF`.
     """
     device = _resolve_device(device)
     st = os.stat(path)

@@ -3,8 +3,9 @@
 Port of ``ganon_tpu.classify.engine``: the same ClassifyConfig,
 multi-level hierarchies with leftover requeue (the cross-level
 scheduler), levels of several databases (union targets, per-filter
-rel-cutoff, winner-aware fpr-query), flat ``.ibf``, native forest and
-merged-bin pruned forest ``.hibf`` filters, tallies, LCA and the
+rel-cutoff, winner-aware fpr-query), flat ``.ibf`` (the reference's
+cereal archive too), native forest, raptor and merged-bin pruned forest
+``.hibf`` filters, tallies, LCA and the
 ``.rep``/``.one``/``.all``/
 ``.unc``/``.sta`` writers, with the device work running as the kernels
 of :mod:`ganon_tpu_torch.classify.device` on ``cfg.device``. Batches are
@@ -15,9 +16,9 @@ the host finishes the oldest batch after waiting on its copy's event.
 A pruned forest has no bound on its targets (its matches travel as
 lane ids plus per-read group words); its fast path needs at most 65,535
 groups. Not ported yet (each raises NotImplementedError naming its
-ROADMAP item): raptor ``.hibf`` files, the 32-bit counter layout (more
-than 65,535 targets in a flat filter or forest, or ``hashes_limit``
-above 65,535 as ``--longreads`` sets) and multi-GPU meshes.
+ROADMAP item): the 32-bit counter layout (more than 65,535 targets in a
+flat filter, forest or raptor archive, or ``hashes_limit`` above 65,535
+as ``--longreads`` sets) and multi-GPU meshes.
 """
 
 from __future__ import annotations
@@ -706,20 +707,23 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
                          cfg: ClassifyConfig):
     """Enqueue one batch's kernels and its result copy. Returns the
     in-flight host copy + unpack dims, or None when the level has no fast
-    path (device thresholding off, a level mixing a forest with other
-    filters, a union wider than 0xFFFF, a pruned forest of more than
-    0xFFFF groups): the batch then takes :func:`_classify_batch`."""
+    path (device thresholding off, a level mixing a forest or a raptor
+    archive with other filters, a union wider than 0xFFFF, a pruned
+    forest of more than 0xFFFF groups): the batch then takes
+    :func:`_classify_batch`."""
     if not cfg.device_thresholding:
         return None
     if len(ctx.filters) != 1:
         return _dispatch_batch_fast_multi(batch, ctx, cfg)
     f = ctx.filters[0]
     is_forest = isinstance(f, dev.DeviceHIBF) and f.contiguous and f.subs
+    is_raptor = isinstance(f, dev.DeviceRaptorHIBF) and f.subs
     is_pruned = isinstance(f, dev.DevicePrunedForest)
     if is_pruned and f.num_groups > 0xFFFF:
         # group ids travel as u16 halves of the group words
         return None
-    if not isinstance(f, dev.DeviceFilter) and not is_forest and not is_pruned:
+    if not (isinstance(f, dev.DeviceFilter) or is_forest or is_raptor
+            or is_pruned):
         return None
     batch_pad = dev.bucket_len(len(batch), minimum=64)
     inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
@@ -738,10 +742,9 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
         )
         pinfo = (S, f.group_size, -(-S // 2))
     else:
+        # flat, forest and raptor alike: f.counts is the filter's own count
         K = min(ctx.top_k_current, f.num_targets)
-        run = dev.classify_batch_packed_forest if is_forest else (
-            dev.classify_batch_packed)
-        packed = run(
+        packed = dev.classify_batch_packed(
             f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
             cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
             L2=L2, top_k=K, emit_matches_t=emit_mt,

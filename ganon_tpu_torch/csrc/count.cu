@@ -23,16 +23,30 @@
 // memory (4 bytes per table byte: a whole row would pass the 227 KB
 // limit near 58k targets, hence the tiles). Targets are contiguous byte
 // ranges in ascending order, so after each tile the threads sum the byte
-// ranges of the targets that intersect it (found by binary search) and
-// add into the read's output row; the last tile of a target clamps it.
-// The block owns its output row, so no atomics are needed; the segment
-// sum the TPU ran as a one-hot matmul is a short loop here.
+// ranges of the targets that intersect it (found by binary search). At
+// most one target is open at a tile boundary (a large user bin split over
+// many technical bins can span several tiles): its partial sum carries to
+// the next tile in shared memory (two slots, read one and write the
+// other, so the reader and the writer of one tile never race), and a
+// target's clamped sum is written once, at its last tile. The block owns
+// its output row, so no atomics are needed; the segment sum the TPU ran
+// as a one-hot matmul is a short loop here.
 //
 // Forest mode (K11, ganon_tpu/classify/device.py:432
 // classify_batch_packed_forest): the output row is ``counts + b * ldc +
 // col0``, so each sub-IBF of a forest counts straight into its own column
 // range of one shared [B, ldc] matrix (a flat filter passes ldc = T,
-// col0 = 0). The caller zeroes the matrix: tiles add into the row.
+// col0 = 0).
+//
+// Column-max mode (K12, ganon_tpu/classify/device.py:488
+// classify_batch_packed_raptor, and the exact path's
+// DeviceRaptorHIBF.counts at :1037): a raptor user bin can sit in several
+// sub-IBFs, so sub target t writes max(old, clamped sum) into column
+// cols[t] of the [B, ldc] matrix, which the caller zeroes once per batch
+// (a target in no sub reads 0). The clamp commutes with the max, so this
+// equals JAX's max of unclamped sums followed by one clamp. A sub's cols
+// are distinct (sorted file positions), and the subs launch in order on
+// one stream, so no two writers of a cell ever overlap: no atomics.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -53,18 +67,20 @@ count_kernel(const unsigned* __restrict__ tbl, long long W32,
              const long long* __restrict__ hashes, int M,
              const int* __restrict__ n_hashes, unsigned long long bin_size,
              int h, int shift, int* __restrict__ counts, long long ldc,
-             int col0) {
+             int col0, const int* __restrict__ cols) {
     __shared__ int cnt[kTileWords * 4];
     __shared__ unsigned long long rows[kHashChunk * kMaxH];
     __shared__ int t_first;
+    __shared__ int carry[2];  // the open target's sum, by tile parity
 
     const long long b = blockIdx.x;
     const int n = n_hashes[b];
     const int nvalid = min(n, M);
     const long long* hrow = hashes + b * M;
-    int* orow = counts + b * ldc + col0;
+    int* orow = counts + b * ldc;
 
-    for (long long w0 = 0; w0 < W32; w0 += kTileWords) {
+    int tile = 0;
+    for (long long w0 = 0; w0 < W32; w0 += kTileWords, ++tile) {
         const int tw = (int)min((long long)kTileWords, W32 - w0);
         for (int j = threadIdx.x; j < tw * 4; j += blockDim.x) cnt[j] = 0;
         for (int m0 = 0; m0 < nvalid; m0 += kHashChunk) {
@@ -105,6 +121,7 @@ count_kernel(const unsigned* __restrict__ tbl, long long W32,
             t_first = a;
         }
         __syncthreads();
+        const int cin = tile & 1;
         for (int t = t_first + threadIdx.x; t < T; t += blockDim.x) {
             const long long s0 = byte_starts[t], e0 = byte_ends[t];
             if (s0 >= hi) break;  // ranges ascend: no later target intersects
@@ -112,11 +129,20 @@ count_kernel(const unsigned* __restrict__ tbl, long long W32,
             const long long x1 = e0 < hi ? e0 : hi;
             int acc = 0;
             for (long long x = x0; x < x1; ++x) acc += cnt[x - lo];
-            int v = orow[t] + acc;
-            if (e0 <= hi) v = min(v, n);  // the target's last tile
-            orow[t] = v;
+            if (s0 < lo) acc += carry[cin];  // opened in an earlier tile
+            if (e0 > hi) {                   // still open: carry it on
+                carry[cin ^ 1] = acc;
+                continue;
+            }
+            const int v = min(acc, n);
+            if (cols) {
+                int* o = orow + cols[t];
+                *o = max(*o, v);
+            } else {
+                orow[col0 + t] = v;
+            }
         }
-        __syncthreads();  // before the next tile clears cnt
+        __syncthreads();  // before the next tile clears cnt and reads carry
     }
 }
 
@@ -127,13 +153,15 @@ extern "C" int ganon_count(const void* tbl, long long R, long long W8,
                            int T, const void* hashes, long long B, int M,
                            const void* n_hashes, unsigned long long bin_size,
                            int h, int shift, void* counts, long long ldc,
-                           int col0, void* stream) {
+                           int col0, const void* cols, void* stream) {
     (void)R;
-    if (h < 1 || h > kMaxH || W8 % 4 || col0 < 0 || col0 + (long long)T > ldc)
+    if (h < 1 || h > kMaxH || W8 % 4 || col0 < 0
+        || (!cols && col0 + (long long)T > ldc) || (cols && col0 != 0))
         return (int)cudaErrorInvalidValue;
     count_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
         (const unsigned*)tbl, W8 / 4, (const int*)byte_starts,
         (const int*)byte_ends, T, (const long long*)hashes, M,
-        (const int*)n_hashes, bin_size, h, shift, (int*)counts, ldc, col0);
+        (const int*)n_hashes, bin_size, h, shift, (int*)counts, ldc, col0,
+        (const int*)cols);
     return (int)cudaGetLastError();
 }

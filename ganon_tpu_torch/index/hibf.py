@@ -14,16 +14,17 @@ and the mmap-able raw container (``save_raw``).
 
 Two detectors tell the other ``.hibf`` kinds apart without parsing them:
 :func:`is_pruned_file` (the merged-bin pruned forest, whose container
-lives in :mod:`ganon_tpu_torch.index.pruned` and is re-exported here) and
-:func:`is_raptor_hibf` (the reference's raptor cereal archive, not ported
-yet: ROADMAP queue 1, item 5c).
+lives in :mod:`ganon_tpu_torch.index.pruned`) and :func:`is_raptor_hibf`
+(the reference's raptor archive, whose codec lives in
+:mod:`ganon_tpu_torch.index.serialize`); both are re-exported here.
+:class:`RaptorHIBF` is a raptor archive flattened for the batched query,
+and :func:`export_raptor_hibf` writes a forest as one.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import struct
 import zipfile
 
 import numpy as np
@@ -33,6 +34,11 @@ from ganon_tpu_torch.index.ibf import IBF, build_ibf
 from ganon_tpu_torch.index.pruned import MAGIC as PRUNED_MAGIC  # noqa: F401
 from ganon_tpu_torch.index.pruned import RAW_MAGIC as PRUNED_RAW_MAGIC  # noqa: F401
 from ganon_tpu_torch.index.pruned import is_pruned_file  # noqa: F401
+from ganon_tpu_torch.index.serialize import (  # noqa: F401
+    is_raptor_hibf,
+    read_raptor_hibf,
+    write_raptor_hibf,
+)
 
 MAGIC = "ganon-tpu-hibf-v1"
 # mmap-able raw container (save_raw / --filter-format tpu-raw)
@@ -225,19 +231,164 @@ def build_hibf(
     return HIBF(subs, kmer_size, window_size, max_fp)
 
 
-def is_raptor_hibf(path: str) -> bool:
-    """Sniff a raptor archive: u32 version + u64 window + decodable shape."""
-    try:
-        with open(path, "rb") as f:
-            head = f.read(28)
-        if len(head) < 28:
-            return False
-        version, window = struct.unpack("<IQ", head[:12])
-        a, b = struct.unpack("<QQ", head[12:28])
-        if version > 1000 or not (0 < window < 1 << 16):
-            return False
-        return (0 < a <= 58 and b < (1 << a)) or (
-            0 < b <= 58 and a < (1 << b)
+def _per_bin_set_bits(bits: np.ndarray, row_chunk: int = 8192) -> np.ndarray:
+    """Set-bit count per technical bin of a ``[rows, words]`` u32 matrix.
+
+    Bin ``b`` is bit ``b % 32`` of word ``b // 32``; rows go in chunks so
+    a large filter never unpacks whole.
+    """
+    rows, words = bits.shape
+    out = np.zeros(words * 32, dtype=np.int64)
+    for r0 in range(0, rows, row_chunk):
+        chunk = np.ascontiguousarray(bits[r0:r0 + row_chunk]).view(np.uint8)
+        # little-endian u32: byte j of word w holds bins w*32+8j..+7
+        out += np.unpackbits(chunk, axis=1, bitorder="little").sum(
+            axis=0, dtype=np.int64)
+    return out
+
+
+class RaptorHIBF:
+    """A raptor ``.hibf`` flattened for the batched query.
+
+    Port of ``ganon_tpu.index.hibf.RaptorHIBF``. The reference descends
+    per read (``hierarchical_interleaved_bloom_filter.hpp:432-460``): it
+    counts IBF 0's technical bins, enters a merged bin's child IBF when
+    the bin's count reaches the read's threshold, and records user-bin
+    sums. A merged bin holds every hash of its subtree, so its count is
+    never below a descendant's and the descent never drops a user bin
+    whose own count passes. Counting every IBF and leaving the threshold
+    to the rel-cutoff therefore gives the same matches, as uniform
+    batched work.
+    """
+
+    # raptor files carry no per-target hash counts: hashes_count is an
+    # estimate from filter occupancy (consumers of exact counts check this)
+    hashes_count_is_estimate = True
+
+    def __init__(self, parsed: dict):
+        self.window_size = parsed["window_size"]
+        self.kmer_size = parsed["kmer_size"]
+        self.fpr = parsed["fpr"]
+        self._targets = parsed["targets"]
+        self.ibfs = parsed["ibfs"]  # list of (bits, bins, bin_size, funs)
+        self.next_ibf_id = parsed["next_ibf_id"]
+        self.bin_to_filename = parsed["bin_to_filename"]
+        self.ibf_config = IBFConfig(
+            kmer_size=self.kmer_size,
+            window_size=self.window_size,
+            max_fp=self.fpr,
+            n_bins=sum(b for _, b, _, _ in self.ibfs),
+            hash_functions=self.ibfs[0][3] if self.ibfs else 0,
+            true_max_fp=self.fpr,
+            true_avg_fp=self.fpr,
         )
-    except OSError:
-        return False
+        self._hashes_count = None
+
+    @property
+    def hashes_count(self) -> dict:
+        """Per-target element counts estimated from filter occupancy.
+
+        The raptor format carries one global fpr and no counts
+        (``GanonClassify.cpp:930-934``). Each technical bin's fill is
+        inverted, ``n = -(m/h) ln(1 - X/m)`` for ``X`` of ``m`` bits set
+        (float64 ``log1p``), and a user bin sums its technical bins.
+        Merged bins (file position -1) are left out, so subtree unions
+        are not counted twice. Computed on first use and cached.
+        """
+        if self._hashes_count is None:
+            est = np.zeros(len(self._targets), dtype=np.float64)
+            for (bits, _bins, bin_size, hash_funs), b2f in zip(
+                    self.ibfs, self.bin_to_filename):
+                if not len(b2f) or hash_funs <= 0:
+                    continue
+                x = _per_bin_set_bits(bits)
+                fpos = np.asarray(b2f, dtype=np.int64)
+                nb = min(len(fpos), x.shape[0])
+                fill = np.minimum(x[:nb] / float(bin_size), 1.0 - 1e-12)
+                n_b = -(float(bin_size) / hash_funs) * np.log1p(-fill)
+                keep = fpos[:nb] >= 0
+                np.add.at(est, fpos[:nb][keep], n_b[keep])
+            self._hashes_count = {
+                t: int(round(est[i])) for i, t in enumerate(self._targets)
+            }
+        return self._hashes_count
+
+    def targets(self):
+        return list(self._targets)
+
+    def target_fpr(self):
+        # raptor reports one fpr for every user bin
+        return {t: self.fpr for t in self._targets}
+
+    @classmethod
+    def load(cls, path: str) -> "RaptorHIBF":
+        return cls(read_raptor_hibf(path))
+
+
+def mangle_raptor_name(target: str) -> str:
+    """A target name as raptor derives it from a file name (``.`` ->
+    ``|||``, `` `` -> ``---``, + ``.minimiser``); readers undo it."""
+    return target.replace(".", "|||").replace(" ", "---") + ".minimiser"
+
+
+def export_raptor_hibf(hibf: HIBF, target_hashes: dict[str, np.ndarray],
+                       output_file: str, device="cuda") -> None:
+    """Write a forest as a 2-level raptor ``.hibf`` the reference loads.
+
+    Port of ``ganon_tpu.index.hibf.export_raptor_hibf``, byte-equal to
+    its file for the same forest: IBF 0 holds one merged bin per forest
+    class (the union of the class's hashes, built with
+    :func:`~ganon_tpu_torch.index.ibf.build_ibf` on ``device``), and each
+    class IBF is its child with its user bins. Names are mangled as
+    raptor derives them from file names (:func:`mangle_raptor_name`).
+    """
+    cfg = hibf.ibf_config
+    merged = {
+        f"merged{gi}": np.unique(
+            np.concatenate([target_hashes[t] for t in sub.targets()]))
+        for gi, sub in enumerate(hibf.subs)
+    }
+    root = build_ibf(merged, kmer_size=cfg.kmer_size,
+                     window_size=cfg.window_size, max_fp=cfg.max_fp,
+                     device=device)
+    tree = [(root, [], {f"merged{gi}": gi + 1
+                        for gi in range(len(hibf.subs))})]
+    tree += [(sub, sub.targets(), {}) for sub in hibf.subs]
+    _write_raptor_tree(output_file, tree, kmer_size=cfg.kmer_size,
+                       window_size=cfg.window_size, max_fp=cfg.max_fp)
+
+
+def _write_raptor_tree(path: str, tree: list, *, kmer_size: int,
+                       window_size: int, max_fp: float) -> None:
+    """Write built IBFs as a raptor ``.hibf``, IBF 0 the root.
+
+    ``tree`` lists ``(ibf, users, children)`` per IBF: ``users`` the
+    targets it holds as user bins, ``children`` its merged bins' names
+    mapped to the child IBF each routes to. A user bin points to its own
+    IBF in ``next_ibf_id`` and a merged bin to its child, as raptor writes
+    them; file positions follow first appearance in ``users`` (a target in
+    several IBFs keeps one), and names are mangled as raptor derives them
+    (:func:`mangle_raptor_name`).
+    """
+    fidx: dict[str, int] = {}
+    for _, users, _ in tree:
+        for t in users:
+            fidx.setdefault(t, len(fidx))
+    ibfs, next_ibf_id, bin_to_filename = [], [], []
+    for i, (ibf, _, children) in enumerate(tree):
+        nid = np.full(ibf.technical_bins, i, dtype=np.int64)
+        b2f = np.full(ibf.technical_bins, -1, dtype=np.int64)
+        for b, t in ibf.bin_map:
+            if t in children:
+                nid[b] = children[t]
+            else:
+                b2f[b] = fidx[t]
+        ibfs.append((ibf.bits, ibf.ibf_config.n_bins,
+                     ibf.ibf_config.hash_functions))
+        next_ibf_id.append(nid)
+        bin_to_filename.append(b2f)
+    write_raptor_hibf(
+        path, window_size=window_size, kmer_size=kmer_size, fpr=max_fp,
+        filenames=[mangle_raptor_name(t) for t in fidx], ibfs=ibfs,
+        next_ibf_id=next_ibf_id, bin_to_filename=bin_to_filename,
+    )

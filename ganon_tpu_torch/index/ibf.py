@@ -6,9 +6,9 @@ either package loads what the other writes:
 * ``.ibf`` npz: a JSON header (version, IBFConfig, targets,
   hashes_count, bin_map) plus the ``uint32[bin_size, n_words]`` bits;
 * the raw container (``save_raw``): JSON header, then the page-aligned
-  bit-matrix, loaded through ``np.memmap``.
-
-Reference (cereal) archives are not ported yet.
+  bit-matrix, loaded through ``np.memmap``;
+* the reference's cereal archive, read and written by
+  :mod:`ganon_tpu_torch.index.serialize` (``IBF.load`` sniffs it).
 """
 
 from __future__ import annotations
@@ -143,11 +143,12 @@ class IBF:
             with open(path, "rb") as f:
                 if f.read(len(RAW_MAGIC)) == RAW_MAGIC:
                     return cls._load_raw(path)
-            raise NotImplementedError(
-                f"{path}: not an npz or raw ganon-tpu IBF. Reference (cereal) "
-                "archives are not ported yet (ROADMAP queue 1, 'cereal "
-                "codec'); convert with ganon_tpu: IBF.load(path).save(out)"
-            )
+            # the reference's cereal archive (ganon build --filter-type ibf)
+            from ganon_tpu_torch.index import serialize
+
+            if serialize.is_cereal_ibf(path):
+                return serialize.read_ibf(path)
+            raise ValueError(f"unrecognized IBF file format: {path}")
         with np.load(path, allow_pickle=False) as z:
             header = json.loads(bytes(z["header"].tobytes()).decode())
             if header.get("magic") != MAGIC:

@@ -10,7 +10,8 @@ turns into an exception.
 
 ``LAUNCHES`` counts kernel launches (one per :func:`launch`) per kernel
 and mode: ``count_forest`` is ``count`` writing into a column range of a
-shared matrix, ``select_winners`` is ``select`` with the winners payload,
+shared matrix, ``count_raptor`` is ``count`` in column-max mode (a raptor
+sub-IBF's targets max-merged into their columns), ``select_winners`` is ``select`` with the winners payload,
 ``fine_all`` is ``fine`` over every group (the pruned forest's probe-all
 path); ``gate``, ``fine``, ``select_lanes`` and ``scatter_pruned`` are the
 pruned forest's.
@@ -46,9 +47,9 @@ _SIGNATURES = {
     # inbuf, B, row_bytes, L1, L2, k, w, mc, hashes, n, overflow
     "extract": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P),
     # tbl, R, W8, byte_starts, byte_ends, T, hashes, B, M, n_hashes,
-    # bin_size, h, shift, counts, ldc, col0
+    # bin_size, h, shift, counts, ldc, col0, cols (NULL = not column-max)
     "count": (_P, _L, _L, _P, _P, _I, _P, _L, _I, _P, _U, _I, _I, _P, _L,
-              _I),
+              _I, _P),
     # counts, B, T_f, n_hashes, rel_cutoff, hashes_limit, cols, f,
     # ucounts, uwin, U
     "merge": (_P, _L, _I, _P, _D, _L, _P, _I, _P, _P, _I),
@@ -79,7 +80,8 @@ _SIGNATURES = {
 
 # launch counters: each kernel, plus the modes counted apart
 LAUNCHES = {name: 0 for name in (*_SIGNATURES, "count_forest",
-                                 "select_winners", "fine_all")}
+                                 "count_raptor", "select_winners",
+                                 "fine_all")}
 
 _lib = None
 

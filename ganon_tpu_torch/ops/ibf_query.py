@@ -17,8 +17,8 @@ This module holds the two classify kernels' wrappers:
 * :func:`extract` — 2-bit unpack, canonical minimizers, mate join and
   compaction (``csrc/extract.cu``); plain version :func:`extract_plain`.
 * :func:`target_counts` — hash rows, gather + AND, byte popcount,
-  per-target segment sum and clamp (``csrc/count.cu``); plain version
-  :func:`bulk_target_counts`.
+  per-target segment sum and clamp (``csrc/count.cu``; flat, forest and
+  column-max modes); plain version :func:`bulk_target_counts`.
 
 A wrapper given CPU tensors runs the plain torch version; given CUDA
 tensors it launches the kernel or raises.
@@ -300,13 +300,15 @@ def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
                        byte_ends: torch.Tensor, hashes: torch.Tensor,
                        n_hashes: torch.Tensor, *, bin_size: int,
                        hash_functions: int, out: torch.Tensor | None = None,
-                       col0: int = 0) -> torch.Tensor:
+                       col0: int = 0,
+                       cols: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the ``count`` kernel (see :func:`target_counts`).
 
     ``counts[b, t] = min(n_hashes[b], sum_m popcount(AND_s
     tbl8[row_s(h[b, m]), byte_starts[t]:byte_ends[t]]))`` over the first
     ``min(n_hashes[b], M)`` slots; written into ``out[:, col0:col0 + T]``
-    when ``out`` is given (and ``out`` returned).
+    when ``out`` is given, or max-merged into ``out[:, cols]`` with
+    ``cols`` (``out`` returned either way).
     """
     B, M = hashes.shape
     rows = ibf_row_indices(hashes, bin_size=bin_size,
@@ -323,7 +325,11 @@ def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
         torch.int32)
     if out is None:
         return counts
-    out[:, col0:col0 + counts.shape[1]] = counts
+    if cols is not None:
+        idx = cols.to(torch.int64)
+        out[:, idx] = torch.maximum(out[:, idx], counts)
+    else:
+        out[:, col0:col0 + counts.shape[1]] = counts
     return out
 
 
@@ -331,7 +337,8 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
                   byte_ends: torch.Tensor, hashes: torch.Tensor,
                   n_hashes: torch.Tensor, *, bin_size: int,
                   hash_functions: int, out: torch.Tensor | None = None,
-                  col0: int = 0) -> torch.Tensor:
+                  col0: int = 0,
+                  cols: torch.Tensor | None = None) -> torch.Tensor:
     """Per-target clamped counts of compacted hashes: int32 ``[B, T]``.
 
     Replaces ``ganon_tpu.ops.ibf_query.ibf_row_indices`` +
@@ -344,6 +351,11 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
     Forest mode: with ``out`` (int32 ``[B, ldc]``, zero in the written
     columns) the counts go straight into ``out[:, col0:col0 + T]`` and
     ``out`` is returned, so a forest's sub-IBFs share one matrix.
+
+    Column-max mode (a raptor sub-IBF, ``DeviceRaptorHIBF.counts``):
+    with ``out`` and ``cols`` (int32 ``[T]``, distinct columns of
+    ``out``) each count is max-merged, ``out[:, cols[t]] =
+    max(out[:, cols[t]], counts[:, t])``; ``col0`` must be 0.
     """
     if tbl8.dtype != torch.uint8 or tbl8.dim() != 2 or tbl8.shape[1] % 4:
         raise ValueError("tbl8 must be u8 [R, W8] with W8 % 4 == 0")
@@ -363,22 +375,29 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
         or not 0 <= col0 <= out.shape[1] - T or not out.is_contiguous()
     ):
         raise ValueError(f"out must be contiguous int32 [{B}, >= col0 + {T}]")
+    if cols is not None and (out is None or col0 != 0
+                             or cols.dtype != torch.int32
+                             or cols.shape != (T,)):
+        raise ValueError(f"column-max mode takes out, col0 = 0 and int32 "
+                         f"cols [{T}]")
     if tbl8.device.type == "cpu":
         return bulk_target_counts(
             tbl8, byte_starts, byte_ends, hashes, n_hashes,
             bin_size=bin_size, hash_functions=hash_functions, out=out,
-            col0=col0,
+            col0=col0, cols=cols,
         )
-    counter = "count" if out is None else "count_forest"
+    counter = ("count" if out is None else
+               "count_forest" if cols is None else "count_raptor")
     if out is None:
         out, col0 = torch.zeros((B, T), dtype=torch.int32,
                                 device=hashes.device), 0
-    kernels.check_cuda(tbl8, byte_starts, byte_ends, hashes, n_hashes, out)
+    kernels.check_cuda(tbl8, byte_starts, byte_ends, hashes, n_hashes, out,
+                       *([] if cols is None else [cols]))
     if B == 0 or T == 0:
         return out
     kernels.launch(
         "count", tbl8, tbl8.shape[0], tbl8.shape[1], byte_starts, byte_ends,
         T, hashes, B, M, n_hashes, bin_size, hash_functions, clz64(bin_size),
-        out, out.shape[1], col0, counter=counter,
+        out, out.shape[1], col0, cols, counter=counter,
     )
     return out

@@ -10,7 +10,11 @@ select in lanes mode and scatter in pruned mode, at group counts that
 are not multiples of 8 or 32 (and past one gate counter tile), group
 size 16 (padded rows), a partly full last group, ties, reads with no
 survivor, exactly S and more than S survivors, reads without hashes and
-reads at the hashes limit.
+reads at the hashes limit. Count in column-max mode (raptor subs): a
+target over three tiles, h = 1 and 5 in one layout, a one-target sub, a
+user bin in two subs with equal and unequal counts, a column no sub
+writes; the raptor batch on the card against the CPU; build_pruned's
+default build on the card.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
@@ -407,3 +411,131 @@ def test_pruned_batch_cuda_matches_cpu(cuda):
     assert torch.equal(fc.counts_gated(hc, nc, 0.2),
                        fg.counts_gated(hg, ng, 0.2).cpu())
     assert torch.equal(fc.counts(hc, nc), fg.counts(hg, ng).cpu())
+
+
+def _sub_table(rng, R, widths):
+    """A random u8 table and the byte ranges of targets of the given
+    byte widths (W8 padded to whole u32 words)."""
+    ends = np.cumsum(widths).astype(np.int32)
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int32)
+    W8 = -(-int(ends[-1]) // 4) * 4
+    tbl8 = rng.integers(0, 256, size=(R, W8), dtype=np.uint8)
+    return [torch.from_numpy(x) for x in (tbl8, starts, ends)]
+
+
+def test_count_kernel_column_max_mode_matches_plain(cuda):
+    """Raptor subs max-merged into one matrix: a target spanning three 8 KB
+    tiles, h = 1 and h = 5 in one layout, a one-target sub, a user bin in
+    two subs with equal counts (the same sub twice) and with unequal
+    counts, and a column no sub writes (it stays 0)."""
+    rng = np.random.default_rng(12)
+    T = 40
+    subs = []  # (tbl8, starts, ends, bin_size, h, cols)
+    widths = np.array([3, 20000, 5, 1, 9000, 8, 8, 700])
+    subs.append((*_sub_table(rng, 512, widths), 512, 1,
+                 np.array([0, 5, 6, 7, 9, 10, 11, 12])))
+    subs.append(subs[0])  # equal counts in every shared column
+    subs.append((*_sub_table(rng, 300, np.array([40])), 300, 5,
+                 np.array([5])))  # T_sub = 1, h = 5, shares column 5
+    widths = rng.integers(1, 30, size=20)
+    subs.append((*_sub_table(rng, 2000, widths), 1999, 2,
+                 np.sort(rng.choice(np.arange(1, T - 1), 20, replace=False))))
+    B, M = 64, 300
+    h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M))).to(cuda)
+    n = torch.from_numpy(rng.integers(0, M + 50, size=B).astype(np.int32))
+    n[:3] = torch.tensor([0, 1, M])
+    n = n.to(cuda)
+    got = torch.zeros((B, T), dtype=torch.int32, device=cuda)
+    want = torch.zeros_like(got)
+    before = kernels.LAUNCHES["count_raptor"]
+    for tbl8, starts, ends, bin_size, hf, cols in subs:
+        args = [x.to(cuda) for x in (tbl8, starts, ends)] + [h, n]
+        c = torch.from_numpy(cols.astype(np.int32)).to(cuda)
+        q.target_counts(*args, bin_size=bin_size, hash_functions=hf,
+                        out=got, cols=c)
+        q.bulk_target_counts(*args, bin_size=bin_size, hash_functions=hf,
+                             out=want, cols=c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert kernels.LAUNCHES["count_raptor"] == before + len(subs)
+    untouched = sorted(set(range(T)) - {int(c) for *_, cs in subs
+                                        for c in cs})
+    assert untouched and (got[:, untouched] == 0).all()
+    assert (got[:, 5] > 0).any()  # the 20000-byte target's column counts
+
+
+def test_count_kernel_flat_target_spanning_tiles(cuda):
+    """Flat mode with one target over three tiles and zero-width targets
+    at tile edges: the carried partial sums give the plain version's."""
+    rng = np.random.default_rng(21)
+    widths = np.array([8192 - 4, 0, 4, 0, 17000, 0, 3, 8])
+    tbl8, starts, ends = _sub_table(rng, 700, widths)
+    B, M = 40, 200
+    h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M)))
+    n = torch.from_numpy(rng.integers(0, M + 5, size=B).astype(np.int32))
+    args = [x.to(cuda) for x in (tbl8, starts, ends, h, n)]
+    for hf in (1, 3):
+        got = q.target_counts(*args, bin_size=700, hash_functions=hf)
+        want = q.bulk_target_counts(*args, bin_size=700, hash_functions=hf)
+        assert torch.equal(got, want)
+
+
+def test_raptor_batch_cuda_matches_cpu(cuda, tmp_path):
+    """classify_batch_packed on a raptor filter and DeviceRaptorHIBF.counts:
+    the kernels on the card give the plain versions' outputs on the CPU, on
+    a layout with user bins in two IBFs and a split user bin."""
+    from ganon_tpu_torch.index.builder import _HashExtractor
+    from ganon_tpu_torch.index.hibf import RaptorHIBF
+    from ganon_tpu_torch.io.pipeline import EncodedBatch
+    from raptor_layout import write_raptor_layout
+
+    rng = np.random.default_rng(8)
+    lengths = [1500, 1700, 2500, 3000, 20000]
+    genomes = [rng.integers(0, 4, size=n, dtype=np.uint8) for n in lengths]
+    ex = _HashExtractor(19, 31, device="cpu")
+    for t, g in enumerate(genomes):
+        ex.add_encoded(f"T{t}", g)
+    path = str(tmp_path / "r.hibf")
+    write_raptor_layout(ex.finish(), [(("T4", "T0", "T1"), [1]),
+                                      (("T0", "T2", "T3"), [])],
+                        path, kmer_size=19, window_size=31,
+                        hash_functions=[0, 5], device="cpu")
+    fc = dev.DeviceRaptorHIBF(RaptorHIBF.load(path), "cpu")
+    fg = fc.to(cuda)
+    B, L = 128, 150
+    tgt = rng.integers(0, len(genomes), size=B)
+    r1 = np.stack([genomes[t][p:p + L] for t, p in
+                   zip(tgt, rng.integers(0, 1500 - L, size=B))])
+    r2 = 3 - r1[:, ::-1]
+    lens = np.full(B, L, np.int32)
+    batch = EncodedBatch(prefix="", paired=True, ids=[str(i) for i in range(B)],
+                         codes1=r1.astype(np.uint8), len1=lens,
+                         codes2=np.ascontiguousarray(r2, dtype=np.uint8),
+                         len2=lens)
+    inbuf, L1, L2 = dev.pack_batch_direct(batch, B)
+    outs = [dev.classify_batch_packed(
+        f, torch.from_numpy(inbuf).to(f.device), 0.25, 0.5, 65535, k=19,
+        w=31, L1=L1, L2=L2, top_k=8) for f in (fc, fg)]
+    assert torch.equal(outs[0], outs[1].cpu())
+    hc, nc, _ = dev._extract_compact(torch.from_numpy(inbuf), k=19, w=31,
+                                     L1=L1, L2=L2)
+    assert torch.equal(fc.counts(hc, nc), fg.counts(hc.to(cuda),
+                                                    nc.to(cuda)).cpu())
+
+
+def test_build_pruned_default_builds_on_the_card(cuda):
+    """build_pruned() with no device sets the tables with the scatter
+    kernel in pruned mode, byte-equal to the host path (device=False)."""
+    from ganon_tpu_torch.index.pruned import build_pruned
+
+    rng = np.random.default_rng(4)
+    th = {f"T{t}": np.unique(rng.integers(0, 2**63, size=300 + 7 * t,
+                                          dtype=np.uint64))
+          for t in range(40)}
+    before = kernels.LAUNCHES["scatter_pruned"]
+    pf = build_pruned(th, kmer_size=19, window_size=31, group_size=16)
+    assert kernels.LAUNCHES["scatter_pruned"] > before
+    host = build_pruned(th, kmer_size=19, window_size=31, group_size=16,
+                        device=False)
+    assert np.array_equal(pf.fine, host.fine)
+    assert np.array_equal(pf.coarse, host.coarse)

@@ -5,9 +5,9 @@ hashes_count and bin_map; each package loads the npz and raw ``.hibf``
 files the other writes; ``classify_batch_packed_forest`` (extract once,
 count each sub into its columns, select) returns the JAX function's int32
 buffer exactly (``match_cap=0``); and a forest level classifies, alone or
-in a hierarchy, to the JAX engine's outputs. Raptor ``.hibf`` files
-raise NotImplementedError naming their ROADMAP item; pruned ones open as
-the port's ``DevicePrunedForest`` (tested in ``test_torch_pruned.py``).
+in a hierarchy, to the JAX engine's outputs. Raptor ``.hibf`` files open
+as the port's ``DeviceRaptorHIBF`` (tested in ``test_torch_raptor.py``),
+pruned ones as its ``DevicePrunedForest`` (``test_torch_pruned.py``).
 """
 
 import random
@@ -95,8 +95,10 @@ def test_hibf_files_cross_load(tmp_path, forest, raw):
 
 
 def test_load_device_filter_refuses_pruned_and_raptor(tmp_path, forest):
-    """A raptor archive is still refused; a pruned forest (ported since)
-    opens as a DevicePrunedForest; a native forest as a DeviceHIBF."""
+    """Each ``.hibf`` kind opens as its own device filter (none is refused
+    since the raptor archive was ported): a raptor archive as a
+    DeviceRaptorHIBF, a pruned forest as a DevicePrunedForest, a native
+    forest as a DeviceHIBF."""
     genomes, jhibf = forest
     hashes = _hashes(genomes)
     pruned, raptor = str(tmp_path / "p.hibf"), str(tmp_path / "r.hibf")
@@ -106,8 +108,11 @@ def test_load_device_filter_refuses_pruned_and_raptor(tmp_path, forest):
     fp = tdev.load_device_filter(pruned, "cpu")
     assert isinstance(fp, tdev.DevicePrunedForest)
     assert fp.targets == jp.targets() and fp.num_groups == jp.num_groups
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        tdev.load_device_filter(raptor, "cpu")
+    fr = tdev.load_device_filter(raptor, "cpu")
+    assert isinstance(fr, tdev.DeviceRaptorHIBF)
+    assert sorted(fr.targets) == sorted(jhibf.targets())
+    # the exported root holds merged bins only: the subs are the classes
+    assert len(fr.subs) == len(jhibf.subs)
     native = str(tmp_path / "n.hibf")
     jhibf.save(native)
     f = tdev.load_device_filter(native, "cpu")

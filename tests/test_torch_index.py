@@ -112,5 +112,9 @@ def test_ibf_files_cross_load(tmp_path, raw):
 
 
 def test_cereal_ibf_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="cereal"):
-        IBF.load(os.path.join(FIXDIR, "golden_h1.ibf"))
+    """The reference's cereal archive (ported since): IBF.load reads the
+    frozen golden fixture to the JAX reader's arrays."""
+    from ganon_tpu.index.serialize import read_ibf
+
+    path = os.path.join(FIXDIR, "golden_h1.ibf")
+    _assert_same_ibf(IBF.load(path), read_ibf(path))

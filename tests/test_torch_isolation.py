@@ -16,6 +16,7 @@ import torch
 from ganon_tpu_torch import kernels
 from ganon_tpu_torch.classify.engine import ClassifyConfig, run_classify
 from ganon_tpu_torch.index.ibf import build_ibf
+from ganon_tpu_torch.index.pruned import build_pruned
 from ganon_tpu_torch.ops.ibf_query import extract
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,6 +30,7 @@ def test_port_imports_without_jax_and_pandas():
         "import ganon_tpu_torch.cli, ganon_tpu_torch.classify.engine\n"
         "import ganon_tpu_torch.index.builder, ganon_tpu_torch.index.ibf\n"
         "import ganon_tpu_torch.index.hibf, ganon_tpu_torch.index.pruned\n"
+        "import ganon_tpu_torch.index.serialize\n"
         "import ganon_tpu_torch.ops.pruned_query\n"
         "assert not any(m == 'ganon_tpu' or m.startswith('ganon_tpu.')"
         " for m in sys.modules)\n"
@@ -59,6 +61,9 @@ def test_cuda_device_without_cuda_raises(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         build_ibf({"T0": np.arange(1, 50, dtype=np.uint64)}, kmer_size=19,
                   window_size=31)
+    with pytest.raises(RuntimeError, match="CUDA"):  # the default: the card
+        build_pruned({"T0": np.arange(1, 50, dtype=np.uint64)},
+                     kmer_size=19, window_size=31)
     assert not os.path.exists(str(tmp_path / "o.all"))
 
 

@@ -99,7 +99,7 @@ def test_build_pruned_matches_jax(hashes, gs, fine_h, coarse_h):
               coarse_h=coarse_h, group_size=gs)
     want = jax_build_pruned(hashes, **kw)
     assert want.num_groups > 2
-    for device in (None, "cpu"):  # host sort-reduce; plain pruned scatter
+    for device in (False, "cpu"):  # host sort-reduce; plain pruned scatter
         _assert_same_forest(build_pruned(hashes, device=device, **kw), want)
 
 
@@ -475,7 +475,8 @@ def big_db(tmp_path_factory):
     real = {f"R{t}": rng.integers(0, 4, size=600, dtype=np.uint8)
             for t in range(10)}
     th.update(_hashes(real))
-    pf = build_pruned(th, kmer_size=K, window_size=W, max_fp=0.05)
+    pf = build_pruned(th, kmer_size=K, window_size=W, max_fp=0.05,
+                      device=False)
     targets = pf.targets()
     assert all(targets.index(t) > 0xFFFF for t in real)
     db = str(tmp / "big.hibf")
