@@ -6,11 +6,24 @@
 Phases, one output line each:
 
 1. env       the card (nvidia-smi name and power limit), torch, nvcc, and
-             the time to build the seven CUDA kernels from ``csrc/`` (one
-             nvcc per source, all started together);
+             the time to build the CUDA kernels from ``csrc/`` (one nvcc
+             per source, all started together);
 2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
              through the ``extract`` kernel, the IBF through ``scatter``,
              saved as ``db.ibf`` with a ``db.tax`` of 32 genera; then
+             (line ``build_custom``) the same genomes as 1024 multi-line
+             FASTA files through ``python -m ganon_tpu_torch.cli
+             build-custom --input-file ... --taxonomy ncbi`` (an
+             --input-file over 32 genera and their nodes.dmp/names.dmp),
+             the two-pass device build: ``bc.ibf`` must equal ``db.ibf``
+             and ``bc.tax`` exist; its StopClock phases, Mbp/min and peak
+             card memory; ``extract`` on the build's pieces, ``pack``,
+             ``sort``, ``dedup`` and ``scatter`` in ranked mode against
+             their plain versions at one pass-1 group of that build (sort
+             beside ``torch.sort``); a 64-target reference-format build of
+             two files per target, one target over several bins, through
+             ``run_build`` on the card and with ``device="cpu"``, byte-equal;
+             then
              (line ``build_hierarchy``) the hierarchy's databases the same
              way: ``host.hibf``, a native forest of 256 targets of skewed
              lengths (64 each of 0.25, 0.5, 1 and 2 Mbp), and ``db_b.ibf``,
@@ -57,7 +70,11 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              through ``extract``, the tables built by ``scatter`` in pruned
              mode (``build_pruned``'s default) and on the host, required
              byte-equal, saved raw as ``pruned.hibf`` with a ``.tax`` of 64
-             genera (line ``pruned_build``); ``gate``, ``fine``, ``fine``
+             genera (line ``pruned_build``); the same genomes as FASTA files
+             through ``build-custom --filter-type hibf --filter-format
+             tpu-raw --max-fp 0.05`` (``--hibf-layout auto`` picks pruned at
+             8192 targets), byte-equal to ``pruned.hibf`` (line
+             ``pruned_build_custom``); ``gate``, ``fine``, ``fine``
              probe-all, ``select`` in lanes mode and ``scatter`` in pruned
              mode (4M pairs) against their plain versions at 8192 pairs
              (line ``pruned_kernels``, rows of the kernels line); then
@@ -69,7 +86,8 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              byte-equal ``.sta`` on the card (S = 2, and S = 1, which forces
              the probe-all path) and with ``device="cpu"``;
 5. checks    every kernel mode launched on the main paths (builds, the
-             four CLI runs and the raptor and pruned phases' card runs),
+             two build-custom runs, the reference-format build, the four
+             classify CLI runs and the raptor and pruned phases' card runs),
              every flat
              pair lists its true target in ``.all``, and on its first 4096
              pairs the CUDA and ``device="cpu"`` runs write identical sorted
@@ -77,8 +95,9 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
 
 Then one JSON line of every kernel mode (its time and its plain
 version's, its bound at these inputs, the larger of bytes over 3.35 TB/s
-and operations over 67 T/s, and its launches on the main paths), and last
-the device line. Any failure raises (exit code 1); without CUDA the script
+and operations over 67 T/s, its launches on the main paths, and the
+time of one PyTorch call computing the same function where there is one),
+and last the device line. Any failure raises (exit code 1); without CUDA the script
 exits 2 before any work. If a run nears the time limit, shrink ``--pairs``
 (the flat phase) before the later phases.
 """
@@ -191,6 +210,21 @@ def _fine_work(fp, hashes, n, pairs_b, pairs_g):
     return int(torch.unique(rows).numel()), int(hv.numel())
 
 
+def _ranked_words(key, val, uniq, rank, params, n_words, *, bin_size,
+                  hash_functions):
+    """Distinct u32 words the ranked scatter sets: the words it must
+    write at least once."""
+    import torch
+
+    from ganon_tpu_torch.ops.build_ops import _ranked_bins
+    from ganon_tpu_torch.ops.ibf_query import ibf_row_indices
+
+    u, bins = _ranked_bins(key, uniq, rank, params)
+    rows = ibf_row_indices(val[u], bin_size=bin_size,
+                           hash_functions=hash_functions)
+    return int(torch.unique(rows * n_words + (bins >> 5)[:, None]).numel())
+
+
 def _write_fastq(path, ids, codes):
     """FASTQ of dna4 rows (bulk formatting: ids, bases and qualities)."""
     import numpy as np
@@ -290,9 +324,60 @@ def _run_cli(argv):
         main_cli()
     except SystemExit as e:
         if e.code not in (0, None):
-            raise RuntimeError(f"classify CLI exited {e.code}") from e
+            raise RuntimeError(f"{argv[1]} CLI exited {e.code}") from e
     finally:
         sys.argv = saved
+
+
+def _write_fasta(path, name, codes, width=80):
+    """A one-sequence FASTA of dna4 codes, ``width`` bases a line."""
+    import numpy as np
+
+    s = np.frombuffer(b"ACGT", dtype=np.uint8)[codes]
+    full = len(s) // width * width
+    lines = np.concatenate([s[:full].reshape(-1, width),
+                            np.full((full // width, 1), 10, np.uint8)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b">%s\n" % name.encode())
+        f.write(lines.tobytes())
+        if full < len(s):
+            f.write(s[full:].tobytes() + b"\n")
+
+
+def _write_input(folder, named_genomes, nodes=None):
+    """FASTA files of the genomes and a build-custom --input-file over
+    them (``path, name[, node]``); returns the input file's path."""
+    os.makedirs(folder, exist_ok=True)
+    rows = []
+    for i, (name, g) in enumerate(named_genomes):
+        p = os.path.join(folder, f"{name}.fna")
+        _write_fasta(p, name, g)
+        rows.append("\t".join([p, name] + ([nodes[i]] if nodes else [])))
+    path = os.path.join(folder, "input.tsv")
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return path
+
+
+def _with_build_phases(fn):
+    """Run ``fn()`` and return (its result, run_build's StopClock phases
+    as {name: seconds}, the bases it read)."""
+    from ganon_tpu_torch.index import builder
+
+    seen = {}
+    real = builder._finish_build
+
+    def finish(cfg, ibf, stats, phases=None, mark=None):
+        out = real(cfg, ibf, stats, phases, mark)
+        seen.update(phases=dict(phases or []), bp=stats.length_bp)
+        return out
+
+    builder._finish_build = finish
+    try:
+        res = fn()
+    finally:
+        builder._finish_build = real
+    return res, seen.get("phases", {}), seen.get("bp", 0)
 
 
 def main() -> int:
@@ -332,9 +417,11 @@ def main() -> int:
     from ganon_tpu_torch.classify import device as dev
     from ganon_tpu_torch.classify import engine as eng
     from ganon_tpu_torch.classify.engine import ClassifyConfig, run_classify
+    from ganon_tpu_torch.index import device_build as dbuild
     from ganon_tpu_torch.index import sizing
+    from ganon_tpu_torch.index.builder import BuildConfig, run_build
     from ganon_tpu_torch.index.hibf import (
-        RaptorHIBF, build_hibf, export_raptor_hibf,
+        PRUNED_AUTO_MIN_TARGETS, RaptorHIBF, build_hibf, export_raptor_hibf,
     )
     from ganon_tpu_torch.index.ibf import (
         IBF, SCATTER_CHUNK, _scatter_bits, build_ibf, scatter_hashes,
@@ -344,6 +431,7 @@ def main() -> int:
         build_pruned, scatter_pruned, scatter_pruned_plain,
     )
     from ganon_tpu_torch.io.pipeline import EncodedBatch
+    from ganon_tpu_torch.ops import build_ops as bo
     from ganon_tpu_torch.ops import ibf_query as q
     from ganon_tpu_torch.ops import pruned_query as pq
     from ganon_tpu_torch.ops.minimizers import u64_to_torch
@@ -380,6 +468,30 @@ def main() -> int:
         "kernel_build_s": build_s, "library": os.path.basename(so),
     }), flush=True)
 
+    rows = []
+
+    def compare(name, source, replaces, run_kernel, run_plain, reps,
+                plain_reps, work, library=None):
+        """Kernel against plain on the same card tensors (equal, or
+        raise), both timed; ``work`` is the function's (bytes, ops) at
+        these inputs, for the bound. ``library`` times the one PyTorch
+        call that computes the same function, where there is one (else
+        ``library_ms`` is null; PERF.md says why for each)."""
+        got, want = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        errs = [_max_abs_err(a, b) for a, b in zip(got, want)]
+        if any(errs) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: kernel != plain (max errors {errs})")
+        bound_ms, bound_by = _bound(*work)
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": max(errs),
+            "ms": _ms(run_kernel, reps), "plain_ms": _ms(run_plain, plain_reps),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": _ms(library, reps) if library else None,
+        })
+        return got
+
     # 2. build (main path, part 1) -------------------------------------------
     k, w = 19, 31
     rng = np.random.default_rng(args.seed)
@@ -412,6 +524,199 @@ def main() -> int:
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": build_launches,
     }), flush=True)
+
+    # build_custom: the same genomes through the CLI's two-pass device
+    # build (multi-line FASTA files, an --input-file over 32 genera and an
+    # NCBI nodes.dmp/names.dmp of them) --------------------------------------
+    bcin = os.path.join(work, "bc_in")
+    t0 = time.perf_counter()
+    bc_input = _write_input(bcin, zip(names, genomes),
+                            [str(1000 + t % 32) for t in range(args.targets)])
+    nodes_dmp, names_dmp = (os.path.join(bcin, n)
+                            for n in ("nodes.dmp", "names.dmp"))
+    with open(nodes_dmp, "w") as f_, open(names_dmp, "w") as g_:
+        f_.write("1\t|\t1\t|\tno rank\t|\n")
+        g_.write("1\t|\troot\t|\t\t|\tscientific name\t|\n")
+        for j in range(32):
+            f_.write(f"{1000 + j}\t|\t1\t|\tgenus\t|\n")
+            g_.write(f"{1000 + j}\t|\tG{j}\t|\t\t|\tscientific name\t|\n")
+    fasta_s = time.perf_counter() - t0
+    bc = os.path.join(work, "bc")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, bc_phases, bc_bp = _with_build_phases(lambda: _run_cli([
+        "ganon-tpu-torch", "build-custom", "--input-file", bc_input,
+        "--db-prefix", bc, "--taxonomy", "ncbi", "--taxonomy-files",
+        nodes_dmp, names_dmp, "--skip-genome-size", "--threads", "8",
+        "--verbose", "--max-fp", "0.05", "--hash-functions", "0",
+        "--tpu-sizing", "auto"]))
+    bc_s = time.perf_counter() - t0
+    bc_launches = dict(kernels.LAUNCHES)
+    bc_peak = torch.cuda.max_memory_allocated()
+    got_ibf = IBF.load(bc + ".ibf")
+    if not (np.array_equal(got_ibf.bits, ibf.bits)
+            and got_ibf.ibf_config.to_dict() == cfg.to_dict()
+            and got_ibf.hashes_count == ibf.hashes_count
+            and got_ibf.bin_map == ibf.bin_map):
+        raise AssertionError("build-custom: bc.ibf differs from db.ibf")
+    if not os.path.getsize(bc + ".tax"):
+        raise AssertionError("build-custom: no bc.tax")
+    bc_missing = [x for x in ("extract_build", "pack", "sort", "dedup",
+                              "scatter_ranked") if bc_launches[x] <= 0]
+    if bc_missing:
+        raise AssertionError(f"build-custom: not launched: {bc_missing}")
+    del got_ibf
+
+    # the build kernels against their plain versions at one pass-1 group
+    # of this build: its first group's files (the group closes at the
+    # first file boundary past GROUP_BASES bases)
+    pipe = dbuild.DeviceBuildPipeline(k, w, device=cuda)
+    try:
+        m = 0
+        while m < args.targets and pipe._open_bases < dbuild.GROUP_BASES:
+            pipe.add_encoded((names[m], 0), genomes[m])
+            m += 1
+        group, arrays = pipe._close_open()
+        L0 = group.batches[0][0]
+        t_in = torch.from_numpy(arrays[0]).to(cuda)
+        nb0 = L0 // 4 + 4
+        ein = t_in[:, :nb0].contiguous()
+        ekeys = t_in[:, nb0:].contiguous().view(torch.int32).reshape(-1)
+        B0, emc = ein.shape[0], L0 - w + 1
+        # the emitted hashes: the build reads the first n[b] of each row
+        npk = int(q.extract_plain(ein, L1=L0, L2=0, k=k, w=w,
+                                  mc=emc)[1].sum())
+        eh, en, _ = compare(
+            "extract_build", "ganon_tpu_torch/csrc/extract.cu",
+            "ganon_tpu/index/builder.py:156",
+            lambda: q.extract(ein, L1=L0, L2=0, k=k, w=w, mc=emc,
+                              counter="extract_build"),
+            lambda: q.extract_plain(ein, L1=L0, L2=0, k=k, w=w, mc=emc), 10, 2,
+            # pieces in; n and the emitted hashes out; ~8 operations per
+            # base
+            (_nbytes(ein) + 4 * B0 + 8 * npk, 8 * B0 * L0),
+        )
+        compare("pack", "ganon_tpu_torch/csrc/sort.cu",
+                "ganon_tpu/index/device_build.py:137",
+                lambda: bo.pack_entries(eh, en, ekeys, npk),
+                lambda: bo.pack_entries_plain(eh, en, ekeys, npk), 20, 5,
+                # n and keys in, each emitted hash read once; entries out
+                (_nbytes(en, ekeys) + npk * (8 + 12), npk))
+        del eh, en, t_in, ein
+        gkey, gval = pipe._entries(group, arrays)
+        N = group.n
+        kb = group.key_bits
+        # the library yardstick: torch.sort of (key << 38 | value), one
+        # key per entry, since k = 19 values are below 2^38
+        comp = (gkey.to(torch.int64) << 38) | gval
+        sk, sv = compare(
+            "sort", "ganon_tpu_torch/csrc/sort.cu",
+            "ganon_tpu/ops/bigsort.py:31",
+            lambda: bo.sort_entries(gkey, gval, key_bits=kb),
+            lambda: bo.sort_entries_plain(gkey, gval, key_bits=kb), 10, 3,
+            # entries read and written once; a digit per entry per pass
+            (24 * N, (8 + -(-kb // 8)) * N),
+            library=lambda: torch.sort(comp),
+        )
+        lib_sorted = torch.sort(comp).values
+        if not (torch.equal(lib_sorted >> 38, sk.to(torch.int64))
+                and torch.equal(lib_sorted & ((1 << 38) - 1), sv)):
+            raise AssertionError("sort: torch.sort of the composite differs")
+        del gkey, gval, comp, lib_sorted
+        R0 = len(group.files)
+        cnt = [torch.zeros(R0, dtype=torch.int32, device=cuda)
+               for _ in range(2)]
+
+        def dedup_run(fn, c):
+            c.zero_()
+            u_, r_ = fn(sk, sv, num_files=R0, counts=c)
+            return u_, r_, c
+
+        uq, rk, gcounts = compare(
+            "dedup", "ganon_tpu_torch/csrc/dedup.cu",
+            "ganon_tpu/index/device_build.py:169",
+            lambda: dedup_run(bo.dedup, cnt[0]),
+            lambda: dedup_run(bo.dedup_plain, cnt[1]), 20, 5,
+            # entries in; flags, ranks and counts out
+            (12 * N + 8 * N + 4 * R0, 2 * N))
+        counts_np = gcounts.cpu().numpy()
+        if [int(c) for c in counts_np] != [ibf.hashes_count[rec.key[0]]
+                                            for rec in group.files]:
+            raise AssertionError("dedup: group counts differ from db.ibf's")
+        split = dbuild.target_bins(
+            sizing.split_target_bins(cfg, ibf.hashes_count))
+        params = np.zeros((4, R0), dtype=np.int32)
+        for i, rec in enumerate(group.files):
+            params[:, i] = (*split[rec.key[0]], 0, int(counts_np[:i].sum()))
+        params_t = torch.from_numpy(params).to(cuda)
+        rbits = [torch.zeros(ibf.bits.shape, dtype=torch.int32, device=cuda)
+                 for _ in range(2)]
+        rk_args = (sk, sv, uq, rk, params_t)
+        rk_kw = dict(bin_size=cfg.bin_size_bits,
+                     hash_functions=cfg.hash_functions)
+        compare("scatter_ranked", "ganon_tpu_torch/csrc/scatter.cu",
+                "ganon_tpu/index/device_build.py:185",
+                lambda: (bo.scatter_ranked(rbits[0], *rk_args, **rk_kw),
+                         rbits[0])[1:],
+                lambda: (bo.scatter_ranked_plain(rbits[1], *rk_args,
+                                                 **rk_kw), rbits[1])[1:],
+                10, 3,
+                # entries, flags, ranks and params in; each distinct word
+                # set, out; h bits per distinct entry
+                (_nbytes(*rk_args) + 4 * _ranked_words(
+                    sk, sv, uq, rk, params_t, rbits[0].shape[1], **rk_kw),
+                 int(uq.sum()) * cfg.hash_functions))
+        del sk, sv, uq, rk, rbits, cnt, gcounts, rk_args, arrays
+    finally:
+        pipe.close()
+    torch.cuda.empty_cache()
+
+    # the reference format on the card and with device="cpu": 64 targets
+    # of two files each, one 15x the others (split over several bins)
+    ref_ti = os.path.join(work, "ref_in", "target_info.tsv")
+    refrng = np.random.default_rng(args.seed + 9)
+    os.makedirs(os.path.dirname(ref_ti))
+    with open(ref_ti, "w") as f_:
+        for t in range(64):
+            for fi in range(2):
+                p_ = os.path.join(work, "ref_in", f"R{t}_{fi}.fna")
+                _write_fasta(p_, f"R{t}_{fi}", refrng.integers(
+                    0, 4, size=300_000 if t == 0 else 20_000, dtype=np.uint8))
+                f_.write(f"{p_}\tR{t}\n")
+    ref_bytes, ref_s = {}, {}
+    for d_ in ("cuda", "cpu"):
+        kernels.reset_launches()
+        out_ = os.path.join(work, f"ref_{d_}.ibf")
+        t0 = time.perf_counter()
+        ref_ibf = run_build(BuildConfig(input_file=ref_ti, output_file=out_,
+                                        filter_format="reference", device=d_))
+        ref_s[d_] = time.perf_counter() - t0
+        if d_ == "cuda":
+            ref_launches = dict(kernels.LAUNCHES)
+        with open(out_, "rb") as f_:
+            ref_bytes[d_] = f_.read()
+    if ref_bytes["cuda"] != ref_bytes["cpu"]:
+        raise AssertionError("reference format: cuda and cpu files differ")
+    if len(ref_ibf.bin_map) <= len(ref_ibf.hashes_count):
+        raise AssertionError("reference format: no target over several bins")
+    shutil.rmtree(bcin, ignore_errors=True)
+    print("phase=build_custom " + json.dumps({
+        "targets": args.targets, "bp": bc_bp, "fasta_write_s": fasta_s,
+        "seconds": bc_s, "mbp_per_min": bc_bp / 1e6 / (bc_s / 60),
+        "stopclock_s": bc_phases,
+        "max_memory_allocated": bc_peak,
+        "equals_db_ibf": True, "launches": bc_launches,
+        "group": {"files": R0, "entries": N, "pieces_first_launch": B0,
+                  "piece_len": L0},
+        "reference_format": {"bytes": len(ref_bytes["cuda"]),
+                             "bins": len(ref_ibf.bin_map),
+                             "targets": len(ref_ibf.hashes_count),
+                             "seconds": ref_s, "cuda_equals_cpu": True,
+                             "launches": ref_launches},
+        "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
+    }), flush=True)
+    del ref_bytes, ref_ibf
 
     # the hierarchy's databases: a native forest of skewed lengths and a
     # second flat filter overlapping db's first targets
@@ -491,29 +796,6 @@ def main() -> int:
     inbuf_np, L1, L2 = dev.pack_batch_direct(batch, args.bench_pairs)
     inbuf = torch.from_numpy(inbuf_np).to(cuda)
     mc = dev.compact_width(2 * (L1 - w + 1))
-    rows = []
-
-    def compare(name, source, replaces, run_kernel, run_plain, reps,
-                plain_reps, work):
-        """Kernel against plain on the same card tensors (equal, or
-        raise), both timed; ``work`` is the function's (bytes, ops) at
-        these inputs, for the bound. No single PyTorch call computes any
-        of these functions, so ``library_ms`` is null (PERF.md says why
-        for each)."""
-        got, want = run_kernel(), run_plain()
-        torch.cuda.synchronize()
-        errs = [_max_abs_err(a, b) for a, b in zip(got, want)]
-        if any(errs) or not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"{name}: kernel != plain (max errors {errs})")
-        bound_ms, bound_by = _bound(*work)
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "max_abs_err": max(errs),
-            "ms": _ms(run_kernel, reps), "plain_ms": _ms(run_plain, plain_reps),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        })
-        return got
-
     hashes, n_hashes, overflow = compare(
         "extract", "ganon_tpu_torch/csrc/extract.cu",
         "ganon_tpu/ops/minimizers.py:245",
@@ -1074,6 +1356,33 @@ def main() -> int:
         "launches": pbuild_launches,
     }), flush=True)
 
+    # the same genomes through build-custom --filter-type hibf: at 8192
+    # targets --hibf-layout auto picks the pruned layout, byte-equal
+    pcin = os.path.join(work, "pc_in")
+    pc_input = _write_input(pcin, zip(pnames, pgen))
+    pc = os.path.join(work, "pc")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    # (a rehearsal below the auto threshold names the layout)
+    pc_layout = ("auto" if args.pruned_targets >= PRUNED_AUTO_MIN_TARGETS
+                 else "pruned")
+    _run_cli(["ganon-tpu-torch", "build-custom", "--input-file", pc_input,
+              "--db-prefix", pc, "--filter-type", "hibf", "--filter-format",
+              "tpu-raw", "--max-fp", "0.05", "--taxonomy", "skip",
+              "--threads", "8", "--hibf-layout", pc_layout])
+    pc_s = time.perf_counter() - t0
+    pc_launches = dict(kernels.LAUNCHES)
+    with open(pc + ".hibf", "rb") as a_, open(pdb + ".hibf", "rb") as b_:
+        if a_.read() != b_.read():
+            raise AssertionError("build-custom hibf: pc.hibf differs from "
+                                 "pruned.hibf")
+    shutil.rmtree(pcin, ignore_errors=True)
+    print("phase=pruned_build_custom " + json.dumps({
+        "targets": args.pruned_targets, "bp": pbp, "seconds": pc_s,
+        "mbp_per_min": pbp / 1e6 / (pc_s / 60), "hibf_layout": pc_layout,
+        "equals_pruned_hibf": True, "launches": pc_launches,
+    }), flush=True)
+
     # the pruned kernels against their plain versions at main-path shapes:
     # CLI-default cutoffs, S = 2 slots, K = 4 (the start width at >= 4096
     # targets)
@@ -1312,9 +1621,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. checks ------------------------------------------------------------
-    main_runs = (build_launches, hier_build_launches, cli_launches,
-                 hier_launches, r_cli_launches, *req_launches.values(),
-                 pbuild_launches, p_cli_launches, *peq_launches.values())
+    main_runs = (build_launches, bc_launches, ref_launches,
+                 hier_build_launches, cli_launches, hier_launches,
+                 r_cli_launches, *req_launches.values(), pbuild_launches,
+                 pc_launches, p_cli_launches, *peq_launches.values())
     launches = {name: sum(r[name] for r in main_runs)
                 for name in kernels.LAUNCHES}
     missing = [name for name, n in launches.items() if n <= 0]

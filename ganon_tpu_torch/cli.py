@@ -1,8 +1,10 @@
-"""CLI entry: ``python -m ganon_tpu_torch.cli classify ...``.
+"""CLI entry: ``python -m ganon_tpu_torch.cli classify|build-custom ...``.
 
-Takes the same flags as ``ganon_tpu.cli`` (one shared Config). Only
-``classify`` is ported; the other subcommands raise NotImplementedError
-naming the ROADMAP item that will port them.
+Takes the same flags as ``ganon_tpu.cli`` (one shared Config).
+``classify`` and ``build-custom`` are ported and run on the card
+(``main(..., device="cpu")`` runs the plain versions); the other
+subcommands raise NotImplementedError naming the ROADMAP item that will
+port them.
 """
 
 from __future__ import annotations
@@ -14,16 +16,15 @@ from ganon_tpu_torch.util import print_log
 
 # subcommand -> the ROADMAP queue 1 item that ports it
 _NOT_PORTED = {
-    "build": "'build-custom CLI without pandas' (then acquisition)",
-    "build_custom": "'build-custom CLI without pandas'",
-    "update": "'build-custom CLI without pandas'",
+    "build": "'build and update with offline acquisition'",
+    "update": "'build and update with offline acquisition'",
     "reassign": "'reassign (EM) and report without pandas'",
     "report": "'reassign (EM) and report without pandas'",
     "table": "'reassign (EM) and report without pandas'",
 }
 
 
-def main(which: str = None, cfg=None, **kwargs) -> bool:
+def main(which: str = None, cfg=None, device="cuda", **kwargs) -> bool:
     if cfg is None:
         cfg = Config(which, **kwargs)
     cfg.validate()
@@ -31,6 +32,10 @@ def main(which: str = None, cfg=None, **kwargs) -> bool:
         from ganon_tpu_torch.commands import classify
 
         return classify(cfg)
+    if cfg.which == "build_custom":
+        from ganon_tpu_torch.build import build_custom
+
+        return build_custom(cfg, device=device)
     if cfg.which in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.which} is not ported yet (ROADMAP queue 1, "

@@ -25,6 +25,18 @@
 // bit. Rows are u32 words of the little-endian byte table (row bytes
 // padded to x4), so bit c of a row is bit c & 31 of word c >> 5. One
 // thread per pair, atomicOr: no sort, no dedup.
+//
+// Ranked mode (K10: ganon_tpu/index/device_build.py:185 scatter_sorted with
+// :237 _entry_coords and :279 _scatter_span): the build's sorted entries
+// (file key, value) carry their first-occurrence flag and their rank among
+// the group's distinct entries (dedup.cu). A distinct entry of file f at
+// rank r has index idx = r - key_start[f] + offset[f] in its target's
+// file-concatenated order and lands in technical bin bin_base[f] + idx /
+// max(nhb[f], 1) (the reference's index-range split, GanonBuild.cpp:
+// 619-653); duplicates are skipped, since OR is idempotent. params holds
+// int32 [4, R]: bin_base, nhb, offset, key_start per file. The JAX u8
+// lane-major plane and its row-range chunks were TPU tiling workarounds;
+// here the bit-matrix lives on the card whole and each entry ORs h bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -73,7 +85,49 @@ __global__ void scatter_pruned_kernel(unsigned* __restrict__ bits, long long W,
     }
 }
 
+__global__ void scatter_ranked_kernel(unsigned* __restrict__ bits, long long W,
+                                      const int* __restrict__ key,
+                                      const long long* __restrict__ val,
+                                      const int* __restrict__ uniq,
+                                      const int* __restrict__ rank,
+                                      long long N,
+                                      const int* __restrict__ params, int R,
+                                      unsigned long long bin_size, int h,
+                                      int shift) {
+    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i >= N || !uniq[i]) return;
+    const int f = key[i];
+    const long long idx = (long long)rank[i] - params[3 * R + f] + params[2 * R + f];
+    const long long bin = params[f] + idx / max(params[R + f], 1);
+    const unsigned long long x = (unsigned long long)val[i];
+    const unsigned mask = 1u << (bin & 31);
+    const long long word = bin >> 5;
+    for (int s = 0; s < h; ++s) {
+        const unsigned long long row = ganon_ibf_row(x, s, bin_size, shift);
+        atomicOr(bits + (long long)row * W + word, mask);
+    }
+}
+
 }  // namespace
+
+extern "C" int ganon_scatter_ranked(void* bits, long long R_rows, long long W,
+                                    const void* key, const void* val,
+                                    const void* uniq, const void* rank,
+                                    long long N, const void* params, int R,
+                                    unsigned long long bin_size, int h,
+                                    int shift, void* stream) {
+    (void)R_rows;
+    if (h < 1 || h > 5) return (int)cudaErrorInvalidValue;
+    if (N <= 0) return (int)cudaGetLastError();
+    const int threads = 256;
+    const long long blocks = (N + threads - 1) / threads;
+    scatter_ranked_kernel<<<(unsigned)blocks, threads, 0,
+                            (cudaStream_t)stream>>>(
+        (unsigned*)bits, W, (const int*)key, (const long long*)val,
+        (const int*)uniq, (const int*)rank, N, (const int*)params, R,
+        bin_size, h, shift);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int ganon_scatter_pruned(void* bits, long long R, long long W,
                                     const void* hashes, const void* grp,

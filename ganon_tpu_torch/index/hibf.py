@@ -19,6 +19,7 @@ lives in :mod:`ganon_tpu_torch.index.pruned`) and :func:`is_raptor_hibf`
 :mod:`ganon_tpu_torch.index.serialize`); both are re-exported here.
 :class:`RaptorHIBF` is a raptor archive flattened for the batched query,
 and :func:`export_raptor_hibf` writes a forest as one.
+:func:`run_build_hibf` is ``build-custom --filter-type hibf``'s build.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import os
 import zipfile
 
 import numpy as np
+import torch
 
 from ganon_tpu_torch.index.config import IBFConfig
 from ganon_tpu_torch.index.ibf import IBF, build_ibf
@@ -392,3 +394,78 @@ def _write_raptor_tree(path: str, tree: list, *, kmer_size: int,
         filenames=[mangle_raptor_name(t) for t in fidx], ibfs=ibfs,
         next_ibf_id=next_ibf_id, bin_to_filename=bin_to_filename,
     )
+
+
+# target count at or above which ``--hibf-layout auto`` picks the pruned
+# merged-bin layout (the JAX package's threshold): below it the forest's
+# per-class sizing already bounds the space, at many targets the coarse
+# gate keeps most of the fine table unread
+PRUNED_AUTO_MIN_TARGETS = 2048
+
+
+def run_build_hibf(
+    *, target_info_file: str, output_file: str, kmer_size: int,
+    window_size: int, hash_functions: int = 0, max_fp: float = 0.001,
+    min_length: int = 0, threads: int = 1, tpu_sizing: bool | None = None,
+    filter_format: str = "tpu", layout: str = "auto", quiet: bool = True,
+    device="cuda",
+):
+    """Count hashes from a target_info file and build and save a
+    hierarchical filter: the size-stratified forest (``layout="forest"``)
+    or the merged-bin pruned forest (``layout="pruned"``). ``auto`` picks
+    pruned at ``PRUNED_AUTO_MIN_TARGETS`` targets or more. The raptor
+    export (``filter_format="reference"``) always builds the forest.
+
+    Port of ``ganon_tpu.index.hibf.run_build_hibf``; the files are
+    byte-equal to its. Extraction and the bit scatters run on ``device``.
+    """
+    from ganon_tpu_torch.index.builder import (
+        BuildStats,
+        count_target_hashes,
+        parse_target_info,
+    )
+    from ganon_tpu_torch.index.pruned import build_pruned
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    stats = BuildStats()
+    input_map = parse_target_info(target_info_file, quiet, stats)
+    if not input_map:
+        raise ValueError("No valid input files")
+    target_hashes = count_target_hashes(
+        input_map, kmer_size=kmer_size, window_size=window_size,
+        min_length=min_length, stats=stats, threads=threads, device=dev,
+    )
+    target_hashes = {t: h for t, h in target_hashes.items() if len(h)}
+    if not target_hashes:
+        raise ValueError("No valid sequences to build")
+    if layout == "auto":
+        layout = (
+            "pruned"
+            if (len(target_hashes) >= PRUNED_AUTO_MIN_TARGETS
+                and filter_format != "reference")
+            else "forest"
+        )
+    if layout == "pruned" and filter_format != "reference":
+        pf = build_pruned(
+            target_hashes, kmer_size=kmer_size, window_size=window_size,
+            max_fp=max_fp, device=dev,
+        )
+        if filter_format == "tpu-raw":
+            pf.save_raw(output_file)
+        else:
+            pf.save(output_file)
+        return pf
+    hibf = build_hibf(
+        target_hashes, kmer_size=kmer_size, window_size=window_size,
+        max_fp=max_fp, hash_functions=hash_functions,
+        tpu_sizing=tpu_sizing, device=dev,
+    )
+    if filter_format == "reference":
+        export_raptor_hibf(hibf, target_hashes, output_file, device=dev)
+    elif filter_format == "tpu-raw":
+        hibf.save_raw(output_file)
+    else:
+        hibf.save(output_file)
+    return hibf

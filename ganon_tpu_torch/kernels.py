@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-The seven kernels compile with ``nvcc`` into one content-addressed shared
+The kernels compile with ``nvcc`` into one content-addressed shared
 library under the checkout's ``build/`` directory at first use, with a
 plain C interface loaded through ctypes (no torch headers, so a build
 takes seconds). Every pointer and the stream are passed as
@@ -14,7 +14,9 @@ shared matrix, ``count_raptor`` is ``count`` in column-max mode (a raptor
 sub-IBF's targets max-merged into their columns), ``select_winners`` is ``select`` with the winners payload,
 ``fine_all`` is ``fine`` over every group (the pruned forest's probe-all
 path); ``gate``, ``fine``, ``select_lanes`` and ``scatter_pruned`` are the
-pruned forest's.
+pruned forest's; ``extract_build`` is ``extract`` on the build's pieces
+(single-end, a capacity of every window position); ``pack``, ``sort``,
+``dedup`` and ``scatter_ranked`` are the two-pass device build's.
 A run can so show that its main path went through every kernel mode.
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -33,7 +35,7 @@ from ganon_tpu_torch import BUILD_DIR
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
-           "gate.cu", "fine.cu")
+           "gate.cu", "fine.cu", "sort.cu", "dedup.cu")
 HEADERS = ("ibf_hash.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,12 +78,21 @@ _SIGNATURES = {
     # (NULL = ungated), out, T
     "fine": (_P, _L, _L, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
              _P, _P, _L),
+    # hashes, B, mc, n, keys, offs, sums, out_key, out_val, N
+    "pack": (_P, _L, _I, _P, _P, _P, _P, _P, _P, _L),
+    # key, val, N, key_bits, key_a, val_a, key_b, val_b, counts, sums
+    "sort": (_P, _P, _L, _I, _P, _P, _P, _P, _P, _P),
+    # key, val, N, R, uniq, rank (NULL = none), counts (NULL = none), sums
+    "dedup": (_P, _P, _L, _I, _P, _P, _P, _P),
+    # bits, R_rows, W, key, val, uniq, rank, N, params, R, bin_size, h,
+    # shift
+    "scatter_ranked": (_P, _L, _L, _P, _P, _P, _P, _L, _P, _I, _U, _I, _I),
 }
 
 # launch counters: each kernel, plus the modes counted apart
 LAUNCHES = {name: 0 for name in (*_SIGNATURES, "count_forest",
                                  "count_raptor", "select_winners",
-                                 "fine_all")}
+                                 "fine_all", "extract_build")}
 
 _lib = None
 

@@ -251,7 +251,7 @@ def extract_plain(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
 
 
 def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
-            mc: int):
+            mc: int, counter: str | None = None):
     """Minimizers of a packed (paired or single-end) batch, compacted.
 
     Replaces ``ganon_tpu.classify.device._unpack_batch_input`` +
@@ -263,7 +263,9 @@ def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
 
     Returns ``(hashes int64 [B, mc], n_hashes int32 [B], overflow u8 [B])``:
     the emitted values in position order (mate 1, then mate 2), zeros
-    past ``min(n, mc)``; ``overflow`` marks ``n > mc``.
+    past ``min(n, mc)``; ``overflow`` marks ``n > mc``. ``counter``
+    names the launch count (default ``extract``; the build's pieces count
+    as ``extract_build``).
     """
     if L1 % 4 or L2 % 4 or L1 <= 0 or L2 < 0:
         raise ValueError(f"L1={L1}, L2={L2}: lengths must be multiples of 4")
@@ -285,7 +287,8 @@ def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
     if B == 0:
         return hashes, n, overflow
     kernels.launch(
-        "extract", inbuf, B, row, L1, L2, k, w, mc, hashes, n, overflow
+        "extract", inbuf, B, row, L1, L2, k, w, mc, hashes, n, overflow,
+        counter=counter,
     )
     return hashes, n, overflow
 

@@ -1,4 +1,4 @@
-"""The seven CUDA kernels against their plain torch versions, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
 Edge shapes beyond the main path: windows of one k-mer, k = 32, long
 reads, overflowing compaction, table rows spanning several count tiles,
@@ -14,7 +14,11 @@ reads at the hashes limit. Count in column-max mode (raptor subs): a
 target over three tiles, h = 1 and 5 in one layout, a one-target sub, a
 user bin in two subs with equal and unequal counts, a column no sub
 writes; the raptor batch on the card against the CPU; build_pruned's
-default build on the card.
+default build on the card. The two-pass build's kernels: sort at N = 0,
+1, one block and many blocks, all-equal values, values >= 2^63, one file
+and 2^16 files; pack with empty rows; dedup with files that have no
+entries; scatter in ranked mode with a target over several bins at h = 1
+and 5; the whole pipeline and run_build on the card against the CPU.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
@@ -28,6 +32,7 @@ from ganon_tpu_torch import kernels
 from ganon_tpu_torch.classify import device as dev
 from ganon_tpu_torch.index.ibf import _scatter_bits, scatter_hashes
 from ganon_tpu_torch.index.pruned import scatter_pruned, scatter_pruned_plain
+from ganon_tpu_torch.ops import build_ops as bo
 from ganon_tpu_torch.ops import ibf_query as q
 from ganon_tpu_torch.ops import pruned_query as pq
 
@@ -539,3 +544,174 @@ def test_build_pruned_default_builds_on_the_card(cuda):
                         device=False)
     assert np.array_equal(pf.fine, host.fine)
     assert np.array_equal(pf.coarse, host.coarse)
+
+
+# --- the two-pass build: pack, sort, dedup, scatter in ranked mode -----------
+
+
+def _entries(rng, N, R, equal=False, high=False):
+    key = rng.integers(0, R, size=N).astype(np.int32)
+    val = rng.integers(0, 1 << 64, size=N, dtype=np.uint64)
+    if equal:
+        val[:] = val[0]
+    if high:
+        val |= np.uint64(1 << 63)
+    val[rng.integers(0, max(N, 1), size=N // 4)] = val[: N // 4]  # dups
+    return torch.from_numpy(key), torch.from_numpy(val.view(np.int64))
+
+
+def _to(dev_, *ts):
+    return [t.to(dev_) for t in ts]
+
+
+@pytest.mark.parametrize("N,R,equal,high", [
+    (0, 1, False, False), (1, 1, False, False), (4096, 3, False, False),
+    (300_000, 97, False, False), (50_000, 5, True, False),
+    (70_000, 11, False, True), (40_000, 1, False, False),
+    (200_000, 1 << 16, False, False),
+])
+def test_sort_kernel_matches_plain(cuda, N, R, equal, high):
+    rng = np.random.default_rng(N + R)
+    key, val = _entries(rng, N, R, equal=equal, high=high)
+    kb = max(R - 1, 0).bit_length()
+    want_k, want_v = bo.sort_entries(key, val, key_bits=kb)
+    dk, dv = _to(cuda, key, val)
+    got_k, got_v = bo.sort_entries(dk, dv, key_bits=kb)
+    torch.cuda.synchronize()
+    assert torch.equal(got_k.cpu(), want_k)
+    assert torch.equal(got_v.cpu(), want_v)
+    assert torch.equal(dk.cpu(), key) and torch.equal(dv.cpu(), val)
+
+
+@pytest.mark.parametrize("B,mc", [(1, 8), (700, 130), (20_000, 33)])
+def test_pack_kernel_matches_plain(cuda, B, mc):
+    rng = np.random.default_rng(B)
+    hashes = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62,
+                                           size=(B, mc)))
+    nrows = torch.from_numpy(rng.integers(0, mc + 1, size=B).astype(np.int32))
+    nrows[: B // 3] = 0
+    keys = torch.from_numpy(rng.integers(0, 50, size=B).astype(np.int32))
+    total = int(nrows.sum())
+    outs = {}
+    for d in ("cpu", cuda):
+        ok, ov = bo.pack_entries(hashes.to(d), nrows.to(d), keys.to(d), total)
+        outs[str(d)] = (ok.cpu(), ov.cpu())
+    torch.cuda.synchronize()
+    a, b = outs["cpu"], outs[str(cuda)]
+    assert a[0].numel() == total
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("N,R", [(0, 4), (10_000, 40), (123_457, 1000)])
+def test_dedup_kernel_matches_plain(cuda, N, R):
+    """Files with no entries keep count 0; ranks scan every entry."""
+    rng = np.random.default_rng(N + R)
+    key, val = _entries(rng, N, R // 2)  # half the files have nothing
+    kb = R.bit_length()
+    sk, sv = bo.sort_entries(key, val, key_bits=kb)
+    want_c = torch.zeros(R, dtype=torch.int32)
+    want = bo.dedup(sk, sv, num_files=R, counts=want_c)
+    dk, dv = _to(cuda, sk, sv)
+    got_c = torch.zeros(R, dtype=torch.int32, device=cuda)
+    got = bo.dedup(dk, dv, num_files=R, counts=got_c)
+    no_rank = bo.dedup(dk, dv, num_files=R, want_rank=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got_c.cpu(), want_c)
+    assert no_rank[1] is None and torch.equal(no_rank[0].cpu(), want[0])
+    assert (want_c[R // 2:] == 0).all()
+
+
+@pytest.mark.parametrize("hf,mhb", [(1, 50), (5, 400), (3, 100_000)])
+def test_scatter_ranked_kernel_matches_plain(cuda, hf, mhb):
+    """Targets of two files each, split over bins of mhb hashes."""
+    rng = np.random.default_rng(hf)
+    R, N, bin_size = 64, 60_000, 20_011
+    key, val = _entries(rng, N, R)
+    sk, sv = bo.sort_entries(key, val, key_bits=6)
+    counts = torch.zeros(R, dtype=torch.int32)
+    uniq, rank = bo.dedup(sk, sv, num_files=R, counts=counts)
+    c = counts.numpy()
+    params = np.zeros((4, R), dtype=np.int32)
+    binno = 0
+    for f in range(0, R, 2):
+        tot = int(c[f] + c[f + 1])
+        nb = -(-tot // mhb) if tot else 0
+        nhb = min(-(-tot // nb), mhb) if nb else 1
+        params[:3, f], params[:3, f + 1] = (binno, nhb, 0), (binno, nhb, c[f])
+        binno += nb
+    params[3] = np.concatenate([[0], np.cumsum(c)[:-1]])
+    n_words = -(-binno // 32)
+    want = torch.zeros((bin_size, n_words), dtype=torch.int32)
+    bo.scatter_ranked(want, sk, sv, uniq, rank, torch.from_numpy(params),
+                      bin_size=bin_size, hash_functions=hf)
+    got = torch.zeros_like(want, device=cuda)
+    bo.scatter_ranked(got, *_to(cuda, sk, sv, uniq, rank,
+                                torch.from_numpy(params)),
+                      bin_size=bin_size, hash_functions=hf)
+    torch.cuda.synchronize()
+    assert binno > R // 2 or mhb > N  # some target over several bins
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cache", [None, 0])
+def test_device_build_pipeline_cuda_matches_cpu(cuda, cache, monkeypatch):
+    """The pipeline on the card equals its plain run: several groups, a
+    file in two targets' worth of pieces, every entry re-extracted at a
+    cache budget of 0."""
+    from ganon_tpu_torch.index import device_build as tdb
+    from ganon_tpu_torch.index import sizing
+
+    monkeypatch.setattr(tdb, "GROUP_BASES", 50_000)
+    rng = np.random.default_rng(5)
+    files = [(f"T{t % 7}", t // 7, rng.integers(0, 4, size=n, dtype=np.uint8))
+             for t, n in enumerate(rng.integers(10, 40_000, size=30))]
+    files.sort(key=lambda x: (int(x[0][1:]), x[1]))
+    out = {}
+    for d in ("cpu", "cuda"):
+        kernels.reset_launches()
+        pipe = tdb.DeviceBuildPipeline(19, 31, device=d,
+                                       device_cache_bytes=cache)
+        try:
+            for t, fi, g in files:
+                pipe.add_sequence((t, fi), g)
+            pipe.finish_counts()
+            hc = {t: c for t, c in pipe.hashes_count().items() if c}
+            icfg = sizing.size_filter(hc, kmer_size=19, window_size=31,
+                                      max_fp=0.05)
+            out[d] = (hc, pipe.scatter(icfg, sizing.split_target_bins(
+                icfg, hc)), len(pipe.groups))
+        finally:
+            pipe.close()
+        if d == "cuda":
+            assert all(kernels.LAUNCHES[x] > 0 for x in (
+                "extract_build", "pack", "sort", "dedup", "scatter_ranked"))
+    assert out["cpu"][2] > 2
+    assert out["cpu"][0] == out["cuda"][0]
+    assert np.array_equal(out["cpu"][1], out["cuda"][1])
+
+
+def test_run_build_cuda_matches_cpu(cuda, tmp_path):
+    """run_build's reference-format file on the card equals the CPU's."""
+    from ganon_tpu_torch.index.builder import BuildConfig, run_build
+
+    rng = np.random.default_rng(9)
+    rows = []
+    for t in range(12):
+        for fi in range(2):
+            p = tmp_path / f"t{t}_{fi}.fna"
+            n = 200_000 if t == 0 else 20_000
+            p.write_text(">s\n" + "".join(
+                "ACGT"[b] for b in rng.integers(0, 4, size=n)) + "\n")
+            rows.append(f"{p}\tT{t}\n")
+    ti = tmp_path / "ti.tsv"
+    ti.write_text("".join(rows))
+    data = {}
+    for d in ("cpu", "cuda"):
+        out = tmp_path / f"{d}.ibf"
+        ibf = run_build(BuildConfig(input_file=str(ti), output_file=str(out),
+                                    filter_format="reference", device=d))
+        data[d] = out.read_bytes()
+    assert len(ibf.bin_map) > len(ibf.hashes_count)  # T0 over several bins
+    assert data["cpu"] == data["cuda"]

@@ -14,6 +14,9 @@ import pytest
 import torch
 
 from ganon_tpu_torch import kernels
+from ganon_tpu_torch.build import build_custom
+from ganon_tpu_torch.config import Config
+from ganon_tpu_torch.index.device_build import DeviceBuildPipeline
 from ganon_tpu_torch.classify.engine import ClassifyConfig, run_classify
 from ganon_tpu_torch.index.ibf import build_ibf
 from ganon_tpu_torch.index.pruned import build_pruned
@@ -32,6 +35,9 @@ def test_port_imports_without_jax_and_pandas():
         "import ganon_tpu_torch.index.hibf, ganon_tpu_torch.index.pruned\n"
         "import ganon_tpu_torch.index.serialize\n"
         "import ganon_tpu_torch.ops.pruned_query\n"
+        "import ganon_tpu_torch.build, ganon_tpu_torch.taxonomy\n"
+        "import ganon_tpu_torch.index.device_build\n"
+        "import ganon_tpu_torch.ops.build_ops\n"
         "assert not any(m == 'ganon_tpu' or m.startswith('ganon_tpu.')"
         " for m in sys.modules)\n"
         "print('ok')\n"
@@ -65,6 +71,22 @@ def test_cuda_device_without_cuda_raises(tmp_path):
         build_pruned({"T0": np.arange(1, 50, dtype=np.uint64)},
                      kmer_size=19, window_size=31)
     assert not os.path.exists(str(tmp_path / "o.all"))
+
+
+def test_build_defaults_without_cuda_raise(tmp_path):
+    """build_custom and DeviceBuildPipeline default to the card: without
+    CUDA both raise, and build_custom writes nothing first."""
+    _no_cuda()
+    fa = tmp_path / "a.fna"
+    fa.write_text(">s\n" + "ACGT" * 100 + "\n")
+    cfg = Config("build-custom", db_prefix=str(tmp_path / "db" / "x"),
+                 input=[str(fa)], taxonomy="skip", quiet=True)
+    cfg.validate()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_custom(cfg)
+    assert not (tmp_path / "db").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceBuildPipeline(19, 31)
 
 
 def test_kernel_wrappers_refuse_non_cpu_tensors_without_cuda():
