@@ -26,9 +26,11 @@ splits:
   group through ``gate`` and ``fine`` in probe-all mode
   (:meth:`DevicePrunedForest.counts_gated`).
 
+A flat filter, forest or raptor archive of more than 65,535 targets, or
+a ``hashes_limit`` above 65,535 (``--longreads``), takes ``select``'s
+32-bit mode (``pack16=False``: counts and target ids in two blocks).
 Every function takes tensors on one explicit device; on the CPU the
-kernels' plain torch versions run. Not ported yet: the 32-bit counter
-layout, multi-GPU meshes.
+kernels' plain torch versions run. Not ported yet: multi-GPU meshes.
 """
 
 from __future__ import annotations
@@ -168,14 +170,17 @@ def threshold_topk(counts: torch.Tensor, n_hashes: torch.Tensor,
                    rel_cutoff: float, rel_filter: float, hashes_limit: int, *,
                    top_k: int, emit_matches_t: bool = True,
                    winners: torch.Tensor | None = None,
-                   lanes: tuple | None = None) -> dict:
+                   lanes: tuple | None = None, pack16: bool = True) -> dict:
     """Plain version of the ``select`` kernel's thresholds and top-K.
 
     Reference threshold semantics (GanonClassify.cpp:719-758) with the
     cutoff math in float64. The top ``K = min(top_k, T)`` entries are
     ordered by the key ``count << 16 | (0xFFFF - idx)`` over the
     finally-kept counts (0 elsewhere), held in int64: descending count,
-    ascending index on ties. ``winners`` (int32 ``[B, T]``, the winning
+    ascending index on ties. ``pack16=False`` (the 32-bit mode, JAX's
+    ``sort16=False`` and its ``lax.top_k``) keys ``count << 32 |
+    (0xFFFFFFFF - idx)``: the same order for counts and ids past 16
+    bits (counts stay below 2^31, so the key stays positive). ``winners`` (int32 ``[B, T]``, the winning
     filter per union column) adds ``top_win``, each entry's
     ``winners[b, top_idx]``. Returns the dict of
     ``ganon_tpu.classify.device.threshold_topk`` (int32 arrays; the three
@@ -213,13 +218,15 @@ def threshold_topk(counts: torch.Tensor, n_hashes: torch.Tensor,
     n_matches = final.sum(dim=1)
     fvals = torch.where(final, c, 0)
     k = min(top_k, T)
-    key = (fvals << 16) | (0xFFFF - ids)
+    bits = 16 if pack16 else 32
+    mask = (1 << bits) - 1
+    key = (fvals << bits) | (mask - ids)
     # keys are unique per row but for the sentinel entries, which are equal
     top = torch.topk(key, k, dim=1).values
     classified = n_matches > 0
     out = {
-        "top_vals": (top >> 16).to(torch.int32),
-        "top_idx": (0xFFFF - (top & 0xFFFF)).to(torch.int32),
+        "top_vals": (top >> bits).to(torch.int32),
+        "top_idx": (mask - (top & mask)).to(torch.int32),
         "n_matches": n_matches.to(torch.int32),
         "max_count": max_count.to(torch.int32),
         "seqs_classified": classified.sum(),
@@ -251,19 +258,24 @@ def threshold_topk(counts: torch.Tensor, n_hashes: torch.Tensor,
 
 
 def _pack_result(res: dict, n_hashes: torch.Tensor,
-                 overflow: torch.Tensor,
-                 extra_rows: tuple = ()) -> torch.Tensor:
-    """Dense pack16 layout of ``ganon_tpu.classify.device._pack_result``
+                 overflow: torch.Tensor, extra_rows: tuple = (), *,
+                 pack16: bool = True) -> torch.Tensor:
+    """Dense layout of ``ganon_tpu.classify.device._pack_result``
     (``match_cap=0``; ``with_win`` when ``res`` holds ``top_win``).
 
     ``[B*K] (count << 16 | target) | [B*K] winners (with top_win) |
     [B] n_matches | [B] max_count | [B] n_hashes | [B] overflow |
     [B] per extra row | [T] disc_t | [T] matches_t (when emitted) |
-    3 scalars``, all int32.
+    3 scalars``, all int32; ``pack16=False`` ships ``[B*K] counts |
+    [B*K] targets`` in place of the packed block.
     """
-    m = (res["top_vals"].to(torch.int64) << 16) | res["top_idx"].to(torch.int64)
-    m = torch.where(m >= 1 << 31, m - (1 << 32), m)  # the int32 bit pattern
-    parts = [m.reshape(-1)]
+    if pack16:
+        m = ((res["top_vals"].to(torch.int64) << 16)
+             | res["top_idx"].to(torch.int64))
+        m = torch.where(m >= 1 << 31, m - (1 << 32), m)  # int32 bit pattern
+        parts = [m.reshape(-1)]
+    else:
+        parts = [res["top_vals"].reshape(-1), res["top_idx"].reshape(-1)]
     if "top_win" in res:
         parts.append(res["top_win"])
     parts += [res["n_matches"], res["max_count"], n_hashes, overflow,
@@ -279,14 +291,17 @@ def _pack_result(res: dict, n_hashes: torch.Tensor,
 def select(counts: torch.Tensor, n_hashes: torch.Tensor,
            overflow: torch.Tensor, rel_cutoff: float, rel_filter: float,
            hashes_limit: int, *, top_k: int, emit_matches_t: bool = True,
-           uwin: torch.Tensor | None = None) -> torch.Tensor:
+           uwin: torch.Tensor | None = None,
+           pack16: bool = True) -> torch.Tensor:
     """Thresholds, top-K and tallies of a counts matrix, packed (int32).
 
-    Replaces ``ganon_tpu.classify.device.threshold_topk`` (``sort16``) +
-    the dense pack16 branch of ``_pack_result``; unpack with
-    :func:`unpack_batch_result`. Counts, target ids and ``hashes_limit``
-    must fit 16 bits. ``uwin`` (int32 ``[B, T]``) adds the winners block
-    of a multi-filter level (``with_win``).
+    Replaces ``ganon_tpu.classify.device.threshold_topk`` + the dense
+    branch of ``_pack_result``; unpack with :func:`unpack_batch_result`.
+    With ``pack16`` (``sort16``) counts, target ids and ``hashes_limit``
+    must fit 16 bits; ``uwin`` (int32 ``[B, T]``) adds the winners block
+    of a multi-filter level (``with_win``). ``pack16=False`` launches the
+    32-bit mode (``sort16=False``): counts and ids ship in two blocks, and
+    there is no winners block, as in the JAX package.
     """
     B, T = counts.shape
     if counts.dtype != torch.int32 or n_hashes.dtype != torch.int32:
@@ -295,8 +310,10 @@ def select(counts: torch.Tensor, n_hashes: torch.Tensor,
         raise ValueError("n_hashes and overflow must be [B]")
     if overflow.dtype != torch.uint8:
         raise ValueError("overflow must be u8")
-    if T > 0xFFFF or hashes_limit > 0xFFFF:
+    if pack16 and (T > 0xFFFF or hashes_limit > 0xFFFF):
         raise ValueError("the packed layout needs T and hashes_limit <= 0xFFFF")
+    if not pack16 and uwin is not None:
+        raise ValueError("the winners payload needs the packed layout")
     if uwin is not None and (uwin.dtype != torch.int32
                              or uwin.shape != counts.shape):
         raise ValueError("uwin must be int32 [B, T]")
@@ -304,14 +321,22 @@ def select(counts: torch.Tensor, n_hashes: torch.Tensor,
     if counts.device.type == "cpu":
         res = threshold_topk(counts, n_hashes, rel_cutoff, rel_filter,
                              hashes_limit, top_k=top_k,
-                             emit_matches_t=emit_matches_t, winners=uwin)
-        return _pack_result(res, n_hashes, overflow.to(torch.int32))
+                             emit_matches_t=emit_matches_t, winners=uwin,
+                             pack16=pack16)
+        return _pack_result(res, n_hashes, overflow.to(torch.int32),
+                            pack16=pack16)
     kernels.check_cuda(counts, n_hashes, overflow,
                        *([] if uwin is None else [uwin]))
-    size = (B * K * (1 if uwin is None else 2) + 4 * B
+    size = (B * K * (1 if uwin is None and pack16 else 2) + 4 * B
             + T * (2 if emit_matches_t else 1) + 3)
     packed = torch.zeros((size,), dtype=torch.int32, device=counts.device)
     if B == 0:
+        return packed
+    if not pack16:
+        kernels.launch(
+            "select32", counts, B, T, n_hashes, overflow, float(rel_cutoff),
+            float(rel_filter), int(hashes_limit), K,
+            int(bool(emit_matches_t)), packed)
         return packed
     kernels.launch(
         "select", counts, B, T, n_hashes, overflow, float(rel_cutoff),
@@ -458,12 +483,14 @@ def classify_batch_packed(f: "DeviceFilter | DeviceHIBF | DeviceRaptorHIBF",
                           inbuf: torch.Tensor,
                           rel_cutoff: float, rel_filter: float,
                           hashes_limit: int, *, k: int, w: int, L1: int,
-                          L2: int, top_k: int,
-                          emit_matches_t: bool = True) -> torch.Tensor:
+                          L2: int, top_k: int, emit_matches_t: bool = True,
+                          pack16: bool = True) -> torch.Tensor:
     """One batch through extract -> count -> select: one int32 buffer.
 
     Port of ``ganon_tpu.classify.device.classify_batch_packed`` with
-    ``pack16=True, match_cap=0``: the compaction width is
+    ``match_cap=0`` (``pack16=False``: ``select``'s 32-bit mode, for more
+    than 65,535 targets or a ``hashes_limit`` above 65,535): the
+    compaction width is
     ``compact_width(m1 + m2)`` of the bucketed mate widths; overflowing
     reads carry ``overflow`` and are re-run by the engine uncompacted.
     ``f`` may be a forest (:func:`classify_batch_packed_forest`) or a
@@ -476,18 +503,20 @@ def classify_batch_packed(f: "DeviceFilter | DeviceHIBF | DeviceRaptorHIBF",
                                                   L2=L2)
     counts = f.counts(hashes, n_hashes)
     return select(counts, n_hashes, overflow, rel_cutoff, rel_filter,
-                  hashes_limit, top_k=top_k, emit_matches_t=emit_matches_t)
+                  hashes_limit, top_k=top_k, emit_matches_t=emit_matches_t,
+                  pack16=pack16)
 
 
 def classify_batch_packed_forest(f: "DeviceHIBF", inbuf: torch.Tensor,
                                  rel_cutoff: float, rel_filter: float,
                                  hashes_limit: int, *, k: int, w: int,
                                  L1: int, L2: int, top_k: int,
-                                 emit_matches_t: bool = True) -> torch.Tensor:
+                                 emit_matches_t: bool = True,
+                                 pack16: bool = True) -> torch.Tensor:
     """One batch against a native HIBF forest: one int32 buffer.
 
     Port of ``ganon_tpu.classify.device.classify_batch_packed_forest``
-    (``pack16=True, match_cap=0``): ``extract`` once, ``count`` once per
+    (``match_cap=0``): ``extract`` once, ``count`` once per
     sub-IBF straight into its column range of one ``[B, T]`` matrix (the
     forest's target order is the concatenation of its subs'), then
     ``select`` on the whole matrix. Same layout as
@@ -498,7 +527,7 @@ def classify_batch_packed_forest(f: "DeviceHIBF", inbuf: torch.Tensor,
                          "target order is its subs' concatenation")
     return classify_batch_packed(
         f, inbuf, rel_cutoff, rel_filter, hashes_limit, k=k, w=w, L1=L1,
-        L2=L2, top_k=top_k, emit_matches_t=emit_matches_t)
+        L2=L2, top_k=top_k, emit_matches_t=emit_matches_t, pack16=pack16)
 
 
 def classify_batch_packed_multi(filters: list, cols: list, inbuf: torch.Tensor,
@@ -568,10 +597,12 @@ def classify_batch_packed_pruned(f: "DevicePrunedForest",
 
 def unpack_batch_result(packed: np.ndarray, B: int, K: int, T: int,
                         has_matches_t: bool = True,
-                        has_win: bool = False, n_extra: int = 0) -> dict:
+                        has_win: bool = False, n_extra: int = 0,
+                        pack16: bool = True) -> dict:
     """Split a packed batch result back into the result dict
     (``top_win`` is None unless ``has_win``; ``extra_rows`` holds the
-    ``n_extra`` u32 ``[B]`` rows after the overflow block)."""
+    ``n_extra`` u32 ``[B]`` rows after the overflow block; ``pack16=False``
+    reads the 32-bit mode's two blocks of counts and ids)."""
     o = 0
 
     def take(n, shape=None):
@@ -580,10 +611,16 @@ def unpack_batch_result(packed: np.ndarray, B: int, K: int, T: int,
         o += n
         return v.reshape(shape) if shape is not None else v
 
-    m = take(B * K, (B, K)).view(np.uint32)
+    if pack16:
+        m = take(B * K, (B, K)).view(np.uint32)
+        top_vals = (m >> 16).astype(np.int32)
+        top_idx = (m & 0xFFFF).astype(np.int32)
+    else:
+        top_vals = take(B * K, (B, K))
+        top_idx = take(B * K, (B, K))
     out = {
-        "top_vals": (m >> 16).astype(np.int32),
-        "top_idx": (m & 0xFFFF).astype(np.int32),
+        "top_vals": top_vals,
+        "top_idx": top_idx,
         "top_win": take(B * K, (B, K)) if has_win else None,
         "n_matches": take(B),
         "max_count": take(B),

@@ -13,12 +13,16 @@ pipelined ``pipeline_depth`` deep: each dispatch enqueues its kernels and
 a non-blocking copy of the packed result into pinned host memory, and
 the host finishes the oldest batch after waiting on its copy's event.
 
-A pruned forest has no bound on its targets (its matches travel as
-lane ids plus per-read group words); its fast path needs at most 65,535
-groups. Not ported yet (each raises NotImplementedError naming its
-ROADMAP item): the 32-bit counter layout (more than 65,535 targets in a
-flat filter, forest or raptor archive, or ``hashes_limit`` above 65,535
-as ``--longreads`` sets) and multi-GPU meshes.
+A flat filter, forest or raptor archive of more than 65,535 targets, or
+a ``hashes_limit`` above 65,535 (``--longreads``), runs the 32-bit
+counter layout (``select``'s 32-bit mode), as the JAX engine's
+``pack16 = False``. A pruned forest has no bound on its targets (its
+matches travel as lane ids plus per-read group words); its fast path
+needs at most 65,535 groups and a ``hashes_limit`` of at most 65,535,
+and a level of several filters needs a union of at most 65,535 targets
+and the same limit: otherwise their batches take the exact path. Not
+ported yet: multi-GPU meshes (NotImplementedError naming its ROADMAP
+item).
 """
 
 from __future__ import annotations
@@ -283,15 +287,6 @@ class LevelContext:
                                                        cfg.device))
             if spec.tax_file:
                 taxes.append(load_tax(spec.tax_file))
-        for f in self.filters:
-            # a pruned forest's bound is on its groups (the fast path's
-            # u16 group words), checked at dispatch
-            if (f.num_targets > 0xFFFF
-                    and not isinstance(f, dev.DevicePrunedForest)):
-                raise NotImplementedError(
-                    "more than 65535 targets in one filter need the 32-bit "
-                    "counter layout, not ported yet (ROADMAP queue 1, item 10)"
-                )
         k = self.filters[0].ibf_config.kmer_size
         w = self.filters[0].ibf_config.window_size
         for f in self.filters[1:]:
@@ -474,12 +469,6 @@ class _Out:
 
 def _check_supported(cfg: ClassifyConfig) -> None:
     """Raise NotImplementedError for what this port does not cover yet."""
-    if cfg.hashes_limit > 0xFFFF:
-        raise NotImplementedError(
-            "hashes_limit above 65535 (--longreads) needs the 32-bit counter "
-            "layout, not ported yet (ROADMAP queue 1, item 10 'Long and "
-            "mixed-length reads')"
-        )
     device = torch.device(cfg.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -709,8 +698,10 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
     in-flight host copy + unpack dims, or None when the level has no fast
     path (device thresholding off, a level mixing a forest or a raptor
     archive with other filters, a union wider than 0xFFFF, a pruned
-    forest of more than 0xFFFF groups): the batch then takes
-    :func:`_classify_batch`."""
+    forest of more than 0xFFFF groups, a pruned forest or a level of
+    several filters under a ``hashes_limit`` above 0xFFFF): the batch
+    then takes :func:`_classify_batch`. A flat filter, forest or raptor
+    archive past either 16-bit bound takes ``select``'s 32-bit mode."""
     if not cfg.device_thresholding:
         return None
     if len(ctx.filters) != 1:
@@ -719,8 +710,9 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
     is_forest = isinstance(f, dev.DeviceHIBF) and f.contiguous and f.subs
     is_raptor = isinstance(f, dev.DeviceRaptorHIBF) and f.subs
     is_pruned = isinstance(f, dev.DevicePrunedForest)
-    if is_pruned and f.num_groups > 0xFFFF:
-        # group ids travel as u16 halves of the group words
+    if is_pruned and (f.num_groups > 0xFFFF or cfg.hashes_limit > 0xFFFF):
+        # group ids travel as u16 halves of the group words, and lanes
+        # mode packs counts into 16 bits
         return None
     if not (isinstance(f, dev.DeviceFilter) or is_forest or is_raptor
             or is_pruned):
@@ -741,27 +733,30 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
             L2=L2, max_groups=S, top_k=K, emit_matches_t=emit_mt,
         )
         pinfo = (S, f.group_size, -(-S // 2))
+        pack16 = True  # lane ids fit 16 bits
     else:
         # flat, forest and raptor alike: f.counts is the filter's own count
         K = min(ctx.top_k_current, f.num_targets)
+        pack16 = f.num_targets <= 0xFFFF and cfg.hashes_limit <= 0xFFFF
         packed = dev.classify_batch_packed(
             f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
             cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
-            L2=L2, top_k=K, emit_matches_t=emit_mt,
+            L2=L2, top_k=K, emit_matches_t=emit_mt, pack16=pack16,
         )
     return (_start_host_copy(packed), batch_pad, K, f.num_targets, emit_mt,
-            False, pinfo)
+            False, pinfo, pack16)
 
 
 def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
                                cfg: ClassifyConfig):
     """The fast path of a level with several flat filters (per-filter
     cutoffs, union merge and winners on the card). None when a filter is
-    not a flat IBF or the union exceeds the 16-bit packed layout."""
+    not a flat IBF, or the union or ``hashes_limit`` exceeds the 16-bit
+    packed layout (the winners ride only beside it)."""
     if not all(type(f) is dev.DeviceFilter for f in ctx.filters):
         return None
     U = len(ctx.union_targets)
-    if U > 0xFFFF:
+    if U > 0xFFFF or cfg.hashes_limit > 0xFFFF:
         return None
     batch_pad = dev.bucket_len(len(batch), minimum=64)
     inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
@@ -774,7 +769,8 @@ def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
         cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1, L2=L2,
         num_union=U, top_k=K, emit_matches_t=emit_mt,
     )
-    return (_start_host_copy(packed), batch_pad, K, U, emit_mt, True, None)
+    return (_start_host_copy(packed), batch_pad, K, U, emit_mt, True, None,
+            True)
 
 
 def _start_host_copy(packed: torch.Tensor):
@@ -808,11 +804,12 @@ def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
     path on compaction overflow (and on a pruned forest's group overflow:
     the exact path counts every group). Returns the leftover
     (unclassified) reads unless the level is the last."""
-    batch, (handle, B_pad, K, T, emit_mt, has_win, pinfo) = pending
+    batch, (handle, B_pad, K, T, emit_mt, has_win, pinfo, pack16) = pending
     B0 = len(batch)
     res = dev.unpack_batch_result(_fetch(handle, timing), B_pad, K, T,
                                   has_matches_t=emit_mt, has_win=has_win,
-                                  n_extra=pinfo[2] if pinfo else 0)
+                                  n_extra=pinfo[2] if pinfo else 0,
+                                  pack16=pack16)
     if not res["overflow"][:B0].any() and (
         res["n_matches"][:B0] > K
     ).any() and ctx.top_k_current < cfg.top_k_matches:
@@ -912,22 +909,21 @@ def _classify_batch(
         else np.zeros(B0, np.int64)
     )
 
-    # single filter: thresholds + top-K compaction on the card (16-bit
-    # target ids: a wider pruned forest takes the exact host path below,
-    # where JAX's threshold_topk(sort16=False) gives the same outputs)
-    if (len(ctx.filters) == 1 and cfg.device_thresholding
-            and f0.num_targets <= 0xFFFF):
+    # single filter: thresholds + top-K compaction on the card, in the
+    # 32-bit mode past either 16-bit bound (JAX's sort16 rule)
+    if len(ctx.filters) == 1 and cfg.device_thresholding:
         emit_mt = ctx.level.fpr_query >= 1.0
         K = min(cfg.top_k_matches, f0.num_targets)
+        pack16 = f0.num_targets <= 0xFFFF and cfg.hashes_limit <= 0xFFFF
         packed = dev.select(
             counts_dev[0], n_hashes_d,
             torch.zeros_like(n_hashes_d, dtype=torch.uint8),
             ctx.specs[0].rel_cutoff, ctx.level.rel_filter, cfg.hashes_limit,
-            top_k=cfg.top_k_matches, emit_matches_t=emit_mt,
+            top_k=cfg.top_k_matches, emit_matches_t=emit_mt, pack16=pack16,
         )
         res = dev.unpack_batch_result(
             packed.cpu().numpy(), Bp, K, f0.num_targets,
-            has_matches_t=emit_mt,
+            has_matches_t=emit_mt, pack16=pack16,
         )
         if not (res["n_matches"][:B0] > K).any():
             return _finish_batch_compact(

@@ -41,6 +41,16 @@
 // (device.py:886-893; the argmax tier takes them at the argmax,
 // :874-884), so each entry's winner is that of its own target.
 //
+// 32-bit mode (K6/K7's 32-bit branch: ganon_tpu/classify/device.py:801
+// threshold_topk with sort16=False, lax.top_k over the int32 counts, and
+// :255 _pack_result without pack16; the layout --longreads and filters of
+// more than 65,535 targets need): the key is the 64-bit
+// (count << 32) | (0xFFFFFFFF - target), so the order stays descending
+// count, then ascending id (lax.top_k takes the lower index on ties), and
+// the top block becomes two blocks, [B*K] counts | [B*K] target ids,
+// before the same side arrays. No winners and no lanes: JAX pairs
+// neither with 32 bits (device.py:902, :1147).
+//
 // Lanes mode (K14: ganon_tpu/classify/device.py:1309 threshold_topk_ids
 // with tallies=False, the lane ids, group tallies and group words of
 // :1119 classify_batch_packed_pruned, :1255-1306): the columns are the
@@ -56,6 +66,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -63,26 +74,30 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxS = 32;
 
-template <typename Op>
-__device__ unsigned block_reduce(unsigned v, Op op, unsigned* scratch) {
+// V is unsigned or unsigned long long (the 32-bit mode's argmax keys)
+template <typename V, typename Op>
+__device__ V block_reduce(V v, Op op, unsigned long long* scratch) {
     for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     __syncthreads();  // scratch is free
     if (lane == 0) scratch[warp] = v;
     __syncthreads();
-    v = scratch[0];
-    for (int i = 1; i < kWarps; ++i) v = op(v, scratch[i]);
+    v = (V)scratch[0];
+    for (int i = 1; i < kWarps; ++i) v = op(v, (V)scratch[i]);
     return v;
 }
 
 struct MaxOp {
-    __device__ unsigned operator()(unsigned a, unsigned b) const { return a > b ? a : b; }
+    template <typename V>
+    __device__ V operator()(V a, V b) const { return a > b ? a : b; }
 };
 struct MinOp {
-    __device__ unsigned operator()(unsigned a, unsigned b) const { return a < b ? a : b; }
+    template <typename V>
+    __device__ V operator()(V a, V b) const { return a < b ? a : b; }
 };
 struct AddOp {
-    __device__ unsigned operator()(unsigned a, unsigned b) const { return a + b; }
+    template <typename V>
+    __device__ V operator()(V a, V b) const { return a + b; }
 };
 
 // The pruned forest's lanes (NULL gsel: flat mode, every column is live).
@@ -94,6 +109,8 @@ struct Lanes {
     int T;                           // tally width: the forest's targets
 };
 
+// Wide: the 32-bit mode (64-bit keys, counts and ids in two blocks)
+template <bool Wide>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const int* __restrict__ counts, long long B, int T,
               const int* __restrict__ n_hashes,
@@ -101,7 +118,11 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
               double rel_filter, long long hashes_limit, int K, int emit_mt,
               const int* __restrict__ uwin, int* __restrict__ out,
               Lanes ln) {
-    __shared__ unsigned scratch[kWarps];
+    using Key = typename std::conditional<Wide, unsigned long long,
+                                          unsigned>::type;
+    constexpr int kIdBits = Wide ? 32 : 16;
+    constexpr Key kIdMask = Wide ? 0xFFFFFFFFull : 0xFFFFu;
+    __shared__ unsigned long long scratch[kWarps];
     __shared__ int s_grp[kMaxS];  // the slot's group, -1 when dead
     __shared__ int s_nt[kMaxS];   // live lanes of the slot
     const long long b = blockIdx.x;
@@ -145,7 +166,7 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
 
     // the side arrays follow the matches (and the winners); in lanes mode
     // the group words follow the side arrays
-    const long long BK = B * (long long)K * (uwin ? 2 : 1);
+    const long long BK = B * (long long)K * (uwin || Wide ? 2 : 1);
     const int TT = lanes ? ln.T : T;  // tally width
     int* tallies = out + BK + (4 + (lanes ? ln.n_extra : 0)) * B;
     // pass 2: final matches and per-target tallies
@@ -170,27 +191,34 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
     nm = block_reduce(nm, AddOp(), scratch);
     const int n_matches = (int)nm;
 
-    // top entries: the final targets by descending key
+    // top entries: the final targets by descending key. mrow holds the
+    // packed words (16-bit) or the counts (32-bit, ids in irow)
     int* mrow = out + b * K;
+    int* irow = Wide ? out + B * (long long)K + b * K : nullptr;
     int* wrow = uwin ? out + B * (long long)K + b * K : nullptr;
     const int* urow = uwin ? uwin + b * T : nullptr;
     const int kf = min(K, n_matches);
-    unsigned long long prev = 1ULL << 32;  // above every 32-bit key
+    unsigned long long prev = ~0ULL;  // above every key (counts < 2^31)
     for (int j = 0; j < kf; ++j) {
-        unsigned best = 0;
+        Key best = 0;
         for (int t = threadIdx.x; t < T; t += blockDim.x) {
             const int c = row[t];
             if (c >= cutoff && c >= thr && live(t)) {  // valid: n_matches > 0
-                const unsigned key = ((unsigned)c << 16) | (0xFFFFu - (unsigned)t);
+                const Key key = ((Key)c << kIdBits) | (kIdMask - (Key)t);
                 if ((unsigned long long)key < prev && key > best) best = key;
             }
         }
         best = block_reduce(best, MaxOp(), scratch);
         prev = best;
         if (threadIdx.x == 0) {
-            const int t = (int)(0xFFFFu - (best & 0xFFFFu));
-            mrow[j] = (int)((best & 0xFFFF0000u) | (unsigned)t);
-            if (wrow) wrow[j] = urow[t];
+            const int t = (int)(kIdMask - (best & kIdMask));
+            if constexpr (Wide) {
+                mrow[j] = (int)(best >> 32);
+                irow[j] = t;
+            } else {
+                mrow[j] = (int)(((unsigned)best & 0xFFFF0000u) | (unsigned)t);
+                if (wrow) wrow[j] = urow[t];
+            }
         }
     }
     // remaining slots: (live) non-final targets in ascending index order
@@ -212,18 +240,24 @@ select_kernel(const int* __restrict__ counts, long long B, int T,
         __syncthreads();
         int before = 0, total = 0;
         for (int i = 0; i < kWarps; ++i) {
-            if (i < warp) before += scratch[i];
-            total += scratch[i];
+            if (i < warp) before += (int)scratch[i];
+            total += (int)scratch[i];
         }
         const int rank = base + before + in_warp;
         if (nonfinal && rank < need) {
-            mrow[kf + rank] = t;  // count 0 << 16
-            if (wrow) wrow[kf + rank] = urow[t];
+            if constexpr (Wide) {
+                mrow[kf + rank] = 0;
+                irow[kf + rank] = t;
+            } else {
+                mrow[kf + rank] = t;  // count 0 << 16
+                if (wrow) wrow[kf + rank] = urow[t];
+            }
         }
         base += total;
     }
     // lanes mode: the dead lanes, all reading the sentinel lane C (= T)
-    for (int i = kf + base + threadIdx.x; i < K; i += blockDim.x) mrow[i] = T;
+    if (lanes)
+        for (int i = kf + base + threadIdx.x; i < K; i += blockDim.x) mrow[i] = T;
 
     if (lanes && threadIdx.x < ln.n_extra) {
         const int i = threadIdx.x;
@@ -253,10 +287,25 @@ extern "C" int ganon_select(const void* counts, long long B, int T,
                             double rel_cutoff, double rel_filter,
                             long long hashes_limit, int K, int emit_matches_t,
                             const void* uwin, void* packed, void* stream) {
-    select_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
+    select_kernel<false><<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
         (const int*)counts, B, T, (const int*)n_hashes,
         (const unsigned char*)overflow, rel_cutoff, rel_filter, hashes_limit,
         K, emit_matches_t, (const int*)uwin, (int*)packed,
+        Lanes{nullptr, nullptr, nullptr, 0, 1, 0, T});
+    return (int)cudaGetLastError();
+}
+
+// 32-bit mode: [B*K] counts | [B*K] target ids | the same side arrays.
+extern "C" int ganon_select32(const void* counts, long long B, int T,
+                              const void* n_hashes, const void* overflow,
+                              double rel_cutoff, double rel_filter,
+                              long long hashes_limit, int K,
+                              int emit_matches_t, void* packed, void* stream) {
+    if (K < 1 || K > T) return (int)cudaErrorInvalidValue;
+    select_kernel<true><<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)counts, B, T, (const int*)n_hashes,
+        (const unsigned char*)overflow, rel_cutoff, rel_filter, hashes_limit,
+        K, emit_matches_t, nullptr, (int*)packed,
         Lanes{nullptr, nullptr, nullptr, 0, 1, 0, T});
     return (int)cudaGetLastError();
 }
@@ -273,7 +322,7 @@ extern "C" int ganon_select_lanes(const void* counts, long long B, int C,
                                   int T, void* packed, void* stream) {
     if (S < 1 || S > kMaxS || gs < 1 || C != S * gs || K > C || K < 1)
         return (int)cudaErrorInvalidValue;
-    select_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
+    select_kernel<false><<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
         (const int*)counts, B, C, (const int*)n_hashes,
         (const unsigned char*)overflow, rel_cutoff, rel_filter, hashes_limit,
         K, emit_matches_t, nullptr, (int*)packed,

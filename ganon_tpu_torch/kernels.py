@@ -11,7 +11,10 @@ turns into an exception.
 ``LAUNCHES`` counts kernel launches (one per :func:`launch`) per kernel
 and mode: ``count_forest`` is ``count`` writing into a column range of a
 shared matrix, ``count_raptor`` is ``count`` in column-max mode (a raptor
-sub-IBF's targets max-merged into their columns), ``select_winners`` is ``select`` with the winners payload,
+sub-IBF's targets max-merged into their columns), ``select_winners`` is
+``select`` with the winners payload, ``select32`` is ``select`` in its
+32-bit mode (two [B*K] blocks of counts and ids: ``--longreads``, more
+than 65,535 targets),
 ``fine_all`` is ``fine`` over every group (the pruned forest's probe-all
 path); ``gate``, ``fine``, ``select_lanes`` and ``scatter_pruned`` are the
 pruned forest's; ``extract_build`` is ``extract`` on the build's pieces
@@ -58,6 +61,9 @@ _SIGNATURES = {
     # counts, B, T, n_hashes, overflow, rel_cutoff, rel_filter,
     # hashes_limit, K, emit_matches_t, uwin (NULL = no winners), packed
     "select": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P, _P),
+    # counts, B, T, n_hashes, overflow, rel_cutoff, rel_filter,
+    # hashes_limit, K, emit_matches_t, packed (the 32-bit mode)
+    "select32": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P),
     # bits, R, W, hashes, bins, N, bin_size, h, shift
     "scatter": (_P, _L, _L, _P, _P, _L, _U, _I, _I),
     # counts, B, C, n_hashes, overflow, rel_cutoff, rel_filter,

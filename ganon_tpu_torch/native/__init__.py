@@ -156,6 +156,14 @@ class NativeSeqReader:
                     continue  # retry with the grown width
             if n == 0:
                 return [], codes[:0], lengths[:0]
+            if not needed.value:
+                # shrink back to this batch's longest read: one
+                # ultra-long read must not leave every later batch at its
+                # width (64 rows of 1 Mb, mostly padding, to the end)
+                w = 256
+                while w < int(lengths[:n].max()):
+                    w *= 2
+                self._cur_width = min(self._cur_width, w)
             ids = ids_buf.value.decode(errors="replace").split("\n")[:n]
             return ids, codes[:n], lengths[:n]
 

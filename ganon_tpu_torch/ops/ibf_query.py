@@ -293,10 +293,22 @@ def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
     return hashes, n, overflow
 
 
-def _popcount_u8(x: torch.Tensor) -> torch.Tensor:
-    x = x - ((x >> 1) & 0x55)
-    x = (x & 0x33) + ((x >> 2) & 0x33)
-    return (x + (x >> 4)) & 0x0F
+# member bytes the plain count gathers at once
+_PLAIN_GATHER_BYTES = 64 << 20
+# hashes whose per-byte popcounts (<= 8 each) one int32 word sums without
+# a carry between bytes or into the sign bit (15 * 8 = 120 < 128)
+_PLAIN_SUM_GROUP = 15
+
+
+def _popcount_bytes_i32(x: torch.Tensor) -> torch.Tensor:
+    """Popcount of each byte of int32 words, in place (each byte of the
+    result holds its own count; the masks drop the sign fill)."""
+    t = torch.empty_like(x)  # one scratch buffer, reused
+    x -= torch.bitwise_right_shift(x, 1, out=t).bitwise_and_(0x55555555)
+    torch.bitwise_right_shift(x, 2, out=t).bitwise_and_(0x33333333)
+    x.bitwise_and_(0x33333333).add_(t)
+    x += torch.bitwise_right_shift(x, 4, out=t)
+    return x.bitwise_and_(0x0F0F0F0F)
 
 
 def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
@@ -311,17 +323,37 @@ def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
     tbl8[row_s(h[b, m]), byte_starts[t]:byte_ends[t]]))`` over the first
     ``min(n_hashes[b], M)`` slots; written into ``out[:, col0:col0 + T]``
     when ``out`` is given, or max-merged into ``out[:, cols]`` with
-    ``cols`` (``out`` returned either way).
+    ``cols`` (``out`` returned either way). ``tbl8``'s ``W8`` is a
+    multiple of 4, as :func:`target_counts` requires.
     """
     B, M = hashes.shape
-    rows = ibf_row_indices(hashes, bin_size=bin_size,
-                           hash_functions=hash_functions)
-    member = tbl8[rows[:, :, 0]]  # [B, M, W8]
-    for s in range(1, hash_functions):
-        member = member & tbl8[rows[:, :, s]]
-    valid = torch.arange(M, device=hashes.device)[None, :] < n_hashes[:, None]
-    member = torch.where(valid[:, :, None], member, torch.zeros_like(member))
-    cw = _popcount_u8(member).sum(dim=1, dtype=torch.int64)  # [B, W8]
+    W8 = tbl8.shape[1]
+    dev = hashes.device
+    tbl32 = tbl8.view(torch.int32)  # the same bytes, four at a time
+    cw = torch.zeros((B, W8), dtype=torch.int64, device=dev)
+    acc = torch.zeros((B, W8 // 4), dtype=torch.int32, device=dev)
+    n = n_hashes.to(torch.int64)
+    m_used = min(M, int(n.max())) if B else 0
+    # the member words of the valid (read, slot) pairs only, 64 MB at a
+    # time (a whole [B, M, W8] gather of long reads or wide filters takes
+    # tens of GB), a group of slots at a time: a read adds at most
+    # _PLAIN_SUM_GROUP words of byte popcounts into its row of acc
+    chunk = max(1, _PLAIN_GATHER_BYTES // W8)
+    for g0 in range(0, m_used, _PLAIN_SUM_GROUP):
+        sl = hashes[:, g0:g0 + _PLAIN_SUM_GROUP]
+        valid = (torch.arange(g0, g0 + sl.shape[1], device=dev)[None, :]
+                 < n[:, None])
+        bi, mi = valid.nonzero(as_tuple=True)
+        hv = sl[bi, mi]
+        acc.zero_()
+        for c0 in range(0, len(hv), chunk):
+            rows = ibf_row_indices(hv[c0:c0 + chunk], bin_size=bin_size,
+                                   hash_functions=hash_functions)
+            member = tbl32[rows[:, 0]]  # [pairs, W8 / 4]
+            for s in range(1, hash_functions):
+                member &= tbl32[rows[:, s]]
+            acc.index_add_(0, bi[c0:c0 + chunk], _popcount_bytes_i32(member))
+        cw += acc.view(torch.uint8)  # [B, W8] byte sums
     cs = torch.nn.functional.pad(torch.cumsum(cw, dim=1), (1, 0))
     counts = cs[:, byte_ends.to(torch.int64)] - cs[:, byte_starts.to(torch.int64)]
     counts = torch.minimum(counts, n_hashes[:, None].to(torch.int64)).to(

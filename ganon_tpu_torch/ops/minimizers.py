@@ -172,19 +172,23 @@ def canonical_values(codes: torch.Tensor, lengths: torch.Tensor, k: int):
     ``U64_MAX`` (-1).
     """
     c = codes.to(torch.int64)
+    r = 3 - c  # complement ranks
     L = c.shape[1]
     nk = L - k + 1
     fwd = torch.zeros((c.shape[0], nk), dtype=torch.int64, device=c.device)
     rc = torch.zeros_like(fwd)
+    tmp = torch.empty_like(fwd)
+    # in place: long reads make [B, nk] temporaries of hundreds of MB
     for j in range(k):
-        cj = c[:, j : j + nk]
-        fwd = (fwd << 2) | cj  # wraps mod 2^64 at k == 32, as u64 does
-        rc = rc | ((3 - cj) << (2 * j))
+        fwd <<= 2  # wraps mod 2^64 at k == 32, as u64 does
+        fwd |= c[:, j : j + nk]
+        rc |= torch.bitwise_left_shift(r[:, j : j + nk], 2 * j, out=tmp)
     seed = as_i64(adjust_seed(k))
-    canon = umin(fwd ^ seed, rc ^ seed)
+    fwd ^= seed
+    rc ^= seed
     kpos = torch.arange(nk, device=c.device)[None, :]
-    return torch.where(kpos + k <= lengths[:, None].to(torch.int64), canon,
-                       torch.full_like(canon, U64_MAX_I64))
+    return umin(fwd, rc).masked_fill_(
+        kpos + k > lengths[:, None].to(torch.int64), U64_MAX_I64)
 
 
 def _window_argmin(canon: torch.Tensor, ww: int, nw: int):

@@ -5,7 +5,9 @@ reads, overflowing compaction, table rows spanning several count tiles,
 more hashes than one shared-memory chunk, wide target sets and large K;
 count into a column range of a wider matrix (forest mode), merge with
 ties and with a one-target filter, select with winners at K = 1 and
-K = T. The pruned forest's modes: gate, fine (dense and probe-all),
+K = T; select in its 32-bit mode at B = 0, T = 65,536 and 65,537,
+counts at 2^31 - 1 and with every or no target final. The pruned
+forest's modes: gate, fine (dense and probe-all),
 select in lanes mode and scatter in pruned mode, at group counts that
 are not multiples of 8 or 32 (and past one gate counter tile), group
 size 16 (padded rows), a partly full last group, ties, reads with no
@@ -113,6 +115,56 @@ def test_select_kernel_matches_plain(cuda, T, top_k, emit):
                                emit_matches_t=emit),
             nn, o.to(torch.int32))
         assert torch.equal(got, want)
+
+
+def _select32_case(rng, B, T, case):
+    """Counts, n_hashes and overflow of one 32-bit select edge case."""
+    n = rng.integers(60_000, 200_000, size=B).astype(np.int32)
+    counts = np.minimum(rng.integers(0, 200_000, size=(B, T)),
+                        n[:, None]).astype(np.int32)
+    if case == "max-count":  # counts and n at 2^31 - 1
+        n[:] = np.iinfo(np.int32).max
+        counts[:, ::3] = np.iinfo(np.int32).max
+        counts[:, 1::3] = np.iinfo(np.int32).max - 1
+    elif case == "all-final":
+        counts[:] = n[:, None]
+    elif case == "none-final":
+        counts[:] = 0
+    else:  # ties on both sides of 0xFFFF and at the last target
+        for t in {7, min(0xFFFF, T - 1), T - 1, T // 2}:
+            counts[:, t] = n
+    if B:
+        n[0] = 0  # a read without hashes
+    ovf = (rng.random(B) < 0.2).astype(np.uint8)
+    return counts, n, ovf
+
+
+@pytest.mark.parametrize("B,T,case", [
+    (0, 300, "ties"), (33, 300, "ties"), (65, 1000, "all-final"),
+    (65, 1000, "none-final"), (40, 65_536, "ties"), (40, 65_537, "ties"),
+    (17, 70_000, "max-count"), (17, 70_000, "all-final"),
+])
+@pytest.mark.parametrize("top_k", [1, 4, 128])
+def test_select32_kernel_matches_plain(cuda, B, T, case, top_k):
+    """The 32-bit mode (``pack16=False``) against its plain version: B =
+    0, T not a multiple of 256, T = 65,536 and 65,537, counts at 2^31 -
+    1, every target final, no target final, K above the matches."""
+    rng = np.random.default_rng(B + T + top_k)
+    counts, n, ovf = _select32_case(rng, B, T, case)
+    c, nn, o = (torch.from_numpy(x).to(cuda) for x in (counts, n, ovf))
+    before = kernels.LAUNCHES["select32"]
+    for cuts in ((0.75, 0.1, (1 << 32) - 1), (0.0, 1.0, 150_000),
+                 (0.2, 0.0, (1 << 32) - 1)):
+        for emit in (True, False):
+            got = dev.select(c, nn, o, *cuts, top_k=top_k,
+                             emit_matches_t=emit, pack16=False)
+            want = dev._pack_result(
+                dev.threshold_topk(c, nn, *cuts, top_k=top_k,
+                                   emit_matches_t=emit, pack16=False),
+                nn, o.to(torch.int32), pack16=False)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+    assert kernels.LAUNCHES["select32"] - before == (6 if B else 0)
 
 
 @pytest.mark.parametrize("hf", [1, 4])

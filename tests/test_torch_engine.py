@@ -61,9 +61,10 @@ def _tax(path, refs, n_genera):
     return write_tax(path, rows)
 
 
-def run_both(tmp_path, monkeypatch, **kw):
+def run_both(tmp_path, monkeypatch, jax_kw=None, **kw):
     """Run both engines on one config; every output file (per level and
     per prefix) must agree: sorted rows, ``.sta`` byte for byte.
+    ``jax_kw`` overrides fields of the JAX engine's config only.
     Returns the port's output prefix and how often it dispatched a batch
     and took the exact fallback."""
     calls = {"dispatch": 0, "fallback": 0}
@@ -74,7 +75,8 @@ def run_both(tmp_path, monkeypatch, **kw):
             return _f(*a, **k)
         monkeypatch.setattr(port_engine, fn, counted)
     outs = {}
-    for name, cfg in (("jax", JaxConfig(use_mesh=False, **kw)),
+    for name, cfg in (("jax", JaxConfig(use_mesh=False,
+                                        **{**kw, **(jax_kw or {})})),
                       ("port", ClassifyConfig(device="cpu", **kw))):
         d = tmp_path / name
         d.mkdir()

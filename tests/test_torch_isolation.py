@@ -48,6 +48,39 @@ def test_port_imports_without_jax_and_pandas():
     assert res.stdout.strip() == "ok"
 
 
+def test_reassign_and_report_run_without_jax_and_pandas(tmp_path):
+    """EM reassignment (whose ``.all`` reader is pandas in the JAX
+    package), the report and the classify command import and run with
+    jax and pandas blocked."""
+    (tmp_path / "r.all").write_text("a\tS1\t9\nb\tS1\t7\nb\tS2\t7\n")
+    (tmp_path / "r.rep").write_text(
+        "H1\tS1\t2\t1\t0\tspecies\tS1\nH1\tS2\t1\t0\t0\tspecies\tS2\n"
+        "#total_classified\t2\n#total_unclassified\t1\n")
+    (tmp_path / "db.tax").write_text(
+        "1\t0\troot\troot\t100\nS1\t1\tspecies\tS1\t50\n"
+        "S2\t1\tspecies\tS2\t60\n")
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pandas'] = None\n"
+        "import ganon_tpu_torch.commands, ganon_tpu_torch.report\n"
+        "from ganon_tpu_torch.cli import main\n"
+        f"d = {str(tmp_path)!r}\n"
+        "assert main('reassign', input_prefix=[d + '/r'], quiet=True)\n"
+        "assert main('report', input=[d + '/r.rep'], db_prefix=[d + '/db'],"
+        " output_prefix=d + '/t', quiet=True)\n"
+        "assert not any(m == 'ganon_tpu' or m.startswith('ganon_tpu.')"
+        " for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+    assert (tmp_path / "r.one").read_text() == "a\tS1\t9\nb\tS1\t7\n"
+    assert (tmp_path / "t.tre").stat().st_size > 0
+
+
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the no-CUDA behaviour is not testable")
