@@ -25,7 +25,12 @@ Phases, one output line each:
              beside ``torch.sort``); a 64-target reference-format build of
              two files per target, one target over several bins, through
              ``run_build`` on the card and with ``device="cpu"``, byte-equal;
-             then
+             ``scatter`` in span mode (one of four row shards) against its
+             plain version at that group; then
+             (line ``mesh_build``) the same FASTA files through
+             ``run_build`` with four views of ``cuda:0`` as the local
+             devices (K17: the groups round-robin over them, the matrix is
+             cut into four row spans), equal to ``db.ibf``; then
              (line ``build_hierarchy``) the hierarchy's databases the same
              way: ``host.hibf``, a native forest of 256 targets of skewed
              lengths (64 each of 0.25, 0.5, 1 and 2 Mbp), and ``db_b.ibf``,
@@ -46,6 +51,18 @@ Phases, one output line each:
              pairs the CUDA and ``device="cpu"`` runs write identical
              sorted ``.all``, ``.one`` and ``.rep`` (here, while ``db``'s
              table is still in the filter cache);
+mesh         the (batch, bins) device mesh (K17) over eight views of
+             ``cuda:0`` (2 x 4), while ``db``'s table is still cached: the
+             filter cut into column shards on the card (no host repack),
+             its counts of 8192 pairs and ``ShardedClassifier``'s equal to
+             one device's; ``count`` in shard mode and ``combine`` against
+             their plain versions (combine beside ``torch.sum`` over the
+             shard axis); the classify phase's pairs through the CLI on
+             the mesh, its files equal to that phase's (sorted rows,
+             ``.sta`` byte-equal); 16,384 forest pairs on one device and
+             on the mesh, equal; ``--distributed``: two processes on the
+             card (gloo), a read file pair each, whose ``.h0``/``.h1``
+             outputs together equal one process's;
 longreads    the 32-bit counter layout (``select`` in its 32-bit mode) at
              the CLI's default flags (EM reassignment, the report chained
              from ``db.tax``): 49,152 single-end reads of the JAX bench's
@@ -87,7 +104,8 @@ raptor       the reference's own files: the flat database written as a
              ``--db-prefix raptor``, profiled; every sampled pair lists its
              true target in ``.all``, random pairs land in ``.unc``, and on
              the first 4096 pairs both archives give the same sorted files
-             and byte-equal ``.sta`` on the card and with ``device="cpu"``;
+             and byte-equal ``.sta`` on the card and with ``device="cpu"``,
+             and the layout archive the same on one device and on the mesh;
 pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              shape: 8192 targets x 20 kbp (group size 64), minimizers
              through ``extract``, the tables built by ``scatter`` in pruned
@@ -107,11 +125,15 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              ``.all``, random pairs land in ``.unc``, and the first 4096
              pairs at rel-cutoff 0.2 give the same sorted files and
              byte-equal ``.sta`` on the card (S = 2, and S = 1, which forces
-             the probe-all path) and with ``device="cpu"``;
+             the probe-all path) and with ``device="cpu"``; then
+             (line ``mesh_pruned``) ``BinShardedPrunedForest`` over four
+             views of the card (K17): its gated counts of 8192 pairs equal
+             ``DevicePrunedForest.counts_gated``, and ``fine`` in shard
+             mode against its plain version at shard 0;
 5. checks    every kernel mode launched on the main paths (builds, the
-             two build-custom runs, the reference-format build, the
-             classify CLI runs, the longreads phase's runs and the raptor
-             and pruned phases' card runs).
+             two build-custom runs, the reference-format build, the mesh
+             build, the classify CLI runs and the mesh runs, the longreads
+             phase's runs and the raptor and pruned phases' card runs).
 
 Every phase line carries ``wall_s``, the wall time since the line before
 it. Then one JSON line of every kernel mode (its time and its plain
@@ -233,8 +255,9 @@ def _fine_work(fp, hashes, n, pairs_b, pairs_g):
 
 
 def _ranked_words(key, val, uniq, rank, params, n_words, *, bin_size,
-                  hash_functions):
-    """Distinct u32 words the ranked scatter sets: the words it must
+                  hash_functions, rows_in=None):
+    """Distinct u32 words the ranked scatter sets (in the row range
+    ``rows_in`` = (r0, r1) only, for its span mode): the words it must
     write at least once."""
     import torch
 
@@ -244,7 +267,41 @@ def _ranked_words(key, val, uniq, rank, params, n_words, *, bin_size,
     u, bins = _ranked_bins(key, uniq, rank, params)
     rows = ibf_row_indices(val[u], bin_size=bin_size,
                            hash_functions=hash_functions)
-    return int(torch.unique(rows * n_words + (bins >> 5)[:, None]).numel())
+    words = rows * n_words + (bins >> 5)[:, None]
+    if rows_in is not None:
+        words = words[(rows >= rows_in[0]) & (rows < rows_in[1])]
+    return int(torch.unique(words).numel())
+
+
+class _LocalDevices:
+    """While active, ``parallel.mesh.local_devices`` returns ``devices``:
+    the seam through which a run on one card sees several views of it
+    (the engine's and the build's meshes, the build's round-robin)."""
+
+    def __init__(self, devices):
+        self.devices = list(devices)
+
+    def __enter__(self):
+        from ganon_tpu_torch.parallel import mesh as pmesh
+
+        self._real = pmesh.local_devices
+        pmesh.local_devices = lambda: list(self.devices)
+        return self
+
+    def __exit__(self, *exc):
+        from ganon_tpu_torch.parallel import mesh as pmesh
+
+        pmesh.local_devices = self._real
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
 
 
 def _write_fastq(path, ids, codes):
@@ -803,7 +860,30 @@ def main() -> int:
                 (_nbytes(*rk_args) + 4 * _ranked_words(
                     sk, sv, uq, rk, params_t, rbits[0].shape[1], **rk_kw),
                  int(uq.sum()) * cfg.hash_functions))
-        del sk, sv, uq, rk, rbits, cnt, gcounts, rk_args, arrays
+        # span mode (K17): the second of four row shards of the matrix,
+        # as the mesh build's scatter on four devices runs it
+        nw = rbits[0].shape[1]
+        rps = -(-cfg.bin_size_bits // 4)
+        sbits = [torch.zeros((min(rps, cfg.bin_size_bits - rps), nw),
+                             dtype=torch.int32, device=cuda)
+                 for _ in range(2)]
+        compare("scatter_span", "ganon_tpu_torch/csrc/scatter.cu",
+                "ganon_tpu/index/device_build.py:308",
+                lambda: (bo.scatter_ranked(sbits[0], *rk_args, **rk_kw,
+                                           w0=rps * nw), sbits[0])[1:],
+                lambda: (bo.scatter_ranked_plain(sbits[1], *rk_args, **rk_kw,
+                                                 w0=rps * nw), sbits[1])[1:],
+                10, 3,
+                # entries, flags, ranks and params in; each distinct word
+                # of the span set, out; h rows per distinct entry
+                (_nbytes(*rk_args) + 4 * _ranked_words(
+                    sk, sv, uq, rk, params_t, nw, **rk_kw,
+                    rows_in=(rps, rps + sbits[0].shape[0])),
+                 int(uq.sum()) * cfg.hash_functions))
+        if not torch.equal(sbits[0], rbits[0][rps:rps + sbits[0].shape[0]]):
+            raise AssertionError("scatter_span: the span differs from the "
+                                 "whole matrix's rows")
+        del sk, sv, uq, rk, rbits, sbits, cnt, gcounts, rk_args, arrays
     finally:
         pipe.close()
     torch.cuda.empty_cache()
@@ -836,7 +916,6 @@ def main() -> int:
         raise AssertionError("reference format: cuda and cpu files differ")
     if len(ref_ibf.bin_map) <= len(ref_ibf.hashes_count):
         raise AssertionError("reference format: no target over several bins")
-    shutil.rmtree(bcin, ignore_errors=True)
     emit("build_custom", {
         "targets": args.targets, "bp": bc_bp, "fasta_write_s": fasta_s,
         "seconds": bc_s, "mbp_per_min": bc_bp / 1e6 / (bc_s / 60),
@@ -851,6 +930,36 @@ def main() -> int:
                              "seconds": ref_s, "cuda_equals_cpu": True,
                              "launches": ref_launches},
         "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
+    })
+    # the mesh build (K17): the same FASTA files through run_build with
+    # four views of the card as the local devices, so the groups
+    # round-robin over them and the scatter's matrix is cut into four row
+    # spans (builder._build_mesh); saved raw, it must equal db.ibf
+    cuda0 = torch.device("cuda", 0)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _LocalDevices([cuda0] * 4):
+        mibf = run_build(BuildConfig(
+            input_file=bc_input, output_file=os.path.join(work, "mesh.ibf"),
+            filter_format="tpu-raw", threads=8, device="cuda"))
+    mesh_build_s = time.perf_counter() - t0
+    mesh_build_launches = dict(kernels.LAUNCHES)
+    if not (np.array_equal(mibf.bits, ibf.bits)
+            and mibf.ibf_config.to_dict() == cfg.to_dict()):
+        raise AssertionError("mesh build: the filter differs from db.ibf")
+    if (mesh_build_launches["scatter_span"] <= 0
+            or mesh_build_launches["scatter_ranked"] > 0):
+        raise AssertionError(f"mesh build: not the span scatter: "
+                             f"{mesh_build_launches}")
+    os.remove(os.path.join(work, "mesh.ibf"))
+    del mibf
+    shutil.rmtree(bcin, ignore_errors=True)
+    emit("mesh_build", {
+        "devices": "4 views of cuda:0", "seconds": mesh_build_s,
+        "mbp_per_min": bc_bp / 1e6 / (mesh_build_s / 60),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "equals_db_ibf": True, "launches": mesh_build_launches,
     })
     del ref_bytes, ref_ibf
 
@@ -1087,10 +1196,10 @@ def main() -> int:
     out = os.path.join(work, "out")
     kernels.reset_launches()
     t0 = time.perf_counter()
+    cli_argv = ["--multiple-matches", "lca", "--output-one", "--output-all",
+                "--output-unclassified", "--output-stats", "--skip-report"]
     _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", db,
-              "--paired-reads", fq1, fq2, "--output-prefix", out,
-              "--multiple-matches", "lca", "--output-one", "--output-all",
-              "--output-unclassified", "--skip-report"])
+              "--paired-reads", fq1, fq2, "--output-prefix", out, *cli_argv])
     cli_s = time.perf_counter() - t0
     cli_launches = dict(kernels.LAUNCHES)
     mbp = args.pairs * 2 * args.read_len / 1e6
@@ -1147,6 +1256,213 @@ def main() -> int:
         "cuda_equals_cpu_lines": {e: len(v) for e, v in subs["cuda"].items()},
     })
     del found, subs
+
+    # mesh: the (batch, bins) device mesh (K17) over eight views of the
+    # card, while db's packed table is still in the filter cache -----------
+    from ganon_tpu_torch.cli import main as cli_main
+    from ganon_tpu_torch.parallel import mesh as pmesh
+
+    mesh8 = pmesh.make_mesh([cuda0] * 8)  # (batch 2, bins 4)
+    f = dev.load_device_filter(db + ".ibf", cuda)
+    t0 = time.perf_counter()
+    fm = f.with_mesh(mesh8)  # cut on the card from the packed table
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    B = args.bench_pairs
+    _, m1, m2 = _sample_pairs(np.random.default_rng(args.seed + 2), genomes,
+                              B, args.read_len)
+    mlens = np.full(B, args.read_len, np.int32)
+    mbatch = EncodedBatch(prefix="", paired=True, ids=[str(i) for i in
+                                                        range(B)],
+                          codes1=m1, len1=mlens, codes2=m2, len2=mlens)
+    min_np, mL1, mL2 = dev.pack_batch_direct(mbatch, B)
+    mh, mn, _ = dev._extract_compact(torch.from_numpy(min_np).to(cuda), k=k,
+                                     w=w, L1=mL1, L2=mL2)
+    single = f.counts(mh, mn)
+    if not torch.equal(fm.counts(mh, mn), single):
+        raise AssertionError("mesh: sharded counts differ from one device's")
+    # ShardedClassifier (the JAX package's API, single-end codes) on the
+    # mates 1, against the single-device filter on the same minimizers
+    sc = pmesh.ShardedClassifier(f, mesh8)
+    sc_c, sc_n = sc.counts(m1, mlens)
+    sbatch = EncodedBatch(prefix="", paired=False, ids=mbatch.ids, codes1=m1,
+                          len1=mlens, codes2=np.zeros((B, 0), np.uint8),
+                          len2=np.zeros(B, np.int32))
+    sin_np, sL1, _ = dev.pack_batch_direct(sbatch, B)
+    sh_, sn_, _ = q.extract(torch.from_numpy(sin_np).to(cuda), L1=sL1, L2=0,
+                            k=k, w=w, mc=sL1 - w + 1)
+    if not (torch.equal(sc_c, f.counts(sh_, sn_)) and torch.equal(sc_n, sn_)):
+        raise AssertionError("mesh: ShardedClassifier differs from one "
+                             "device's counts")
+    del sc, sc_c, sc_n, sh_, sn_, sbatch, sin_np
+    # count_shard and combine against their plain versions at the
+    # engine's shapes on this mesh: batch row 0 (half of 8192 pairs) and
+    # its four column shards of the 1024-target table
+    tab, Bh, T = fm.table, B // 2, f.num_targets
+    h0, n0 = mh[:Bh].contiguous(), mn[:Bh].contiguous()
+    sh0 = tab.shards[0][0]
+    ckw = dict(bin_size=cfg.bin_size_bits, hash_functions=cfg.hash_functions,
+               clamp=False)
+    compare("count_shard", "ganon_tpu_torch/csrc/count.cu",
+            "ganon_tpu/parallel/mesh.py:79",
+            lambda: (q.target_counts(sh0.tbl8, sh0.byte_starts, sh0.byte_ends,
+                                     h0, n0, **ckw),),
+            lambda: (q.bulk_target_counts(sh0.tbl8, sh0.byte_starts,
+                                          sh0.byte_ends, h0, n0, **ckw),),
+            20, 3,
+            _count_work(sh0.tbl8, h0, n0, cfg.bin_size_bits,
+                        cfg.hash_functions, Bh * tab.widths[0] * 4))
+    parts = torch.zeros(Bh * sum(tab.widths), dtype=torch.int32, device=cuda)
+    dense = torch.zeros((len(tab.widths), Bh, T), dtype=torch.int32,
+                        device=cuda)
+    off = 0
+    for j, (s_, w_) in enumerate(zip(tab.shards[0], tab.widths)):
+        if w_:
+            blk = parts[off:off + Bh * w_].view(Bh, w_)
+            q.target_counts(s_.tbl8, s_.byte_starts, s_.byte_ends, h0, n0,
+                            out=blk, **ckw)
+            dense[j, :, s_.t_lo:s_.t_hi] = blk
+        off += Bh * w_
+    lo, hi = tab.spans[0]
+    couts = [torch.zeros((Bh, T), dtype=torch.int32, device=cuda)
+             for _ in range(2)]
+    (comb,) = compare(
+        "combine", "ganon_tpu_torch/csrc/shard.cu",
+        "ganon_tpu/classify/device.py:749",
+        lambda: (q.combine(parts, lo, hi, n0, couts[0], num_targets=T),),
+        lambda: (q.combine_plain(parts, lo, hi, n0, couts[1],
+                                 num_targets=T),), 20, 5,
+        # the partials, spans and n in; [B, T] out; an add per shard per
+        # element
+        (_nbytes(parts, lo, hi, n0) + Bh * T * 4, Bh * T * len(tab.widths)),
+        # one PyTorch call: the sum over the shard axis of the partials
+        # laid out dense ([shards, B, T]; the clamp is a second call)
+        library=lambda: torch.sum(dense, dim=0))
+    if not torch.equal(comb, single[:Bh]):
+        raise AssertionError("combine: differs from one device's counts")
+    spans = [(s_.t_lo, s_.t_hi) for s_ in tab.shards[0]]
+    del fm, tab, parts, dense, couts, comb, h0, n0, sh0, single, mh, mn
+    torch.cuda.empty_cache()
+
+    def drop_meshed():
+        """Forget the sharded filters (they serve this phase only), so the
+        single-device ones the later phases reload stay cached."""
+        for key_ in [k_ for k_ in dev._FILTER_CACHE if len(k_) > 3]:
+            del dev._FILTER_CACHE[key_]
+        torch.cuda.empty_cache()
+
+    # the engine on the mesh: the classify phase's pairs through the CLI
+    # with eight views of the card as the local devices; its files must
+    # equal that phase's (rows sorted, .sta byte for byte)
+    mout = os.path.join(work, "mout")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _LocalDevices([cuda0] * 8):
+        _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", db,
+                  "--paired-reads", fq1, fq2, "--output-prefix", mout,
+                  *cli_argv])
+    mesh_cli_s = time.perf_counter() - t0
+    mesh_launches = dict(kernels.LAUNCHES)
+    mesh_peak = torch.cuda.max_memory_allocated()
+    drop_meshed()
+    if (mesh_launches["count_shard"] <= 0 or mesh_launches["combine"] <= 0
+            or mesh_launches["count"] > 0):
+        raise AssertionError(f"mesh: the engine did not shard: "
+                             f"{mesh_launches}")
+    for ext in (".rep", ".all", ".one", ".unc", ".sta"):
+        same = (open(out + ext, "rb").read() == open(mout + ext, "rb").read()
+                if ext == ".sta" else
+                _sorted_rows(out + ext) == _sorted_rows(mout + ext))
+        if not same:
+            raise AssertionError(f"mesh: the meshed CLI run differs in {ext}")
+    # the forest level at a smaller read count, one card and the mesh
+    nfp = 4 * args.check_pairs
+    frng = np.random.default_rng(args.seed + 11)
+    fparts = [_sample_pairs(frng, g, nfp // 4, args.read_len) for g in forest]
+    ff1, ff2 = (os.path.join(work, f"mf{m}.fq") for m in (1, 2))
+    fids = [b"f%d" % i for i in range(4 * (nfp // 4))]
+    _write_fastq(ff1, fids, np.concatenate([x[1] for x in fparts]))
+    _write_fastq(ff2, fids, np.concatenate([x[2] for x in fparts]))
+    fouts = {}
+    for tag, devs in (("single", None), ("mesh", [cuda0] * 8)):
+        d = os.path.join(work, f"mforest_{tag}")
+        os.makedirs(d)
+        kernels.reset_launches()
+        with _LocalDevices(devs or [cuda0]):
+            _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", host,
+                      "--paired-reads", ff1, ff2, "--output-prefix",
+                      os.path.join(d, "o"), *cli_argv])
+        fouts[tag] = _output_files(d)
+    mesh_forest_launches = dict(kernels.LAUNCHES)
+    drop_meshed()
+    if fouts["single"] != fouts["mesh"]:
+        raise AssertionError("mesh: the forest level differs on the mesh")
+    if mesh_forest_launches["count_forest"] > 0 or (
+            mesh_forest_launches["count_shard"] <= 0):
+        raise AssertionError(f"mesh: the forest did not shard: "
+                             f"{mesh_forest_launches}")
+    # --distributed: two processes on the one card (gloo: init and one
+    # closing barrier), two read files each of nfp pairs, against one
+    # process's run of the same files
+    drng = np.random.default_rng(args.seed + 12)
+    dfiles = []
+    for i in range(2):
+        dparts = [_sample_pairs(drng, g, nfp // 4, args.read_len)
+                  for g in forest]
+        dids = [b"d%d_%d" % (i, j) for j in range(4 * (nfp // 4))]
+        for m in (1, 2):
+            p_ = os.path.join(work, f"dist{i}_{m}.fq")
+            _write_fastq(p_, dids, np.concatenate([x[m] for x in dparts]))
+            dfiles.append(p_)
+    dkw = dict(db_prefix=[host], paired_reads=dfiles, multiple_matches="lca",
+               output_one=True, output_all=True, output_unclassified=True,
+               skip_report=True, quiet=True)
+    dsolo, ddist = os.path.join(work, "dsolo"), os.path.join(work, "ddist")
+    cli_main("classify", device="cuda", output_prefix=dsolo, **dkw)
+    code = ("from ganon_tpu_torch.cli import main\n"
+            f"assert main('classify', output_prefix={ddist!r}, "
+            f"distributed=True, **{dkw!r})\n")
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 WORLD_SIZE="2", RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
+    try:
+        douts = [p_.communicate(timeout=300) for p_ in procs]
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+    dist_s = time.perf_counter() - t0
+    for p_, (_, err) in zip(procs, douts):
+        if p_.returncode != 0:
+            raise AssertionError(f"--distributed rank exited {p_.returncode}:"
+                                 f" {err.decode()[-2000:]}")
+    for ext in (".all", ".one", ".unc"):
+        shards_ = [_sorted_rows(f"{ddist}.h{r}{ext}") for r in range(2)]
+        if ext == ".all" and not all(shards_):
+            raise AssertionError("--distributed: a rank classified nothing")
+        if sorted(shards_[0] + shards_[1]) != _sorted_rows(dsolo + ext):
+            raise AssertionError(f"--distributed: the ranks' {ext} differ "
+                                 "from one process's")
+    emit("mesh", {
+        "mesh": mesh8.shape, "devices": "8 views of cuda:0",
+        "shard_cut_s": shard_s, "shard_target_spans": spans,
+        "sharded_counts_pairs": B, "sharded_equals_single": True,
+        "cli_pairs": args.pairs, "cli_seconds": mesh_cli_s,
+        "cli_reads_per_s": args.pairs / mesh_cli_s,
+        "cli_single_seconds": cli_s, "cli_equals_single": True,
+        "max_memory_allocated": mesh_peak, "launches": mesh_launches,
+        "forest_pairs": len(fids), "forest_equals_single": True,
+        "forest_launches": mesh_forest_launches,
+        "distributed": {"ranks": 2, "pairs": 2 * len(fids),
+                        "seconds": dist_s, "union_equals_single": True},
+    })
 
     # longreads: the 32-bit counter layout at the CLI's default flags -------
     # (a) the length mix and ultra-long reads against db, --longreads
@@ -1369,7 +1685,6 @@ def main() -> int:
     ws1, ws2 = (os.path.join(work, f"wsub{m}.fq") for m in (1, 2))
     _write_fastq(ws1, wids[:nc], wq1[:nc])
     _write_fastq(ws2, wids[:nc], wq2[:nc])
-    from ganon_tpu_torch.cli import main as cli_main
 
     lsubs, leq_launches, leq_s = {}, {}, {}
     for key, dbp, reads_kw in (
@@ -1720,6 +2035,26 @@ def main() -> int:
                     if rsubs["cuda"].get(fn) != rsubs["cpu"].get(fn)]
             raise AssertionError(f"raptor {p_}: cuda and cpu runs differ in "
                                  f"{diff}")
+    # the layout archive on the (2, 4) mesh (K17): every sub's table
+    # column-sharded, its shards summed and clamped, then max-merged
+    rmesh = {}
+    for tag, devs in (("single", [cuda0]), ("mesh", [cuda0] * 8)):
+        d = os.path.join(work, f"xmesh_{tag}")
+        os.makedirs(d)
+        kernels.reset_launches()
+        with _LocalDevices(devs):
+            run_classify(ClassifyConfig(**{
+                **rfiles, "paired_reads": [rs1, rs2], "output_stats": True,
+                "output_prefix": os.path.join(d, "o")}))
+        rmesh[tag] = _output_files(d)
+    raptor_mesh_launches = dict(kernels.LAUNCHES)
+    drop_meshed()
+    if rmesh["single"] != rmesh["mesh"]:
+        raise AssertionError("raptor: the mesh run differs from one card's")
+    if raptor_mesh_launches["count_raptor"] > 0 or (
+            raptor_mesh_launches["combine"] <= 0):
+        raise AssertionError(f"raptor: the mesh run did not shard: "
+                             f"{raptor_mesh_launches}")
     rmbp = nr * 2 * args.read_len / 1e6
     emit("raptor", {
         "cereal_ibf": {"bytes": cereal_bytes, "write_read_s": cereal_s,
@@ -1743,6 +2078,8 @@ def main() -> int:
         "cuda_equals_cpu_pairs": nc,
         "cuda_equals_cpu_archives": sorted(req_launches),
         "cuda_equals_cpu_launches": req_launches,
+        "mesh_pairs": nc, "mesh_equals_single": True,
+        "mesh_launches": raptor_mesh_launches,
     })
     del fr, forest_hashes
     torch.cuda.empty_cache()
@@ -2064,15 +2401,85 @@ def main() -> int:
         "cuda_equals_cpu_files": sorted(psubs["cpu"]),
         "cuda_equals_cpu_launches": peq_launches,
     })
+
+    # mesh_pruned: the bins-sharded pruned forest (K17) over four views of
+    # the card: groups strided over the shards, the coarse gate on each
+    # device, fine in shard mode into the global columns ------------------
+    from ganon_tpu_torch.parallel.pruned_shard import BinShardedPrunedForest
+
+    mesh4 = pmesh.make_mesh([cuda0] * 4, batch_axis=1)
+    t0 = time.perf_counter()
+    bsf = BinShardedPrunedForest(pf, mesh4)
+    torch.cuda.synchronize()
+    bsf_s = time.perf_counter() - t0
+    _, pr1, pr2 = _sample_pairs(np.random.default_rng(args.seed + 13), pgen,
+                                args.bench_pairs, args.read_len)
+    pbatch = EncodedBatch(prefix="", paired=True,
+                          ids=[str(i) for i in range(args.bench_pairs)],
+                          codes1=pr1, len1=lens, codes2=pr2, len2=lens)
+    pin_np, pL1, pL2 = dev.pack_batch_direct(pbatch, args.bench_pairs)
+    ph, pn, _ = dev._extract_compact(torch.from_numpy(pin_np).to(cuda),
+                                     k=k, w=w, L1=pL1, L2=pL2)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = bsf.counts_gated(ph, pn, 0.75)
+    torch.cuda.synchronize()
+    bsf_counts_s = time.perf_counter() - t0
+    mesh_pruned_launches = dict(kernels.LAUNCHES)
+    want = fp.counts_gated(ph, pn, 0.75)
+    if not torch.equal(got, want) or not want.any():
+        raise AssertionError("mesh_pruned: sharded gated counts differ from "
+                             "one device's")
+    if mesh_pruned_launches["fine_shard"] != 4:
+        raise AssertionError(f"mesh_pruned: {mesh_pruned_launches}")
+    del got, want
+    # fine_shard against its plain version: shard 0's groups at 8192 pairs
+    sftbl, soff, sbsz, sshift, sgid = bsf.shards[0][0]
+    ssurv = pq.gate(bsf.ctbl[str(cuda0)], ph, pn,
+                    coarse_bin_size=fp.coarse_bin_size, coarse_h=fp.coarse_h,
+                    num_groups=fp.num_groups, rel_cutoff=0.75,
+                    hashes_limit=pq.NO_HASHES_LIMIT, max_groups=0,
+                    want_surv=True)[3]
+    souts = [torch.zeros((args.bench_pairs, fp.num_targets), dtype=torch.int32,
+                         device=cuda) for _ in range(2)]
+    sargs = (sftbl, ph, pn, soff, sbsz, sshift, sgid)
+    skw = dict(fine_h=fp.fine_h, group_size=fp.group_size,
+               num_groups=fp.num_groups, surv=ssurv)
+    mine = sgid[sgid >= 0].to(torch.int64)
+    sb_, sg_ = torch.nonzero(ssurv[:, mine].bool(), as_tuple=True)
+    srows, svalid = _fine_work(fp, ph, pn, sb_, mine[sg_])
+    Wf = fp.ftbl.shape[1]
+    compare(
+        "fine_shard", "ganon_tpu_torch/csrc/fine.cu",
+        "ganon_tpu/parallel/pruned_shard.py:132",
+        lambda: (pq.fine_shard(*sargs, **skw, out=souts[0]),),
+        lambda: (pq.fine_shard_plain(*sargs, **skw, out=souts[1]),), 10, 2,
+        # the surviving (read, group) pairs' distinct rows, the inputs and
+        # the shard's columns out
+        (srows * Wf + _nbytes(ph, pn, ssurv, soff, sbsz, sshift, sgid)
+         + args.bench_pairs * int(mine.numel()) * fp.group_size * 4,
+         svalid * fp.fine_h * Wf))
+    emit("mesh_pruned", {
+        "mesh": mesh4.shape, "devices": "4 views of cuda:0",
+        "groups": fp.num_groups, "groups_per_shard": int(sgid.numel()),
+        "pad_groups_shard_0": int((sgid < 0).sum()),
+        "build_s": bsf_s, "pairs": args.bench_pairs,
+        "counts_gated_s": bsf_counts_s, "equals_single": True,
+        "launches": mesh_pruned_launches,
+    })
+    del bsf, ph, pn, souts, ssurv, sargs, sb_, sg_
     del fp, pf, pgen
     torch.cuda.empty_cache()
 
     # 5. checks ------------------------------------------------------------
     main_runs = (build_launches, bc_launches, ref_launches,
-                 hier_build_launches, cli_launches, l_launches,
+                 mesh_build_launches, hier_build_launches, cli_launches,
+                 mesh_launches, mesh_forest_launches, l_launches,
                  w_build_launches, w_launches, *leq_launches.values(),
-                 hier_launches, r_cli_launches, *req_launches.values(), pbuild_launches,
-                 pc_launches, p_cli_launches, *peq_launches.values())
+                 hier_launches, r_cli_launches, *req_launches.values(),
+                 raptor_mesh_launches, pbuild_launches, pc_launches,
+                 p_cli_launches, *peq_launches.values(),
+                 mesh_pruned_launches)
     launches = {name: sum(r[name] for r in main_runs)
                 for name in kernels.LAUNCHES}
     missing = [name for name, n in launches.items() if n <= 0]

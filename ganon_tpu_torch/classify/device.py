@@ -30,7 +30,19 @@ A flat filter, forest or raptor archive of more than 65,535 targets, or
 a ``hashes_limit`` above 65,535 (``--longreads``), takes ``select``'s
 32-bit mode (``pack16=False``: counts and target ids in two blocks).
 Every function takes tensors on one explicit device; on the CPU the
-kernels' plain torch versions run. Not ported yet: multi-GPU meshes.
+kernels' plain torch versions run.
+
+Device meshes (K17, :class:`ganon_tpu_torch.parallel.mesh.Mesh`): with
+``mesh`` a filter's batch rows split over the mesh's ``batch`` axis
+(:meth:`DeviceFilter.put_batch`), each row extracting on its first
+device. A flat filter's packed table is column-sharded over the ``bins``
+axis (:class:`ShardedTable`: ``count`` per shard with the clamp off, then
+``combine`` sums and clamps on the row's first device); a forest shards
+every sub, a raptor archive every sub's table (sum, clamp, then the
+column max); a pruned forest replicates both tables on each row. Every
+row's results are gathered on the filter's home device (``device``) for
+``select``. A filter is cut into its shards from its packed table on the
+card (``with_mesh``), never by a second host repack.
 """
 
 from __future__ import annotations
@@ -47,8 +59,10 @@ import torch
 from ganon_tpu_torch import kernels
 from ganon_tpu_torch.ops.ibf_query import (
     clz64,
+    combine,
     extract,
     pack_table_u8,
+    shard_table,
     table_as_u32,
     target_counts,
 )
@@ -470,6 +484,29 @@ def merge(counts: torch.Tensor, n_hashes: torch.Tensor, rel_cutoff: float,
                    int(hashes_limit), cols, int(f), ucounts, uwin, U)
 
 
+def split_rows(x, mesh) -> list:
+    """The rows of ``x`` (a tensor or a host array) split over the
+    mesh's ``batch`` axis in near-equal contiguous parts, each on its
+    batch row's first device."""
+    parts = torch.tensor_split(torch.as_tensor(x), mesh.shape["batch"])
+    return [p.to(row[0], non_blocking=True)
+            for p, row in zip(parts, mesh.devices)]
+
+
+def gather_rows(parts: list, device) -> torch.Tensor:
+    """The batch rows' results concatenated on ``device``."""
+    return torch.cat([p.to(device, non_blocking=True) for p in parts])
+
+
+def _mesh_counts(f, hashes: torch.Tensor, n_hashes: torch.Tensor,
+                 row_fn) -> torch.Tensor:
+    """``row_fn(i, hashes_i, n_i)`` on every batch row of ``f.mesh``,
+    gathered on ``hashes``' device."""
+    rows = zip(split_rows(hashes, f.mesh), split_rows(n_hashes, f.mesh))
+    return gather_rows([row_fn(i, h, n) for i, (h, n) in enumerate(rows)],
+                       hashes.device)
+
+
 def _extract_compact(inbuf: torch.Tensor, *, k: int, w: int, L1: int,
                      L2: int):
     """``extract`` at the compaction width of the bucketed mate widths."""
@@ -499,12 +536,28 @@ def classify_batch_packed(f: "DeviceFilter | DeviceHIBF | DeviceRaptorHIBF",
     column-max mode once per sub-IBF into one ``[B, T]`` matrix zeroed for
     the batch (JAX's ``counts.at[:, cols].max(c)`` and final clamp).
     """
-    hashes, n_hashes, overflow = _extract_compact(inbuf, k=k, w=w, L1=L1,
-                                                  L2=L2)
-    counts = f.counts(hashes, n_hashes)
+    if f.mesh is None:
+        hashes, n_hashes, overflow = _extract_compact(inbuf, k=k, w=w,
+                                                      L1=L1, L2=L2)
+        counts = f.counts(hashes, n_hashes)
+    else:
+        # each batch row extracts and counts on its devices; the counts
+        # are gathered on the home device for select
+        rows = []
+        for i, x in enumerate(_mesh_batch(f, inbuf)):
+            h, n, o = _extract_compact(x, k=k, w=w, L1=L1, L2=L2)
+            rows.append((f.row_counts(i, h, n), n, o))
+        counts, n_hashes, overflow = (gather_rows(list(p), f.device)
+                                      for p in zip(*rows))
     return select(counts, n_hashes, overflow, rel_cutoff, rel_filter,
                   hashes_limit, top_k=top_k, emit_matches_t=emit_matches_t,
                   pack16=pack16)
+
+
+def _mesh_batch(f, inbuf) -> list:
+    """A meshed filter's batch rows: ``put_batch``'s list as it is, or
+    a whole batch split now."""
+    return inbuf if isinstance(inbuf, list) else f.put_batch(inbuf)
 
 
 def classify_batch_packed_forest(f: "DeviceHIBF", inbuf: torch.Tensor,
@@ -548,15 +601,27 @@ def classify_batch_packed_multi(filters: list, cols: list, inbuf: torch.Tensor,
     rel-filter's min count is taken over the final union, as the JAX
     package does (a deliberate difference from the C++ reference).
     """
-    hashes, n_hashes, overflow = _extract_compact(inbuf, k=k, w=w, L1=L1,
-                                                  L2=L2)
-    B = hashes.shape[0]
-    ucounts = torch.zeros((B, num_union), dtype=torch.int32,
-                          device=hashes.device)
-    uwin = torch.zeros_like(ucounts)
-    for fi, (f, c, rc) in enumerate(zip(filters, cols, rel_cutoffs)):
-        merge(f.counts(hashes, n_hashes), n_hashes, rc, hashes_limit, c, fi,
-              ucounts, uwin)
+    # with a mesh, every filter of the level is sharded over the same one
+    mesh = filters[0].mesh
+    rows = [inbuf] if mesh is None else _mesh_batch(filters[0], inbuf)
+    parts = []
+    for i, x in enumerate(rows):
+        hashes, n_hashes, overflow = _extract_compact(x, k=k, w=w, L1=L1,
+                                                      L2=L2)
+        B = hashes.shape[0]
+        ucounts = torch.zeros((B, num_union), dtype=torch.int32,
+                              device=hashes.device)
+        uwin = torch.zeros_like(ucounts)
+        for fi, (f, c, rc) in enumerate(zip(filters, cols, rel_cutoffs)):
+            counts = (f.counts(hashes, n_hashes) if mesh is None
+                      else f.row_counts(i, hashes, n_hashes))
+            merge(counts, n_hashes, rc, hashes_limit, c.to(hashes.device),
+                  fi, ucounts, uwin)
+        parts.append((ucounts, uwin, n_hashes, overflow))
+    if mesh is not None:
+        parts = [tuple(gather_rows(list(p), filters[0].device)
+                       for p in zip(*parts))]
+    ucounts, uwin, n_hashes, overflow = parts[0]
     return select(ucounts, n_hashes, overflow, 0.0, rel_filter, hashes_limit,
                   top_k=top_k, emit_matches_t=emit_matches_t, uwin=uwin)
 
@@ -579,19 +644,32 @@ def classify_batch_packed_pruned(f: "DevicePrunedForest",
     ``K = min(top_k, S * group_size)``, ``T = num_targets`` and
     ``n_extra = ceil(S/2)``; top entries carry lane ids.
     """
-    hashes, n_hashes, overflow = _extract_compact(inbuf, k=k, w=w, L1=L1,
-                                                  L2=L2)
-    gsel, slot_ok, overflow, _ = gate(
-        f.ctbl, hashes, n_hashes, coarse_bin_size=f.coarse_bin_size,
-        coarse_h=f.coarse_h, num_groups=f.num_groups, rel_cutoff=rel_cutoff,
-        hashes_limit=hashes_limit, max_groups=max_groups, overflow=overflow)
-    counts = fine_counts(
-        f.ftbl, hashes, n_hashes, f.grp_row_off, f.grp_bin_size, f.grp_shift,
-        fine_h=f.fine_h, group_size=f.group_size, gsel=gsel, slot_ok=slot_ok)
+    if f.mesh is None:
+        rows, forests = [inbuf], [f]
+    else:  # both tables replicated on each batch row's first device
+        rows, forests = _mesh_batch(f, inbuf), f.rows
+    parts = []
+    for x, fr in zip(rows, forests):
+        hashes, n_hashes, overflow = _extract_compact(x, k=k, w=w, L1=L1,
+                                                      L2=L2)
+        gsel, slot_ok, overflow, _ = gate(
+            fr.ctbl, hashes, n_hashes, coarse_bin_size=fr.coarse_bin_size,
+            coarse_h=fr.coarse_h, num_groups=fr.num_groups,
+            rel_cutoff=rel_cutoff, hashes_limit=hashes_limit,
+            max_groups=max_groups, overflow=overflow)
+        counts = fine_counts(
+            fr.ftbl, hashes, n_hashes, fr.grp_row_off, fr.grp_bin_size,
+            fr.grp_shift, fine_h=fr.fine_h, group_size=fr.group_size,
+            gsel=gsel, slot_ok=slot_ok)
+        parts.append((counts.reshape(counts.shape[0], -1), n_hashes,
+                      overflow, gsel, slot_ok))
+    if f.mesh is not None:
+        parts = [tuple(gather_rows(list(p), f.device) for p in zip(*parts))]
+    counts, n_hashes, overflow, gsel, slot_ok = parts[0]
     return select_lanes(
-        counts.reshape(counts.shape[0], -1), n_hashes, overflow, gsel,
-        slot_ok, f.grp_ntargets, rel_cutoff, rel_filter, hashes_limit,
-        group_size=f.group_size, num_targets=f.num_targets, top_k=top_k,
+        counts, n_hashes, overflow, gsel, slot_ok, f.grp_ntargets,
+        rel_cutoff, rel_filter, hashes_limit, group_size=f.group_size,
+        num_targets=f.num_targets, top_k=top_k,
         emit_matches_t=emit_matches_t)
 
 
@@ -649,15 +727,87 @@ def _resolve_device(device) -> torch.device:
     return d
 
 
+class ShardedTable:
+    """A packed query table column-sharded over a mesh (K17).
+
+    Port of the ``P(None, "bins")`` table of ``ganon_tpu.classify.device.
+    DeviceFilter`` with a mesh (``device.py:749-768``): the shards of
+    :func:`~ganon_tpu_torch.ops.ibf_query.shard_table`, shard ``j`` on
+    entry ``[i][j]`` of every batch row ``i``. ``tbl8`` (on the host or a
+    card) is cut one slice at a time straight onto the first row's
+    devices, and the other rows copy those shards (a copy per distinct
+    device, none where entries repeat), so no device ever holds more than
+    its own shards beside ``tbl8``. With ``cols`` (a raptor sub) the
+    combined counts are max-merged into those columns.
+    """
+
+    def __init__(self, tbl8, byte_starts, byte_ends, num_targets: int, mesh,
+                 *, bin_size: int, hash_functions: int, cols=None):
+        self.mesh = mesh
+        self.num_targets = num_targets
+        self.bin_size, self.hash_functions = bin_size, hash_functions
+        shards = shard_table(tbl8, byte_starts, byte_ends, mesh.shape["bins"],
+                             devices=mesh.devices[0])
+        self.widths = [s.t_hi - s.t_lo for s in shards]
+        self.shards = [[s.to(d) for s, d in zip(shards, row)]
+                       for row in mesh.devices]
+        spans = [torch.tensor([getattr(s, a) for s in shards],
+                              dtype=torch.int32) for a in ("t_lo", "t_hi")]
+        # combine's inputs on each batch row's first device
+        self.spans = [tuple(x.to(row[0]) for x in spans)
+                      for row in mesh.devices]
+        self.cols = (None if cols is None else
+                     [cols.to(row[0]) for row in mesh.devices])
+
+    def counts(self, i: int, hashes: torch.Tensor, n_hashes: torch.Tensor, *,
+               out: torch.Tensor | None = None, col0: int = 0):
+        """Clamped counts of batch row ``i`` (``hashes``/``n_hashes`` on
+        the row's first device): each shard's unclamped partials (sized by
+        its target range) into one buffer there, then ``combine``. Into
+        ``out[:, col0:col0 + T]`` when given (forest mode), max-merged into
+        ``out[:, cols]`` for a raptor sub."""
+        row = self.mesh.devices[i]
+        B = hashes.shape[0]
+        parts = torch.zeros(B * sum(self.widths), dtype=torch.int32,
+                            device=row[0])
+        inputs = {row[0]: (hashes, n_hashes)}
+        kw = dict(bin_size=self.bin_size, hash_functions=self.hash_functions,
+                  clamp=False)
+        off = 0
+        for d, sh, w in zip(row, self.shards[i], self.widths):
+            if w:
+                if d not in inputs:
+                    inputs[d] = (hashes.to(d, non_blocking=True),
+                                 n_hashes.to(d, non_blocking=True))
+                dst = parts[off:off + B * w].view(B, w)
+                if d == row[0]:
+                    target_counts(sh.tbl8, sh.byte_starts, sh.byte_ends,
+                                  *inputs[d], out=dst, **kw)
+                else:  # another card: its partials come over afterwards
+                    dst.copy_(target_counts(sh.tbl8, sh.byte_starts,
+                                            sh.byte_ends, *inputs[d], **kw),
+                              non_blocking=True)
+            off += B * w
+        if out is None:
+            out = torch.zeros((B, self.num_targets), dtype=torch.int32,
+                              device=row[0])
+        return combine(parts, *self.spans[i], n_hashes, out,
+                       num_targets=self.num_targets, col0=col0,
+                       cols=None if self.cols is None else self.cols[i])
+
+
 class DeviceFilter:
     """A flat IBF resident on one device, ready for batched counting.
 
     The interleaved bit-matrix is repacked once (``pack_table_u8``, W8
     padded to whole u32 words because the ``count`` kernel reads words)
-    and moved to ``device``; nothing else is copied per batch.
+    and moved to ``device``; nothing else is copied per batch. With
+    ``mesh`` the host-packed table is cut straight into a
+    :class:`ShardedTable` (the whole table never goes to a card);
+    ``device`` stays the home of the gathered counts.
     """
 
-    def __init__(self, ibf, device="cuda"):
+    def __init__(self, ibf, device="cuda", mesh=None):
         self.device = _resolve_device(device)
         self.ibf_config = ibf.ibf_config
         self.targets = ibf.targets()
@@ -665,24 +815,67 @@ class DeviceFilter:
         tbl8, byte_starts, byte_ends = pack_table_u8(
             ibf.bits, ibf.bin_to_target_ids(), self.num_targets
         )
-        self.tbl8 = torch.from_numpy(table_as_u32(tbl8).view(np.uint8)).to(
-            self.device)
-        self.byte_starts = torch.from_numpy(byte_starts).to(self.device)
-        self.byte_ends = torch.from_numpy(byte_ends).to(self.device)
+        self.tbl8 = torch.from_numpy(table_as_u32(tbl8).view(np.uint8))
+        self.byte_starts = torch.from_numpy(byte_starts)
+        self.byte_ends = torch.from_numpy(byte_ends)
         self.target_fpr = ibf.target_fpr()
+        self.mesh, self.batch_mult, self.table = None, 1, None
+        if mesh is not None:
+            self._shard(mesh)
+        else:
+            for name in ("tbl8", "byte_starts", "byte_ends"):
+                setattr(self, name, getattr(self, name).to(self.device))
+
+    def _shard(self, mesh) -> None:
+        self.mesh, self.batch_mult = mesh, mesh.shape["batch"]
+        self.table = ShardedTable(
+            self.tbl8, self.byte_starts, self.byte_ends, self.num_targets,
+            mesh, bin_size=self.ibf_config.bin_size_bits,
+            hash_functions=self.ibf_config.hash_functions)
+        self.tbl8 = self.byte_starts = self.byte_ends = None
+
+    def with_mesh(self, mesh) -> "DeviceFilter":
+        """This filter column-sharded over ``mesh``, cut slice by slice
+        from its packed table on its device (no host repack)."""
+        if self.mesh is not None:
+            raise ValueError("the filter is sharded already")
+        out = copy.copy(self)
+        out._shard(mesh)
+        return out
 
     def to(self, device) -> "DeviceFilter":
-        """The same filter with its tables on ``device`` (no repack)."""
+        """The same filter with its tables on ``device`` (no repack); a
+        sharded filter keeps its shards and moves its home only."""
         out = copy.copy(self)
         out.device = _resolve_device(device)
-        for name in ("tbl8", "byte_starts", "byte_ends"):
-            setattr(out, name, getattr(self, name).to(out.device))
+        if self.mesh is None:
+            for name in ("tbl8", "byte_starts", "byte_ends"):
+                setattr(out, name, getattr(self, name).to(out.device))
         return out
+
+    def put_batch(self, arr):
+        """A ``[B, ...]`` host array on the filter's device; with a mesh,
+        its rows split over the ``batch`` axis (:func:`split_rows`: a list
+        of parts, each on its batch row's first device)."""
+        if self.mesh is None:
+            return torch.as_tensor(arr).to(self.device)
+        return split_rows(arr, self.mesh)
+
+    def row_counts(self, i: int, hashes: torch.Tensor, n_hashes: torch.Tensor,
+                   *, out: torch.Tensor | None = None,
+                   col0: int = 0) -> torch.Tensor:
+        """A sharded filter's clamped counts of batch row ``i``."""
+        return self.table.counts(i, hashes, n_hashes, out=out, col0=col0)
 
     def counts(self, hashes: torch.Tensor, n_hashes: torch.Tensor, *,
                out: torch.Tensor | None = None, col0: int = 0) -> torch.Tensor:
         """Clamped per-target counts (int32 ``[B, T]``) of compacted hashes
-        (into ``out[:, col0:col0 + T]`` when given: forest mode)."""
+        (into ``out[:, col0:col0 + T]`` when given: forest mode; a sharded
+        filter takes no ``out`` and gathers on ``hashes``' device)."""
+        if self.mesh is not None:
+            if out is not None:
+                raise ValueError("a sharded filter counts into row buffers")
+            return _mesh_counts(self, hashes, n_hashes, self.row_counts)
         return target_counts(
             self.tbl8, self.byte_starts, self.byte_ends, hashes, n_hashes,
             bin_size=self.ibf_config.bin_size_bits,
@@ -700,13 +893,16 @@ class DeviceHIBF:
     interface as :class:`DeviceFilter`.
     """
 
-    def __init__(self, hibf, device="cuda"):
+    def __init__(self, hibf, device="cuda", mesh=None):
         self.device = _resolve_device(device)
         self.ibf_config = hibf.ibf_config
         self.targets = hibf.targets()
         self.num_targets = len(self.targets)
+        self.mesh = mesh
+        self.batch_mult = 1 if mesh is None else mesh.shape["batch"]
         tid = {t: i for i, t in enumerate(self.targets)}
-        self.subs = [DeviceFilter(s, self.device) for s in hibf.subs]
+        self.subs = [DeviceFilter(s, self.device, mesh=mesh)
+                     for s in hibf.subs]
         self.sub_cols = [
             np.asarray([tid[t] for t in s.targets], dtype=np.int32)
             for s in self.subs
@@ -727,20 +923,42 @@ class DeviceHIBF:
         out.subs = [s.to(out.device) for s in self.subs]
         return out
 
-    def counts(self, hashes: torch.Tensor, n_hashes: torch.Tensor) -> torch.Tensor:
-        """Clamped counts (int32 ``[B, T]``): each sub counts into its
-        columns of one matrix (``count`` in forest mode)."""
+    def with_mesh(self, mesh) -> "DeviceHIBF":
+        """This forest with every sub column-sharded over ``mesh``."""
+        out = copy.copy(self)
+        out.mesh, out.batch_mult = mesh, mesh.shape["batch"]
+        out.subs = [s.with_mesh(mesh) for s in self.subs]
+        return out
+
+    put_batch = DeviceFilter.put_batch
+
+    def row_counts(self, i: int | None, hashes: torch.Tensor,
+                   n_hashes: torch.Tensor) -> torch.Tensor:
+        """Clamped counts of batch row ``i`` of a sharded forest (of the
+        whole batch when ``i`` is None: the filter has no mesh)."""
+        def sub_counts(sub, **kw):
+            if i is None:
+                return sub.counts(hashes, n_hashes, **kw)
+            return sub.row_counts(i, hashes, n_hashes, **kw)
+
         out = torch.zeros((hashes.shape[0], self.num_targets),
                           dtype=torch.int32, device=hashes.device)
         for sub, cols in zip(self.subs, self.sub_cols):
             if not len(cols):
                 continue
             if self.contiguous:
-                sub.counts(hashes, n_hashes, out=out, col0=int(cols[0]))
+                sub_counts(sub, out=out, col0=int(cols[0]))
             else:
                 idx = torch.from_numpy(cols.astype(np.int64)).to(out.device)
-                out[:, idx] = sub.counts(hashes, n_hashes)
+                out[:, idx] = sub_counts(sub)
         return out
+
+    def counts(self, hashes: torch.Tensor, n_hashes: torch.Tensor) -> torch.Tensor:
+        """Clamped counts (int32 ``[B, T]``): each sub counts into its
+        columns of one matrix (``count`` in forest mode)."""
+        if self.mesh is not None:
+            return _mesh_counts(self, hashes, n_hashes, self.row_counts)
+        return self.row_counts(None, hashes, n_hashes)
 
 
 @dataclasses.dataclass
@@ -750,39 +968,54 @@ class RaptorSub:
     its hash parameters and ``cols``, the global target column of each of
     its user bins (int32, ascending, distinct)."""
 
-    tbl8: torch.Tensor
-    byte_starts: torch.Tensor
-    byte_ends: torch.Tensor
+    tbl8: torch.Tensor | None
+    byte_starts: torch.Tensor | None
+    byte_ends: torch.Tensor | None
     bin_size: int
     hash_funs: int
     cols: torch.Tensor
+    # with a mesh: the table's column shards (the whole table dropped)
+    table: ShardedTable | None = None
 
     def to(self, device) -> "RaptorSub":
+        names = ("cols",) if self.table else (
+            "tbl8", "byte_starts", "byte_ends", "cols")
         return dataclasses.replace(self, **{
-            name: getattr(self, name).to(device)
-            for name in ("tbl8", "byte_starts", "byte_ends", "cols")})
+            name: getattr(self, name).to(device) for name in names})
+
+    def with_mesh(self, mesh) -> "RaptorSub":
+        table = ShardedTable(self.tbl8, self.byte_starts, self.byte_ends,
+                             int(self.cols.numel()), mesh,
+                             bin_size=self.bin_size,
+                             hash_functions=self.hash_funs, cols=self.cols)
+        return dataclasses.replace(self, tbl8=None, byte_starts=None,
+                                   byte_ends=None, table=table)
 
 
 class DeviceRaptorHIBF:
     """A raptor ``.hibf`` flattened into per-sub-IBF query tables.
 
-    Port of ``ganon_tpu.classify.device.DeviceRaptorHIBF`` (no mesh).
-    Every sub-IBF is counted (see ``index.hibf.RaptorHIBF`` for why that
-    equals the reference's gated descent). Per sub: the technical bins'
-    file positions (``bin_to_filename``, padded with -1 to the technical
+    Port of ``ganon_tpu.classify.device.DeviceRaptorHIBF``; ``mesh``
+    column-shards every sub's table (each sub's shards summed and
+    clamped, then max-merged into its columns). Every sub-IBF is counted
+    (see ``index.hibf.RaptorHIBF`` for why that equals the reference's
+    gated descent). Per sub: the technical bins' file positions (``bin_to_filename``, padded with -1 to the technical
     bins or cut to them), the used positions as its local targets, merged
     and empty bins mapped to the dropped id ``len(used)`` by
     ``pack_table_u8``; a routing-only IBF (every bin merged) is skipped.
     A user bin of several subs takes the largest of its counts.
     """
 
-    def __init__(self, rhibf, device="cuda"):
+    def __init__(self, rhibf, device="cuda", mesh=None):
         self.device = _resolve_device(device)
         self.ibf_config = rhibf.ibf_config
         self.targets = rhibf.targets()
         self.num_targets = len(self.targets)
         self.target_fpr = rhibf.target_fpr()
+        self.mesh, self.batch_mult = None, 1
         self.subs = []
+        # with a mesh the host-packed tables are cut straight into shards
+        home = torch.device("cpu") if mesh is not None else self.device
         for (bits, _bins, bin_size, hash_funs), b2f in zip(
                 rhibf.ibfs, rhibf.bin_to_filename):
             tb = bits.shape[1] * 32
@@ -797,12 +1030,18 @@ class DeviceRaptorHIBF:
             tbl8, bstarts, bends = pack_table_u8(bits, b2t_local, len(used))
             self.subs.append(RaptorSub(
                 tbl8=torch.from_numpy(
-                    table_as_u32(tbl8).view(np.uint8)).to(self.device),
-                byte_starts=torch.from_numpy(bstarts).to(self.device),
-                byte_ends=torch.from_numpy(bends).to(self.device),
+                    table_as_u32(tbl8).view(np.uint8)).to(home),
+                byte_starts=torch.from_numpy(bstarts).to(home),
+                byte_ends=torch.from_numpy(bends).to(home),
                 bin_size=int(bin_size), hash_funs=int(hash_funs),
                 cols=torch.from_numpy(used.astype(np.int32)).to(self.device),
             ))
+        if mesh is not None:
+            self._shard(mesh)
+
+    def _shard(self, mesh) -> None:
+        self.mesh, self.batch_mult = mesh, mesh.shape["batch"]
+        self.subs = [s.with_mesh(mesh) for s in self.subs]
 
     def to(self, device) -> "DeviceRaptorHIBF":
         """The same archive with its tables on ``device`` (no repack)."""
@@ -811,10 +1050,30 @@ class DeviceRaptorHIBF:
         out.subs = [s.to(out.device) for s in self.subs]
         return out
 
+    def with_mesh(self, mesh) -> "DeviceRaptorHIBF":
+        """This archive with every sub's table column-sharded."""
+        out = copy.copy(self)
+        out._shard(mesh)
+        return out
+
+    put_batch = DeviceFilter.put_batch
+
+    def row_counts(self, i: int, hashes: torch.Tensor,
+                   n_hashes: torch.Tensor) -> torch.Tensor:
+        """A sharded archive's clamped counts of batch row ``i``: per
+        sub, the shards' partials summed and clamped, then max-merged."""
+        out = torch.zeros((hashes.shape[0], self.num_targets),
+                          dtype=torch.int32, device=hashes.device)
+        for sub in self.subs:
+            sub.table.counts(i, hashes, n_hashes, out=out)
+        return out
+
     def counts(self, hashes: torch.Tensor, n_hashes: torch.Tensor) -> torch.Tensor:
         """Clamped counts (int32 ``[B, T]``): each sub max-merges its
         user bins' counts into their columns (``count`` in column-max
         mode), as JAX's ``DeviceRaptorHIBF.counts``."""
+        if self.mesh is not None:
+            return _mesh_counts(self, hashes, n_hashes, self.row_counts)
         out = torch.zeros((hashes.shape[0], self.num_targets),
                           dtype=torch.int32, device=hashes.device)
         for sub in self.subs:
@@ -828,7 +1087,10 @@ class DeviceRaptorHIBF:
 class DevicePrunedForest:
     """A merged-bin pruned forest on one device.
 
-    Port of ``ganon_tpu.classify.device.DevicePrunedForest`` (no mesh).
+    Port of ``ganon_tpu.classify.device.DevicePrunedForest``; ``mesh``
+    replicates both tables on each batch row's first device (``rows``)
+    and splits the batch, as JAX's mesh does (its bins-sharded layout,
+    ``parallel.pruned_shard``, is library-only there and here).
     Fast path: :func:`classify_batch_packed_pruned`; exact fallback:
     :meth:`counts_gated` (every group, the same gate). Built from a
     ``PrunedForest``'s arrays (either package's object, or either
@@ -838,8 +1100,9 @@ class DevicePrunedForest:
     ``grp_row_off`` is int64, so the fine table has no 2^31-row bound.
     """
 
-    def __init__(self, pf, device="cuda"):
+    def __init__(self, pf, device="cuda", mesh=None):
         self.device = _resolve_device(device)
+        self.mesh, self.batch_mult, self.rows = None, 1, None
         self.ibf_config = pf.ibf_config
         self.targets = pf.targets()
         self.num_targets = len(self.targets)
@@ -870,15 +1133,31 @@ class DevicePrunedForest:
                                       dtype=torch.int32, device=self.device)
         self.grp_ntargets = torch.from_numpy(
             np.asarray(pf.grp_ntargets, dtype=np.int32)).to(self.device)
+        if mesh is not None:
+            self._shard(mesh)
+
+    def _shard(self, mesh) -> None:
+        base = copy.copy(self)
+        self.mesh, self.batch_mult = mesh, mesh.shape["batch"]
+        self.rows = [base.to(row[0]) for row in mesh.devices]
 
     def to(self, device) -> "DevicePrunedForest":
-        """The same forest with its tables on ``device``."""
+        """The same forest with its tables on ``device`` (a meshed
+        forest's row replicas stay)."""
         out = copy.copy(self)
         out.device = _resolve_device(device)
         for name in ("ftbl", "ctbl", "grp_row_off", "grp_bin_size",
                      "grp_shift", "grp_ntargets"):
             setattr(out, name, getattr(self, name).to(out.device))
         return out
+
+    def with_mesh(self, mesh) -> "DevicePrunedForest":
+        """This forest replicated on each batch row of ``mesh``."""
+        out = copy.copy(self)
+        out._shard(mesh)
+        return out
+
+    put_batch = DeviceFilter.put_batch
 
     def _all_counts(self, hashes, n_hashes, surv):
         return fine_counts(
@@ -892,6 +1171,10 @@ class DevicePrunedForest:
         gated semantics: groups whose coarse count is below the read's
         cutoff read 0. The gate takes no hashes limit here (as JAX
         passes 0x7FFFFFFF), so only reads without hashes are invalid."""
+        if self.mesh is not None:
+            return _mesh_counts(
+                self, hashes, n_hashes, lambda i, h, n:
+                self.rows[i].counts_gated(h, n, rel_cutoff))
         _, _, _, surv = gate(
             self.ctbl, hashes, n_hashes,
             coarse_bin_size=self.coarse_bin_size, coarse_h=self.coarse_h,
@@ -906,45 +1189,54 @@ class DevicePrunedForest:
 
 
 # filters of recently opened files, keyed by (path, mtime, size) as the
-# JAX package memoizes them: repacking a multi-GB filter costs tens of
-# seconds and uploading it a fraction of one, and runs in one process
-# (tests, benchmarks, a hierarchy's several databases) reopen the same
-# files. Four, as the JAX package keeps.
+# JAX package memoizes them, plus the mesh and the home device for a
+# sharded filter (a meshed run must not reuse an unsharded filter):
+# repacking a multi-GB filter costs tens of seconds and uploading it a
+# fraction of one, and runs in one process (tests, benchmarks, a
+# hierarchy's several databases) reopen the same files. Four, as the JAX
+# package keeps.
 _FILTER_CACHE: dict = {}
 _FILTER_CACHE_CAP = 4
 
 
-def _open_filter(path: str, device):
+def _open_filter(path: str, device, mesh=None):
     """A fresh device filter for ``path`` (flat ``.ibf`` of any format;
-    pruned, raptor or native forest ``.hibf``, sniffed in that order)."""
+    pruned, raptor or native forest ``.hibf``, sniffed in that order),
+    sharded over ``mesh`` when given."""
     from ganon_tpu_torch.index.hibf import HIBF, RaptorHIBF, is_raptor_hibf
     from ganon_tpu_torch.index.ibf import IBF
     from ganon_tpu_torch.index.pruned import PrunedForest, is_pruned_file
 
     if not path.endswith(".hibf"):
-        return DeviceFilter(IBF.load(path), device)
+        return DeviceFilter(IBF.load(path), device, mesh)
     if is_pruned_file(path):
-        return DevicePrunedForest(PrunedForest.load(path), device)
+        return DevicePrunedForest(PrunedForest.load(path), device, mesh)
     if not zipfile.is_zipfile(path) and is_raptor_hibf(path):
-        return DeviceRaptorHIBF(RaptorHIBF.load(path), device)
-    return DeviceHIBF(HIBF.load(path), device)
+        return DeviceRaptorHIBF(RaptorHIBF.load(path), device, mesh)
+    return DeviceHIBF(HIBF.load(path), device, mesh)
 
 
-def load_device_filter(path: str, device="cuda"):
+def load_device_filter(path: str, device="cuda", mesh=None):
     """Open a flat ``.ibf`` or a forest ``.hibf`` on ``device``.
 
     A flat ``.ibf`` comes as npz, raw container or the reference's cereal
     archive. ``.hibf`` files are sniffed as the JAX package does: a
     pruned forest opens as a :class:`DevicePrunedForest`, a raptor
     archive as a :class:`DeviceRaptorHIBF`, anything else as a
-    :class:`DeviceHIBF`.
+    :class:`DeviceHIBF`. With ``mesh`` the filter is sharded over it
+    (``device`` its home), cut slice by slice from the cached
+    single-device filter of the same file where there is one, else packed
+    once on the host and cut straight onto the mesh's devices.
     """
     device = _resolve_device(device)
     st = os.stat(path)
-    key = (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+    base = (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+    key = base if mesh is None else base + (mesh.key(), str(device))
     f = _FILTER_CACHE.pop(key, None)
-    if f is None:
-        f = _open_filter(path, device)
+    if f is None and mesh is not None and base in _FILTER_CACHE:
+        f = _FILTER_CACHE[base].with_mesh(mesh).to(device)
+    elif f is None:
+        f = _open_filter(path, device, mesh)
     elif f.device != device:
         f = f.to(device)
     while len(_FILTER_CACHE) >= _FILTER_CACHE_CAP:

@@ -20,9 +20,13 @@ counter layout (``select``'s 32-bit mode), as the JAX engine's
 matches travel as lane ids plus per-read group words); its fast path
 needs at most 65,535 groups and a ``hashes_limit`` of at most 65,535,
 and a level of several filters needs a union of at most 65,535 targets
-and the same limit: otherwise their batches take the exact path. Not
-ported yet: multi-GPU meshes (NotImplementedError naming its ROADMAP
-item).
+and the same limit: otherwise their batches take the exact path.
+
+With ``use_mesh`` and more than one local device of ``cfg.device``'s
+type (:func:`ganon_tpu_torch.parallel.mesh.local_devices`), every filter
+is sharded over a ``(batch, bins)`` mesh of them
+(:mod:`ganon_tpu_torch.parallel.mesh`), as the JAX engine does; the
+results are gathered on ``cfg.device``. One device keeps the plain path.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from ganon_tpu_torch.io.pipeline import (
     encoded_batches,
     strided_batches,
 )
+from ganon_tpu_torch.parallel import mesh as pmesh
 
 
 # --------------------------------------------------------------------------
@@ -275,16 +280,18 @@ class Rep:
 
 
 class LevelContext:
-    """Loaded filters + union target table + LCA for one hierarchy level."""
+    """Loaded filters + union target table + LCA for one hierarchy level
+    (every filter sharded over ``mesh`` when one is given)."""
 
-    def __init__(self, level: HierarchyLevel, cfg: ClassifyConfig):
+    def __init__(self, level: HierarchyLevel, cfg: ClassifyConfig,
+                 mesh=None):
         self.level = level
         self.specs = level.filters
         self.filters = []
         taxes = []
         for spec in level.filters:
             self.filters.append(dev.load_device_filter(spec.ibf_file,
-                                                       cfg.device))
+                                                       cfg.device, mesh))
             if spec.tax_file:
                 taxes.append(load_tax(spec.tax_file))
         k = self.filters[0].ibf_config.kmer_size
@@ -467,18 +474,32 @@ class _Out:
         self._files.clear()
 
 
-def _check_supported(cfg: ClassifyConfig) -> None:
-    """Raise NotImplementedError for what this port does not cover yet."""
-    device = torch.device(cfg.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but CUDA is not available")
-        if cfg.use_mesh and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "sharding over several GPUs is not ported yet (ROADMAP queue "
-                "1, item 12 'Multi-GPU'); set use_mesh=False or expose one "
-                "device with CUDA_VISIBLE_DEVICES"
-            )
+def _check_device(cfg: ClassifyConfig) -> None:
+    """Raise before any output when ``cfg.device`` is a card that is not
+    there."""
+    if torch.device(cfg.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not available")
+
+
+def _make_mesh(cfg: ClassifyConfig):
+    """The run's (batch, bins) mesh over this process's devices of
+    ``cfg.device``'s type, or None (``use_mesh`` off, one device).
+
+    Local devices only: under ``--distributed`` each process classifies
+    its own read shard (``parallel.multihost.shard_reads``) on its own
+    mesh, so nothing crosses processes.
+    """
+    if not cfg.use_mesh:
+        return None
+    kind = torch.device(cfg.device).type
+    devices = [d for d in pmesh.local_devices() if d.type == kind]
+    if len(devices) < 2:
+        return None
+    mesh = pmesh.make_mesh(devices)
+    if not cfg.quiet:
+        print(f" - device mesh {dict(mesh.shape)} over {mesh.size} devices",
+              file=sys.stderr)
+    return mesh
 
 
 class _Runner:
@@ -509,9 +530,10 @@ def run_classify(cfg: ClassifyConfig) -> dict:
     t_start = _time.monotonic()
     cfg.validate()
     levels = parse_hierarchy(cfg)
-    _check_supported(cfg)
+    _check_device(cfg)
     reads_config = parse_reads_config(cfg)
     prefixes = list(reads_config.keys())
+    mesh = _make_mesh(cfg)
 
     totals: dict[str, Total] = {p: Total() for p in prefixes}
     hierarchy_totals: dict[str, dict[str, Total]] = {
@@ -542,7 +564,7 @@ def run_classify(cfg: ClassifyConfig) -> dict:
     def ensure_ctx(r: _Runner) -> LevelContext:
         if r.ctx is not None:
             return r.ctx
-        r.ctx = LevelContext(r.level, cfg)
+        r.ctx = LevelContext(r.level, cfg, mesh)
         file_mode = "w" if (r.first or not cfg.output_single) else "a"
         r.one_files = {p: cfg.output_prefix + p + "." + r.level.output_file_one
                        for p in prefixes}
@@ -717,9 +739,10 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
     if not (isinstance(f, dev.DeviceFilter) or is_forest or is_raptor
             or is_pruned):
         return None
-    batch_pad = dev.bucket_len(len(batch), minimum=64)
+    batch_pad = _round_up(dev.bucket_len(len(batch), minimum=64),
+                          f.batch_mult)
     inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
-    inbuf_d = torch.from_numpy(inbuf).to(f.device)
+    inbuf_d = f.put_batch(inbuf)
     # per-batch [T] matches_t is only consumed when fpr-query is off
     emit_mt = ctx.level.fpr_query >= 1.0
     pinfo = None
@@ -758,19 +781,25 @@ def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
     U = len(ctx.union_targets)
     if U > 0xFFFF or cfg.hashes_limit > 0xFFFF:
         return None
-    batch_pad = dev.bucket_len(len(batch), minimum=64)
+    batch_pad = _round_up(dev.bucket_len(len(batch), minimum=64),
+                          max(f.batch_mult for f in ctx.filters))
     inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
     K = min(ctx.top_k_current, U)
     emit_mt = ctx.level.fpr_query >= 1.0
     packed = dev.classify_batch_packed_multi(
-        ctx.filters, ctx.filter_cols_dev,
-        torch.from_numpy(inbuf).to(ctx.filters[0].device),
+        ctx.filters, ctx.filter_cols_dev, ctx.filters[0].put_batch(inbuf),
         [s.rel_cutoff for s in ctx.specs], ctx.level.rel_filter,
         cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1, L2=L2,
         num_union=U, top_k=K, emit_matches_t=emit_mt,
     )
     return (_start_host_copy(packed), batch_pad, K, U, emit_mt, True, None,
             True)
+
+
+def _round_up(batch_pad: int, mult: int) -> int:
+    """``batch_pad`` rounded up to a multiple of the mesh's batch axis
+    (``put_batch`` splits the rows over it)."""
+    return -(-batch_pad // mult) * mult
 
 
 def _start_host_copy(packed: torch.Tensor):

@@ -9,18 +9,55 @@ given) over the output prefixes, one per ``--batch-reads`` prefix.
 
 from __future__ import annotations
 
-from ganon_tpu_torch.util import check_file, find_rep_files
+from ganon_tpu_torch.util import check_file, find_rep_files, print_log
 
 
 def classify(cfg, device="cuda") -> bool:
-    """ganon classify: engine (on ``device``) + reassign (EM) + report."""
-    from ganon_tpu_torch.classify.engine import ClassifyConfig, run_classify
+    """ganon classify: engine (on ``device``) + reassign (EM) + report.
 
-    if getattr(cfg, "distributed", False):
-        raise NotImplementedError(
-            "--distributed is not ported yet (ROADMAP queue 1, item 12 "
-            "'Multi-GPU')"
+    Several processes (``--distributed``, or ``WORLD_SIZE`` set by a
+    launcher such as ``torchrun``): the read files are partitioned per
+    process and each writes under ``{output_prefix}.h{rank}``
+    (``parallel/multihost.py``); every process waits for the others at
+    the end.
+    """
+    from ganon_tpu_torch.parallel import multihost
+
+    pidx, pcount = multihost.maybe_initialize(
+        force=getattr(cfg, "distributed", False))
+    try:
+        return _classify(cfg, device, pidx, pcount)
+    finally:  # a rank that fails still meets the others at the barrier
+        multihost.finish()
+
+
+def _classify(cfg, device, pidx: int, pcount: int) -> bool:
+    from ganon_tpu_torch.classify.engine import ClassifyConfig, run_classify
+    from ganon_tpu_torch.parallel import multihost
+
+    read_stride, read_offset = 1, 0
+    if pcount > 1:
+        (
+            cfg.single_reads, cfg.paired_reads, cfg.batch_reads,
+            read_stride, read_offset,
+        ) = multihost.shard_reads(
+            cfg.single_reads, cfg.paired_reads, cfg.batch_reads,
+            pidx, pcount,
         )
+        cfg.output_prefix = multihost.host_output_prefix(
+            cfg.output_prefix, pidx, pcount
+        )
+        if not (cfg.single_reads or cfg.paired_reads or cfg.batch_reads):
+            print_log(
+                f"host {pidx}: no input files in this shard", cfg.quiet
+            )
+            return True
+        if read_stride > 1:
+            print_log(
+                f"host {pidx}: record-range shard {read_offset}/"
+                f"{read_stride} of {len(cfg.single_reads)} single + "
+                f"{len(cfg.paired_reads) // 2} paired files", cfg.quiet
+            )
 
     filter_files = []
     tax_files = []
@@ -60,6 +97,8 @@ def classify(cfg, device="cuda") -> bool:
         top_k_matches=getattr(cfg, "top_k_matches", 128),
         length_bucketing=not getattr(cfg, "no_length_bucketing", False),
         hashes_limit=(1 << 32) - 1 if getattr(cfg, "longreads", False) else 65535,
+        read_stride=read_stride,
+        read_offset=read_offset,
         quiet=cfg.quiet,
         verbose=cfg.verbose,
         device=str(device),

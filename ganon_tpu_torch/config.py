@@ -338,9 +338,11 @@ class Config:
                         help="Use 32-bit counters (reads with >65535 "
                              "minimizers)")
         cl.add_argument("--distributed", action="store_true", default=False,
-                        help="Initialize the jax multi-host runtime; read "
-                             "files are partitioned per host and outputs "
-                             "written under {prefix}.h{host}")
+                        help="Join the torch.distributed process group "
+                             "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, "
+                             "as torchrun sets them); read files are "
+                             "partitioned per process and outputs written "
+                             "under {prefix}.h{rank}")
         cl.add_argument("--verbose", action="store_true", default=False)
         cl.add_argument("--quiet", action="store_true", default=False)
 

@@ -47,6 +47,15 @@
 // equals JAX's max of unclamped sums followed by one clamp. A sub's cols
 // are distinct (sorted file positions), and the subs launch in order on
 // one stream, so no two writers of a cell ever overlap: no atomics.
+//
+// Shard mode (K17, the column-sharded table of ganon_tpu/parallel/mesh.py
+// :79 ShardedClassifier.counts and ganon_tpu/classify/device.py:749-768):
+// the table is one shard's column slice and the byte ranges its targets'
+// ranges clipped to the slice and rebased; clamp = 0 writes the unclamped
+// partial sums, which combine (shard.cu) adds over the shards before the
+// clamp. JAX all-gathers per-byte counts [B, W8] before the segment sum;
+// the per-target partials [B, T_shard] are the same function with less to
+// move.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -67,7 +76,7 @@ count_kernel(const unsigned* __restrict__ tbl, long long W32,
              const long long* __restrict__ hashes, int M,
              const int* __restrict__ n_hashes, unsigned long long bin_size,
              int h, int shift, int* __restrict__ counts, long long ldc,
-             int col0, const int* __restrict__ cols) {
+             int col0, const int* __restrict__ cols, int clamp) {
     __shared__ int cnt[kTileWords * 4];
     __shared__ unsigned long long rows[kHashChunk * kMaxH];
     __shared__ int t_first;
@@ -134,7 +143,7 @@ count_kernel(const unsigned* __restrict__ tbl, long long W32,
                 carry[cin ^ 1] = acc;
                 continue;
             }
-            const int v = min(acc, n);
+            const int v = clamp ? min(acc, n) : acc;
             if (cols) {
                 int* o = orow + cols[t];
                 *o = max(*o, v);
@@ -153,15 +162,17 @@ extern "C" int ganon_count(const void* tbl, long long R, long long W8,
                            int T, const void* hashes, long long B, int M,
                            const void* n_hashes, unsigned long long bin_size,
                            int h, int shift, void* counts, long long ldc,
-                           int col0, const void* cols, void* stream) {
+                           int col0, const void* cols, int clamp,
+                           void* stream) {
     (void)R;
     if (h < 1 || h > kMaxH || W8 % 4 || col0 < 0
-        || (!cols && col0 + (long long)T > ldc) || (cols && col0 != 0))
+        || (!cols && col0 + (long long)T > ldc) || (cols && col0 != 0)
+        || (cols && !clamp))
         return (int)cudaErrorInvalidValue;
     count_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
         (const unsigned*)tbl, W8 / 4, (const int*)byte_starts,
         (const int*)byte_ends, T, (const long long*)hashes, M,
         (const int*)n_hashes, bin_size, h, shift, (int*)counts, ldc, col0,
-        (const int*)cols);
+        (const int*)cols, clamp);
     return (int)cudaGetLastError();
 }

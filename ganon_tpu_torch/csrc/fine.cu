@@ -22,6 +22,16 @@
 // dead group writes zeros (gated counts, the exact fallback), without it
 // every group counts (the ungated diagnostic counts).
 //
+// Shard mode (K17, the shard_map body of ganon_tpu/parallel/
+// pruned_shard.py:132-185 BinShardedPrunedForest): probe-all over one
+// shard's G local groups, whose geometry arrays are the shard's own (row
+// offsets into its own table) and gid[l] the global id of local group l.
+// Survival is read from the replicated gate's [B, Gs] mask at the global
+// id, and the output goes straight into the global columns gid*gs + j < T
+// of the shared [B, T] matrix, so JAX's shard-major permutation
+// (pruned_shard.py:112-117) is not needed. A pad group (gid -1, when the
+// shards do not divide the groups) writes nothing.
+//
 // What bounds it on the H100: one narrow gather per hash and hash
 // function (8 bytes of a row at group_size 64) from a table of tens of
 // MB, mostly L2-resident at the T8192 shape; arithmetic is a hash and a
@@ -54,24 +64,26 @@ fine_kernel(const unsigned* __restrict__ ftbl, long long W32,
             const int* __restrict__ gsel,
             const unsigned char* __restrict__ slot_ok, int S,
             const unsigned char* __restrict__ surv, int* __restrict__ out,
-            long long T) {
+            long long T, const int* __restrict__ gid, int Gs) {
     __shared__ unsigned long long rows[kHashChunk * kMaxH];
 
     const long long blk = blockIdx.x;
     long long b;
-    int g, width;
+    int g, p, width;  // global group; its index in the geometry arrays
     bool live;
     int* orow;
     if (gsel) {
         b = blk / S;
-        g = gsel[blk];
+        g = p = gsel[blk];
         live = slot_ok[blk] != 0;
         orow = out + blk * gs;
         width = gs;
     } else {
         b = blk / G;
-        g = (int)(blk - b * G);
-        live = surv ? surv[blk] != 0 : true;
+        p = (int)(blk - b * G);
+        g = gid ? gid[p] : p;
+        if (g < 0) return;  // a pad group: uniform over the block
+        live = surv ? surv[b * (gid ? Gs : G) + g] != 0 : true;
         orow = out + b * T + (long long)g * gs;
         width = (int)min((long long)gs, T - (long long)g * gs);
     }
@@ -82,9 +94,9 @@ fine_kernel(const unsigned* __restrict__ ftbl, long long W32,
     const int n = n_hashes[b];
     const int nvalid = max(0, min(n, M));
     const long long* hrow = hashes + b * M;
-    const unsigned long long bsz = (unsigned long long)grp_bin_size[g];
-    const int shift = grp_shift[g];
-    const unsigned long long off = (unsigned long long)grp_row_off[g];
+    const unsigned long long bsz = (unsigned long long)grp_bin_size[p];
+    const int shift = grp_shift[p];
+    const unsigned long long off = (unsigned long long)grp_row_off[p];
 
     for (int j0 = 0; j0 < width; j0 += blockDim.x) {
         const int j = j0 + threadIdx.x;
@@ -122,10 +134,12 @@ extern "C" int ganon_fine(const void* ftbl, long long R, long long W8,
                           const void* grp_bin_size, const void* grp_shift,
                           int G, int h, int gs, const void* gsel,
                           const void* slot_ok, int S, const void* surv,
-                          void* out, long long T, void* stream) {
+                          void* out, long long T, const void* gid, int Gs,
+                          void* stream) {
     (void)R;
     if (h < 1 || h > kMaxH || W8 % 4 || gs < 8 || gs % 8 || gs > W8 * 8 ||
-        (gsel && (S < 1 || !slot_ok)) || (!gsel && G < 1))
+        (gsel && (S < 1 || !slot_ok || gid)) || (!gsel && G < 1) ||
+        (gid && Gs < 1))
         return (int)cudaErrorInvalidValue;
     const long long blocks = gsel ? B * S : B * G;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
@@ -134,6 +148,6 @@ extern "C" int ganon_fine(const void* ftbl, long long R, long long W8,
         (const int*)n_hashes, (const long long*)grp_row_off,
         (const long long*)grp_bin_size, (const int*)grp_shift, G, h, gs,
         (const int*)gsel, (const unsigned char*)slot_ok, S,
-        (const unsigned char*)surv, (int*)out, T);
+        (const unsigned char*)surv, (int*)out, T, (const int*)gid, Gs);
     return (int)cudaGetLastError();
 }

@@ -37,6 +37,15 @@
 // int32 [4, R]: bin_base, nhb, offset, key_start per file. The JAX u8
 // lane-major plane and its row-range chunks were TPU tiling workarounds;
 // here the bit-matrix lives on the card whole and each entry ORs h bits.
+//
+// Span mode (K17: ganon_tpu/index/device_build.py:308-367
+// make_scatter_mesh, whose shard bodies run :279 _scatter_span): bits is
+// one shard's row range of the row-major matrix, the word span [w0, w0 +
+// R_rows * W). A bit whose word falls outside the span is dropped, before
+// the span as well as past it (JAX clamps the negative offsets onto its
+// drop sentinel at :288-289, since its scatter wraps them); the rest are
+// rebased by w0 and ORed. The whole matrix is the span w0 = 0, R_rows =
+// bin_size, so the one kernel serves both modes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -93,7 +102,8 @@ __global__ void scatter_ranked_kernel(unsigned* __restrict__ bits, long long W,
                                       long long N,
                                       const int* __restrict__ params, int R,
                                       unsigned long long bin_size, int h,
-                                      int shift) {
+                                      int shift, long long w0,
+                                      long long span) {
     const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     if (i >= N || !uniq[i]) return;
     const int f = key[i];
@@ -104,7 +114,8 @@ __global__ void scatter_ranked_kernel(unsigned* __restrict__ bits, long long W,
     const long long word = bin >> 5;
     for (int s = 0; s < h; ++s) {
         const unsigned long long row = ganon_ibf_row(x, s, bin_size, shift);
-        atomicOr(bits + (long long)row * W + word, mask);
+        const long long at = (long long)row * W + word - w0;
+        if (at >= 0 && at < span) atomicOr(bits + at, mask);
     }
 }
 
@@ -115,9 +126,8 @@ extern "C" int ganon_scatter_ranked(void* bits, long long R_rows, long long W,
                                     const void* uniq, const void* rank,
                                     long long N, const void* params, int R,
                                     unsigned long long bin_size, int h,
-                                    int shift, void* stream) {
-    (void)R_rows;
-    if (h < 1 || h > 5) return (int)cudaErrorInvalidValue;
+                                    int shift, long long w0, void* stream) {
+    if (h < 1 || h > 5 || w0 < 0) return (int)cudaErrorInvalidValue;
     if (N <= 0) return (int)cudaGetLastError();
     const int threads = 256;
     const long long blocks = (N + threads - 1) / threads;
@@ -125,7 +135,7 @@ extern "C" int ganon_scatter_ranked(void* bits, long long R_rows, long long W,
                             (cudaStream_t)stream>>>(
         (unsigned*)bits, W, (const int*)key, (const long long*)val,
         (const int*)uniq, (const int*)rank, N, (const int*)params, R,
-        bin_size, h, shift);
+        bin_size, h, shift, w0, R_rows * W);
     return (int)cudaGetLastError();
 }
 

@@ -103,6 +103,24 @@ class BuildConfig:
             raise ValueError("invalid --mode")
 
 
+def _build_mesh(cfg: BuildConfig):
+    """A 1-D ``bins`` mesh over this process's devices of ``cfg.device``'s
+    type (None with one device).
+
+    The sharded scatter equals the single-device one bit for bit and
+    divides per-device matrix memory and scatter traffic by the device
+    count (see ``DeviceBuildPipeline.scatter``).
+    """
+    from ganon_tpu_torch.parallel import mesh as pmesh
+
+    # local devices: each process builds from its own inputs
+    kind = torch.device(cfg.device).type
+    devices = [d for d in pmesh.local_devices() if d.type == kind]
+    if len(devices) < 2:
+        return None
+    return pmesh.make_mesh(devices, batch_axis=1)
+
+
 def parse_target_info(
     input_file: str, quiet: bool, stats: BuildStats
 ) -> dict[str, list[str]]:
@@ -458,7 +476,9 @@ def run_build(cfg: BuildConfig) -> IBF:
     Always the two-pass device build on ``cfg.device``: per-piece
     extraction, per-file dedup and counts and the bin-split scatter run
     there; the host fetches the counts (4 bytes a file) and the final
-    bit-matrix. The filter equals ``ganon_tpu``'s ``run_build`` output.
+    bit-matrix. With several local devices the groups round-robin over
+    them and the scatter is row-sharded (``_build_mesh``). The filter
+    equals ``ganon_tpu``'s ``run_build`` output.
     """
     from ganon_tpu_torch.index import sizing
     from ganon_tpu_torch.index.device_build import DeviceBuildPipeline
@@ -505,7 +525,7 @@ def run_build(cfg: BuildConfig) -> IBF:
         )
         _mark("EstimateParams")
         splits = sizing.split_target_bins(icfg, hashes_count)
-        bits = pipe.scatter(icfg, splits)
+        bits = pipe.scatter(icfg, splits, mesh=_build_mesh(cfg))
         _mark("BuildIBF")
     finally:
         pipe.close()

@@ -29,9 +29,16 @@ file, duplicates across files of one target stored and counted twice
 (GanonBuild.cpp:225-240), and a target's hashes split over technical
 bins by index ranges over the per-file-sorted, file-concatenated order
 (GanonBuild.cpp:619-653, ``sizing.split_target_bins``). The bit-matrix
-equals ``ganon_tpu``'s bit for bit. One card: the JAX package's
-round-robin over devices and its mesh scatter are not ported.
-``device="cpu"`` runs every kernel's plain version.
+equals ``ganon_tpu``'s bit for bit. ``device="cpu"`` runs every kernel's
+plain version.
+
+Several devices (K17), as the JAX package does: the groups round-robin
+over ``devices`` (each group's extract, pack, sort and dedup run on its
+owner device), and ``scatter(..., mesh=...)`` row-shards the bit-matrix
+over the devices of a mesh flattened onto one ``bins`` axis, every shard
+running the ranked scatter in span mode over its own rows only (the
+entries are copied to each shard's device; no collective touches the
+matrix).
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from ganon_tpu_torch.ops.build_ops import (
     sort_entries,
 )
 from ganon_tpu_torch.ops.ibf_query import extract
+from ganon_tpu_torch.parallel import mesh as pmesh
 
 # a group closes at the first file boundary past this many bases: ~19M
 # entries of random sequence at k 19, w 31
@@ -120,6 +128,7 @@ class _Group:
     files: list                      # _FileRec; a file's key is its index
     batches: list                    # (L, spill id, B) per extract launch
     n: int = 0                       # entries (emitted hashes)
+    device: object = None            # owner device (extract .. dedup)
     counts: object = None            # card int32 [R], pass 1
     sorted: object = None            # cached sorted (key, val) on the card
     key_bits: int = field(init=False)
@@ -148,7 +157,12 @@ def target_bins(splits) -> dict:
 
 
 class DeviceBuildPipeline:
-    """Streamed two-pass IBF build on one device (module docstring).
+    """Streamed two-pass IBF build (module docstring).
+
+    The groups round-robin over this process's devices of ``device``'s
+    type (``parallel.mesh.local_devices``, or ``device`` alone); groups
+    never interact until the bit-matrix, so the result equals one
+    device's bit for bit.
 
     ``device_cache_bytes`` bounds the card memory of the sorted entries
     kept between the passes (12 bytes an entry) together with the group
@@ -168,6 +182,8 @@ class DeviceBuildPipeline:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "device 'cuda' requested but CUDA is not available")
+        self.devices = [d for d in pmesh.local_devices()
+                        if d.type == self.device.type] or [self.device]
         if device_cache_bytes is None:
             device_cache_bytes = (
                 torch.cuda.mem_get_info(self.device)[0] // 2
@@ -228,7 +244,7 @@ class DeviceBuildPipeline:
         self._trim_cache(self.groups, reserve=_SORT_BYTES * group.n)
         key, val = sort_entries(key, val, key_bits=group.key_bits)
         group.counts = torch.zeros((len(group.files),), dtype=torch.int32,
-                                   device=self.device)
+                                   device=group.device)
         dedup(key, val, num_files=len(group.files), counts=group.counts,
               want_rank=False)
         group.sorted = (key, val)
@@ -246,19 +262,22 @@ class DeviceBuildPipeline:
                 arr = _pieces_array(buf[b0 : b0 + PIECES_PER_BATCH], L)
                 batches.append((L, self.spill.add(arr), arr.shape[0]))
                 arrays.append(arr)
-        group = _Group(files=self._open_files, batches=batches)
+        group = _Group(files=self._open_files, batches=batches,
+                       device=self.devices[len(self.groups)
+                                           % len(self.devices)])
         self._open_files, self._bufs, self._open_bases = [], {}, 0
         return group, arrays
 
     def _entries(self, group: _Group, arrays: list | None = None):
         """The group's unsorted entries ``(key, val)``: extract every batch
-        (from ``arrays`` or the spill), fetch its entry total and pack its
-        emissions into exact buffers; sets ``group.n``. Raises before the
-        pack that would pass the kernels' int32 limit."""
+        (from ``arrays`` or the spill) on the group's device, fetch its
+        entry total and pack its emissions into exact buffers; sets
+        ``group.n``. Raises before the pack that would pass the kernels'
+        int32 limit."""
         parts, n = [], 0
         for i, (L, sid, B) in enumerate(group.batches):
             arr = arrays[i] if arrays is not None else self.spill.read(sid)
-            t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+            t = torch.from_numpy(np.ascontiguousarray(arr)).to(group.device)
             nb = L // 4 + 4
             hashes, cnt, _ = extract(
                 t[:, :nb].contiguous(), L1=L, L2=0, k=self.k, w=self.w,
@@ -293,7 +312,8 @@ class DeviceBuildPipeline:
         self._cut()
         if not self.groups:
             return
-        allc = torch.cat([g.counts for g in self.groups]).cpu().numpy()
+        allc = torch.cat([g.counts.to(self.device) for g in self.groups]
+                         ).cpu().numpy()
         off = 0
         for g in self.groups:
             for i, rec in enumerate(g.files):
@@ -313,14 +333,30 @@ class DeviceBuildPipeline:
 
     # -- pass 2: scatter -------------------------------------------------------
 
-    def scatter(self, ibf_config, splits) -> np.ndarray:
+    def scatter(self, ibf_config, splits, mesh=None) -> np.ndarray:
         """Build the bit-matrix on the device; returns it as host uint32
         ``[bin_size_bits, n_words]``. ``splits``: the rows of
-        ``sizing.split_target_bins(ibf_config, hashes_count)``."""
+        ``sizing.split_target_bins(ibf_config, hashes_count)``.
+
+        With ``mesh`` (a ``parallel.mesh.Mesh``; a 2-D one is flattened
+        onto one ``bins`` axis, as JAX's ``scatter`` does) the matrix is
+        row-sharded over its devices, ``ceil(bin_size / n)`` rows a shard,
+        and each shard runs the ranked scatter in span mode over its own
+        rows: per-device matrix memory and scatter traffic drop by the
+        shard count. The shards come back to the host in one matrix.
+        """
         n_words = sizing.optimal_bins(ibf_config.n_bins) // 32
-        bits = torch.zeros((ibf_config.bin_size_bits, n_words),
-                           dtype=torch.int32, device=self.device)
-        bits_bytes = bits.numel() * bits.element_size()
+        R = ibf_config.bin_size_bits
+        if mesh is None:
+            spans = [(self.device, 0, R)]
+        else:
+            flat = mesh.flat
+            rps = -(-R // len(flat))
+            spans = [(d, r0, min(rps, R - r0))
+                     for d, r0 in zip(flat, range(0, R, rps))]
+        bits = [torch.zeros((rc, n_words), dtype=torch.int32, device=d)
+                for d, _, rc in spans]
+        bits_bytes = R * n_words * 4
         newest_first = self.groups[::-1]
         self._trim_cache(newest_first, reserve=bits_bytes)
         split = target_bins(splits)
@@ -344,14 +380,20 @@ class DeviceBuildPipeline:
                 key, val = self._entries(group)
                 key, val = sort_entries(key, val, key_bits=group.key_bits)
             uniq, rank = dedup(key, val, num_files=len(group.files))
-            scatter_ranked(
-                bits, key, val, uniq, rank,
-                torch.from_numpy(params).to(self.device),
-                bin_size=ibf_config.bin_size_bits,
-                hash_functions=ibf_config.hash_functions,
-            )
+            params = torch.from_numpy(params)
+            for b, (d, r0, _) in zip(bits, spans):
+                # the group's entries on the shard's device (a no-op
+                # where the owner is that device)
+                scatter_ranked(
+                    b, *(x.to(d) for x in (key, val, uniq, rank, params)),
+                    bin_size=R, hash_functions=ibf_config.hash_functions,
+                    w0=None if mesh is None else r0 * n_words,
+                )
             del key, val, uniq, rank
-        return np.ascontiguousarray(bits.cpu().numpy().view(np.uint32))
+        out = np.empty((R, n_words), dtype=np.uint32)
+        for b, (_, r0, rc) in zip(bits, spans):
+            out[r0:r0 + rc] = b.cpu().numpy().view(np.uint32)
+        return out
 
     def close(self):
         self.spill.close()

@@ -20,6 +20,11 @@ path); ``gate``, ``fine``, ``select_lanes`` and ``scatter_pruned`` are the
 pruned forest's; ``extract_build`` is ``extract`` on the build's pieces
 (single-end, a capacity of every window position); ``pack``, ``sort``,
 ``dedup`` and ``scatter_ranked`` are the two-pass device build's.
+The device mesh's modes (K17): ``count_shard`` is ``count`` on one
+column shard of a table with the clamp off, ``combine`` adds the shards'
+partials and clamps, ``fine_shard`` is ``fine`` over one shard's groups
+of a bins-sharded pruned forest, ``scatter_span`` is ``scatter_ranked``
+into one shard's row range of the build's bit-matrix.
 A run can so show that its main path went through every kernel mode.
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -38,7 +43,7 @@ from ganon_tpu_torch import BUILD_DIR
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
-           "gate.cu", "fine.cu", "sort.cu", "dedup.cu")
+           "gate.cu", "fine.cu", "sort.cu", "dedup.cu", "shard.cu")
 HEADERS = ("ibf_hash.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,9 +57,13 @@ _SIGNATURES = {
     # inbuf, B, row_bytes, L1, L2, k, w, mc, hashes, n, overflow
     "extract": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P),
     # tbl, R, W8, byte_starts, byte_ends, T, hashes, B, M, n_hashes,
-    # bin_size, h, shift, counts, ldc, col0, cols (NULL = not column-max)
+    # bin_size, h, shift, counts, ldc, col0, cols (NULL = not column-max),
+    # clamp (0 = a shard's partial sums)
     "count": (_P, _L, _L, _P, _P, _I, _P, _L, _I, _P, _U, _I, _I, _P, _L,
-              _I, _P),
+              _I, _P, _I),
+    # parts, t_lo, t_hi, nb, B, T, n_hashes, counts, ldc, col0, cols
+    # (NULL = not column-max)
+    "combine": (_P, _P, _P, _I, _L, _I, _P, _P, _L, _I, _P),
     # counts, B, T_f, n_hashes, rel_cutoff, hashes_limit, cols, f,
     # ucounts, uwin, U
     "merge": (_P, _L, _I, _P, _D, _L, _P, _I, _P, _P, _I),
@@ -81,9 +90,9 @@ _SIGNATURES = {
              _P, _P, _P),
     # ftbl, R, W8, hashes, B, M, n_hashes, grp_row_off, grp_bin_size,
     # grp_shift, G, h, gs, gsel (NULL = probe-all), slot_ok, S, surv
-    # (NULL = ungated), out, T
+    # (NULL = ungated), out, T, gid (NULL = not a shard), Gs
     "fine": (_P, _L, _L, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
-             _P, _P, _L),
+             _P, _P, _L, _P, _I),
     # hashes, B, mc, n, keys, offs, sums, out_key, out_val, N
     "pack": (_P, _L, _I, _P, _P, _P, _P, _P, _P, _L),
     # key, val, N, key_bits, key_a, val_a, key_b, val_b, counts, sums
@@ -91,14 +100,16 @@ _SIGNATURES = {
     # key, val, N, R, uniq, rank (NULL = none), counts (NULL = none), sums
     "dedup": (_P, _P, _L, _I, _P, _P, _P, _P),
     # bits, R_rows, W, key, val, uniq, rank, N, params, R, bin_size, h,
-    # shift
-    "scatter_ranked": (_P, _L, _L, _P, _P, _P, _P, _L, _P, _I, _U, _I, _I),
+    # shift, w0 (the first word of the span bits holds)
+    "scatter_ranked": (_P, _L, _L, _P, _P, _P, _P, _L, _P, _I, _U, _I, _I,
+                       _L),
 }
 
 # launch counters: each kernel, plus the modes counted apart
 LAUNCHES = {name: 0 for name in (*_SIGNATURES, "count_forest",
                                  "count_raptor", "select_winners",
-                                 "fine_all", "extract_build")}
+                                 "fine_all", "extract_build", "count_shard",
+                                 "fine_shard", "scatter_span")}
 
 _lib = None
 

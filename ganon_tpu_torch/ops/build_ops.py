@@ -15,7 +15,8 @@ and radix offsets are int32 on the card, so ``N`` is at most
 * :func:`dedup` — first-occurrence flags, ranks and per-file distinct
   counts (``csrc/dedup.cu``);
 * :func:`scatter_ranked` — technical bin from the rank and the per-file
-  split parameters, then the bits (``csrc/scatter.cu`` ranked mode).
+  split parameters, then the bits (``csrc/scatter.cu`` ranked mode; in
+  span mode into one shard's row range of the matrix, K17).
 
 A wrapper given CPU tensors runs the plain torch version beside it;
 given CUDA tensors it launches the kernel or raises.
@@ -26,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ganon_tpu_torch import kernels
-from ganon_tpu_torch.ops.ibf_query import clz64
+from ganon_tpu_torch.ops.ibf_query import clz64, ibf_row_indices
 from ganon_tpu_torch.ops.minimizers import ukey
 
 # entries per radix block and per scan block (csrc/sort.cu kTile,
@@ -210,19 +211,34 @@ def _ranked_bins(key, uniq, rank, params):
 
 
 def scatter_ranked_plain(bits, key, val, uniq, rank, params, *,
-                         bin_size: int, hash_functions: int) -> None:
-    """Plain version of :func:`scatter_ranked`."""
+                         bin_size: int, hash_functions: int,
+                         w0: int | None = None) -> None:
+    """Plain version of :func:`scatter_ranked` (and of its span mode)."""
     from ganon_tpu_torch.index.ibf import _scatter_bits
 
     u, bins = _ranked_bins(key, uniq, rank, params)
-    _scatter_bits(bits, val[u], bins.to(torch.int32), bin_size=bin_size,
-                  hash_functions=hash_functions)
+    if w0 is None:
+        _scatter_bits(bits, val[u], bins.to(torch.int32), bin_size=bin_size,
+                      hash_functions=hash_functions)
+        return
+    # span mode: the words of [w0, w0 + span) only, rebased; words before
+    # the span are dropped as well as those past it
+    R, W = bits.shape
+    rows = ibf_row_indices(val[u], bin_size=bin_size,
+                           hash_functions=hash_functions)  # [N, h]
+    at = rows * W + (bins >> 5)[:, None] - w0
+    flat = (at * 32 + (bins & 31)[:, None])[(at >= 0) & (at < R * W)]
+    flat = torch.unique(flat)
+    delta = torch.zeros(R * W, dtype=torch.int64, device=bits.device)
+    delta.index_add_(0, flat >> 5, torch.ones_like(flat) << (flat & 31))
+    delta = torch.where(delta >= 1 << 31, delta - (1 << 32), delta)
+    bits |= delta.to(torch.int32).reshape(R, W)
 
 
 def scatter_ranked(bits: torch.Tensor, key: torch.Tensor, val: torch.Tensor,
                    uniq: torch.Tensor, rank: torch.Tensor,
                    params: torch.Tensor, *, bin_size: int,
-                   hash_functions: int) -> None:
+                   hash_functions: int, w0: int | None = None) -> None:
     """OR every distinct entry into the bit-matrix at its technical bin.
 
     Entry ``i`` with ``uniq[i]`` of file ``f = key[i]`` has index ``idx =
@@ -233,6 +249,12 @@ def scatter_ranked(bits: torch.Tensor, key: torch.Tensor, val: torch.Tensor,
 
     Replaces ``device_build.scatter_sorted`` (``_entry_coords`` and
     ``_scatter_span``).
+
+    Span mode (K17, a shard of ``device_build.make_scatter_mesh``): with
+    ``w0``, ``bits`` (int32 ``[rows, n_words]``) is the word span ``[w0,
+    w0 + rows * n_words)`` of the ``[bin_size, n_words]`` matrix; a bit
+    whose word falls outside it is dropped, the rest are rebased by
+    ``w0``.
     """
     _check_entries(key, val)
     if bits.dtype != torch.int32 or bits.dim() != 2 or not bits.is_contiguous():
@@ -242,11 +264,14 @@ def scatter_ranked(bits: torch.Tensor, key: torch.Tensor, val: torch.Tensor,
         raise ValueError("uniq and rank must be int32 [N]")
     if params.dtype != torch.int32 or params.dim() != 2 or params.shape[0] != 4:
         raise ValueError("params must be int32 [4, R]")
-    if bin_size != bits.shape[0] or not 1 <= hash_functions <= 5:
-        raise ValueError("bin_size must equal the rows of bits; h in 1..5")
+    if (w0 is None and bin_size != bits.shape[0]) or (
+            w0 is not None and w0 < 0) or not 1 <= hash_functions <= 5:
+        raise ValueError("bin_size must equal the rows of bits (w0 >= 0 in "
+                         "span mode); h in 1..5")
     if bits.device.type == "cpu":
         scatter_ranked_plain(bits, key, val, uniq, rank, params,
-                             bin_size=bin_size, hash_functions=hash_functions)
+                             bin_size=bin_size, hash_functions=hash_functions,
+                             w0=w0)
         return
     params = params.contiguous()
     kernels.check_cuda(bits, key, val, uniq, rank, params)
@@ -255,4 +280,5 @@ def scatter_ranked(bits: torch.Tensor, key: torch.Tensor, val: torch.Tensor,
         return
     kernels.launch("scatter_ranked", bits, bits.shape[0], bits.shape[1], key,
                    val, uniq, rank, N, params, params.shape[1], bin_size,
-                   hash_functions, clz64(bin_size))
+                   hash_functions, clz64(bin_size), w0 or 0,
+                   counter="scatter_ranked" if w0 is None else "scatter_span")

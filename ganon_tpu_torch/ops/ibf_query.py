@@ -18,13 +18,21 @@ This module holds the two classify kernels' wrappers:
   compaction (``csrc/extract.cu``); plain version :func:`extract_plain`.
 * :func:`target_counts` — hash rows, gather + AND, byte popcount,
   per-target segment sum and clamp (``csrc/count.cu``; flat, forest and
-  column-max modes); plain version :func:`bulk_target_counts`.
+  column-max modes, and shard mode with the clamp off); plain version
+  :func:`bulk_target_counts`.
+* :func:`combine` — the column shards' partial counts summed and clamped
+  (``csrc/shard.cu``); plain version :func:`combine_plain`.
+
+:func:`shard_table` splits a packed table into the column shards of a
+device mesh's ``bins`` axis (K17).
 
 A wrapper given CPU tensors runs the plain torch version; given CUDA
 tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -315,13 +323,14 @@ def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
                        byte_ends: torch.Tensor, hashes: torch.Tensor,
                        n_hashes: torch.Tensor, *, bin_size: int,
                        hash_functions: int, out: torch.Tensor | None = None,
-                       col0: int = 0,
-                       cols: torch.Tensor | None = None) -> torch.Tensor:
+                       col0: int = 0, cols: torch.Tensor | None = None,
+                       clamp: bool = True) -> torch.Tensor:
     """Plain version of the ``count`` kernel (see :func:`target_counts`).
 
     ``counts[b, t] = min(n_hashes[b], sum_m popcount(AND_s
     tbl8[row_s(h[b, m]), byte_starts[t]:byte_ends[t]]))`` over the first
-    ``min(n_hashes[b], M)`` slots; written into ``out[:, col0:col0 + T]``
+    ``min(n_hashes[b], M)`` slots (without the ``min`` when ``clamp`` is
+    false); written into ``out[:, col0:col0 + T]``
     when ``out`` is given, or max-merged into ``out[:, cols]`` with
     ``cols`` (``out`` returned either way). ``tbl8``'s ``W8`` is a
     multiple of 4, as :func:`target_counts` requires.
@@ -356,8 +365,9 @@ def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
         cw += acc.view(torch.uint8)  # [B, W8] byte sums
     cs = torch.nn.functional.pad(torch.cumsum(cw, dim=1), (1, 0))
     counts = cs[:, byte_ends.to(torch.int64)] - cs[:, byte_starts.to(torch.int64)]
-    counts = torch.minimum(counts, n_hashes[:, None].to(torch.int64)).to(
-        torch.int32)
+    if clamp:
+        counts = torch.minimum(counts, n_hashes[:, None].to(torch.int64))
+    counts = counts.to(torch.int32)
     if out is None:
         return counts
     if cols is not None:
@@ -372,8 +382,8 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
                   byte_ends: torch.Tensor, hashes: torch.Tensor,
                   n_hashes: torch.Tensor, *, bin_size: int,
                   hash_functions: int, out: torch.Tensor | None = None,
-                  col0: int = 0,
-                  cols: torch.Tensor | None = None) -> torch.Tensor:
+                  col0: int = 0, cols: torch.Tensor | None = None,
+                  clamp: bool = True) -> torch.Tensor:
     """Per-target clamped counts of compacted hashes: int32 ``[B, T]``.
 
     Replaces ``ganon_tpu.ops.ibf_query.ibf_row_indices`` +
@@ -391,6 +401,10 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
     with ``out`` and ``cols`` (int32 ``[T]``, distinct columns of
     ``out``) each count is max-merged, ``out[:, cols[t]] =
     max(out[:, cols[t]], counts[:, t])``; ``col0`` must be 0.
+
+    Shard mode (K17, one column shard of :func:`shard_table`):
+    ``clamp=False`` writes the unclamped partial sums, which
+    :func:`combine` adds over the shards before it clamps.
     """
     if tbl8.dtype != torch.uint8 or tbl8.dim() != 2 or tbl8.shape[1] % 4:
         raise ValueError("tbl8 must be u8 [R, W8] with W8 % 4 == 0")
@@ -412,16 +426,16 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
         raise ValueError(f"out must be contiguous int32 [{B}, >= col0 + {T}]")
     if cols is not None and (out is None or col0 != 0
                              or cols.dtype != torch.int32
-                             or cols.shape != (T,)):
-        raise ValueError(f"column-max mode takes out, col0 = 0 and int32 "
-                         f"cols [{T}]")
+                             or cols.shape != (T,) or not clamp):
+        raise ValueError(f"column-max mode takes out, col0 = 0, int32 "
+                         f"cols [{T}] and the clamp")
     if tbl8.device.type == "cpu":
         return bulk_target_counts(
             tbl8, byte_starts, byte_ends, hashes, n_hashes,
             bin_size=bin_size, hash_functions=hash_functions, out=out,
-            col0=col0, cols=cols,
+            col0=col0, cols=cols, clamp=clamp,
         )
-    counter = ("count" if out is None else
+    counter = ("count_shard" if not clamp else "count" if out is None else
                "count_forest" if cols is None else "count_raptor")
     if out is None:
         out, col0 = torch.zeros((B, T), dtype=torch.int32,
@@ -433,6 +447,143 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
     kernels.launch(
         "count", tbl8, tbl8.shape[0], tbl8.shape[1], byte_starts, byte_ends,
         T, hashes, B, M, n_hashes, bin_size, hash_functions, clz64(bin_size),
-        out, out.shape[1], col0, cols, counter=counter,
+        out, out.shape[1], col0, cols, int(clamp), counter=counter,
     )
+    return out
+
+
+# --- column shards of a packed table (K17) ---------------------------------
+
+
+@dataclass
+class TableShard:
+    """One column shard of a packed table: the byte columns ``[c0, c0 +
+    W8s)`` of every row (``tbl8``, u8 ``[R, W8s]``, ``W8s`` a multiple of
+    4) and the targets ``t_lo .. t_hi - 1`` whose byte ranges meet them,
+    clipped to the shard and rebased (int32 ``[t_hi - t_lo]``)."""
+
+    tbl8: torch.Tensor
+    byte_starts: torch.Tensor
+    byte_ends: torch.Tensor
+    c0: int
+    t_lo: int
+    t_hi: int
+
+    def to(self, device) -> "TableShard":
+        return TableShard(self.tbl8.to(device), self.byte_starts.to(device),
+                          self.byte_ends.to(device), self.c0, self.t_lo,
+                          self.t_hi)
+
+
+def shard_table(tbl8: torch.Tensor, byte_starts, byte_ends, nb: int,
+                devices=None) -> list[TableShard]:
+    """Split a packed table into ``nb`` column shards (K17).
+
+    Port of the column sharding of ``ganon_tpu.classify.device.
+    DeviceFilter`` with a mesh (``device.py:749-768``): ``W8`` is padded
+    with zero bytes to a multiple of ``4 * nb`` (JAX's alignment for its
+    u32 regime; the port always reads u32 words) and cut into ``nb`` equal
+    slices, so the table is never repacked on the host. Shard ``j`` is
+    allocated on ``devices[j]`` (default: ``tbl8``'s device) and its slice
+    copied straight there from ``tbl8`` (a host table or one on a card),
+    so no device holds more than its own shards beside ``tbl8``. A target
+    whose byte range crosses a shard edge appears in both shards, each
+    with its part of the range.
+    """
+    R, W8 = tbl8.shape
+    ws = -(-W8 // (4 * nb)) * 4
+    if devices is None:
+        devices = [tbl8.device] * nb
+    bs = np.asarray(torch.as_tensor(byte_starts).cpu(), dtype=np.int64)
+    be = np.asarray(torch.as_tensor(byte_ends).cpu(), dtype=np.int64)
+    shards = []
+    for j, d in zip(range(nb), devices):
+        c0 = j * ws
+        # the targets whose ranges meet [c0, c0 + ws): ends past c0,
+        # starts before c0 + ws (the ranges ascend)
+        t_lo = int(np.searchsorted(be, c0, side="right"))
+        t_hi = int(np.searchsorted(bs, c0 + ws, side="left"))
+        part = torch.zeros((R, ws), dtype=torch.uint8, device=d)
+        w = max(0, min(ws, W8 - c0))
+        if w:
+            part[:, :w].copy_(tbl8[:, c0:c0 + w])
+        shards.append(TableShard(
+            part,
+            torch.from_numpy(np.clip(bs[t_lo:t_hi] - c0, 0, ws).astype(
+                np.int32)).to(d),
+            torch.from_numpy(np.clip(be[t_lo:t_hi] - c0, 0, ws).astype(
+                np.int32)).to(d),
+            c0, t_lo, t_hi))
+    return shards
+
+
+def _check_combine(parts, t_lo, t_hi, n_hashes, out, col0, cols):
+    nb = t_lo.shape[0] if t_lo.dim() == 1 else -1
+    if (t_lo.dtype != torch.int32 or t_hi.dtype != torch.int32 or nb < 1
+            or t_hi.shape != (nb,)):
+        raise ValueError("t_lo and t_hi must be int32 [nb], nb >= 1")
+    if n_hashes.dtype != torch.int32 or n_hashes.dim() != 1:
+        raise ValueError("n_hashes must be int32 [B]")
+    B = n_hashes.shape[0]
+    if parts.dtype != torch.int32 or parts.dim() != 1:
+        raise ValueError("parts must be flat int32")
+    if out.dtype != torch.int32 or out.dim() != 2 or out.shape[0] != B or (
+            not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous int32 [{B}, ldc]")
+    if cols is not None and (col0 != 0 or cols.dtype != torch.int32
+                             or cols.dim() != 1):
+        raise ValueError("column-max mode takes col0 = 0 and int32 cols [T]")
+
+
+def combine_plain(parts: torch.Tensor, t_lo: torch.Tensor,
+                  t_hi: torch.Tensor, n_hashes: torch.Tensor,
+                  out: torch.Tensor, *, num_targets: int, col0: int = 0,
+                  cols: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the ``combine`` kernel (see :func:`combine`)."""
+    B = n_hashes.shape[0]
+    acc = torch.zeros((B, num_targets), dtype=torch.int64, device=out.device)
+    off = 0
+    for lo, hi in zip(t_lo.tolist(), t_hi.tolist()):
+        acc[:, lo:hi] += parts[off:off + B * (hi - lo)].view(B, hi - lo)
+        off += B * (hi - lo)
+    counts = torch.minimum(acc, n_hashes[:, None].to(torch.int64)).to(
+        torch.int32)
+    if cols is not None:
+        idx = cols.to(torch.int64)
+        out[:, idx] = torch.maximum(out[:, idx], counts)
+    else:
+        out[:, col0:col0 + num_targets] = counts
+    return out
+
+
+def combine(parts: torch.Tensor, t_lo: torch.Tensor, t_hi: torch.Tensor,
+            n_hashes: torch.Tensor, out: torch.Tensor, *, num_targets: int,
+            col0: int = 0, cols: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum the column shards' partial counts of each read, then clamp.
+
+    The cross-shard step of K17 (``ganon_tpu.parallel.mesh.
+    ShardedClassifier.counts``: JAX all-gathers the per-byte counts before
+    the segment sum and the clamp). ``parts`` (flat int32) holds one
+    block per shard ``j``, row-major ``[B, t_hi[j] - t_lo[j]]`` over its
+    targets ``t_lo[j] .. t_hi[j] - 1`` (int32 ``[nb]``), blocks in shard
+    order; ``counts[b, t] = min(n_hashes[b], sum of the partials of
+    (b, t))``, the clamp after the sum. Written into ``out[:, col0:col0 +
+    num_targets]``, or max-merged into ``out[:, cols]`` with ``cols``
+    (column-max mode, a raptor sub); ``out`` is returned.
+    """
+    _check_combine(parts, t_lo, t_hi, n_hashes, out, col0, cols)
+    B = n_hashes.shape[0]
+    if cols is None and not 0 <= col0 <= out.shape[1] - num_targets:
+        raise ValueError("out must hold columns col0 .. col0 + num_targets")
+    if cols is not None and cols.shape != (num_targets,):
+        raise ValueError(f"cols must be int32 [{num_targets}]")
+    if out.device.type == "cpu":
+        return combine_plain(parts, t_lo, t_hi, n_hashes, out,
+                             num_targets=num_targets, col0=col0, cols=cols)
+    kernels.check_cuda(parts, t_lo, t_hi, n_hashes, out,
+                       *([] if cols is None else [cols]))
+    if B == 0 or num_targets == 0:
+        return out
+    kernels.launch("combine", parts, t_lo, t_hi, t_lo.shape[0], B,
+                   num_targets, n_hashes, out, out.shape[1], col0, cols)
     return out

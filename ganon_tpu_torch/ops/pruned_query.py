@@ -12,6 +12,10 @@ block and the fine stage of ``classify_batch_packed_pruned``, and
   (dense ``[B, S, gs]``), or of every group into ``[B, T]`` (probe-all,
   gated by the survive mask or not) (``csrc/fine.cu``); plain version
   :func:`fine_counts_plain`.
+* :func:`fine_shard` — probe-all over one shard's groups of a
+  bins-sharded fine table, into their global columns of ``[B, T]``
+  (``csrc/fine.cu`` shard mode, K17); plain version
+  :func:`fine_shard_plain`.
 
 Both tables are u8 with rows padded to whole u32 words
 (``table_as_u32``'s padding), as the kernels read words. A wrapper given
@@ -277,6 +281,97 @@ def fine_counts(ftbl: torch.Tensor, hashes: torch.Tensor,
     kernels.launch(
         "fine", ftbl, ftbl.shape[0], ftbl.shape[1], hashes, B, M, n_hashes,
         grp_row_off, grp_bin_size, grp_shift, G, fine_h, gs, gsel, slot_ok,
-        S, surv, out, num_targets, counter="fine" if dense else "fine_all",
+        S, surv, out, num_targets, None, 0,
+        counter="fine" if dense else "fine_all",
+    )
+    return out
+
+
+def fine_shard_plain(ftbl: torch.Tensor, hashes: torch.Tensor,
+                     n_hashes: torch.Tensor, grp_row_off: torch.Tensor,
+                     grp_bin_size: torch.Tensor, grp_shift: torch.Tensor,
+                     gid: torch.Tensor, *, fine_h: int, group_size: int,
+                     num_groups: int, surv: torch.Tensor | None,
+                     out: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``fine`` kernel's shard mode (see
+    :func:`fine_shard`)."""
+    B, M = hashes.shape
+    T, gs = out.shape[1], group_size
+    local = torch.nonzero(gid >= 0).reshape(-1)
+    shift = grp_shift.to(torch.int64)
+    step = max(1, _PLANE_CHUNK // max(1, B * M * ftbl.shape[1] * 8))
+    lane = torch.arange(gs, device=out.device)
+    for i0 in range(0, local.numel(), step):
+        loc = local[i0:i0 + step]
+        g = gid[loc].to(torch.int64)
+        live = (torch.ones((B, len(loc)), dtype=torch.bool,
+                           device=hashes.device)
+                if surv is None else surv[:, g].bool())
+        c = _fine_plain(ftbl, hashes, n_hashes, grp_row_off[loc].expand(B, -1),
+                        grp_bin_size[loc].expand(B, -1),
+                        shift[loc].expand(B, -1), live, fine_h=fine_h,
+                        group_size=gs).reshape(B, -1)
+        cols = (g[:, None] * gs + lane).reshape(-1)
+        keep = cols < T
+        out[:, cols[keep]] = c[:, keep]
+    return out
+
+
+def fine_shard(ftbl: torch.Tensor, hashes: torch.Tensor,
+               n_hashes: torch.Tensor, grp_row_off: torch.Tensor,
+               grp_bin_size: torch.Tensor, grp_shift: torch.Tensor,
+               gid: torch.Tensor, *, fine_h: int, group_size: int,
+               num_groups: int, surv: torch.Tensor | None,
+               out: torch.Tensor) -> torch.Tensor:
+    """Probe-all over one shard's groups of a bins-sharded fine table.
+
+    The shard_map body of ``ganon_tpu.parallel.pruned_shard.
+    BinShardedPrunedForest`` (K17): ``ftbl`` is the shard's own table and
+    ``grp_row_off``/``grp_bin_size``/``grp_shift`` (int64, int64, int32
+    ``[G_loc]``) its local groups' geometry; ``gid`` (int32 ``[G_loc]``)
+    maps a local group to its global id, -1 for a pad group. Global group
+    ``g`` writes lanes ``j`` into ``out[:, g*gs + j]`` (``< T``): its
+    counts clamped to n where ``surv[b, g]`` (the replicated gate's u8
+    ``[B, num_groups]``; ``None`` counts every group), zeros elsewhere. A
+    pad group writes nothing; the columns of other shards' groups are
+    left as they are, so every shard of a batch row writes into one
+    matrix. ``out`` is returned.
+    """
+    _check(ftbl, hashes, n_hashes)
+    B, M = hashes.shape
+    G = gid.shape[0] if gid.dim() == 1 else -1
+    if gid.dtype != torch.int32 or G < 1:
+        raise ValueError("gid must be int32 [G_loc], G_loc >= 1")
+    if (grp_row_off.dtype != torch.int64 or grp_bin_size.dtype != torch.int64
+            or grp_shift.dtype != torch.int32
+            or not grp_row_off.shape == grp_bin_size.shape
+            == grp_shift.shape == (G,)):
+        raise ValueError("grp_row_off/grp_bin_size int64 [G_loc], grp_shift "
+                         "int32 [G_loc]")
+    if not 1 <= fine_h <= MAX_HASH_FUNCTIONS or group_size % 8 or (
+            group_size < 8 or group_size > ftbl.shape[1] * 8):
+        raise ValueError("invalid fine_h or group_size")
+    if surv is not None and (surv.dtype != torch.uint8
+                             or surv.shape != (B, num_groups)):
+        raise ValueError(f"surv must be u8 [B, {num_groups}]")
+    if (out.dtype != torch.int32 or out.dim() != 2 or out.shape[0] != B
+            or not out.is_contiguous()
+            or out.shape[1] <= (num_groups - 1) * group_size):
+        raise ValueError("out must be contiguous int32 [B, T] with the last "
+                         "group's columns")
+    kw = dict(fine_h=fine_h, group_size=group_size, num_groups=num_groups,
+              surv=surv, out=out)
+    if ftbl.device.type == "cpu":
+        return fine_shard_plain(ftbl, hashes, n_hashes, grp_row_off,
+                                grp_bin_size, grp_shift, gid, **kw)
+    kernels.check_cuda(ftbl, hashes, n_hashes, grp_row_off, grp_bin_size,
+                       grp_shift, gid, out, *([] if surv is None else [surv]))
+    if B == 0:
+        return out
+    kernels.launch(
+        "fine", ftbl, ftbl.shape[0], ftbl.shape[1], hashes, B, M, n_hashes,
+        grp_row_off, grp_bin_size, grp_shift, G, fine_h, group_size, None,
+        None, 0, surv, out, out.shape[1], gid, num_groups,
+        counter="fine_shard",
     )
     return out

@@ -21,6 +21,12 @@ default build on the card. The two-pass build's kernels: sort at N = 0,
 and 2^16 files; pack with empty rows; dedup with files that have no
 entries; scatter in ranked mode with a target over several bins at h = 1
 and 5; the whole pipeline and run_build on the card against the CPU.
+The device mesh's modes (K17): count in shard mode and combine with a
+target over three shards and with one shard (equal to the flat count),
+combine in column-max mode, fine in shard mode over a shard of pad
+groups only, and the ranked scatter in span mode with every entry
+outside the span; a mesh of the card and the CPU, so inputs and partials
+cross devices.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
@@ -767,3 +773,216 @@ def test_run_build_cuda_matches_cpu(cuda, tmp_path):
         data[d] = out.read_bytes()
     assert len(ibf.bin_map) > len(ibf.hashes_count)  # T0 over several bins
     assert data["cpu"] == data["cuda"]
+
+
+# --- the device mesh's modes (K17): count_shard, combine, fine_shard,
+# scatter_span ----------------------------------------------------------------
+
+
+def _shard_counts(sh_list, h, n, R, hf, T, fn_count, fn_combine):
+    """Every shard's unclamped partials into one buffer, then combine."""
+    B = h.shape[0]
+    widths = [s.t_hi - s.t_lo for s in sh_list]
+    parts = torch.zeros(B * sum(widths), dtype=torch.int32, device=h.device)
+    off = 0
+    for s, w in zip(sh_list, widths):
+        if w:
+            fn_count(s.tbl8, s.byte_starts, s.byte_ends, h, n, bin_size=R,
+                     hash_functions=hf, out=parts[off:off + B * w].view(B, w),
+                     clamp=False)
+        off += B * w
+    lo, hi = (torch.tensor([getattr(s, a) for s in sh_list], dtype=torch.int32,
+                           device=h.device) for a in ("t_lo", "t_hi"))
+    out = torch.zeros((B, T), dtype=torch.int32, device=h.device)
+    return fn_combine(parts, lo, hi, n, out, num_targets=T)
+
+
+@pytest.mark.parametrize("nb", [1, 3, 4])
+def test_count_shard_and_combine_match_plain(cuda, nb):
+    """A target spanning three shards (a wide middle target) and nb = 1,
+    which equals the flat count; kernels against plain versions."""
+    rng = np.random.default_rng(nb)
+    R, hf = 1024, 2
+    widths = np.array([3, 5, 250, 2, 7, 1, 9], dtype=np.int64)  # bins
+    pad = (widths + 7) // 8 * 8
+    ends = (np.cumsum(pad) // 8).astype(np.int32)
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int32)
+    W8 = -(-int(ends[-1]) // 4) * 4
+    tbl8 = torch.from_numpy(rng.integers(0, 256, size=(R, W8), dtype=np.uint8))
+    T = len(widths)
+    B, M = 100, 180
+    h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M)))
+    n = torch.from_numpy(rng.integers(0, M + 20, size=B).astype(np.int32))
+    n[:2] = 0
+    shards = q.shard_table(tbl8, torch.from_numpy(starts),
+                           torch.from_numpy(ends), nb)
+    if nb == 3:
+        assert sum(s.t_lo <= 2 < s.t_hi for s in shards) == 3
+    want = _shard_counts(shards, h, n, R, hf, T, q.target_counts, q.combine)
+    flat = q.bulk_target_counts(tbl8, torch.from_numpy(starts),
+                                torch.from_numpy(ends), h, n, bin_size=R,
+                                hash_functions=hf)
+    assert torch.equal(want, flat)  # the clamp after the sum
+    dshards = [s.to(cuda) for s in shards]
+    dh, dn = _to(cuda, h, n)
+    before = dict(kernels.LAUNCHES)
+    got = _shard_counts(dshards, dh, dn, R, hf, T, q.target_counts, q.combine)
+    plain = _shard_counts(dshards, dh, dn, R, hf, T, q.bulk_target_counts,
+                          q.combine_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and torch.equal(plain.cpu(), want)
+    assert kernels.LAUNCHES["count_shard"] - before["count_shard"] == sum(
+        s.t_hi > s.t_lo for s in shards)
+    assert kernels.LAUNCHES["combine"] == before["combine"] + 1
+
+
+def test_combine_column_max_mode_matches_plain(cuda):
+    rng = np.random.default_rng(3)
+    B, T, nb = 64, 40, 3
+    spans = [(0, 15), (14, 30), (29, 40)]
+    lo = torch.tensor([a for a, _ in spans], dtype=torch.int32)
+    hi = torch.tensor([b for _, b in spans], dtype=torch.int32)
+    parts = torch.from_numpy(rng.integers(0, 50, size=B * sum(
+        b - a for a, b in spans)).astype(np.int32))
+    n = torch.from_numpy(rng.integers(0, 80, size=B).astype(np.int32))
+    cols = torch.from_numpy(rng.permutation(60)[:T].astype(np.int32))
+    base = torch.from_numpy(rng.integers(0, 60, size=(B, 60)).astype(np.int32))
+    want = q.combine_plain(parts, lo, hi, n, base.clone(), num_targets=T,
+                           cols=cols)
+    got = q.combine(*_to(cuda, parts, lo, hi, n, base), num_targets=T,
+                    cols=cols.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("pads_only", [False, True])
+def test_fine_shard_matches_plain(cuda, pads_only):
+    """A shard of real groups and pad groups, and a shard made only of pad
+    groups (it writes nothing)."""
+    rng = np.random.default_rng(11)
+    G, gs, B, M = 10, 16, 120, 200
+    (ftbl, h, n, off, bsz, shift), T = _fine_inputs(rng, G, gs, 5, B, M)
+    gid = torch.tensor([-1, -1] if pads_only else [1, 4, 9, -1],
+                       dtype=torch.int32)
+    loc = torch.clamp(gid, min=0).to(torch.int64)
+    surv = torch.from_numpy((rng.random((B, G)) < 0.6).astype(np.uint8))
+    args = (ftbl, h, n, off[loc], bsz[loc], shift[loc], gid)
+    kw = dict(fine_h=2, group_size=gs, num_groups=G, surv=surv)
+    sentinel = torch.full((B, T), -7, dtype=torch.int32)
+    want = pq.fine_shard_plain(*args, **kw, out=sentinel.clone())
+    before = kernels.LAUNCHES["fine_shard"]
+    got = pq.fine_shard(*_to(cuda, *args), **{**kw, "surv": surv.to(cuda)},
+                        out=sentinel.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert kernels.LAUNCHES["fine_shard"] == before + 1
+    if pads_only:
+        assert (want == -7).all()
+    else:
+        assert (want[:, 4 * gs:5 * gs] >= 0).all() and (want > 0).any()
+
+
+def test_scatter_span_matches_plain(cuda):
+    """Spans of a ranked scatter: their union is the whole matrix, and a
+    span every entry misses stays zero (entries before it dropped, not
+    wrapped)."""
+    rng = np.random.default_rng(21)
+    R, N, bin_size, hf = 8, 20_000, 4001, 3
+    key, val = _entries(rng, N, R)
+    sk, sv = bo.sort_entries(key, val, key_bits=3)
+    counts = torch.zeros(R, dtype=torch.int32)
+    uniq, rank = bo.dedup(sk, sv, num_files=R, counts=counts)
+    c = counts.numpy()
+    params = np.zeros((4, R), dtype=np.int32)
+    params[0] = np.arange(R) * 2
+    params[1] = np.maximum(-(-c // 2), 1)
+    params[3] = np.concatenate([[0], np.cumsum(c)[:-1]])
+    params = torch.from_numpy(params)
+    n_words = 1
+    full = torch.zeros((bin_size, n_words), dtype=torch.int32)
+    bo.scatter_ranked(full, sk, sv, uniq, rank, params, bin_size=bin_size,
+                      hash_functions=hf)
+    d_args = _to(cuda, sk, sv, uniq, rank, params)
+    rows = 1000
+    got = []
+    for r0 in range(0, bin_size, rows):
+        rc = min(rows, bin_size - r0)
+        want = torch.zeros((rc, n_words), dtype=torch.int32)
+        bo.scatter_ranked_plain(want, sk, sv, uniq, rank, params,
+                                bin_size=bin_size, hash_functions=hf,
+                                w0=r0 * n_words)
+        g = torch.zeros((rc, n_words), dtype=torch.int32, device=cuda)
+        bo.scatter_ranked(g, *d_args, bin_size=bin_size, hash_functions=hf,
+                          w0=r0 * n_words)
+        torch.cuda.synchronize()
+        assert torch.equal(g.cpu(), want)
+        got.append(want)
+    assert torch.equal(torch.cat(got), full)
+    # entries land only in words below bin_size rows: a span past them
+    past = torch.zeros((rows, n_words), dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["scatter_span"]
+    bo.scatter_ranked(past, *d_args, bin_size=bin_size, hash_functions=hf,
+                      w0=bin_size * n_words)
+    torch.cuda.synchronize()
+    assert not past.any()
+    assert kernels.LAUNCHES["scatter_span"] == before + 1
+
+
+def test_mixed_mesh_moves_partials_across_devices(cuda):
+    """A (2, 2) mesh of the card and the CPU: each batch row has a shard
+    on the other device, so the inputs go over to it and its partials
+    (the count shards' and the pruned shards' columns) come back to the
+    row's first device, in both directions. The counts equal an all-CPU
+    mesh's and the single-device filter's."""
+    from ganon_tpu_torch.index.builder import _HashExtractor
+    from ganon_tpu_torch.index.ibf import build_ibf
+    from ganon_tpu_torch.index.pruned import build_pruned
+    from ganon_tpu_torch.parallel.mesh import Mesh, ShardedClassifier
+    from ganon_tpu_torch.parallel.pruned_shard import BinShardedPrunedForest
+
+    rng = np.random.default_rng(13)
+    sizes = [2000] * 20 + [200_000]
+    genomes = {f"T{t:02d}": rng.integers(0, 4, size=n, dtype=np.uint8)
+               for t, n in enumerate(sizes)}
+    ex = _HashExtractor(19, 31, device="cpu")
+    for t, g in genomes.items():
+        ex.add_encoded(t, g)
+    th = ex.finish()
+    ibf = build_ibf(th, kmer_size=19, window_size=31, device="cpu")
+    cpu, c0 = torch.device("cpu"), torch.device("cuda",
+                                                torch.cuda.current_device())
+    mixed = Mesh([[c0, cpu], [cpu, c0]])
+    B, L = 61, 150
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    names = sorted(genomes)
+    for b in range(0, B, 2):
+        g = genomes[names[b % len(names)]]
+        s = int(rng.integers(0, len(g) - L))
+        codes[b] = g[s:s + L]
+    lengths = np.full(B, L, np.int32)
+    lengths[5] = 0
+    before = dict(kernels.LAUNCHES)
+    got_c, got_n = ShardedClassifier(ibf, mixed).counts(codes, lengths)
+    launched = {k: kernels.LAUNCHES[k] - before[k]
+                for k in ("count_shard", "combine")}
+    want_c, want_n = ShardedClassifier(
+        ibf, Mesh([[cpu, cpu], [cpu, cpu]])).counts(codes, lengths)
+    assert got_c.device == c0
+    assert torch.equal(got_c.cpu(), want_c) and torch.equal(got_n.cpu(), want_n)
+    assert want_c.any()
+    assert launched["count_shard"] >= 2 and launched["combine"] == 1
+
+    pf = build_pruned(th, kmer_size=19, window_size=31, group_size=8)
+    assert pf.num_groups % 2  # a pad group on one shard
+    fc = dev.DevicePrunedForest(pf, "cpu")
+    L4 = -(-L // 4) * 4
+    inbuf = np.zeros((B, L4 // 4 + 4), np.uint8)
+    inbuf[:, :L4 // 4] = dev.pack_codes_2bit(codes)
+    inbuf[:, L4 // 4:] = lengths.view(np.uint8).reshape(B, 4)
+    h, n, _ = q.extract(torch.from_numpy(inbuf), L1=L4, L2=0, k=19, w=31,
+                        mc=L4 - 31 + 1)
+    before = kernels.LAUNCHES["fine_shard"]
+    got = BinShardedPrunedForest(pf, mixed).counts_gated(h, n, 0.3)
+    assert kernels.LAUNCHES["fine_shard"] == before + 2
+    want = fc.counts_gated(h, n, 0.3)
+    assert torch.equal(got, want) and want.any()

@@ -38,6 +38,9 @@ def test_port_imports_without_jax_and_pandas():
         "import ganon_tpu_torch.build, ganon_tpu_torch.taxonomy\n"
         "import ganon_tpu_torch.index.device_build\n"
         "import ganon_tpu_torch.ops.build_ops\n"
+        "import ganon_tpu_torch.parallel, ganon_tpu_torch.parallel.mesh\n"
+        "import ganon_tpu_torch.parallel.multihost\n"
+        "import ganon_tpu_torch.parallel.pruned_shard\n"
         "assert not any(m == 'ganon_tpu' or m.startswith('ganon_tpu.')"
         " for m in sys.modules)\n"
         "print('ok')\n"
