@@ -42,6 +42,13 @@ Phases, one output line each:
              ``db.ibf`` and, in forest mode, on the forest's last sub; merge
              and select with winners on the 1024 + 448 union of ``db`` and
              ``db_b``), required equal, both timed with CUDA events;
+             the transfer kernels at the same shapes: ``ragged`` on
+             select's buffer (with and without winners) at the engine's
+             cap of 2 slots a read, ``probe_sort`` (count's input with
+             sort_probes; count timed on sorted and unsorted hashes,
+             equal counts), and ``classify_batch_packed`` with
+             sort_probes, equal to its buffer without; the gather probe
+             (the Pallas probe's port: 1M random rows of a 4 MB table);
 4. classify  524,288 read pairs through ``python -m ganon_tpu_torch.cli
              classify`` (run in this process, so the launch counts are
              readable; the filters loaded in phase 3 stay cached), then
@@ -50,7 +57,20 @@ Phases, one output line each:
              pair lists its true target in ``.all``, and on its first 4096
              pairs the CUDA and ``device="cpu"`` runs write identical
              sorted ``.all``, ``.one`` and ``.rep`` (here, while ``db``'s
-             table is still in the filter cache);
+             table is still in the filter cache); the runs take the ragged
+             match stream (line ``classify_transfer``: batches on it, cap
+             overflows, final slots, bytes fetched against the dense
+             layout's), and ``classify_batch_packed`` at 1024 pairs on the
+             card equals its run on the filter moved to the CPU at
+             ``match_cap`` 0 and at a cap it overflows;
+ops          the ``ganon_tpu_torch.ops`` library (K18) at the flat
+             filter's width, while ``db`` is cached: db's interleaved bits
+             uploaded as saved, both mates of phase 3's 8192 pairs as
+             16,384 single reads through ``minimizers``,
+             ``ibf_row_indices``, ``bulk_count_bins``, ``target_counts``
+             and ``bulk_target_counts``; the two per-target results equal
+             each other and the packed ``count`` (clamp off) on the same
+             hashes; each kernel against its plain version;
 mesh         the (batch, bins) device mesh (K17) over eight views of
              ``cuda:0`` (2 x 4), while ``db``'s table is still cached: the
              filter cut into column shards on the card (no host repack),
@@ -79,7 +99,9 @@ longreads    the 32-bit counter layout (``select`` in its 32-bit mode) at
              against its plain version at the ultra-long batch and at
              T = 70,000; on the first 4096 reads of each the card and
              ``device="cpu"`` write identical sorted ``.all``, ``.one``,
-             ``.rep`` and ``.tre`` and a byte-equal ``.sta``;
+             ``.rep`` and ``.tre`` and a byte-equal ``.sta``; ``bins``
+             and ``tsum`` on ``wide.ibf``'s matrix at 1024 reads, equal to
+             their plain versions and to the packed count;
 hierarchy    524,288 pairs (25% from the forest's targets, 70% from the
              level-2 targets, 5% random) through the CLI with
              ``--db-prefix host db db_b --hierarchy-labels 1_host 2_refs
@@ -117,8 +139,11 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              8192 targets), byte-equal to ``pruned.hibf`` (line
              ``pruned_build_custom``); ``gate``, ``fine``, ``fine``
              probe-all, ``select`` in lanes mode and ``scatter`` in pruned
-             mode (4M pairs) against their plain versions at 8192 pairs
-             (line ``pruned_kernels``, rows of the kernels line); then
+             mode (4M pairs) against their plain versions at 8192 pairs,
+             and ``pairs`` at the engine's pair cap (line
+             ``pruned_kernels``, rows of the kernels line); the packed
+             batch on the card equal to the CPU's at pair caps 0, 8 and
+             B * S; then
              1,048,576 pairs (95% sampled, 5% random) through the CLI,
              profiled again with the count of batches that took the exact
              probe-all path; every sampled pair lists its true target in
@@ -131,6 +156,7 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              ``DevicePrunedForest.counts_gated``, and ``fine`` in shard
              mode against its plain version at shard 0;
 5. checks    every kernel mode launched on the main paths (builds, the
+             ops library, the sort_probes batch, the gather probe, the
              two build-custom runs, the reference-format build, the mesh
              build, the classify CLI runs and the mesh runs, the longreads
              phase's runs and the raptor and pruned phases' card runs).
@@ -140,7 +166,12 @@ it. Then one JSON line of every kernel mode (its time and its plain
 version's, its bound at these inputs, the larger of bytes over 3.35 TB/s
 and operations over 67 T/s, its launches on the main paths, and the
 time of one PyTorch call computing the same function where there is one),
-and last the device line. Any failure raises (exit code 1); without CUDA the script
+and last the device line. Every classify CLI run of phases 4,
+hierarchy, raptor and pruned prints a ``transfer=<phase>`` line of its
+own: per level, the batches fetched as the ragged stream and dense, the
+cap overflows and final slots a read, the pair-spill retries, and the
+bytes fetched per batch against the dense layout's at the same B and K.
+Any failure raises (exit code 1); without CUDA the script
 exits 2 before any work. If a run nears the time limit, ``wall_s`` says
 where to cut: the host's filter loads (repacks), npz and raptor writers
 and the ``device="cpu"`` checks take most of it, the pair counts little.
@@ -149,6 +180,7 @@ and the ``device="cpu"`` checks take most of it, the pair counts little.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import os
@@ -490,6 +522,34 @@ def _true_target_rows(path):
     return rows
 
 
+def _transfer_line(phase, result) -> None:
+    """Print a classify run's result transfers (``run_classify``'s
+    ``transfer``), per level, with the bytes per batch."""
+    levels = {}
+    for label, tr in result["transfer"].items():
+        n = tr["ragged_batches"] + tr["dense_batches"]
+        levels[label] = dict(
+            tr, fetched_bytes_per_batch=tr["fetched_bytes"] / max(n, 1),
+            dense_bytes_per_batch=tr["dense_bytes"] / max(n, 1))
+    print(f"transfer={phase} " + json.dumps(levels), flush=True)
+
+
+def _ragged_work(dense, B, K, cap, has_win=False, n_extra=0):
+    """(bytes, ops) of the ragged stream of a dense buffer: the four [B]
+    rows, the valid entries, the extra rows and tail in; the stream, the
+    two words, the extra rows and tail out; a scan step per read and a
+    move per entry."""
+    import torch
+
+    o = B * K * (2 if has_win else 1)
+    nm = dense[o:o + B].to(torch.int64)
+    total = int(torch.clamp(nm, 0, K).sum())
+    rest = dense.numel() - o - 4 * B  # extra rows and tail
+    blocks = 2 if has_win else 1
+    return (4 * (4 * B + blocks * total + rest)
+            + 4 * (blocks * cap + 2 * B + rest), B + total)
+
+
 def _run_cli(argv):
     from ganon_tpu_torch.cli import main_cli
 
@@ -617,7 +677,7 @@ def main() -> int:
     from ganon_tpu_torch.ops import build_ops as bo
     from ganon_tpu_torch.ops import ibf_query as q
     from ganon_tpu_torch.ops import pruned_query as pq
-    from ganon_tpu_torch.ops.minimizers import u64_to_torch
+    from ganon_tpu_torch.ops.winnow import u64_to_torch
     # the tests' layout writer, loaded by its path: a `tests` package
     # installed on the machine would shadow the repo's directory
     spec = importlib.util.spec_from_file_location(
@@ -1054,15 +1114,55 @@ def main() -> int:
     (counts,) = compare(
         "count", "ganon_tpu_torch/csrc/count.cu",
         "ganon_tpu/ops/ibf_query.py:320",
-        lambda: (q.target_counts(f.tbl8, f.byte_starts, f.byte_ends, hashes,
-                                 n_hashes, bin_size=bin_size,
-                                 hash_functions=h),),
-        lambda: (q.bulk_target_counts(f.tbl8, f.byte_starts, f.byte_ends,
-                                      hashes, n_hashes, bin_size=bin_size,
-                                      hash_functions=h),), 20, 3,
+        lambda: (q.bulk_target_counts_packed(
+            f.tbl8, f.byte_starts, f.byte_ends, hashes, n_hashes,
+            bin_size=bin_size, hash_functions=h),),
+        lambda: (q.bulk_target_counts_packed_plain(
+            f.tbl8, f.byte_starts, f.byte_ends, hashes, n_hashes,
+            bin_size=bin_size, hash_functions=h),), 20, 3,
         _count_work(f.tbl8, hashes, n_hashes, bin_size, h,
                     args.bench_pairs * f.num_targets * 4),
     )
+    # sort_probes (a branch of K5): each read's hashes ordered by their
+    # first row before count; the library yardstick sorts the same keys
+    pkeys = q._probe_keys(hashes, n_hashes, bin_size=bin_size)
+    M_c = hashes.shape[1]
+    (sorted_h,) = compare(
+        "probe_sort", "ganon_tpu_torch/csrc/psort.cu",
+        "ganon_tpu/classify/device.py:375",
+        lambda: (q.probe_sort(hashes, n_hashes, bin_size=bin_size),),
+        lambda: (q.probe_sort_plain(hashes, n_hashes, bin_size=bin_size),),
+        20, 5,
+        # hashes and n in, hashes out; a comparison sort's M log2 M
+        # compares per read
+        (2 * _nbytes(hashes) + _nbytes(n_hashes),
+         args.bench_pairs * M_c * max(1, (M_c - 1).bit_length())),
+        library=lambda: torch.sort(pkeys, dim=1, stable=True))
+
+    def count_of(hs):
+        return q.bulk_target_counts_packed(
+            f.tbl8, f.byte_starts, f.byte_ends, hs, n_hashes,
+            bin_size=bin_size, hash_functions=h)
+
+    if not torch.equal(count_of(sorted_h), counts):
+        raise AssertionError("count: sorted probes change the counts")
+    # unsorted, sorted, sorted, unsorted in one call (the probe question
+    # of scripts/probe_locality.py on this card)
+    sort_probes_ms = [_ms(lambda: count_of(hs), 20)
+                      for hs in (hashes, sorted_h, sorted_h, hashes)]
+    # the sort_probes batch through classify_batch_packed: its buffer
+    # equals the unsorted one (launches counted for the checks phase)
+    kernels.reset_launches()
+    sp_buf = dev.classify_batch_packed(
+        f, inbuf, 0.75, 0.1, 65535, k=k, w=w, L1=L1, L2=L2, top_k=32,
+        sort_probes=True)
+    torch.cuda.synchronize()
+    sp_launches = dict(kernels.LAUNCHES)
+    if not torch.equal(sp_buf, dev.classify_batch_packed(
+            f, inbuf, 0.75, 0.1, 65535, k=k, w=w, L1=L1, L2=L2, top_k=32)):
+        raise AssertionError("classify_batch_packed: sort_probes changes "
+                             "the buffer")
+    del pkeys, sp_buf
     # forest mode: the forest's last sub into its columns (col0 > 0) of
     # the forest's [B, T] matrix, zeroed as DeviceHIBF.counts does
     sub, col0 = fh.subs[-1], int(fh.sub_cols[-1][0])
@@ -1075,9 +1175,10 @@ def main() -> int:
     compare(
         "count_forest", "ganon_tpu_torch/csrc/count.cu",
         "ganon_tpu/classify/device.py:432",
-        lambda: (q.target_counts(*sub_args, out=fout_k.zero_(), **sub_kw),),
-        lambda: (q.bulk_target_counts(*sub_args, out=fout_p.zero_(),
-                                      **sub_kw),), 20, 3,
+        lambda: (q.bulk_target_counts_packed(*sub_args, out=fout_k.zero_(),
+                                             **sub_kw),),
+        lambda: (q.bulk_target_counts_packed_plain(
+            *sub_args, out=fout_p.zero_(), **sub_kw),), 20, 3,
         _count_work(sub.tbl8, hashes, n_hashes, sub_kw["bin_size"],
                     sub_kw["hash_functions"],
                     args.bench_pairs * sub.num_targets * 4),
@@ -1126,6 +1227,20 @@ def main() -> int:
          + 4 * (args.bench_pairs * (K + 4) + f.num_targets + 3),
          4 * counts.numel()),
     )
+    # the ragged stream of that buffer at the engine's cap (2 slots a
+    # read); the yardstick is the scan alone, torch.cumsum of the flags
+    B_ = args.bench_pairs
+    rcap = 2 * B_
+    dense = dev.select(*sel_args, top_k=K, emit_matches_t=False)
+    nmatch = dense[B_ * K:B_ * K + B_]
+    rflags = (torch.arange(K, device=cuda)[None, :]
+              < nmatch[:, None]).reshape(-1).to(torch.int32)
+    compare("ragged", "ganon_tpu_torch/csrc/scan.cu",
+            "ganon_tpu/classify/device.py:280",
+            lambda: (dev.ragged(dense, B_, K, rcap),),
+            lambda: (dev.ragged_plain(dense, B_, K, rcap),), 20, 5,
+            _ragged_work(dense, B_, K, rcap),
+            library=lambda: torch.cumsum(rflags, 0))
     KU = min(32, U)
     usel = (ucounts, n_hashes, overflow, 0.0, 0.1, 65535)
     compare(
@@ -1141,6 +1256,19 @@ def main() -> int:
          + 4 * (args.bench_pairs * (2 * KU + 4) + U + 3),
          4 * ucounts.numel()),
     )
+    udense = dev.select(*usel, top_k=KU, emit_matches_t=False, uwin=uwin)
+    unmatch = udense[2 * B_ * KU:2 * B_ * KU + B_]
+    uflags = (torch.arange(KU, device=cuda)[None, :]
+              < unmatch[:, None]).reshape(-1).to(torch.int32)
+    compare("ragged_winners", "ganon_tpu_torch/csrc/scan.cu",
+            "ganon_tpu/classify/device.py:280",
+            lambda: (dev.ragged(udense, B_, KU, rcap, has_win=True),),
+            lambda: (dev.ragged_plain(udense, B_, KU, rcap, has_win=True),),
+            20, 5, _ragged_work(udense, B_, KU, rcap, has_win=True),
+            library=lambda: torch.cumsum(uflags, 0))
+    ragged_total = [int(torch.clamp(x, 0, kk).sum())
+                    for x, kk in ((nmatch, K), (unmatch, KU))]
+    del dense, udense, rflags, uflags
     # one main-path scatter chunk: the build's first SCATTER_CHUNK pairs
     splits = sizing.split_target_bins(cfg, ibf.hashes_count)
     sh, sb, n = [], [], 0
@@ -1172,6 +1300,30 @@ def main() -> int:
             "ganon_tpu/index/ibf.py:231", scatter_kernel, scatter_plain, 10, 3,
             (_nbytes(sh, sb) + swords * 4, srows.numel()))
     del srows
+    # the Pallas gather probe's port at its own shapes (its run counted
+    # for the checks phase; no PyTorch call gathers, popcounts and sums
+    # by lane in one)
+    from ganon_tpu_torch.ops import probe
+
+    grng = np.random.default_rng(args.seed + 14)
+    gtbl = torch.from_numpy(grng.integers(0, 256, size=(probe.R, probe.W8),
+                                          dtype=np.uint8)).to(cuda)
+    grows = torch.from_numpy(grng.integers(0, probe.R, size=probe.NPROBE)
+                             .astype(np.int32)).to(cuda)
+    kernels.reset_launches()
+    probe.gather_probe(gtbl, grows)
+    torch.cuda.synchronize()
+    gprobe_launches = dict(kernels.LAUNCHES)
+    compare("gather_probe", "ganon_tpu_torch/csrc/gprobe.cu",
+            "scripts/pallas_gather_probe.py:28",
+            lambda: (probe.gather_probe(gtbl, grows),),
+            lambda: (probe.gather_probe_plain(gtbl, grows),), 20, 5,
+            # the distinct rows probed, the rows and the lanes; a popcount
+            # and an add per word
+            (int(torch.unique(grows).numel()) * probe.W8 + _nbytes(grows)
+             + 512, 16 * probe.NPROBE))
+    gprobe_ms = rows[-1]["ms"]
+    del gtbl, grows
     emit("kernels", {
         "pairs": args.bench_pairs, "L1": L1, "L2": L2, "mc": mc,
         "filter_load_s": load_s["db"],
@@ -1179,10 +1331,15 @@ def main() -> int:
         "table_bytes": int(f.tbl8.numel()),
         "forest_sub_col0": col0, "union_targets": U,
         "scatter_pairs": int(sh.numel()),
+        "count_ms_unsorted_sorted_sorted_unsorted": sort_probes_ms,
+        "sort_probes_buffer_equal": True,
+        "ragged_cap": rcap, "ragged_entries": ragged_total,
+        "gather_probe_rows_per_s": probe.NPROBE / (gprobe_ms / 1e3),
         "equal": [r["name"] for r in rows],
         "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
     })
     del f, fh, fb, sub, sub_args, bits_k, bits_p, counts, counts_b, hashes
+    del sorted_h
     del fout_k, fout_p, uk, ucounts, uwin, sel_args, usel
     torch.cuda.empty_cache()
 
@@ -1198,10 +1355,16 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_argv = ["--multiple-matches", "lca", "--output-one", "--output-all",
                 "--output-unclassified", "--output-stats", "--skip-report"]
-    _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", db,
-              "--paired-reads", fq1, fq2, "--output-prefix", out, *cli_argv])
+    engine_run = ("ganon_tpu_torch.classify.engine", "run_classify")
+    with _CallTimes(engine_run) as ct:
+        _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", db,
+                  "--paired-reads", fq1, fq2, "--output-prefix", out,
+                  *cli_argv])
     cli_s = time.perf_counter() - t0
     cli_launches = dict(kernels.LAUNCHES)
+    _transfer_line("classify", ct.results["run_classify"])
+    if cli_launches["ragged"] <= 0:
+        raise AssertionError("classify: the CLI run took no ragged stream")
     mbp = args.pairs * 2 * args.read_len / 1e6
     # the same reads through run_classify under torch.profiler: the
     # engine's time split and the card's busy share of the wall clock
@@ -1241,6 +1404,31 @@ def main() -> int:
     for ext in (".all", ".one", ".rep"):
         if subs["cuda"][ext] != subs["cpu"][ext]:
             raise AssertionError(f"cuda and cpu runs differ in {ext}")
+    # classify_batch_packed on the card and on the filter moved to the
+    # CPU (no repack), at 1024 pairs: dense, and a ragged cap it overflows
+    fc = dev.load_device_filter(db + ".ibf", cuda)
+    fcpu = fc.to("cpu")
+    nb = 1024
+    cb = EncodedBatch(prefix="", paired=True, ids=ids[:nb], codes1=r1[:nb],
+                      len1=np.full(nb, args.read_len, np.int32),
+                      codes2=r2[:nb], len2=np.full(nb, args.read_len,
+                                                   np.int32))
+    cin, cL1, cL2 = dev.pack_batch_direct(cb, nb)
+    cap_checks = {}
+    for cap in (0, nb // 2):
+        bufs = [dev.classify_batch_packed(
+            fx, torch.from_numpy(cin).to(fx.device), 0.75, 0.1, 65535, k=k,
+            w=w, L1=cL1, L2=cL2, top_k=32, match_cap=cap).cpu()
+            for fx in (fc, fcpu)]
+        if not torch.equal(bufs[0], bufs[1]):
+            raise AssertionError(f"classify_batch_packed: card and cpu "
+                                 f"differ at match_cap {cap}")
+        if cap:
+            cap_checks["overflowed"] = dev.unpack_batch_result_ragged(
+                bufs[0].numpy(), nb, cap, fc.num_targets, 32)["cap_overflow"]
+    if not cap_checks["overflowed"]:
+        raise AssertionError("classify_batch_packed: the small cap held")
+    del fc, fcpu, bufs
     emit("classify", {
         "pairs": args.pairs, "seconds": cli_s,
         "reads_per_s": args.pairs / cli_s,
@@ -1254,8 +1442,103 @@ def main() -> int:
         "pairs_with_true_target": len(found),
         "cuda_equals_cpu_pairs": nc,
         "cuda_equals_cpu_lines": {e: len(v) for e, v in subs["cuda"].items()},
+        "batch_cuda_equals_cpu_match_caps": [0, nb // 2],
     })
     del found, subs
+
+    # ops: the library API (K18) at the flat filter's width, while db's
+    # packed table is cached -----------------------------------------------
+    from ganon_tpu_torch.ops import library as lib
+
+    t0 = time.perf_counter()
+    bits_d = torch.from_numpy(ibf.bits.view(np.int32)).to(cuda)
+    upload_s = time.perf_counter() - t0
+    b2t = ibf.bin_to_target_ids()  # [32 n_words], padding bins T
+    T_db = len(ibf.targets())
+    perm, starts, ends = lib.target_segments(b2t, T_db)
+    seg = [torch.from_numpy(x).to(cuda) for x in (starts, ends)]
+    perm_d = (None if perm is None else
+              torch.from_numpy(perm.astype(np.int32)).to(cuda))
+    b2t_d = torch.from_numpy(b2t).to(cuda)
+    _, o1, o2 = _sample_pairs(np.random.default_rng(args.seed + 2), genomes,
+                              args.bench_pairs, args.read_len)
+    ocodes = torch.from_numpy(np.concatenate([o1, o2])).to(cuda)
+    nr = ocodes.shape[0]
+    olens = torch.full((nr,), args.read_len, dtype=torch.int32, device=cuda)
+    mm = args.read_len - w + 1  # every window: nothing is cut
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    oh, on = lib.minimizers(ocodes, olens, k=k, w=w, max_minimizers=mm)
+    orows = lib.ibf_row_indices(oh, bin_size=bin_size, hash_functions=h)
+    omask = torch.arange(mm, device=cuda)[None, :] < on[:, None]
+    obins = lib.bulk_count_bins(bits_d, orows, omask)
+    otc = lib.target_counts(obins, b2t_d, num_targets=T_db)
+    obtc = lib.bulk_target_counts(bits_d, orows, omask, *seg, perm_d)
+    torch.cuda.synchronize()
+    ops_s = time.perf_counter() - t0
+    ops_launches = dict(kernels.LAUNCHES)
+    f = dev.load_device_filter(db + ".ibf", cuda)
+    packed_tc = q.bulk_target_counts_packed(
+        f.tbl8, f.byte_starts, f.byte_ends, oh, on, bin_size=bin_size,
+        hash_functions=h, clamp=False)
+    if not (torch.equal(otc, obtc) and torch.equal(otc, packed_tc)):
+        raise AssertionError("ops: target_counts, bulk_target_counts and "
+                             "the packed count differ")
+    if f.targets != ibf.targets() or not int(otc.sum()):
+        raise AssertionError("ops: the target orders differ or nothing "
+                             "counted")
+    nvalid = int(omask.sum())
+    ob_rows = int(torch.unique(orows[omask]).numel())
+    Wd = bits_d.shape[1]
+    TB = Wd * 32
+    compare("minimizers", "ganon_tpu_torch/csrc/extract.cu",
+            "ganon_tpu/ops/minimizers.py:134",
+            lambda: lib.minimizers(ocodes, olens, k=k, w=w,
+                                   max_minimizers=mm),
+            lambda: lib.minimizers_plain(ocodes, olens, k=k, w=w,
+                                         max_minimizers=mm), 20, 3,
+            # ranks and lengths in, hashes and n out; ~8 operations a base
+            (_nbytes(ocodes, olens, oh, on), 8 * ocodes.numel()))
+    compare("bins", "ganon_tpu_torch/csrc/bins.cu",
+            "ganon_tpu/ops/ibf_query.py:113",
+            lambda: (lib.bulk_count_bins(bits_d, orows, omask),),
+            lambda: (lib.bulk_count_bins_plain(bits_d, orows, omask),), 10, 3,
+            # the distinct rows probed, rows and mask in, [B, 32 W] out; an
+            # AND per row word and an add per bit
+            (ob_rows * Wd * 4 + _nbytes(orows, omask, obins),
+             nvalid * Wd * (h + 32)))
+    onehot = torch.nn.functional.one_hot(
+        b2t_d.to(torch.int64), T_db + 1).to(torch.float32)
+    obins_f = obins.to(torch.float32)
+    compare("tsum", "ganon_tpu_torch/csrc/bins.cu",
+            "ganon_tpu/ops/ibf_query.py:137",
+            lambda: (lib.target_counts(obins, b2t_d, num_targets=T_db),),
+            lambda: (lib.target_counts_plain(obins, b2t_d,
+                                             num_targets=T_db),), 20, 5,
+            # the per-bin counts and the map in, [B, T] out; an add a bin
+            (_nbytes(obins, b2t_d, otc), obins.numel()),
+            # JAX's own form: f32 counts by the one-hot map (exact below
+            # 2^24, and no int64 out)
+            library=lambda: torch.matmul(obins_f, onehot))
+    compare("bins_target", "ganon_tpu_torch/csrc/bins.cu",
+            "ganon_tpu/ops/ibf_query.py:470",
+            lambda: (lib.bulk_target_counts(bits_d, orows, omask, *seg,
+                                            perm_d),),
+            lambda: (lib.bulk_target_counts_plain(bits_d, orows, omask, *seg,
+                                                  perm_d),), 10, 3,
+            (ob_rows * Wd * 4 + _nbytes(orows, omask, otc, *seg),
+             nvalid * Wd * (h + 32) + nr * TB))
+    emit("ops", {
+        "reads": nr, "max_minimizers": mm, "bits_bytes": int(ibf.bits.nbytes),
+        "upload_s": upload_s, "n_words": Wd, "targets": T_db,
+        "perm_identity": perm is None, "valid_hashes": nvalid,
+        "chain_s": ops_s, "launches": ops_launches,
+        "equal_to_packed_count": True,
+        "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows[-4:]},
+    })
+    del bits_d, oh, on, orows, omask, obins, otc, obtc, packed_tc, onehot
+    del obins_f, ocodes, seg, perm_d, b2t_d, f
+    torch.cuda.empty_cache()
 
     # mesh: the (batch, bins) device mesh (K17) over eight views of the
     # card, while db's packed table is still in the filter cache -----------
@@ -1305,10 +1588,10 @@ def main() -> int:
                clamp=False)
     compare("count_shard", "ganon_tpu_torch/csrc/count.cu",
             "ganon_tpu/parallel/mesh.py:79",
-            lambda: (q.target_counts(sh0.tbl8, sh0.byte_starts, sh0.byte_ends,
-                                     h0, n0, **ckw),),
-            lambda: (q.bulk_target_counts(sh0.tbl8, sh0.byte_starts,
-                                          sh0.byte_ends, h0, n0, **ckw),),
+            lambda: (q.bulk_target_counts_packed(
+                sh0.tbl8, sh0.byte_starts, sh0.byte_ends, h0, n0, **ckw),),
+            lambda: (q.bulk_target_counts_packed_plain(
+                sh0.tbl8, sh0.byte_starts, sh0.byte_ends, h0, n0, **ckw),),
             20, 3,
             _count_work(sh0.tbl8, h0, n0, cfg.bin_size_bits,
                         cfg.hash_functions, Bh * tab.widths[0] * 4))
@@ -1319,8 +1602,8 @@ def main() -> int:
     for j, (s_, w_) in enumerate(zip(tab.shards[0], tab.widths)):
         if w_:
             blk = parts[off:off + Bh * w_].view(Bh, w_)
-            q.target_counts(s_.tbl8, s_.byte_starts, s_.byte_ends, h0, n0,
-                            out=blk, **ckw)
+            q.bulk_target_counts_packed(s_.tbl8, s_.byte_starts,
+                                        s_.byte_ends, h0, n0, out=blk, **ckw)
             dense[j, :, s_.t_lo:s_.t_hi] = blk
         off += Bh * w_
     lo, hi = tab.spans[0]
@@ -1593,6 +1876,9 @@ def main() -> int:
     wcol = {t: i for i, t in enumerate(wibf.targets())}
     if len(wcol) <= 0xFFFF:
         raise AssertionError("the wide filter has at most 65,535 targets")
+    wbits = wibf.bits
+    wb2t = wibf.bin_to_target_ids()
+    wcfg = wibf.ibf_config
     del wibf
     # select32 at T = wide targets, K = 4 (the adaptive start past 4096
     # targets), 8192 pairs
@@ -1624,7 +1910,44 @@ def main() -> int:
          + 4 * (args.bench_pairs * (2 * K32 + 4) + fw.num_targets + 3),
          4 * wcounts.numel()),
     )
-    del fw, wh, wn, wo, wcounts, wsel, wbatch, win_np, a_, b_
+    # the ops library's bins and tsum on the wide matrix (T = wide
+    # targets): 1024 single reads, both mates of the first 512 pairs
+    from ganon_tpu_torch.ops import library as lib
+
+    Tw = fw.num_targets
+    wbits_d = torch.from_numpy(wbits.view(np.int32)).to(cuda)
+    wb2t_d = torch.from_numpy(wb2t).to(cuda)
+    wcodes = torch.from_numpy(np.concatenate([a_[:512], b_[:512]])).to(cuda)
+    wmm = args.read_len - w + 1
+    woh, won = lib.minimizers(wcodes, torch.full(
+        (wcodes.shape[0],), args.read_len, dtype=torch.int32, device=cuda),
+        k=k, w=w, max_minimizers=wmm)
+    wrows = lib.ibf_row_indices(woh, bin_size=wcfg.bin_size_bits,
+                                hash_functions=wcfg.hash_functions)
+    wmask = torch.arange(wmm, device=cuda)[None, :] < won[:, None]
+    wide_ops = {}
+    for name, kern, plain, a in (
+            ("bins", lib.bulk_count_bins, lib.bulk_count_bins_plain,
+             (wbits_d, wrows, wmask)),
+            ("tsum", lib.target_counts, lib.target_counts_plain, None)):
+        if a is None:
+            a = (wide_ops["bins"][0], wb2t_d)
+            kern = functools.partial(kern, num_targets=Tw)
+            plain = functools.partial(plain, num_targets=Tw)
+        got, want = kern(*a), plain(*a)
+        if not torch.equal(got, want):
+            raise AssertionError(f"wide {name}: kernel != plain")
+        wide_ops[name] = (got, _ms(lambda: kern(*a), 5),
+                          _ms(lambda: plain(*a), 1))
+    wpacked = q.bulk_target_counts_packed(
+        fw.tbl8, fw.byte_starts, fw.byte_ends, woh, won,
+        bin_size=wcfg.bin_size_bits, hash_functions=wcfg.hash_functions,
+        clamp=False)
+    if not torch.equal(wide_ops["tsum"][0], wpacked):
+        raise AssertionError("wide tsum: differs from the packed count")
+    wide_ops_ms = {n_: v[1:] for n_, v in wide_ops.items()}
+    del fw, wh, wn, wo, wcounts, wsel, wbatch, win_np, a_, b_, wbits
+    del wbits_d, wb2t_d, wcodes, woh, won, wrows, wmask, wide_ops, wpacked
     torch.cuda.empty_cache()
     # wide pairs through the CLI at default flags: 5% random, an eighth
     # of the rest from the targets above 0xFFFF, the others from all
@@ -1727,6 +2050,7 @@ def main() -> int:
             lbusy_us / 1e6 / ltiming["total"] if lbusy_us else None,
         "profiled_device_us": lkernel_us,
         "skipped_without_longreads": skipped,
+        "wide_ops_reads": 1024, "wide_ops_ms_kernel_plain": wide_ops_ms,
         "wide": {"targets": args.wide_targets,
                  "genome_len": args.wide_genome_len,
                  "build_s": w_build_s, "build_launches": w_build_launches,
@@ -1777,13 +2101,15 @@ def main() -> int:
     labels = ["1_host", "2_refs", "2_refs"]
     kernels.reset_launches()
     t0 = time.perf_counter()
-    _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", host, db, db_b,
-              "--hierarchy-labels", *labels, "--paired-reads", hq1, hq2,
-              "--output-prefix", hout, "--multiple-matches", "lca",
-              "--output-one", "--output-all", "--output-unclassified",
-              "--output-stats", "--skip-report"])
+    with _CallTimes(engine_run) as ct:
+        _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", host, db,
+                  db_b, "--hierarchy-labels", *labels, "--paired-reads", hq1,
+                  hq2, "--output-prefix", hout, "--multiple-matches", "lca",
+                  "--output-one", "--output-all", "--output-unclassified",
+                  "--output-stats", "--skip-report"])
     hier_s = time.perf_counter() - t0
     hier_launches = dict(kernels.LAUNCHES)
+    _transfer_line("hierarchy", ct.results["run_classify"])
     hier_files = dict(ibf=[host + ".hibf", db + ".ibf", db_b + ".ibf"],
                       tax=[host + ".tax", db + ".tax", db_b + ".tax"],
                       hierarchy_labels=labels, rel_cutoff=[0.75],
@@ -1924,8 +2250,9 @@ def main() -> int:
     compare(
         "count_raptor", "ganon_tpu_torch/csrc/count.cu",
         "ganon_tpu/classify/device.py:488",
-        lambda: raptor_counts(q.target_counts, rout_k, fr.subs),
-        lambda: raptor_counts(q.bulk_target_counts, rout_p, fr.subs), 20, 3,
+        lambda: raptor_counts(q.bulk_target_counts_packed, rout_k, fr.subs),
+        lambda: raptor_counts(q.bulk_target_counts_packed_plain, rout_p,
+                              fr.subs), 20, 3,
         (sum(_distinct_rows(rh, rn, s_.bin_size, s_.hash_funs)
              * s_.tbl8.shape[1] for s_ in fr.subs)
          + _nbytes(rh, rn, rout_k),
@@ -1943,9 +2270,9 @@ def main() -> int:
     tcol = ft.targets.index(twin)
     tk, tp = (torch.zeros((args.bench_pairs, ft.num_targets),
                           dtype=torch.int32, device=cuda) for _ in range(2))
-    raptor_counts(q.target_counts, tk, ft.subs)
-    raptor_counts(q.bulk_target_counts, tp, ft.subs)
-    per_sub = [q.bulk_target_counts(
+    raptor_counts(q.bulk_target_counts_packed, tk, ft.subs)
+    raptor_counts(q.bulk_target_counts_packed_plain, tp, ft.subs)
+    per_sub = [q.bulk_target_counts_packed_plain(
         s_.tbl8, s_.byte_starts, s_.byte_ends, rh, rn, bin_size=s_.bin_size,
         hash_functions=s_.hash_funs)[:, s_.cols.tolist().index(tcol)]
         for s_ in ft.subs]
@@ -1979,12 +2306,14 @@ def main() -> int:
     rout = os.path.join(work, "xout")
     kernels.reset_launches()
     t0 = time.perf_counter()
-    _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", rdb,
-              "--paired-reads", rq1, rq2, "--output-prefix", rout,
-              "--multiple-matches", "lca", "--output-one", "--output-all",
-              "--output-unclassified", "--skip-report"])
+    with _CallTimes(engine_run) as ct:
+        _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", rdb,
+                  "--paired-reads", rq1, rq2, "--output-prefix", rout,
+                  "--multiple-matches", "lca", "--output-one", "--output-all",
+                  "--output-unclassified", "--skip-report"])
     r_cli_s = time.perf_counter() - t0
     r_cli_launches = dict(kernels.LAUNCHES)
+    _transfer_line("raptor", ct.results["run_classify"])
     rfiles = dict(ibf=[rdb + ".hibf"], tax=[rdb + ".tax"], rel_cutoff=[0.75],
                   rel_filter=[0.1], fpr_query=[1e-5], output_lca=True,
                   output_all=True, output_unclassified=True)
@@ -2190,6 +2519,17 @@ def main() -> int:
         _count_work(fp.ctbl, ph, pn, fp.coarse_bin_size, fp.coarse_h,
                     args.bench_pairs * (5 * S + 1)),
     )
+    # the pair cap the engine takes at this batch (pair_frac 1.0, a
+    # multiple of 256); the yardstick is the scan alone
+    pcap = min(-(-args.bench_pairs // 256) * 256, args.bench_pairs * S)
+    pflags = slot_ok.reshape(-1).to(torch.int32)
+    compare("pairs", "ganon_tpu_torch/csrc/scan.cu",
+            "ganon_tpu/classify/device.py:1199",
+            lambda: pq.pair_live(slot_ok, govf, pcap),
+            lambda: pq.pair_live_plain(slot_ok, govf, pcap), 20, 5,
+            # the slot flags and overflow in, live flags and overflow out
+            (2 * _nbytes(slot_ok, govf), slot_ok.numel()),
+            library=lambda: torch.cumsum(pflags, 0))
     fargs = (fp.ftbl, ph, pn, fp.grp_row_off, fp.grp_bin_size, fp.grp_shift)
     fkw = dict(fine_h=fp.fine_h, group_size=gs)
     Wf = fp.ftbl.shape[1]
@@ -2286,8 +2626,29 @@ def main() -> int:
         "gate_overflow_reads": int(govf.sum()),
         "live_slots": int(slot_ok.sum()),
         "scatter_pairs": int(sph.numel()),
-        "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows[-5:]},
+        "pair_cap": pcap, "live_pairs": int(slot_ok.sum()),
+        "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows[-6:]},
     })
+    # the packed batch on the card and on the forest moved to the CPU at
+    # 1024 pairs: pair caps 0, 8 (spilling) and B * S, a ragged cap
+    fpc = fp.to("cpu")
+    pcb = pin_np[:1024]
+    pair_checks = {}
+    for pc_ in (0, 8, 1024 * S):
+        bufs = [dev.classify_batch_packed_pruned(
+            fx, torch.from_numpy(pcb).to(fx.device), 0.75, 0.1, 65535, k=k,
+            w=w, L1=pL1, L2=pL2, max_groups=S, top_k=4, match_cap=2048,
+            pair_cap=pc_).cpu() for fx in (fp, fpc)]
+        if not torch.equal(bufs[0], bufs[1]):
+            raise AssertionError(f"pruned batch: card and cpu differ at "
+                                 f"pair_cap {pc_}")
+        pair_checks[pc_] = int(dev.unpack_batch_result_ragged(
+            bufs[0].numpy(), 1024, 2048, fp.num_targets, 4,
+            n_extra=1)["overflow"].sum())
+    if pair_checks[8] <= pair_checks[0]:
+        raise AssertionError(f"pruned batch: pair cap 8 spilled no read: "
+                             f"{pair_checks}")
+    del fpc, bufs, pflags
     del ph, pn, povf, gsel, slot_ok, govf, lane_counts, lc, lsel, surv
     del live_b, live_s, surv_b, surv_g
     del fine_k, fine_p, sph, spg, spj, fargs, akw, phashes
@@ -2312,12 +2673,17 @@ def main() -> int:
     pout = os.path.join(work, "pout")
     kernels.reset_launches()
     t0 = time.perf_counter()
-    _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", pdb,
-              "--paired-reads", pf1, pf2, "--output-prefix", pout,
-              "--multiple-matches", "lca", "--output-one", "--output-all",
-              "--output-unclassified", "--skip-report"])
+    with _CallTimes(engine_run) as ct:
+        _run_cli(["ganon-tpu-torch", "classify", "--db-prefix", pdb,
+                  "--paired-reads", pf1, pf2, "--output-prefix", pout,
+                  "--multiple-matches", "lca", "--output-one", "--output-all",
+                  "--output-unclassified", "--skip-report"])
     p_cli_s = time.perf_counter() - t0
     p_cli_launches = dict(kernels.LAUNCHES)
+    _transfer_line("pruned", ct.results["run_classify"])
+    if p_cli_launches["pairs"] <= 0 or p_cli_launches["ragged"] <= 0:
+        raise AssertionError(f"pruned: no pair compaction or ragged stream: "
+                             f"{p_cli_launches}")
     # which batches take the exact probe-all path (group overflow)
     paths = {"fast": 0, "exact": 0}
     real_fast, real_exact = eng._dispatch_batch_fast, eng._classify_batch
@@ -2398,6 +2764,7 @@ def main() -> int:
             pbusy_us / 1e6 / ptiming["total"] if pbusy_us else None,
         "profiled_device_us": pkernel_us,
         "cuda_equals_cpu_pairs": nc,
+        "batch_cuda_equals_cpu_overflow_reads_by_pair_cap": pair_checks,
         "cuda_equals_cpu_files": sorted(psubs["cpu"]),
         "cuda_equals_cpu_launches": peq_launches,
     })
@@ -2472,7 +2839,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. checks ------------------------------------------------------------
-    main_runs = (build_launches, bc_launches, ref_launches,
+    main_runs = (build_launches, bc_launches, ref_launches, sp_launches,
+                 gprobe_launches, ops_launches,
                  mesh_build_launches, hier_build_launches, cli_launches,
                  mesh_launches, mesh_forest_launches, l_launches,
                  w_build_launches, w_launches, *leq_launches.values(),

@@ -8,8 +8,9 @@ hand-written CUDA kernels for Hopper (``csrc/``, loaded by
 and the plain reference versions the CPU tests run.
 
 The package mirrors ``ganon_tpu``'s layout file for file (``ops/``,
-``index/``, ``classify/``, ``io/``, ``native/``) and imports neither jax
-nor pandas. Unsigned 64-bit hashes travel as ``int64`` bit patterns:
+``index/``, ``classify/``, ``io/``, ``native/``; ``ops/minimizers.py`` is
+``ops/winnow.py`` here, since ``ganon_tpu_torch.ops.minimizers`` is the
+library function) and imports neither jax nor pandas. Unsigned 64-bit hashes travel as ``int64`` bit patterns:
 torch has no unsigned 64-bit arithmetic beyond ``^``, ``*`` and sort.
 """
 

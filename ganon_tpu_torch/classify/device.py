@@ -5,7 +5,9 @@ merged-bin pruned forests and levels of several flat filters. A batch
 costs one host->device
 buffer (:func:`pack_batch_direct`), the kernels of its filter kind and
 one int32 result buffer, whose dense layout :func:`unpack_batch_result`
-splits:
+splits (and whose ragged match stream, the JAX engine's default
+transfer, :func:`ragged` makes and :func:`unpack_batch_result_ragged`
+splits):
 
 * a flat IBF: ``extract`` -> ``count`` -> ``select``
   (:func:`classify_batch_packed`);
@@ -58,19 +60,21 @@ import torch
 
 from ganon_tpu_torch import kernels
 from ganon_tpu_torch.ops.ibf_query import (
+    bulk_target_counts_packed,
     clz64,
     combine,
     extract,
     pack_table_u8,
+    probe_sort,
     shard_table,
     table_as_u32,
-    target_counts,
 )
 from ganon_tpu_torch.ops.pruned_query import (
     MAX_GROUPS,
     NO_HASHES_LIMIT,
     fine_counts,
     gate,
+    pair_live,
 )
 
 
@@ -361,6 +365,86 @@ def select(counts: torch.Tensor, n_hashes: torch.Tensor,
     return packed
 
 
+def _dense_tail(B: int, K: int, has_win: bool, n_extra: int,
+                size: int) -> int:
+    """Elements after the extra rows of a dense pack16 buffer (the
+    tallies and the 3 scalars)."""
+    return size - B * K * (2 if has_win else 1) - (4 + n_extra) * B
+
+
+def ragged_plain(dense: torch.Tensor, B: int, K: int, match_cap: int, *,
+                 has_win: bool = False, n_extra: int = 0) -> torch.Tensor:
+    """Plain version of the ``ragged`` kernel (see :func:`ragged`)."""
+    C = match_cap
+    tail = _dense_tail(B, K, has_win, n_extra, dense.numel())
+    d = dense.to(torch.int64)
+    o = B * K * (2 if has_win else 1)
+    nm, maxc, nh, ovf = (d[o + i * B:o + (i + 1) * B] for i in range(4))
+    vmask = (torch.arange(K, device=dense.device)[None, :]
+             < nm[:, None]).reshape(-1)
+    pos = torch.cumsum(vmask.to(torch.int64), 0) - 1
+    dst = torch.where(vmask & (pos < C), pos, C)
+    parts = []
+    for blk in range(2 if has_win else 1):
+        comp = torch.zeros((C + 1,), dtype=torch.int32, device=dense.device)
+        comp.scatter_(0, dst, dense[blk * B * K:(blk + 1) * B * K])
+        parts.append(comp[:C])
+    w1 = (maxc << 16) | nm
+    w2 = (torch.clamp(nh, max=0x1FFFF) << 1) | (ovf & 1)
+    for w in (w1, w2):
+        parts.append(torch.where(w >= 1 << 31, w - (1 << 32), w).to(
+            torch.int32))
+    parts.append(dense[o + 4 * B:o + (4 + n_extra) * B + tail])
+    return torch.cat(parts)
+
+
+def ragged(dense: torch.Tensor, B: int, K: int, match_cap: int, *,
+           has_win: bool = False, n_extra: int = 0) -> torch.Tensor:
+    """The ragged match stream of a dense pack16 result buffer (int32).
+
+    Port of ``ganon_tpu.classify.device._pack_result`` with ``match_cap >
+    0`` (``device.py:280-309``), applied to the dense buffer of
+    :func:`select` or :func:`select_lanes` (``[B*K]`` matches, ``[B*K]``
+    winners with ``has_win``, the four ``[B]`` rows, ``n_extra`` extra
+    rows, the tallies and scalars). Layout: ``[C] (count << 16 | target)``
+    of the valid entries (``k < n_matches``) row by row, those past ``C =
+    match_cap`` dropped | ``[C]`` winners with ``has_win`` | ``[B]
+    max_count << 16 | n_matches`` | ``[B] min(n_hashes, 0x1FFFF) << 1 |
+    overflow`` | the extra rows | the tallies and scalars. Unpack with
+    :func:`unpack_batch_result_ragged`, which reports the cap overflow.
+    """
+    if dense.dtype != torch.int32 or dense.dim() != 1:
+        raise ValueError("dense must be a flat int32 buffer")
+    if K < 1 or match_cap < 1 or n_extra < 0:
+        raise ValueError("ragged takes K >= 1, match_cap >= 1, n_extra >= 0")
+    tail = _dense_tail(B, K, has_win, n_extra, dense.numel())
+    if tail < 3:
+        raise ValueError("dense is shorter than its layout")
+    if dense.device.type == "cpu":
+        return ragged_plain(dense, B, K, match_cap, has_win=has_win,
+                            n_extra=n_extra)
+    kernels.check_cuda(dense)
+    C = match_cap
+    out = torch.zeros((C * (2 if has_win else 1) + (2 + n_extra) * B + tail,),
+                      dtype=torch.int32, device=dense.device)
+    offs = torch.empty((max(B, 1),), dtype=torch.int64, device=dense.device)
+    if B:
+        kernels.launch("ragged", dense, B, K, int(has_win), n_extra, tail, C,
+                       offs, out,
+                       counter="ragged_winners" if has_win else "ragged")
+    else:
+        out[C * (2 if has_win else 1):] = dense[4 * B:]
+    return out
+
+
+def _ragged_or_dense(packed: torch.Tensor, B: int, K: int, match_cap: int,
+                     **kw) -> torch.Tensor:
+    """``packed`` as it is at ``match_cap == 0``, else its ragged stream."""
+    if not match_cap:
+        return packed
+    return ragged(packed, B, K, match_cap, **kw)
+
+
 def group_words(gsel: torch.Tensor, slot_ok: torch.Tensor) -> tuple:
     """The pruned result's ``ceil(S/2)`` int32 ``[B]`` rows of chosen
     groups: ``gsel[2i] | gsel[2i+1] << 16``, 0xFFFF for a dead slot and
@@ -521,13 +605,13 @@ def classify_batch_packed(f: "DeviceFilter | DeviceHIBF | DeviceRaptorHIBF",
                           rel_cutoff: float, rel_filter: float,
                           hashes_limit: int, *, k: int, w: int, L1: int,
                           L2: int, top_k: int, emit_matches_t: bool = True,
-                          pack16: bool = True) -> torch.Tensor:
+                          pack16: bool = True, match_cap: int = 0,
+                          sort_probes: bool = False) -> torch.Tensor:
     """One batch through extract -> count -> select: one int32 buffer.
 
-    Port of ``ganon_tpu.classify.device.classify_batch_packed`` with
-    ``match_cap=0`` (``pack16=False``: ``select``'s 32-bit mode, for more
-    than 65,535 targets or a ``hashes_limit`` above 65,535): the
-    compaction width is
+    Port of ``ganon_tpu.classify.device.classify_batch_packed``
+    (``pack16=False``: ``select``'s 32-bit mode, for more than 65,535
+    targets or a ``hashes_limit`` above 65,535): the compaction width is
     ``compact_width(m1 + m2)`` of the bucketed mate widths; overflowing
     reads carry ``overflow`` and are re-run by the engine uncompacted.
     ``f`` may be a forest (:func:`classify_batch_packed_forest`) or a
@@ -535,10 +619,24 @@ def classify_batch_packed(f: "DeviceFilter | DeviceHIBF | DeviceRaptorHIBF",
     ``classify_batch_packed_raptor``, whose ``f.counts`` runs ``count`` in
     column-max mode once per sub-IBF into one ``[B, T]`` matrix zeroed for
     the batch (JAX's ``counts.at[:, cols].max(c)`` and final clamp).
+
+    ``match_cap > 0`` (with ``pack16``) ships the ragged match stream of
+    :func:`ragged` (the JAX engine's default transfer); 0 the dense
+    layout. ``sort_probes`` (a flat filter on one device) orders each
+    read's hashes by their first row before ``count``
+    (:func:`~ganon_tpu_torch.ops.ibf_query.probe_sort`); the buffer is the
+    same.
     """
+    if match_cap and not pack16:
+        raise ValueError("the ragged match stream needs pack16")
+    if sort_probes and (type(f) is not DeviceFilter or f.mesh is not None):
+        raise ValueError("sort_probes takes a flat filter on one device")
     if f.mesh is None:
         hashes, n_hashes, overflow = _extract_compact(inbuf, k=k, w=w,
                                                       L1=L1, L2=L2)
+        if sort_probes:
+            hashes = probe_sort(hashes, n_hashes,
+                                bin_size=f.ibf_config.bin_size_bits)
         counts = f.counts(hashes, n_hashes)
     else:
         # each batch row extracts and counts on its devices; the counts
@@ -549,9 +647,11 @@ def classify_batch_packed(f: "DeviceFilter | DeviceHIBF | DeviceRaptorHIBF",
             rows.append((f.row_counts(i, h, n), n, o))
         counts, n_hashes, overflow = (gather_rows(list(p), f.device)
                                       for p in zip(*rows))
-    return select(counts, n_hashes, overflow, rel_cutoff, rel_filter,
-                  hashes_limit, top_k=top_k, emit_matches_t=emit_matches_t,
-                  pack16=pack16)
+    packed = select(counts, n_hashes, overflow, rel_cutoff, rel_filter,
+                    hashes_limit, top_k=top_k, emit_matches_t=emit_matches_t,
+                    pack16=pack16)
+    return _ragged_or_dense(packed, counts.shape[0],
+                            min(top_k, counts.shape[1]), match_cap)
 
 
 def _mesh_batch(f, inbuf) -> list:
@@ -565,11 +665,12 @@ def classify_batch_packed_forest(f: "DeviceHIBF", inbuf: torch.Tensor,
                                  hashes_limit: int, *, k: int, w: int,
                                  L1: int, L2: int, top_k: int,
                                  emit_matches_t: bool = True,
-                                 pack16: bool = True) -> torch.Tensor:
+                                 pack16: bool = True,
+                                 match_cap: int = 0) -> torch.Tensor:
     """One batch against a native HIBF forest: one int32 buffer.
 
-    Port of ``ganon_tpu.classify.device.classify_batch_packed_forest``
-    (``match_cap=0``): ``extract`` once, ``count`` once per
+    Port of ``ganon_tpu.classify.device.classify_batch_packed_forest``:
+    ``extract`` once, ``count`` once per
     sub-IBF straight into its column range of one ``[B, T]`` matrix (the
     forest's target order is the concatenation of its subs'), then
     ``select`` on the whole matrix. Same layout as
@@ -580,26 +681,30 @@ def classify_batch_packed_forest(f: "DeviceHIBF", inbuf: torch.Tensor,
                          "target order is its subs' concatenation")
     return classify_batch_packed(
         f, inbuf, rel_cutoff, rel_filter, hashes_limit, k=k, w=w, L1=L1,
-        L2=L2, top_k=top_k, emit_matches_t=emit_matches_t, pack16=pack16)
+        L2=L2, top_k=top_k, emit_matches_t=emit_matches_t, pack16=pack16,
+        match_cap=match_cap)
 
 
 def classify_batch_packed_multi(filters: list, cols: list, inbuf: torch.Tensor,
                                 rel_cutoffs: list, rel_filter: float,
                                 hashes_limit: int, *, k: int, w: int, L1: int,
                                 L2: int, num_union: int, top_k: int,
-                                emit_matches_t: bool = True) -> torch.Tensor:
+                                emit_matches_t: bool = True,
+                                match_cap: int = 0) -> torch.Tensor:
     """One batch against several flat filters of one level: one buffer.
 
-    Port of ``ganon_tpu.classify.device.classify_batch_packed_multi``
-    (``match_cap=0``): ``extract`` once; per filter ``count`` and
+    Port of ``ganon_tpu.classify.device.classify_batch_packed_multi``:
+    ``extract`` once; per filter ``count`` and
     ``merge`` (its own rel-cutoff, strict-greater union max, first filter
     wins ties) into ``[B, U]`` union counts and winners; then ``select``
     with ``rel_cutoff = 0`` (the cutoffs are applied, and its floor of 1
     drops the zeros) and the winners payload. ``cols[i]`` maps filter
     ``i``'s targets to union columns (int32, on the filters' device).
-    Layout: ``[B*K] matches | [B*K] winners | [B] n_matches | ...``; the
-    rel-filter's min count is taken over the final union, as the JAX
-    package does (a deliberate difference from the C++ reference).
+    Layout: ``[B*K] matches | [B*K] winners | [B] n_matches | ...``, or
+    with ``match_cap > 0`` the ragged stream and its winners stream
+    (:func:`ragged`); the rel-filter's min count is taken over the final
+    union, as the JAX package does (a deliberate difference from the C++
+    reference).
     """
     # with a mesh, every filter of the level is sharded over the same one
     mesh = filters[0].mesh
@@ -622,8 +727,11 @@ def classify_batch_packed_multi(filters: list, cols: list, inbuf: torch.Tensor,
         parts = [tuple(gather_rows(list(p), filters[0].device)
                        for p in zip(*parts))]
     ucounts, uwin, n_hashes, overflow = parts[0]
-    return select(ucounts, n_hashes, overflow, 0.0, rel_filter, hashes_limit,
-                  top_k=top_k, emit_matches_t=emit_matches_t, uwin=uwin)
+    packed = select(ucounts, n_hashes, overflow, 0.0, rel_filter,
+                    hashes_limit, top_k=top_k, emit_matches_t=emit_matches_t,
+                    uwin=uwin)
+    return _ragged_or_dense(packed, ucounts.shape[0],
+                            min(top_k, num_union), match_cap, has_win=True)
 
 
 def classify_batch_packed_pruned(f: "DevicePrunedForest",
@@ -631,24 +739,36 @@ def classify_batch_packed_pruned(f: "DevicePrunedForest",
                                  rel_filter: float, hashes_limit: int, *,
                                  k: int, w: int, L1: int, L2: int,
                                  max_groups: int, top_k: int,
-                                 emit_matches_t: bool = True) -> torch.Tensor:
+                                 emit_matches_t: bool = True,
+                                 match_cap: int = 0,
+                                 pair_cap: int = 0) -> torch.Tensor:
     """One batch against a merged-bin pruned forest: one int32 buffer.
 
-    Port of ``ganon_tpu.classify.device.classify_batch_packed_pruned``
-    with ``match_cap=0`` and ``pair_cap=0``: ``extract`` (compacted), the
-    ``gate`` (coarse counts, the top ``S = max_groups`` surviving groups;
-    ``n_surv > S`` sets the read's overflow, so the engine re-runs it on
-    the exact probe-all path), ``fine`` on the chosen groups (a dead slot
-    costs nothing, so there is no pair compaction), then ``select`` in
-    lanes mode. Layout: :func:`unpack_batch_result` with
-    ``K = min(top_k, S * group_size)``, ``T = num_targets`` and
-    ``n_extra = ceil(S/2)``; top entries carry lane ids.
+    Port of ``ganon_tpu.classify.device.classify_batch_packed_pruned``:
+    ``extract`` (compacted), the ``gate`` (coarse counts, the top ``S =
+    max_groups`` surviving groups; ``n_surv > S`` sets the read's
+    overflow, so the engine re-runs it on the exact probe-all path),
+    ``fine`` on the chosen groups, then ``select`` in lanes mode.
+
+    ``0 < pair_cap < B * S`` compacts the (read, slot) pairs as JAX does
+    (:func:`~ganon_tpu_torch.ops.pruned_query.pair_live` over the whole
+    batch, a mesh's rows gathered for the scan): a pair past the cap adds
+    zero to its slot's counts, and a read whose pairs spill past it gets
+    its overflow flag (the engine retries the batch with dense slots);
+    its lanes and group words stay those of the gate. A dead slot costs
+    ``fine`` nothing here, so the cap saves only the spilled pairs' work;
+    ``pair_cap = 0`` (or at least ``B * S``) is the dense stage.
+
+    Layout: :func:`unpack_batch_result` with ``K = min(top_k, S *
+    group_size)``, ``T = num_targets`` and ``n_extra = ceil(S/2)``, or
+    with ``match_cap > 0`` the ragged stream (:func:`ragged`); top
+    entries carry lane ids.
     """
     if f.mesh is None:
         rows, forests = [inbuf], [f]
     else:  # both tables replicated on each batch row's first device
         rows, forests = _mesh_batch(f, inbuf), f.rows
-    parts = []
+    stage = []
     for x, fr in zip(rows, forests):
         hashes, n_hashes, overflow = _extract_compact(x, k=k, w=w, L1=L1,
                                                       L2=L2)
@@ -657,20 +777,38 @@ def classify_batch_packed_pruned(f: "DevicePrunedForest",
             coarse_h=fr.coarse_h, num_groups=fr.num_groups,
             rel_cutoff=rel_cutoff, hashes_limit=hashes_limit,
             max_groups=max_groups, overflow=overflow)
+        stage.append((hashes, n_hashes, overflow, gsel, slot_ok))
+    lives = [st[4] for st in stage]
+    sizes = [st[0].shape[0] for st in stage]
+    if 0 < pair_cap < sum(sizes) * max_groups:
+        # the pair positions run over the whole batch, as in JAX
+        live, ovf = pair_live(gather_rows(lives, f.device),
+                              gather_rows([st[2] for st in stage], f.device),
+                              pair_cap)
+        lives = [lv.to(st[0].device) for lv, st in zip(live.split(sizes),
+                                                        stage)]
+        stage = [(h, n, ov.to(h.device), g, ok) for (h, n, _, g, ok), ov in
+                 zip(stage, ovf.split(sizes))]
+    parts = []
+    for (hashes, n_hashes, overflow, gsel, slot_ok), live, fr in zip(
+            stage, lives, forests):
         counts = fine_counts(
             fr.ftbl, hashes, n_hashes, fr.grp_row_off, fr.grp_bin_size,
             fr.grp_shift, fine_h=fr.fine_h, group_size=fr.group_size,
-            gsel=gsel, slot_ok=slot_ok)
+            gsel=gsel, slot_ok=live)
         parts.append((counts.reshape(counts.shape[0], -1), n_hashes,
                       overflow, gsel, slot_ok))
     if f.mesh is not None:
         parts = [tuple(gather_rows(list(p), f.device) for p in zip(*parts))]
     counts, n_hashes, overflow, gsel, slot_ok = parts[0]
-    return select_lanes(
+    packed = select_lanes(
         counts, n_hashes, overflow, gsel, slot_ok, f.grp_ntargets,
         rel_cutoff, rel_filter, hashes_limit, group_size=f.group_size,
         num_targets=f.num_targets, top_k=top_k,
         emit_matches_t=emit_matches_t)
+    return _ragged_or_dense(packed, counts.shape[0],
+                            min(top_k, counts.shape[1]), match_cap,
+                            n_extra=-(-max_groups // 2))
 
 
 def unpack_batch_result(packed: np.ndarray, B: int, K: int, T: int,
@@ -713,6 +851,74 @@ def unpack_batch_result(packed: np.ndarray, B: int, K: int, T: int,
     out["seqs_classified"] = scalars[0]
     out["kmers_from_classified"] = scalars[1]
     out["kmers_matches"] = scalars[2]
+    return out
+
+
+def unpack_batch_result_ragged(packed: np.ndarray, B: int, C: int, T: int,
+                               K: int, has_win: bool = False,
+                               n_extra: int = 0,
+                               has_matches_t: bool = True) -> dict:
+    """Split a ragged result buffer (:func:`ragged`) back into the result
+    dict.
+
+    Host copy of ``ganon_tpu.classify.device.unpack_batch_result_ragged``:
+    the ``[B, Km]`` ``top_vals``/``top_idx`` (``Km`` the largest
+    ``min(n_matches, K)``, at least 1) are rebuilt from the row-major
+    stream; the raw ``n_matches`` rides in ``w1``, so the caller's top-K
+    escalation still sees it. ``cap_overflow`` is set when the stream
+    outgrew ``C`` (entries were dropped; the matrices are then not
+    rebuilt and the batch must be re-dispatched with a larger cap).
+    """
+    o = 0
+
+    def take(n):
+        nonlocal o
+        v = packed[o:o + n]
+        o += n
+        return v
+
+    comp = take(C).view(np.uint32)
+    comp_win = take(C) if has_win else None
+    w1 = take(B).view(np.uint32)
+    w2 = take(B).view(np.uint32)
+    n_matches = (w1 & 0xFFFF).astype(np.int32)
+    out = {
+        "n_matches": n_matches,
+        "max_count": (w1 >> 16).astype(np.int32),
+        "n_hashes": (w2 >> 1).astype(np.int32),
+        "overflow": (w2 & 1).astype(bool),
+        "top_win": None,
+        "extra_rows": [take(B).view(np.uint32) for _ in range(n_extra)],
+        "disc_t": take(T),
+    }
+    if has_matches_t:
+        out["matches_t"] = take(T)
+    scalars = take(3)
+    out["seqs_classified"] = scalars[0]
+    out["kmers_from_classified"] = scalars[1]
+    out["kmers_matches"] = scalars[2]
+    nm_eff = np.minimum(n_matches, K)
+    total = int(nm_eff.sum())
+    out["cap_overflow"] = total > C
+    if not out["cap_overflow"]:
+        Km = max(1, int(nm_eff.max()) if B else 1)
+        tv = np.zeros((B, Km), dtype=np.int32)
+        ti = np.zeros((B, Km), dtype=np.int32)
+        tw = np.zeros((B, Km), dtype=np.int32) if has_win else None
+        if total:
+            ii = np.repeat(np.arange(B), nm_eff)
+            off = np.zeros(B, dtype=np.int64)
+            off[1:] = np.cumsum(nm_eff[:-1])
+            jj = np.arange(total) - off[ii]
+            vals = comp[:total]
+            tv[ii, jj] = (vals >> 16).astype(np.int32)
+            ti[ii, jj] = (vals & 0xFFFF).astype(np.int32)
+            if has_win:
+                tw[ii, jj] = comp_win[:total]
+        out["top_vals"] = tv
+        out["top_idx"] = ti
+        if has_win:
+            out["top_win"] = tw
     return out
 
 
@@ -781,12 +987,13 @@ class ShardedTable:
                                  n_hashes.to(d, non_blocking=True))
                 dst = parts[off:off + B * w].view(B, w)
                 if d == row[0]:
-                    target_counts(sh.tbl8, sh.byte_starts, sh.byte_ends,
-                                  *inputs[d], out=dst, **kw)
+                    bulk_target_counts_packed(
+                        sh.tbl8, sh.byte_starts, sh.byte_ends, *inputs[d],
+                        out=dst, **kw)
                 else:  # another card: its partials come over afterwards
-                    dst.copy_(target_counts(sh.tbl8, sh.byte_starts,
-                                            sh.byte_ends, *inputs[d], **kw),
-                              non_blocking=True)
+                    dst.copy_(bulk_target_counts_packed(
+                        sh.tbl8, sh.byte_starts, sh.byte_ends, *inputs[d],
+                        **kw), non_blocking=True)
             off += B * w
         if out is None:
             out = torch.zeros((B, self.num_targets), dtype=torch.int32,
@@ -876,7 +1083,7 @@ class DeviceFilter:
             if out is not None:
                 raise ValueError("a sharded filter counts into row buffers")
             return _mesh_counts(self, hashes, n_hashes, self.row_counts)
-        return target_counts(
+        return bulk_target_counts_packed(
             self.tbl8, self.byte_starts, self.byte_ends, hashes, n_hashes,
             bin_size=self.ibf_config.bin_size_bits,
             hash_functions=self.ibf_config.hash_functions, out=out, col0=col0,
@@ -1077,10 +1284,10 @@ class DeviceRaptorHIBF:
         out = torch.zeros((hashes.shape[0], self.num_targets),
                           dtype=torch.int32, device=hashes.device)
         for sub in self.subs:
-            target_counts(sub.tbl8, sub.byte_starts, sub.byte_ends, hashes,
-                          n_hashes, bin_size=sub.bin_size,
-                          hash_functions=sub.hash_funs, out=out,
-                          cols=sub.cols)
+            bulk_target_counts_packed(
+                sub.tbl8, sub.byte_starts, sub.byte_ends, hashes, n_hashes,
+                bin_size=sub.bin_size, hash_functions=sub.hash_funs, out=out,
+                cols=sub.cols)
         return out
 
 

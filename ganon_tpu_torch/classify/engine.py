@@ -337,6 +337,19 @@ class LevelContext:
         # cfg.top_k_matches when a batch overflows (sticky for the level)
         start_k = 4 if len(self.union_targets) >= 4096 else 32
         self.top_k_current = min(start_k, cfg.top_k_matches)
+        # the ragged match stream's slots per read (device.ragged; the JAX
+        # engine's default of 2): doubled, sticky, on a cap overflow, and
+        # None (the dense layout) once they reach the top-K width
+        self.match_slots: int | None = 2
+        # the pruned pair cap as a fraction of the batch; raised by 0.5,
+        # sticky, on a pair spill
+        self.pair_frac: float = cfg.pruned_pair_frac
+        # the fast path's result transfers: batches fetched in each
+        # layout, cap overflows, pair-spill retries, and the bytes
+        # fetched against the dense layout's bytes at the same B and K
+        self.transfer = dict(ragged_batches=0, dense_batches=0,
+                             cap_overflows=0, pair_spill_retries=0,
+                             fetched_bytes=0, dense_bytes=0)
 
         # taxonomy: merge (first filter wins), add missing targets under root
         self.tax: dict[str, tuple[str, str, str]] = {}
@@ -711,6 +724,11 @@ def run_classify(cfg: ClassifyConfig) -> dict:
         "totals": totals,
         "hierarchy_totals": hierarchy_totals,
         "timing": timing,
+        # per level: the result transfers and the final ragged slots
+        "transfer": {r.label: dict(r.ctx.transfer,
+                                   match_slots=r.ctx.match_slots,
+                                   pair_frac=r.ctx.pair_frac)
+                     for r in runners if r.ctx is not None},
     }
 
 
@@ -750,24 +768,46 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
         # matches are lane ids (slot * gs + lane), mapped on the host
         S = cfg.pruned_max_groups
         K = min(ctx.top_k_current, S * f.group_size)
+        pack16 = True  # lane ids fit 16 bits
+        cap = _match_cap(ctx, batch_pad, K, pack16)
+        pair_cap = 0
+        if ctx.pair_frac > 0 and S > 1:
+            # a multiple of 256 (the JAX engine's rule, which kept its
+            # compiled programs few); the device ignores caps >= B * S
+            pair_cap = min(-(-int(batch_pad * ctx.pair_frac) // 256) * 256,
+                           batch_pad * S)
         packed = dev.classify_batch_packed_pruned(
             f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
             cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
             L2=L2, max_groups=S, top_k=K, emit_matches_t=emit_mt,
+            match_cap=cap, pair_cap=pair_cap,
         )
-        pinfo = (S, f.group_size, -(-S // 2))
-        pack16 = True  # lane ids fit 16 bits
+        pinfo = (S, f.group_size, -(-S // 2),
+                 0 < pair_cap < batch_pad * S)
     else:
         # flat, forest and raptor alike: f.counts is the filter's own count
         K = min(ctx.top_k_current, f.num_targets)
         pack16 = f.num_targets <= 0xFFFF and cfg.hashes_limit <= 0xFFFF
+        cap = _match_cap(ctx, batch_pad, K, pack16)
         packed = dev.classify_batch_packed(
             f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
             cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
             L2=L2, top_k=K, emit_matches_t=emit_mt, pack16=pack16,
+            match_cap=cap,
         )
     return (_start_host_copy(packed), batch_pad, K, f.num_targets, emit_mt,
-            False, pinfo, pack16)
+            False, pinfo, pack16, cap)
+
+
+def _match_cap(ctx: LevelContext, batch_pad: int, K: int,
+               pack16: bool) -> int:
+    """The ragged stream's cap, ``batch_pad * match_slots`` (the JAX
+    engine's rule), or 0 for the dense layout: without pack16, with the
+    slots escalated to dense, or when dense is no larger."""
+    if not pack16 or ctx.match_slots is None:
+        return 0
+    cap = batch_pad * ctx.match_slots
+    return 0 if cap >= batch_pad * K else cap
 
 
 def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
@@ -786,14 +826,15 @@ def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
     inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
     K = min(ctx.top_k_current, U)
     emit_mt = ctx.level.fpr_query >= 1.0
+    cap = _match_cap(ctx, batch_pad, K, True)
     packed = dev.classify_batch_packed_multi(
         ctx.filters, ctx.filter_cols_dev, ctx.filters[0].put_batch(inbuf),
         [s.rel_cutoff for s in ctx.specs], ctx.level.rel_filter,
         cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1, L2=L2,
-        num_union=U, top_k=K, emit_matches_t=emit_mt,
+        num_union=U, top_k=K, emit_matches_t=emit_mt, match_cap=cap,
     )
     return (_start_host_copy(packed), batch_pad, K, U, emit_mt, True, None,
-            True)
+            True, cap)
 
 
 def _round_up(batch_pad: int, mult: int) -> int:
@@ -828,17 +869,50 @@ def _fetch(handle, timing=None) -> np.ndarray:
 
 def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
                        out, one_files, all_files, timing=None):
-    """Fetch + finish an in-flight batch; escalates the compact width on
-    top-K overflow (sticky for the level), falls back to the exact full
-    path on compaction overflow (and on a pruned forest's group overflow:
-    the exact path counts every group). Returns the leftover
-    (unclassified) reads unless the level is the last."""
-    batch, (handle, B_pad, K, T, emit_mt, has_win, pinfo, pack16) = pending
+    """Fetch + finish an in-flight batch; escalates the ragged stream's
+    slots on a cap overflow and the compact width on top-K overflow (both
+    sticky for the level), retries a pruned batch whose pairs spilled
+    past the pair cap once with dense slots (and raises the level's cap),
+    falls back to the exact full path on compaction overflow (and on a
+    pruned forest's group overflow: the exact path counts every group).
+    Returns the leftover (unclassified) reads unless the level is the
+    last."""
+    batch, (handle, B_pad, K, T, emit_mt, has_win, pinfo, pack16,
+            cap) = pending
     B0 = len(batch)
-    res = dev.unpack_batch_result(_fetch(handle, timing), B_pad, K, T,
-                                  has_matches_t=emit_mt, has_win=has_win,
-                                  n_extra=pinfo[2] if pinfo else 0,
-                                  pack16=pack16)
+    n_extra = pinfo[2] if pinfo else 0
+    fin = (ctx, cfg, rep, level_totals, first, last, out, one_files,
+           all_files)
+    tr = ctx.transfer
+    tr["ragged_batches" if cap > 0 else "dense_batches"] += 1
+    tr["fetched_bytes"] += handle[0].numel() * 4
+    tr["dense_bytes"] += 4 * (B_pad * K * (2 if has_win or not pack16 else 1)
+                              + (4 + n_extra) * B_pad
+                              + T * (2 if emit_mt else 1) + 3)
+    if cap > 0:
+        res = dev.unpack_batch_result_ragged(
+            _fetch(handle, timing), B_pad, cap, T, K, has_win,
+            n_extra=n_extra, has_matches_t=emit_mt)
+        if res["cap_overflow"]:
+            # the stream outgrew the cap: double the slots per read
+            # (sticky; the dense layout once they reach K) and re-dispatch.
+            # A pipelined batch may land after a newer one went dense: the
+            # ragged layout just proven too small is never brought back.
+            tr["cap_overflows"] += 1
+            total = int(np.minimum(res["n_matches"], K).sum())
+            need = -(-total // max(B_pad, 1)) + 1
+            if ctx.match_slots is not None:
+                ctx.match_slots = max(ctx.match_slots * 2, need)
+                if ctx.match_slots >= K:
+                    ctx.match_slots = None
+            disp = _dispatch_batch_fast(batch, ctx, cfg)
+            if disp is None:
+                return _classify_batch(batch, *fin)
+            return _finish_batch_fast((batch, disp), *fin, timing=timing)
+    else:
+        res = dev.unpack_batch_result(_fetch(handle, timing), B_pad, K, T,
+                                      has_matches_t=emit_mt, has_win=has_win,
+                                      n_extra=n_extra, pack16=pack16)
     if not res["overflow"][:B0].any() and (
         res["n_matches"][:B0] > K
     ).any() and ctx.top_k_current < cfg.top_k_matches:
@@ -847,16 +921,23 @@ def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
         ctx.top_k_current = cfg.top_k_matches
         disp = _dispatch_batch_fast(batch, ctx, cfg)
         if disp is not None:
-            return _finish_batch_fast(
-                (batch, disp), ctx, cfg, rep, level_totals, first, last,
-                out, one_files, all_files, timing=timing,
-            )
+            return _finish_batch_fast((batch, disp), *fin, timing=timing)
     if (res["overflow"][:B0].any()
             or (res["n_matches"][:B0] > K).any()):
-        return _classify_batch(
-            batch, ctx, cfg, rep, level_totals, first, last, out, one_files,
-            all_files,
-        )
+        if pinfo is not None and pinfo[3] and res["overflow"][:B0].any():
+            # an overflow under the pair cap may be a pair spill: retry
+            # once with dense slots (exact) and raise the level's cap
+            # (sticky), so a spilling workload converges to dense; a true
+            # overflow (groups past S, compaction) survives the dense
+            # retry and takes the exact path below
+            tr["pair_spill_retries"] += 1
+            ctx.pair_frac += 0.5
+            saved, ctx.pair_frac = ctx.pair_frac, 0.0
+            disp = _dispatch_batch_fast(batch, ctx, cfg)
+            ctx.pair_frac = saved
+            if disp is not None:
+                return _finish_batch_fast((batch, disp), *fin, timing=timing)
+        return _classify_batch(batch, *fin)
     if pinfo is not None:
         # pruned matches carry lane ids (slot * gs + lane): rebuild each
         # read's chosen groups from its u16 group words and map to global
@@ -877,10 +958,7 @@ def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
     l1 = batch.len1.astype(np.int64)
     l2 = (batch.len2.astype(np.int64) if batch.paired
           else np.zeros(B0, np.int64))
-    return _finish_batch_compact(
-        batch, ctx, cfg, rep, level_totals, first, last, out, one_files,
-        all_files, res, nh, l1, l2,
-    )
+    return _finish_batch_compact(batch, *fin, res, nh, l1, l2)
 
 
 def _classify_batch(

@@ -39,7 +39,7 @@ from ganon_tpu_torch.classify.device import pack_codes_2bit
 from ganon_tpu_torch.index.ibf import IBF
 from ganon_tpu_torch.io.sequence import SequenceReader
 from ganon_tpu_torch.ops.ibf_query import extract
-from ganon_tpu_torch.ops.minimizers import encode_seqs, torch_to_u64
+from ganon_tpu_torch.ops.winnow import encode_seqs, torch_to_u64
 
 # bases per piece handed to one kernel thread (multiple of 4); a window
 # wider than half of it gets pieces of 2w bases

@@ -24,7 +24,7 @@ from ganon_tpu_torch import kernels
 from ganon_tpu_torch.index import sizing
 from ganon_tpu_torch.index.config import IBFConfig
 from ganon_tpu_torch.ops.ibf_query import clz64, ibf_row_indices
-from ganon_tpu_torch.ops.minimizers import u64_to_torch
+from ganon_tpu_torch.ops.winnow import u64_to_torch
 
 MAGIC = "ganon-tpu-ibf-v1"
 # mmap-able raw container (save_raw / --filter-format tpu-raw)

@@ -42,7 +42,7 @@ from ganon_tpu_torch.ops.ibf_query import (
     ibf_row_dyn,
     ibf_row_indices_np,
 )
-from ganon_tpu_torch.ops.minimizers import u64_to_torch
+from ganon_tpu_torch.ops.winnow import u64_to_torch
 
 MAGIC = "ganon-tpu-pruned-v1"
 RAW_MAGIC = b"GANON-TPU-PRUNED-RAW1\n"

@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ganon_tpu_torch.io.sequence import SequenceReader
-from ganon_tpu_torch.ops.minimizers import encode_seqs
+from ganon_tpu_torch.ops.winnow import encode_seqs
 
 
 

@@ -25,6 +25,17 @@ column shard of a table with the clamp off, ``combine`` adds the shards'
 partials and clamps, ``fine_shard`` is ``fine`` over one shard's groups
 of a bins-sharded pruned forest, ``scatter_span`` is ``scatter_ranked``
 into one shard's row range of the build's bit-matrix.
+The ``ops`` library API (K18): ``minimizers`` is ``extract`` in
+single-end mode for ``ganon_tpu_torch.ops.library.minimizers``; ``bins``,
+``tsum`` and ``bins_target`` count the interleaved bit-matrix
+(``csrc/bins.cu``). The JAX engine's default transfer settings:
+``ragged`` compacts ``select``'s dense buffer into the ragged match
+stream (``ragged_winners`` with the winners block of a multi-filter
+level), ``pairs`` compacts a pruned batch's (read, slot) pairs under
+the pair cap (``csrc/scan.cu``); ``probe_sort`` orders each read's
+hashes by their first row before ``count`` (``csrc/psort.cu``);
+``gather_probe`` is the port of the Pallas gather probe
+(``csrc/gprobe.cu``).
 A run can so show that its main path went through every kernel mode.
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -43,7 +54,8 @@ from ganon_tpu_torch import BUILD_DIR
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
-           "gate.cu", "fine.cu", "sort.cu", "dedup.cu", "shard.cu")
+           "gate.cu", "fine.cu", "sort.cu", "dedup.cu", "shard.cu", "bins.cu",
+           "scan.cu", "psort.cu", "gprobe.cu")
 HEADERS = ("ibf_hash.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -103,13 +115,29 @@ _SIGNATURES = {
     # shift, w0 (the first word of the span bits holds)
     "scatter_ranked": (_P, _L, _L, _P, _P, _P, _P, _L, _P, _I, _U, _I, _I,
                        _L),
+    # bits, R, W, rows, B, M, S, mask, out
+    "bins": (_P, _L, _L, _P, _L, _I, _I, _P, _P),
+    # bin_counts, B, TB, bin_to_target, T, out
+    "tsum": (_P, _L, _L, _P, _I, _P),
+    # bits, R, W, rows, B, M, S, mask, scratch, perm (NULL = identity),
+    # starts, ends, T, out
+    "bins_target": (_P, _L, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P),
+    # dense, B, K, has_win, n_extra, tail, C, offs, out
+    "ragged": (_P, _L, _I, _I, _I, _L, _L, _P, _P),
+    # slot_ok, B, S, P, live, overflow
+    "pairs": (_P, _L, _I, _L, _P, _P),
+    # hashes, B, M, n_hashes, bin_size, shift, out
+    "probe_sort": (_P, _L, _I, _P, _U, _I, _P),
+    # tbl, R, rows, N, out
+    "gather_probe": (_P, _L, _P, _L, _P),
 }
 
 # launch counters: each kernel, plus the modes counted apart
 LAUNCHES = {name: 0 for name in (*_SIGNATURES, "count_forest",
                                  "count_raptor", "select_winners",
                                  "fine_all", "extract_build", "count_shard",
-                                 "fine_shard", "scatter_span")}
+                                 "fine_shard", "scatter_span", "minimizers",
+                                 "ragged_winners")}
 
 _lib = None
 

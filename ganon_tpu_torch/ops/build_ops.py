@@ -28,7 +28,7 @@ import torch
 
 from ganon_tpu_torch import kernels
 from ganon_tpu_torch.ops.ibf_query import clz64, ibf_row_indices
-from ganon_tpu_torch.ops.minimizers import ukey
+from ganon_tpu_torch.ops.winnow import ukey
 
 # entries per radix block and per scan block (csrc/sort.cu kTile,
 # kScanTile): the scratch sizes below follow from them

@@ -12,16 +12,19 @@ with ``hash_shift = clz64(bin_size)``. The query table is
 occupy a contiguous byte range, so per-target counts are per-byte
 popcounts summed over that range.
 
-This module holds the two classify kernels' wrappers:
+This module holds the classify kernels' wrappers:
 
 * :func:`extract` — 2-bit unpack, canonical minimizers, mate join and
   compaction (``csrc/extract.cu``); plain version :func:`extract_plain`.
-* :func:`target_counts` — hash rows, gather + AND, byte popcount,
-  per-target segment sum and clamp (``csrc/count.cu``; flat, forest and
-  column-max modes, and shard mode with the clamp off); plain version
-  :func:`bulk_target_counts`.
+* :func:`bulk_target_counts_packed` — hash rows, gather + AND, byte
+  popcount, per-target segment sum and clamp (``csrc/count.cu``; flat,
+  forest and column-max modes, and shard mode with the clamp off); plain
+  version :func:`bulk_target_counts_packed_plain`.
 * :func:`combine` — the column shards' partial counts summed and clamped
   (``csrc/shard.cu``); plain version :func:`combine_plain`.
+* :func:`probe_sort` — each read's hashes ordered by their first row
+  (``csrc/psort.cu``, the ``sort_probes`` branch); plain version
+  :func:`probe_sort_plain`.
 
 :func:`shard_table` splits a packed table into the column shards of a
 device mesh's ``bins`` axis (K17).
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from ganon_tpu_torch import kernels
-from ganon_tpu_torch.ops.minimizers import as_i64, lsr, minimizers_masked
+from ganon_tpu_torch.ops.winnow import as_i64, lsr, minimizers_masked
 
 # 2^64 / golden ratio — spreads the xor-folded value over the full range.
 GOLDEN = 0x9E3779B97F4A7C15
@@ -319,13 +322,15 @@ def _popcount_bytes_i32(x: torch.Tensor) -> torch.Tensor:
     return x.bitwise_and_(0x0F0F0F0F)
 
 
-def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
-                       byte_ends: torch.Tensor, hashes: torch.Tensor,
-                       n_hashes: torch.Tensor, *, bin_size: int,
-                       hash_functions: int, out: torch.Tensor | None = None,
-                       col0: int = 0, cols: torch.Tensor | None = None,
-                       clamp: bool = True) -> torch.Tensor:
-    """Plain version of the ``count`` kernel (see :func:`target_counts`).
+def bulk_target_counts_packed_plain(
+        tbl8: torch.Tensor, byte_starts: torch.Tensor,
+        byte_ends: torch.Tensor, hashes: torch.Tensor,
+        n_hashes: torch.Tensor, *, bin_size: int, hash_functions: int,
+        out: torch.Tensor | None = None, col0: int = 0,
+        cols: torch.Tensor | None = None,
+        clamp: bool = True) -> torch.Tensor:
+    """Plain version of the ``count`` kernel (see
+    :func:`bulk_target_counts_packed`).
 
     ``counts[b, t] = min(n_hashes[b], sum_m popcount(AND_s
     tbl8[row_s(h[b, m]), byte_starts[t]:byte_ends[t]]))`` over the first
@@ -333,7 +338,7 @@ def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
     false); written into ``out[:, col0:col0 + T]``
     when ``out`` is given, or max-merged into ``out[:, cols]`` with
     ``cols`` (``out`` returned either way). ``tbl8``'s ``W8`` is a
-    multiple of 4, as :func:`target_counts` requires.
+    multiple of 4, as :func:`bulk_target_counts_packed` requires.
     """
     B, M = hashes.shape
     W8 = tbl8.shape[1]
@@ -378,13 +383,19 @@ def bulk_target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
     return out
 
 
-def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
-                  byte_ends: torch.Tensor, hashes: torch.Tensor,
-                  n_hashes: torch.Tensor, *, bin_size: int,
-                  hash_functions: int, out: torch.Tensor | None = None,
-                  col0: int = 0, cols: torch.Tensor | None = None,
-                  clamp: bool = True) -> torch.Tensor:
+def bulk_target_counts_packed(
+        tbl8: torch.Tensor, byte_starts: torch.Tensor,
+        byte_ends: torch.Tensor, hashes: torch.Tensor,
+        n_hashes: torch.Tensor, *, bin_size: int, hash_functions: int,
+        out: torch.Tensor | None = None, col0: int = 0,
+        cols: torch.Tensor | None = None,
+        clamp: bool = True) -> torch.Tensor:
     """Per-target clamped counts of compacted hashes: int32 ``[B, T]``.
+
+    The counterpart of ``ganon_tpu.ops.ibf_query.
+    bulk_target_counts_packed`` (its name, and not the ``ops`` API's
+    ``bulk_target_counts``, which counts the interleaved matrix:
+    :mod:`ganon_tpu_torch.ops.bins`).
 
     Replaces ``ganon_tpu.ops.ibf_query.ibf_row_indices`` +
     ``bulk_target_counts_u8``/``_u32`` + ``_segment_matmul`` and the
@@ -430,7 +441,7 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
         raise ValueError(f"column-max mode takes out, col0 = 0, int32 "
                          f"cols [{T}] and the clamp")
     if tbl8.device.type == "cpu":
-        return bulk_target_counts(
+        return bulk_target_counts_packed_plain(
             tbl8, byte_starts, byte_ends, hashes, n_hashes,
             bin_size=bin_size, hash_functions=hash_functions, out=out,
             col0=col0, cols=cols, clamp=clamp,
@@ -449,6 +460,64 @@ def target_counts(tbl8: torch.Tensor, byte_starts: torch.Tensor,
         T, hashes, B, M, n_hashes, bin_size, hash_functions, clz64(bin_size),
         out, out.shape[1], col0, cols, int(clamp), counter=counter,
     )
+    return out
+
+
+# --- the probe order of a read (sort_probes) --------------------------------
+
+# the largest compaction width probe_sort takes (csrc/psort.cu kMaxM)
+PROBE_SORT_MAX_M = 4096
+
+
+def _probe_keys(hashes: torch.Tensor, n_hashes: torch.Tensor, *,
+                bin_size: int) -> torch.Tensor:
+    """int64 ``[B, M]`` keys of :func:`probe_sort`: ``row0 << 16 | slot``
+    for the first ``min(n, M)`` slots, ``2^62 | slot`` past them."""
+    B, M = hashes.shape
+    row0 = ibf_row_indices(hashes, bin_size=bin_size, hash_functions=1)[..., 0]
+    slot = torch.arange(M, device=hashes.device)
+    valid = slot[None, :] < n_hashes[:, None].to(torch.int64)
+    return torch.where(valid, (row0 << 16) | slot, (1 << 62) | slot)
+
+
+def probe_sort_plain(hashes: torch.Tensor, n_hashes: torch.Tensor, *,
+                     bin_size: int) -> torch.Tensor:
+    """Plain version of the ``probe_sort`` kernel (see :func:`probe_sort`):
+    ``torch.sort(stable=True)`` of the same keys."""
+    order = torch.sort(_probe_keys(hashes, n_hashes, bin_size=bin_size),
+                       dim=1, stable=True).indices
+    return torch.gather(hashes, 1, order)
+
+
+def probe_sort(hashes: torch.Tensor, n_hashes: torch.Tensor, *,
+               bin_size: int) -> torch.Tensor:
+    """Each read's compacted hashes ordered by their first hash
+    function's row: int64 ``[B, M]``.
+
+    Replaces the ``sort_probes`` branch of ``ganon_tpu.classify.device.
+    classify_batch_packed`` (``device.py:375-410``), which sorts each
+    read's hashes by ``ibf_row_indices(...)[..., 0]`` before the count so
+    that neighbouring probes gather neighbouring rows. The first ``min(n,
+    M)`` slots (those :func:`bulk_target_counts_packed` reads) order by
+    ``(row0, slot)``; the slots past them keep their order after them.
+    The counts of the sorted hashes equal the unsorted ones. ``M`` is at
+    most :data:`PROBE_SORT_MAX_M`.
+    """
+    if hashes.dtype != torch.int64 or hashes.dim() != 2:
+        raise ValueError("hashes must be int64 [B, M]")
+    if n_hashes.dtype != torch.int32 or n_hashes.shape != hashes.shape[:1]:
+        raise ValueError("n_hashes must be int32 [B]")
+    B, M = hashes.shape
+    if not 0 < M <= PROBE_SORT_MAX_M or not 0 < bin_size < 1 << 46:
+        raise ValueError(f"probe_sort takes 0 < M <= {PROBE_SORT_MAX_M} and "
+                         "bin_size < 2^46")
+    if hashes.device.type == "cpu":
+        return probe_sort_plain(hashes, n_hashes, bin_size=bin_size)
+    kernels.check_cuda(hashes, n_hashes)
+    out = torch.empty_like(hashes)
+    if B:
+        kernels.launch("probe_sort", hashes, B, M, n_hashes, bin_size,
+                       clz64(bin_size), out)
     return out
 
 

@@ -3,7 +3,7 @@
 Port of the pruned forest's device programs in
 ``ganon_tpu.classify.device`` (``bulk_group_counts``, the gate and top-S
 block and the fine stage of ``classify_batch_packed_pruned``, and
-``_pruned_all_counts``). Two kernel wrappers:
+``_pruned_all_counts``). Its kernel wrappers:
 
 * :func:`gate` — coarse group counts, the read's cutoff, the survive
   mask and the top-S surviving groups (``csrc/gate.cu``); plain version
@@ -12,6 +12,9 @@ block and the fine stage of ``classify_batch_packed_pruned``, and
   (dense ``[B, S, gs]``), or of every group into ``[B, T]`` (probe-all,
   gated by the survive mask or not) (``csrc/fine.cu``); plain version
   :func:`fine_counts_plain`.
+* :func:`pair_live` — the (read, slot) pair cap's live slots and spill
+  flags (``csrc/scan.cu`` mode ``pairs``); plain version
+  :func:`pair_live_plain`.
 * :func:`fine_shard` — probe-all over one shard's groups of a
   bins-sharded fine table, into their global columns of ``[B, T]``
   (``csrc/fine.cu`` shard mode, K17); plain version
@@ -285,6 +288,50 @@ def fine_counts(ftbl: torch.Tensor, hashes: torch.Tensor,
         counter="fine" if dense else "fine_all",
     )
     return out
+
+
+def pair_live_plain(slot_ok: torch.Tensor, overflow: torch.Tensor,
+                    pair_cap: int):
+    """Plain version of the ``pairs`` kernel (see :func:`pair_live`)."""
+    ok = slot_ok.bool()
+    pos = torch.cumsum(ok.reshape(-1).to(torch.int64), 0).reshape(ok.shape)
+    live = ok & (pos - 1 < pair_cap)
+    n_slots = ok.sum(dim=1)
+    read_end = torch.cumsum(n_slots, 0)
+    spill = (read_end > pair_cap) & (n_slots > 0)
+    return live.to(torch.uint8), (overflow.bool() | spill).to(torch.uint8)
+
+
+def pair_live(slot_ok: torch.Tensor, overflow: torch.Tensor, pair_cap: int):
+    """The live slots of a batch under a (read, slot) pair cap.
+
+    Replaces the pair compaction of ``ganon_tpu.classify.device.
+    classify_batch_packed_pruned`` with ``pair_cap > 0``
+    (``device.py:1199-1237``): the live slots of ``slot_ok`` (u8 ``[B,
+    S]``) in read-major order are the pairs; a pair at position ``>=
+    pair_cap`` is dropped (the fine stage counts it as a dead slot, so it
+    adds zero), and a read whose pairs end past the cap with any slot
+    live, ``cumsum(n_slots) > pair_cap``, gets its overflow flag (the
+    engine's exact retry). Returns ``(live u8 [B, S], overflow u8 [B])``;
+    ``slot_ok`` itself still decides the lanes and the group words.
+    """
+    B = slot_ok.shape[0]
+    if slot_ok.dtype != torch.uint8 or slot_ok.dim() != 2 or (
+            slot_ok.shape[1] < 1):
+        raise ValueError("slot_ok must be u8 [B, S]")
+    if overflow.dtype != torch.uint8 or overflow.shape != (B,):
+        raise ValueError("overflow must be u8 [B]")
+    if pair_cap < 0:
+        raise ValueError("pair_cap must not be negative")
+    if slot_ok.device.type == "cpu":
+        return pair_live_plain(slot_ok, overflow, pair_cap)
+    kernels.check_cuda(slot_ok, overflow)
+    live = torch.empty_like(slot_ok)
+    ovf = overflow.clone()
+    if B:
+        kernels.launch("pairs", slot_ok, B, slot_ok.shape[1], pair_cap, live,
+                       ovf)
+    return live, ovf
 
 
 def fine_shard_plain(ftbl: torch.Tensor, hashes: torch.Tensor,

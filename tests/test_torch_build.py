@@ -22,7 +22,7 @@ from ganon_tpu.ops.minimizers import encode_seqs
 from ganon_tpu_torch.index import device_build as tdb
 from ganon_tpu_torch.index import sizing as tsizing
 from ganon_tpu_torch.ops import build_ops
-from ganon_tpu_torch.ops.minimizers import u64_to_torch
+from ganon_tpu_torch.ops.winnow import u64_to_torch
 
 K, W = 19, 31
 BASES = "ACGT"

@@ -26,7 +26,13 @@ target over three shards and with one shard (equal to the flat count),
 combine in column-max mode, fine in shard mode over a shard of pad
 groups only, and the ranked scatter in span mode with every entry
 outside the span; a mesh of the card and the CPU, so inputs and partials
-cross devices.
+cross devices. The ops library (K18): minimizers at L not a multiple of
+4 and past max_minimizers, bins with a row wider than a block and with
+M = 0, tsum with ids out of range and past its shared-memory width,
+bins_target with and without a permutation; the ragged stream at a cap
+of 1 and overflowing caps (winners, group words); pairs with every read
+spilling; probe_sort with equal keys; the gather probe; the transfer
+settings (ragged, pair caps, sort_probes) on the card against the CPU.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
@@ -98,8 +104,9 @@ def test_count_kernel_matches_plain_across_tiles(cuda, hf):
     n = torch.from_numpy(rng.integers(0, M + 50, size=B).astype(np.int32))
     args = [x.to(cuda) for x in (tbl8, torch.from_numpy(starts),
                                  torch.from_numpy(ends), h, n)]
-    got = q.target_counts(*args, bin_size=R, hash_functions=hf)
-    want = q.bulk_target_counts(*args, bin_size=R, hash_functions=hf)
+    got = q.bulk_target_counts_packed(*args, bin_size=R, hash_functions=hf)
+    want = q.bulk_target_counts_packed_plain(*args, bin_size=R,
+                                             hash_functions=hf)
     assert torch.equal(got, want)
 
 
@@ -211,9 +218,10 @@ def test_count_kernel_forest_mode_matches_plain(cuda, col0):
     fill[:, col0:col0 + T] = 0
     got, want = fill.clone(), fill.clone()
     before = kernels.LAUNCHES["count_forest"]
-    q.target_counts(*args, bin_size=R, hash_functions=2, out=got, col0=col0)
-    q.bulk_target_counts(*args, bin_size=R, hash_functions=2, out=want,
-                         col0=col0)
+    q.bulk_target_counts_packed(*args, bin_size=R, hash_functions=2, out=got,
+                                col0=col0)
+    q.bulk_target_counts_packed_plain(*args, bin_size=R, hash_functions=2,
+                                      out=want, col0=col0)
     assert kernels.LAUNCHES["count_forest"] == before + 1
     assert torch.equal(got, want)
     assert (got[:, col0 + T:] == -7).all()
@@ -514,10 +522,10 @@ def test_count_kernel_column_max_mode_matches_plain(cuda):
     for tbl8, starts, ends, bin_size, hf, cols in subs:
         args = [x.to(cuda) for x in (tbl8, starts, ends)] + [h, n]
         c = torch.from_numpy(cols.astype(np.int32)).to(cuda)
-        q.target_counts(*args, bin_size=bin_size, hash_functions=hf,
-                        out=got, cols=c)
-        q.bulk_target_counts(*args, bin_size=bin_size, hash_functions=hf,
-                             out=want, cols=c)
+        q.bulk_target_counts_packed(*args, bin_size=bin_size,
+                                    hash_functions=hf, out=got, cols=c)
+        q.bulk_target_counts_packed_plain(*args, bin_size=bin_size,
+                                          hash_functions=hf, out=want, cols=c)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert kernels.LAUNCHES["count_raptor"] == before + len(subs)
@@ -538,8 +546,10 @@ def test_count_kernel_flat_target_spanning_tiles(cuda):
     n = torch.from_numpy(rng.integers(0, M + 5, size=B).astype(np.int32))
     args = [x.to(cuda) for x in (tbl8, starts, ends, h, n)]
     for hf in (1, 3):
-        got = q.target_counts(*args, bin_size=700, hash_functions=hf)
-        want = q.bulk_target_counts(*args, bin_size=700, hash_functions=hf)
+        got = q.bulk_target_counts_packed(*args, bin_size=700,
+                                          hash_functions=hf)
+        want = q.bulk_target_counts_packed_plain(*args, bin_size=700,
+                                                 hash_functions=hf)
         assert torch.equal(got, want)
 
 
@@ -818,17 +828,19 @@ def test_count_shard_and_combine_match_plain(cuda, nb):
                            torch.from_numpy(ends), nb)
     if nb == 3:
         assert sum(s.t_lo <= 2 < s.t_hi for s in shards) == 3
-    want = _shard_counts(shards, h, n, R, hf, T, q.target_counts, q.combine)
-    flat = q.bulk_target_counts(tbl8, torch.from_numpy(starts),
-                                torch.from_numpy(ends), h, n, bin_size=R,
-                                hash_functions=hf)
+    want = _shard_counts(shards, h, n, R, hf, T, q.bulk_target_counts_packed,
+                         q.combine)
+    flat = q.bulk_target_counts_packed_plain(
+        tbl8, torch.from_numpy(starts), torch.from_numpy(ends), h, n,
+        bin_size=R, hash_functions=hf)
     assert torch.equal(want, flat)  # the clamp after the sum
     dshards = [s.to(cuda) for s in shards]
     dh, dn = _to(cuda, h, n)
     before = dict(kernels.LAUNCHES)
-    got = _shard_counts(dshards, dh, dn, R, hf, T, q.target_counts, q.combine)
-    plain = _shard_counts(dshards, dh, dn, R, hf, T, q.bulk_target_counts,
-                          q.combine_plain)
+    got = _shard_counts(dshards, dh, dn, R, hf, T,
+                        q.bulk_target_counts_packed, q.combine)
+    plain = _shard_counts(dshards, dh, dn, R, hf, T,
+                          q.bulk_target_counts_packed_plain, q.combine_plain)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want) and torch.equal(plain.cpu(), want)
     assert kernels.LAUNCHES["count_shard"] - before["count_shard"] == sum(
@@ -986,3 +998,200 @@ def test_mixed_mesh_moves_partials_across_devices(cuda):
     assert kernels.LAUNCHES["fine_shard"] == before + 2
     want = fc.counts_gated(h, n, 0.3)
     assert torch.equal(got, want) and want.any()
+
+
+# --------------------------------------------------------------------------
+# the ops library (K18), the ragged stream, pair compaction, sort_probes
+# and the gather probe
+
+
+def test_minimizers_kernel_matches_plain(cuda):
+    """The library's minimizers (extract in single-end mode): L not a
+    multiple of 4, rows shorter than w, lengths past L, more emissions
+    than max_minimizers, a batch narrower than w."""
+    from ganon_tpu_torch.ops import library as lib
+
+    rng = np.random.default_rng(31)
+    codes = torch.from_numpy(rng.integers(0, 4, size=(64, 203),
+                                          dtype=np.uint8))
+    lens = torch.from_numpy(rng.integers(0, 260, size=64).astype(np.int32))
+    lens[:3] = torch.tensor([0, 30, 31])
+    for mm in (5, 40, 400):
+        before = kernels.LAUNCHES["minimizers"]
+        got = lib.minimizers(codes.to(cuda), lens.to(cuda), k=19, w=31,
+                             max_minimizers=mm)
+        want = lib.minimizers_plain(codes.to(cuda), lens.to(cuda), k=19,
+                                    w=31, max_minimizers=mm)
+        assert kernels.LAUNCHES["minimizers"] == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (want[1] > 5).any()
+    h, n = lib.minimizers(codes[:, :20].to(cuda), lens.to(cuda), k=19, w=31,
+                          max_minimizers=8)
+    assert not h.any() and not n.any()
+
+
+def test_bins_kernels_match_plain(cuda):
+    """bins with a row wider than a block (n_words 300) and with M = 0;
+    tsum with ids out of range, in shared memory and past it
+    (T = 13,000); bins_target with and without a permutation, equal to
+    target_counts of the per-bin counts."""
+    from ganon_tpu_torch.ops import library as lib
+
+    rng = np.random.default_rng(32)
+    for W, M in ((300, 70), (3, 0), (5, 300)):
+        R, B, S = 1000, 20, 3
+        bits = torch.from_numpy(rng.integers(-2**31, 2**31, size=(R, W),
+                                             dtype=np.int64).astype(np.int32))
+        rows = torch.from_numpy(rng.integers(0, R, size=(B, M, S)).astype(
+            np.int32))
+        mask = torch.from_numpy(rng.random((B, M)) < 0.7)
+        mask[0] = False
+        args = [x.to(cuda) for x in (bits, rows, mask)]
+        got = lib.bulk_count_bins(*args)
+        assert torch.equal(got, lib.bulk_count_bins_plain(*args))
+        for T in (7, 13000):
+            b2t = torch.from_numpy(rng.integers(-2, T + 2, size=W * 32).astype(
+                np.int32)).to(cuda)
+            tc = lib.target_counts(got, b2t, num_targets=T)
+            assert torch.equal(tc, lib.target_counts_plain(got, b2t,
+                                                           num_targets=T))
+        b2t_np = np.sort(rng.integers(0, 8, size=W * 32)).astype(np.int32)
+        for shuffle in (False, True):
+            if shuffle:
+                rng.shuffle(b2t_np)
+            perm, starts, ends = lib.target_segments(b2t_np, 7)
+            seg = [torch.from_numpy(x).to(cuda) for x in (starts, ends)]
+            pt = None if perm is None else torch.from_numpy(
+                perm.astype(np.int32)).to(cuda)
+            btc = lib.bulk_target_counts(*args, *seg, pt)
+            assert torch.equal(btc, lib.bulk_target_counts_plain(*args, *seg,
+                                                                 pt))
+            assert torch.equal(btc, lib.target_counts(
+                got, torch.from_numpy(b2t_np).to(cuda), num_targets=7))
+
+
+def _dense_buffer(rng, B, K, has_win, n_extra, T):
+    """A dense pack16 result buffer of random entries, n_matches past K
+    included."""
+    parts = [rng.integers(-2**31, 2**31, size=B * K)]
+    if has_win:
+        parts.append(rng.integers(0, 3, size=B * K))
+    nm = rng.integers(0, K + 3, size=B)
+    nm[rng.random(B) < 0.5] = 0
+    parts += [nm, rng.integers(0, 0xFFFF, size=B),
+              rng.integers(0, 0x3FFFF, size=B), rng.integers(0, 2, size=B)]
+    parts += [rng.integers(-2**31, 2**31, size=B) for _ in range(n_extra)]
+    parts.append(rng.integers(0, 1000, size=2 * T + 3))
+    return torch.from_numpy(np.concatenate(parts).astype(np.int32))
+
+
+@pytest.mark.parametrize("has_win,n_extra", [(False, 0), (True, 0),
+                                             (False, 2)],
+                         ids=["flat", "winners", "group-words"])
+def test_ragged_kernel_matches_plain(cuda, has_win, n_extra):
+    """The ragged stream at a cap of 1, a cap that overflows, an ample
+    cap and B = 3000 (several scan chunks), with and without winners and
+    extra rows."""
+    rng = np.random.default_rng(33 + has_win + n_extra)
+    for B, K in ((5, 4), (3000, 8)):
+        dense = _dense_buffer(rng, B, K, has_win, n_extra, 11).to(cuda)
+        total = int(torch.clamp(dense[B * K * (1 + has_win):][:B],
+                                max=K).sum())
+        for cap in (1, max(1, total // 2), total + 5):
+            kw = dict(has_win=has_win, n_extra=n_extra)
+            got = dev.ragged(dense, B, K, cap, **kw)
+            want = dev.ragged_plain(dense, B, K, cap, **kw)
+            assert torch.equal(got, want), (B, cap)
+            res = dev.unpack_batch_result_ragged(
+                got.cpu().numpy(), B, cap, 11, K, has_win, n_extra=n_extra)
+            assert res["cap_overflow"] == (total > cap)
+
+
+def test_pairs_kernel_matches_plain(cuda):
+    """Pair compaction: a cap of 0 (every read with a live slot spills),
+    caps inside and past the pairs, B = 5000 (several scan chunks)."""
+    rng = np.random.default_rng(34)
+    for B, S in ((7, 2), (5000, 3)):
+        ok = torch.from_numpy((rng.random((B, S)) < 0.6).astype(np.uint8))
+        ovf = torch.from_numpy((rng.random(B) < 0.1).astype(np.uint8))
+        n_pairs = int(ok.sum())
+        for cap in (0, 1, n_pairs // 2, n_pairs + 3):
+            got = pq.pair_live(ok.to(cuda), ovf.to(cuda), cap)
+            want = pq.pair_live_plain(ok.to(cuda), ovf.to(cuda), cap)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), cap
+        spill = pq.pair_live(ok.to(cuda), ovf.to(cuda), 0)[1].bool().cpu()
+        assert torch.equal(spill, ovf.bool() | ok.bool().any(dim=1))
+
+
+def test_probe_sort_kernel_matches_plain(cuda):
+    """probe_sort with equal keys (a hash repeated), n = 0, n past M, M
+    not a power of two, and M = 4096."""
+    rng = np.random.default_rng(35)
+    for B, M in ((40, 56), (3, 4096)):
+        h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M)))
+        h[0, :] = h[0, 0]
+        n = torch.from_numpy(rng.integers(0, M + 9, size=B).astype(np.int32))
+        n[1] = 0
+        hg, ng = h.to(cuda), n.to(cuda)
+        for bin_size in (97, 1 << 30):
+            got = q.probe_sort(hg, ng, bin_size=bin_size)
+            assert torch.equal(got, q.probe_sort_plain(hg, ng,
+                                                       bin_size=bin_size))
+
+
+def test_gather_probe_kernel_matches_plain(cuda):
+    """The Pallas probe's port at its own shapes and at a few probes."""
+    from ganon_tpu_torch.ops import probe
+
+    rng = np.random.default_rng(36)
+    tbl = torch.from_numpy(rng.integers(0, 256, size=(probe.R, 32),
+                                        dtype=np.uint8)).to(cuda)
+    for n in (5, probe.NPROBE):
+        rows = torch.from_numpy(rng.integers(0, probe.R, size=n).astype(
+            np.int32)).to(cuda)
+        assert torch.equal(probe.gather_probe(tbl, rows),
+                           probe.gather_probe_plain(tbl, rows))
+
+
+def test_transfer_settings_cuda_match_cpu(cuda):
+    """A flat filter with sort_probes and the ragged stream (a cap that
+    overflows, and an ample one), and a pruned forest at pair caps 0,
+    8 and B * S: the card's buffers equal the CPU's."""
+    from ganon_tpu_torch.index.builder import _HashExtractor
+    from ganon_tpu_torch.index.ibf import build_ibf
+    from ganon_tpu_torch.index.pruned import build_pruned
+    from ganon_tpu_torch.io.pipeline import EncodedBatch
+
+    rng = np.random.default_rng(37)
+    genomes = rng.integers(0, 4, size=(150, 2000), dtype=np.uint8)
+    ex = _HashExtractor(19, 31, device="cpu")
+    for t, g in enumerate(genomes):
+        ex.add_encoded(f"T{t}", g)
+    th = ex.finish()
+    B, L = 128, 150
+    tgt = rng.integers(0, len(genomes), size=B)
+    pos = rng.integers(0, 2000 - L, size=B)
+    r1 = genomes[tgt[:, None], pos[:, None] + np.arange(L)].astype(np.uint8)
+    lens = np.full(B, L, np.int32)
+    batch = EncodedBatch(prefix="", paired=False,
+                         ids=[str(i) for i in range(B)], codes1=r1,
+                         len1=lens)
+    inbuf, L1, L2 = dev.pack_batch_direct(batch, B)
+    kw = dict(k=19, w=31, L1=L1, L2=L2, top_k=8)
+    fc = dev.DeviceFilter(build_ibf(th, kmer_size=19, window_size=31,
+                                    device="cpu"), "cpu")
+    fg = fc.to(cuda)
+    for cap, sp in ((0, True), (3, False), (B * 8, True)):
+        outs = [dev.classify_batch_packed(
+            f, torch.from_numpy(inbuf).to(f.device), 0.05, 1.0, 65535,
+            match_cap=cap, sort_probes=sp, **kw) for f in (fc, fg)]
+        assert torch.equal(outs[0], outs[1].cpu()), (cap, sp)
+    pf = build_pruned(th, kmer_size=19, window_size=31, group_size=16)
+    pc = dev.DevicePrunedForest(pf, "cpu")
+    pg = pc.to(cuda)
+    for pair_cap in (0, 8, B * 2):
+        outs = [dev.classify_batch_packed_pruned(
+            f, torch.from_numpy(inbuf).to(f.device), 0.1, 0.5, 65535,
+            max_groups=2, match_cap=B, pair_cap=pair_cap, **kw)
+            for f in (pc, pg)]
+        assert torch.equal(outs[0], outs[1].cpu()), pair_cap

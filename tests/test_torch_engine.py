@@ -13,6 +13,7 @@ import random
 import pytest
 
 import ganon_tpu  # noqa: F401  (turns on jax x64)
+from ganon_tpu.classify import engine as jax_engine
 from ganon_tpu.classify.engine import ClassifyConfig as JaxConfig
 from ganon_tpu.classify.engine import run_classify as jax_run_classify
 from ganon_tpu_torch.classify import engine as port_engine
@@ -61,19 +62,26 @@ def _tax(path, refs, n_genera):
     return write_tax(path, rows)
 
 
-def run_both(tmp_path, monkeypatch, jax_kw=None, **kw):
+def run_both(tmp_path, monkeypatch, jax_kw=None, jax_calls=None, **kw):
     """Run both engines on one config; every output file (per level and
     per prefix) must agree: sorted rows, ``.sta`` byte for byte.
     ``jax_kw`` overrides fields of the JAX engine's config only.
     Returns the port's output prefix and how often it dispatched a batch
-    and took the exact fallback."""
+    and took the exact fallback; ``jax_calls`` (a dict), when given, gets
+    the JAX engine's two counts."""
     calls = {"dispatch": 0, "fallback": 0}
-    for fn, key in (("_dispatch_batch_fast", "dispatch"),
-                    ("_classify_batch", "fallback")):
-        def counted(*a, _f=getattr(port_engine, fn), _k=key, **k):
-            calls[_k] += 1
-            return _f(*a, **k)
-        monkeypatch.setattr(port_engine, fn, counted)
+    engines = [(port_engine, calls)]
+    if jax_calls is not None:
+        jax_calls.update(dispatch=0, fallback=0)
+        engines.append((jax_engine, jax_calls))
+    for module, counts in engines:
+        for fn, key in (("_dispatch_batch_fast", "dispatch"),
+                        ("_classify_batch", "fallback")):
+            def counted(*a, _f=getattr(module, fn), _k=key, _c=counts,
+                        **k):
+                _c[_k] += 1
+                return _f(*a, **k)
+            monkeypatch.setattr(module, fn, counted)
     outs = {}
     for name, cfg in (("jax", JaxConfig(use_mesh=False,
                                         **{**kw, **(jax_kw or {})})),
@@ -135,16 +143,20 @@ def test_engine_matches_jax_topk(tmp_path_factory, tmp_path, monkeypatch,
              for i, s in enumerate(range(0, 280, 20))}
     reads.update({f"own{i}": refs[f"T{i:02d}"][420:540] for i in range(10)})
     write_fastq(tmp / "r.fq", reads)
+    jax_calls = {}
     port, calls = run_both(
         tmp_path, monkeypatch, ibf=[db], single_reads=[str(tmp / "r.fq")],
         rel_cutoff=[0.5], rel_filter=[1.0], fpr_query=[fpr],
         top_k_matches=top_k, output_all=True, output_unclassified=True,
-        output_stats=True)
+        output_stats=True, jax_calls=jax_calls)
     n_core = sum(1 for r in read_tsv(port + ".all")
                  if r[0] == "core0")
     assert n_core > 32
-    if top_k > 32:  # one batch, dispatched again at the wider K
-        assert calls == {"dispatch": 2, "fallback": 0}
+    if top_k > 32:
+        # one batch: its ragged match stream (2 slots a read) overflows
+        # and it is dispatched again with more slots, then again at the
+        # wider K, as in the JAX engine
+        assert calls == jax_calls == {"dispatch": 3, "fallback": 0}
     else:  # past top_k_matches: the exact full-matrix path
         assert calls["fallback"] >= 1
 

@@ -143,10 +143,10 @@ def test_sharded_classifier_matches_jax(flat, batch, bins):
     inbuf[:, L4 // 4:] = lengths.astype("<i4").view(np.uint8).reshape(-1, 4)
     h, n, _ = q.extract(torch.from_numpy(inbuf), L1=L4, L2=0, k=K, w=W,
                         mc=L4 - W + 1)
-    raw = q.bulk_target_counts(plain.tbl8, plain.byte_starts, plain.byte_ends,
-                               h, n, bin_size=ibf.ibf_config.bin_size_bits,
-                               hash_functions=ibf.ibf_config.hash_functions,
-                               clamp=False)
+    raw = q.bulk_target_counts_packed_plain(
+        plain.tbl8, plain.byte_starts, plain.byte_ends, h, n,
+        bin_size=ibf.ibf_config.bin_size_bits,
+        hash_functions=ibf.ibf_config.hash_functions, clamp=False)
     assert (raw > n[:, None]).any()
     assert torch.equal(got_c, torch.minimum(raw, n[:, None]))
 

@@ -17,7 +17,7 @@ from ganon_tpu.ops import ibf_query as jq
 from ganon_tpu.ops import minimizers as jm
 from ganon_tpu_torch.classify import device as tdev
 from ganon_tpu_torch.ops import ibf_query as tq
-from ganon_tpu_torch.ops import minimizers as tm
+from ganon_tpu_torch.ops import winnow as tm
 
 
 def _u64(rng, n):
@@ -128,7 +128,7 @@ def test_bulk_target_counts_matches_jax_u8_and_u32(hf):
     assert np.array_equal(want8, want32)
     want = np.minimum(want8, n[:, None])
     tbl = torch.from_numpy(tq.table_as_u32(tbl8).view(np.uint8))
-    got = tq.target_counts(
+    got = tq.bulk_target_counts_packed(
         tbl, torch.from_numpy(bs), torch.from_numpy(be), tm.u64_to_torch(h),
         torch.from_numpy(n), bin_size=R, hash_functions=hf)
     assert got.dtype == torch.int32
