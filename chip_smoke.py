@@ -165,7 +165,13 @@ Every phase line carries ``wall_s``, the wall time since the line before
 it. Then one JSON line of every kernel mode (its time and its plain
 version's, its bound at these inputs, the larger of bytes over 3.35 TB/s
 and operations over 67 T/s, its launches on the main paths, and the
-time of one PyTorch call computing the same function where there is one),
+time of one PyTorch call computing the same function where there is one;
+``sort``, ``ragged`` and ``ragged_winners`` are also timed over a run of
+back-to-back calls, ``device_ms`` and ``library_device_ms``, and by the
+card's activity under torch.profiler, ``profiled_ms`` and
+``library_profiled_ms``, and the ``sort`` row names the digit passes it
+planned at the pass-1 group from the card's histograms, the ``sort_hist``
+row),
 and last the device line. Every classify CLI run of phases 4,
 hierarchy, raptor and pruned prints a ``transfer=<phase>`` line of its
 own: per level, the batches fetched as the ragged stream and dense, the
@@ -206,6 +212,41 @@ def _ms(fn, reps: int) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def _ms_run(fn, n: int) -> float:
+    """Milliseconds a call of ``fn`` over ``n`` back-to-back calls
+    between one CUDA event pair (warmed): the device time where the host
+    keeps ahead of the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _profiled_ms(fn, n: int) -> float:
+    """Device milliseconds a call of ``fn``: the union of the card's
+    activity (kernels, memsets, copies) under torch.profiler over ``n``
+    calls (warmed), over ``n``; the card's own time, whatever the host
+    adds around it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return _device_busy(prof)[0] / n / 1e3
 
 
 def _max_abs_err(a, b) -> int:
@@ -724,12 +765,16 @@ def main() -> int:
     rows = []
 
     def compare(name, source, replaces, run_kernel, run_plain, reps,
-                plain_reps, work, library=None):
+                plain_reps, work, library=None, runs=0):
         """Kernel against plain on the same card tensors (equal, or
         raise), both timed; ``work`` is the function's (bytes, ops) at
         these inputs, for the bound. ``library`` times the one PyTorch
         call that computes the same function, where there is one (else
-        ``library_ms`` is null; PERF.md says why for each)."""
+        ``library_ms`` is null; PERF.md says why for each). With ``runs``,
+        kernel and library are also timed over ``runs`` back-to-back
+        calls (``device_ms``, ``library_device_ms``) and by the card's
+        activity under torch.profiler (``profiled_ms``,
+        ``library_profiled_ms``)."""
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         errs = [_max_abs_err(a, b) for a, b in zip(got, want)]
@@ -743,6 +788,13 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": _ms(library, reps) if library else None,
         })
+        if runs:
+            rows[-1].update(
+                device_ms=_ms_run(run_kernel, runs),
+                library_device_ms=_ms_run(library, runs) if library else None,
+                profiled_ms=_profiled_ms(run_kernel, runs),
+                library_profiled_ms=(_profiled_ms(library, runs)
+                                     if library else None))
         return got
 
     # 2. build (main path, part 1) -------------------------------------------
@@ -863,15 +915,35 @@ def main() -> int:
         # the library yardstick: torch.sort of (key << 38 | value), one
         # key per entry, since k = 19 values are below 2^38
         comp = (gkey.to(torch.int64) << 38) | gval
+        # the sort's first step, held against bincount's digit by digit;
+        # the wrapper plans its passes from these histograms, so the
+        # digits it runs are the plan of the card's own (the constant
+        # ones skipped)
+        D = bo.sort_digits(kb)
+        (card_hist,) = compare(
+            "sort_hist", "ganon_tpu_torch/csrc/sort.cu",
+            "ganon_tpu/ops/bigsort.py:31",
+            lambda: (bo.sort_digit_histograms(gkey, gval, key_bits=kb),),
+            lambda: (bo.sort_digit_histograms_plain(gkey, gval,
+                                                    key_bits=kb),), 10, 3,
+            # entries read once, the counts and offsets written; a digit
+            # per entry
+            (12 * N + 2 * D * bo.RADIX * 4, D * N))
+        sort_digits = bo.sort_pass_plan(card_hist[0], key_bits=kb)
         sk, sv = compare(
             "sort", "ganon_tpu_torch/csrc/sort.cu",
             "ganon_tpu/ops/bigsort.py:31",
             lambda: bo.sort_entries(gkey, gval, key_bits=kb),
             lambda: bo.sort_entries_plain(gkey, gval, key_bits=kb), 10, 3,
             # entries read and written once; a digit per entry per pass
-            (24 * N, (8 + -(-kb // 8)) * N),
-            library=lambda: torch.sort(comp),
+            (24 * N, len(sort_digits) * N),
+            library=lambda: torch.sort(comp), runs=20,
         )
+        rows[-1].update(passes=len(sort_digits), digits=sort_digits,
+                        entries=N, files=len(group.files))
+        print(f"sort: {len(sort_digits)} passes (digits {sort_digits}, "
+              f"planned from the card's histograms) at the first pass-1 "
+              f"group, {N} entries, {len(group.files)} files", flush=True)
         lib_sorted = torch.sort(comp).values
         if not (torch.equal(lib_sorted >> 38, sk.to(torch.int64))
                 and torch.equal(lib_sorted & ((1 << 38) - 1), sv)):
@@ -1240,7 +1312,7 @@ def main() -> int:
             lambda: (dev.ragged(dense, B_, K, rcap),),
             lambda: (dev.ragged_plain(dense, B_, K, rcap),), 20, 5,
             _ragged_work(dense, B_, K, rcap),
-            library=lambda: torch.cumsum(rflags, 0))
+            library=lambda: torch.cumsum(rflags, 0), runs=200)
     KU = min(32, U)
     usel = (ucounts, n_hashes, overflow, 0.0, 0.1, 65535)
     compare(
@@ -1265,7 +1337,7 @@ def main() -> int:
             lambda: (dev.ragged(udense, B_, KU, rcap, has_win=True),),
             lambda: (dev.ragged_plain(udense, B_, KU, rcap, has_win=True),),
             20, 5, _ragged_work(udense, B_, KU, rcap, has_win=True),
-            library=lambda: torch.cumsum(uflags, 0))
+            library=lambda: torch.cumsum(uflags, 0), runs=200)
     ragged_total = [int(torch.clamp(x, 0, kk).sum())
                     for x, kk in ((nmatch, K), (unmatch, KU))]
     del dense, udense, rflags, uflags

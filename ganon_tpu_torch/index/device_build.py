@@ -76,9 +76,10 @@ GROUP_BASES = 1 << 27
 CPU_CACHE_BYTES = 4 << 30
 # bytes of one cached entry: int32 key + int64 value
 _ENTRY_BYTES = 12
-# bytes an entry takes while its group sorts: the unsorted entries and
-# the radix sort's two double buffers
-_SORT_BYTES = 3 * _ENTRY_BYTES
+# bytes an entry takes while its group sorts: the unsorted entries, the
+# radix sort's two double buffers and its status words (2/3 byte an entry,
+# ops/build_ops.sort_entries)
+_SORT_BYTES = 3 * _ENTRY_BYTES + 1
 
 
 class PieceSpill:
@@ -166,14 +167,15 @@ class DeviceBuildPipeline:
 
     ``device_cache_bytes`` bounds the card memory of the sorted entries
     kept between the passes (12 bytes an entry) together with the group
-    being sorted (36 bytes an entry: its entries and the radix sort's
-    double buffers) and, in pass 2, the bit-matrix. Before each sort the
-    cache is trimmed to leave room for it (pass 1 drops the oldest groups,
-    pass 2 the ones it reaches last); a dropped group is re-extracted in
-    pass 2 from the host spill. The default is half of the card's free
-    memory when the pipeline starts (``torch.cuda.mem_get_info``), leaving
-    the rest for one group's extraction and dedup flags; on the CPU it is
-    ``CPU_CACHE_BYTES``. ``device="cuda"`` without CUDA raises here.
+    being sorted (37 bytes an entry: its entries, the radix sort's
+    double buffers and status words) and, in pass 2, the bit-matrix.
+    Before each sort the cache is trimmed to leave room for it (pass 1
+    drops the oldest groups, pass 2 the ones it reaches last); a dropped
+    group is re-extracted in pass 2 from the host spill. The default is
+    half of the card's free memory when the pipeline starts
+    (``torch.cuda.mem_get_info``), leaving the rest for one group's
+    extraction and dedup flags; on the CPU it is ``CPU_CACHE_BYTES``.
+    ``device="cuda"`` without CUDA raises here.
     """
 
     def __init__(self, k: int, w: int, tmp_dir: str | None = None,

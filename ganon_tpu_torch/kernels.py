@@ -18,8 +18,9 @@ than 65,535 targets),
 ``fine_all`` is ``fine`` over every group (the pruned forest's probe-all
 path); ``gate``, ``fine``, ``select_lanes`` and ``scatter_pruned`` are the
 pruned forest's; ``extract_build`` is ``extract`` on the build's pieces
-(single-end, a capacity of every window position); ``pack``, ``sort``,
-``dedup`` and ``scatter_ranked`` are the two-pass device build's.
+(single-end, a capacity of every window position); ``pack``, ``sort_hist``
+(the digit histograms that start each sort), ``sort``, ``dedup`` and
+``scatter_ranked`` are the two-pass device build's.
 The device mesh's modes (K17): ``count_shard`` is ``count`` on one
 column shard of a table with the clamp off, ``combine`` adds the shards'
 partials and clamps, ``fine_shard`` is ``fine`` over one shard's groups
@@ -107,7 +108,10 @@ _SIGNATURES = {
              _P, _P, _L, _P, _I),
     # hashes, B, mc, n, keys, offs, sums, out_key, out_val, N
     "pack": (_P, _L, _I, _P, _P, _P, _P, _P, _P, _L),
-    # key, val, N, key_bits, key_a, val_a, key_b, val_b, counts, sums
+    # key, val, N, D (digits), hist ([2, D, 256]: counts, offsets)
+    "sort_hist": (_P, _P, _L, _I, _P),
+    # key, val, N, digits (bit d: run digit d's pass), offs (hist[1]),
+    # key_a, val_a, key_b, val_b, status (scratch)
     "sort": (_P, _P, _L, _I, _P, _P, _P, _P, _P, _P),
     # key, val, N, R, uniq, rank (NULL = none), counts (NULL = none), sums
     "dedup": (_P, _P, _L, _I, _P, _P, _P, _P),
@@ -122,8 +126,8 @@ _SIGNATURES = {
     # bits, R, W, rows, B, M, S, mask, scratch, perm (NULL = identity),
     # starts, ends, T, out
     "bins_target": (_P, _L, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P),
-    # dense, B, K, has_win, n_extra, tail, C, offs, out
-    "ragged": (_P, _L, _I, _I, _I, _L, _L, _P, _P),
+    # dense, B, K, has_win, n_extra, tail, C, status, epoch, out
+    "ragged": (_P, _L, _I, _I, _I, _L, _L, _P, _U, _P),
     # slot_ok, B, S, P, live, overflow
     "pairs": (_P, _L, _I, _L, _P, _P),
     # hashes, B, M, n_hashes, bin_size, shift, out
@@ -222,10 +226,12 @@ def library() -> ctypes.CDLL:
 
 def check_cuda(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor is contiguous and on one CUDA device."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA tensors given but no CUDA device is available")
     devs = {t.device for t in tensors}
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        # (asked only here: a CUDA tensor means a CUDA device)
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA tensors given but no CUDA device is "
+                               "available")
         raise ValueError(f"tensors must share one CUDA device, got {devs}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("kernel arguments must be contiguous tensors")
@@ -246,7 +252,9 @@ def launch(name: str, *args, counter: str | None = None) -> None:
     if err != 0:
         raise RuntimeError(f"cudaSetDevice({device.index}) failed: error {err}")
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream(device).cuda_stream
+    # the raw handle of torch.cuda.current_stream(device), without building
+    # a Stream object (microseconds a launch on the host)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     err = getattr(lib, f"ganon_{name}")(*cargs, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")

@@ -11,7 +11,8 @@ and radix offsets are int32 on the card, so ``N`` is at most
 
 * :func:`pack_entries` — extract rows to entries (``csrc/sort.cu``);
 * :func:`sort_entries` — stable order by (key, unsigned value), an LSD
-  radix sort (``csrc/sort.cu``);
+  radix sort that runs only the digits :func:`sort_pass_plan` keeps
+  (``csrc/sort.cu``);
 * :func:`dedup` — first-occurrence flags, ranks and per-file distinct
   counts (``csrc/dedup.cu``);
 * :func:`scatter_ranked` — technical bin from the rank and the per-file
@@ -24,16 +25,20 @@ given CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ganon_tpu_torch import kernels
 from ganon_tpu_torch.ops.ibf_query import clz64, ibf_row_indices
 from ganon_tpu_torch.ops.winnow import ukey
 
-# entries per radix block and per scan block (csrc/sort.cu kTile,
+# entries per radix pass tile and per scan block (csrc/sort.cu kTile,
 # kScanTile): the scratch sizes below follow from them
-SORT_TILE = 4096
+SORT_TILE = 3072
 SCAN_TILE = 2048
+RADIX = 256
+# the sort's status words past its tiles' (the passes' tile counters)
+_SORT_COUNTERS = 16
 # the most entries one call takes: int32 positions, ranks and offsets
 MAX_ENTRIES = 2**31 - 1
 
@@ -116,33 +121,98 @@ def sort_entries_plain(key, val, *, key_bits: int):
     return key[o], val[o]
 
 
+def sort_digits(key_bits: int) -> int:
+    """The radix sort's digit count: 8 value bytes, then the key's."""
+    return 8 + -(-key_bits // 8)
+
+
+def sort_digit(key: torch.Tensor, val: torch.Tensor, d: int) -> torch.Tensor:
+    """Digit ``d`` (int64) of every entry: 0-7 the value's bytes from the
+    lowest (the u64 bit pattern), 8 and up the key's."""
+    if d < 8:
+        return (val >> (8 * d)) & 255
+    return (key.to(torch.int64) >> (8 * (d - 8))) & 255
+
+
+def sort_digit_histograms_plain(key, val, *, key_bits: int) -> torch.Tensor:
+    """Plain version of :func:`sort_digit_histograms`."""
+    counts = torch.stack([
+        torch.bincount(sort_digit(key, val, d), minlength=RADIX)
+        for d in range(sort_digits(key_bits))])
+    return torch.stack([counts, torch.cumsum(counts, 1) - counts]).to(
+        torch.int32)
+
+
+def sort_digit_histograms(key: torch.Tensor, val: torch.Tensor, *,
+                          key_bits: int) -> torch.Tensor:
+    """The sort's first step: int32 ``[2, D, 256]``, ``[0, d]`` the
+    entries' histogram of digit ``d`` (:func:`sort_digit`, D =
+    :func:`sort_digits`), ``[1, d]`` its exclusive scan (the digit's first
+    slot in a pass)."""
+    _check_entries(key, val)
+    if key.device.type == "cpu":
+        return sort_digit_histograms_plain(key, val, key_bits=key_bits)
+    kernels.check_cuda(key, val)
+    D = sort_digits(key_bits)
+    hist = torch.empty((2, D, RADIX), dtype=torch.int32, device=key.device)
+    kernels.launch("sort_hist", key, val, key.shape[0], D, hist)
+    return hist
+
+
+def sort_pass_plan(hist: torch.Tensor, *, key_bits: int) -> list[int]:
+    """The digits whose passes the radix sort runs, lowest first (0-7 the
+    value's bytes, 8 and up the key's), from the ``[D, 256]`` digit
+    histograms of its entries.
+
+    A digit that puts every entry in one bucket leaves a stable order as
+    it is, so its pass is skipped; with no entry or one, nothing runs.
+    """
+    # numpy: this runs on the host between the card's histograms and its
+    # passes, where torch's per-op cost on a small tensor adds up
+    hist = np.asarray(torch.as_tensor(hist).cpu(), dtype=np.int64)
+    hist = hist.reshape(-1, RADIX)
+    if hist.shape[0] != sort_digits(key_bits):
+        raise ValueError(f"{hist.shape[0]} digit histograms for key_bits "
+                         f"{key_bits}: want {sort_digits(key_bits)}")
+    n = int(hist[0].sum())
+    return [d for d, m in enumerate(hist.max(axis=1).tolist()) if m < n]
+
+
 def sort_entries(key: torch.Tensor, val: torch.Tensor, *, key_bits: int):
     """The entries ordered by (key, value), the value compared as
     UNSIGNED 64-bit, stable; returns new ``(key, val)`` tensors and
-    leaves the inputs.
+    leaves the inputs alone.
 
     Replaces ``ganon_tpu.ops.bigsort.sort_flat`` as
     ``device_build.close_sort`` calls it (lexicographic (key, hi, lo) with
-    u32 halves). ``key_bits``: keys are below ``2**key_bits`` (the radix
-    sort runs ``ceil(key_bits / 8)`` key passes after eight value passes).
+    u32 halves). ``key_bits``: keys are below ``2**key_bits``. On the card
+    the digit histograms come first; their counts are fetched (one wait
+    on the card a call) so that :func:`sort_pass_plan` picks the passes.
+    Card memory: the three entry buffers (input, A, B) and 256 int64
+    status words a 3072 entries (2/3 byte an entry).
     """
     _check_entries(key, val)
     if not 0 <= key_bits <= 31:
-        raise ValueError("key_bits must be in 0..31")
+        raise ValueError(f"key_bits {key_bits} outside 0..31")
     if key.device.type == "cpu":
         return sort_entries_plain(key, val, key_bits=key_bits)
     kernels.check_cuda(key, val)
     N = key.shape[0]
-    bufs = [torch.empty_like(key), torch.empty_like(val),
-            torch.empty_like(key), torch.empty_like(val)]
+    key_a, val_a = torch.empty_like(key), torch.empty_like(val)
     if N == 0:
-        return bufs[0], bufs[1]
-    nb = -(-N // SORT_TILE)
-    counts = torch.empty((256 * nb,), dtype=torch.int32, device=key.device)
-    kernels.launch("sort", key, val, N, key_bits, *bufs, counts,
-                   _scan_scratch(256 * nb, key.device))
-    passes = 8 + -(-key_bits // 8)
-    return (bufs[0], bufs[1]) if passes % 2 else (bufs[2], bufs[3])
+        return key_a, val_a
+    hist = sort_digit_histograms(key, val, key_bits=key_bits)
+    digits = sort_pass_plan(hist[0], key_bits=key_bits)
+    # the passes alternate A and B
+    key_b, val_b = ((torch.empty_like(key), torch.empty_like(val))
+                    if len(digits) > 1 else (None, None))
+    status = torch.empty((-(-N // SORT_TILE) * RADIX + _SORT_COUNTERS,),
+                         dtype=torch.int64, device=key.device)
+    kernels.launch("sort", key, val, N, sum(1 << d for d in digits), hist[1],
+                   key_a, val_a, key_b, val_b, status)
+    if digits and len(digits) % 2 == 0:
+        return key_b, val_b
+    return key_a, val_a
 
 
 # --- dedup -------------------------------------------------------------------

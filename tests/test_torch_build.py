@@ -167,9 +167,10 @@ def test_k32_values_reach_the_sign_bit():
 
 
 def test_pipeline_cache_budget(monkeypatch):
-    """Every sort leaves the cached entries and its own working set (36
-    bytes an entry) within the budget, some groups stay cached and the
-    rest are re-extracted, and the bits still equal the JAX pipeline's."""
+    """Every sort leaves the cached entries and its own working set (37
+    bytes an entry: three entry buffers and the status words) within the
+    budget, some groups stay cached and the rest are re-extracted, and the
+    bits still equal the JAX pipeline's."""
     seq_files = _mkinput(np.random.default_rng(11))
     monkeypatch.setattr(tdb, "GROUP_BASES", 6000)
     limit = 60_000
@@ -191,7 +192,7 @@ def test_pipeline_cache_budget(monkeypatch):
         assert pipe._cache_bytes == sum(12 * g.n for g in cached) <= limit
     finally:
         pipe.close()
-    assert all(c == 0 or c + 36 * n <= limit for c, n in seen)
+    assert all(c == 0 or c + 37 * n <= limit for c, n in seen)
     got = _run(tdb.DeviceBuildPipeline(K, W, device="cpu",
                                        device_cache_bytes=limit),
                tsizing, seq_files, K, W)
@@ -234,31 +235,104 @@ def _jax_kernels():
     return _kernels()
 
 
-@pytest.mark.parametrize("n", [1, 5000, 300_000])
-def test_sort_plain_matches_sort_flat(n):
-    """K19: the plain sort orders (key, unsigned value) as sort_flat's
-    lexicographic (key, hi, lo) with u32 halves, columnsort included."""
+def _sort_flat(keys, vals):
+    """JAX's sort_flat of (key, u64 value) entries, as numpy (key, value)."""
     import jax.numpy as jnp
 
     from ganon_tpu.ops.bigsort import sort_flat
 
+    k_s, hi_s, lo_s = sort_flat(
+        (jnp.asarray(keys), jnp.asarray((vals >> np.uint64(32)).astype(
+            np.uint32)), jnp.asarray(vals.astype(np.uint32))), 3,
+        lo_pad=(-1, 0, 0),
+        hi_pad=(np.iinfo(np.int32).max, 0xFFFFFFFF, 0xFFFFFFFF))
+    return np.asarray(k_s), (np.asarray(hi_s).astype(np.uint64)
+                             << np.uint64(32)) | np.asarray(lo_s).astype(
+                                 np.uint64)
+
+
+@pytest.mark.parametrize("n", [1, 5000, 300_000])
+def test_sort_plain_matches_sort_flat(n):
+    """K19: the plain sort orders (key, unsigned value) as sort_flat's
+    lexicographic (key, hi, lo) with u32 halves, columnsort included."""
     rng = np.random.default_rng(n)
     keys = rng.integers(0, 37, size=n).astype(np.int32)
     vals = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
     vals[rng.integers(0, n, size=n // 5)] = vals[
         rng.integers(0, n, size=n // 5)]  # duplicates
     vals[: n // 3] |= np.uint64(1 << 63)
-    k_s, hi_s, lo_s = sort_flat(
-        (jnp.asarray(keys), jnp.asarray((vals >> np.uint64(32)).astype(
-            np.uint32)), jnp.asarray(vals.astype(np.uint32))), 3,
-        lo_pad=(-1, 0, 0),
-        hi_pad=(np.iinfo(np.int32).max, 0xFFFFFFFF, 0xFFFFFFFF))
-    want_v = (np.asarray(hi_s).astype(np.uint64) << np.uint64(32)) | \
-        np.asarray(lo_s).astype(np.uint64)
+    want_k, want_v = _sort_flat(keys, vals)
     got_k, got_v = build_ops.sort_entries(
         torch.from_numpy(keys), u64_to_torch(vals), key_bits=6)
-    assert np.array_equal(got_k.numpy(), np.asarray(k_s))
+    assert np.array_equal(got_k.numpy(), want_k)
     assert np.array_equal(got_v.numpy().view(np.uint64), want_v)
+
+
+# (files, key_bits, value bits, the digits the plan must keep)
+_PLAN_CASES = {
+    "equal-values": (5, 3, None, [8]),
+    "one-file": (1, 0, 64, list(range(8))),
+    "k19-38-bit": (37, 6, 38, [0, 1, 2, 3, 4, 8]),
+    "k32-sign-bit": (9, 4, 64, list(range(9))),
+    "key-bits-0": (1, 0, 38, [0, 1, 2, 3, 4]),
+    "key-bits-16": (40_000, 16, 38, [0, 1, 2, 3, 4, 8, 9]),
+    "constant-high-digits": (3, 2, 24, [0, 1, 2, 8]),
+}
+
+
+def _lsd(entries, digit_of, digits):
+    """Stable torch.sort passes over the given digits, lowest first."""
+    for d in digits:
+        o = torch.sort(digit_of(*entries, d), stable=True).indices
+        entries = [e[o] for e in entries]
+    return entries
+
+
+@pytest.mark.parametrize("case", list(_PLAN_CASES))
+def test_sort_pass_plan_matches_sort_flat(case):
+    """K19's pass plan: an LSD sort that runs a stable torch.sort over only
+    the digits sort_pass_plan keeps (the card's passes) orders the entries
+    as sort_flat does; constant digits (equal values, one file, values
+    below 2^38, constant non-zero high bytes) are the ones skipped."""
+    R, key_bits, vbits, want_digits = _PLAN_CASES[case]
+    n = 6000
+    rng = np.random.default_rng(len(case))
+    keys = rng.integers(0, R, size=n).astype(np.int32)
+    if vbits is None:
+        vals = np.full(n, 0x9E3779B97F4A7C15, dtype=np.uint64)
+    else:
+        vals = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+        if vbits < 64:
+            vals &= np.uint64((1 << vbits) - 1)
+        vals[rng.integers(0, n, size=n // 5)] = vals[: n // 5]  # duplicates
+    if case == "k32-sign-bit":
+        vals[: n // 2] |= np.uint64(1 << 63)
+    if case == "constant-high-digits":
+        vals |= np.uint64(0xAB00_5A00_0000_0000)
+    key, val = torch.from_numpy(keys), u64_to_torch(vals)
+    hist = build_ops.sort_digit_histograms(key, val, key_bits=key_bits)
+    D = build_ops.sort_digits(key_bits)
+    assert hist.shape == (2, D, 256)
+    assert torch.equal(hist[0].sum(dim=1), torch.full((D,), n,
+                                                      dtype=torch.int64))
+    assert torch.equal(hist[1], torch.cumsum(hist[0], 1) - hist[0])
+    digits = build_ops.sort_pass_plan(hist[0], key_bits=key_bits)
+    assert digits == want_digits
+    want_k, want_v = _sort_flat(keys, vals)
+    got_k, got_v = _lsd([key, val], build_ops.sort_digit, digits)
+    assert np.array_equal(got_k.numpy(), want_k)
+    assert np.array_equal(got_v.numpy().view(np.uint64), want_v)
+
+
+def test_sort_pass_plan_edges():
+    """No entry or one: no pass; the histogram rows must match key_bits."""
+    for n in (0, 1):
+        key = torch.zeros(n, dtype=torch.int32)
+        val = torch.full((n,), -5, dtype=torch.int64)
+        hist = build_ops.sort_digit_histograms(key, val, key_bits=9)[0]
+        assert build_ops.sort_pass_plan(hist, key_bits=9) == []
+    with pytest.raises(ValueError, match="digit histograms"):
+        build_ops.sort_pass_plan(hist, key_bits=17)
 
 
 def _close_inputs(rng, R, cap):

@@ -17,10 +17,13 @@ target over three tiles, h = 1 and 5 in one layout, a one-target sub, a
 user bin in two subs with equal and unequal counts, a column no sub
 writes; the raptor batch on the card against the CPU; build_pruned's
 default build on the card. The two-pass build's kernels: sort at N = 0,
-1, one block and many blocks, all-equal values, values >= 2^63, one file
-and 2^16 files; pack with empty rows; dedup with files that have no
-entries; scatter in ranked mode with a target over several bins at h = 1
-and 5; the whole pipeline and run_build on the card against the CPU.
+1, one block, one entry past a block and up to ~4000 blocks (the
+look-back spans more blocks than the card has SMs), all-equal values,
+values >= 2^63, one file and 2^16 files, and its digit histograms and
+pass plan (38-bit values, every digit constant); pack with empty rows;
+dedup with files that have no entries; scatter in ranked mode with a
+target over several bins at h = 1 and 5; the whole pipeline and
+run_build on the card against the CPU.
 The device mesh's modes (K17): count in shard mode and combine with a
 target over three shards and with one shard (equal to the flat count),
 combine in column-max mode, fine in shard mode over a shard of pad
@@ -30,7 +33,9 @@ cross devices. The ops library (K18): minimizers at L not a multiple of
 4 and past max_minimizers, bins with a row wider than a block and with
 M = 0, tsum with ids out of range and past its shared-memory width,
 bins_target with and without a permutation; the ragged stream at a cap
-of 1 and overflowing caps (winners, group words); pairs with every read
+of 1, inside the first block, overflowing and exact caps (winners,
+group words) over up to 274 blocks, each call twice on the stream's
+status buffer; pairs with every read
 spilling; probe_sort with equal keys; the gather probe; the transfer
 settings (ragged, pair caps, sort_probes) on the card against the CPU.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
@@ -617,9 +622,11 @@ def test_build_pruned_default_builds_on_the_card(cuda):
 # --- the two-pass build: pack, sort, dedup, scatter in ranked mode -----------
 
 
-def _entries(rng, N, R, equal=False, high=False):
+def _entries(rng, N, R, equal=False, high=False, bits=64):
     key = rng.integers(0, R, size=N).astype(np.int32)
     val = rng.integers(0, 1 << 64, size=N, dtype=np.uint64)
+    if bits < 64:
+        val &= np.uint64((1 << bits) - 1)
     if equal:
         val[:] = val[0]
     if high:
@@ -636,7 +643,9 @@ def _to(dev_, *ts):
     (0, 1, False, False), (1, 1, False, False), (4096, 3, False, False),
     (300_000, 97, False, False), (50_000, 5, True, False),
     (70_000, 11, False, True), (40_000, 1, False, False),
-    (200_000, 1 << 16, False, False),
+    (200_000, 1 << 16, False, False), (4097, 7, False, False),
+    (2_000_000, 133, False, False), (12_300_000, 133, False, False),
+    (50_001, 1, True, False),
 ])
 def test_sort_kernel_matches_plain(cuda, N, R, equal, high):
     rng = np.random.default_rng(N + R)
@@ -646,6 +655,36 @@ def test_sort_kernel_matches_plain(cuda, N, R, equal, high):
     dk, dv = _to(cuda, key, val)
     got_k, got_v = bo.sort_entries(dk, dv, key_bits=kb)
     torch.cuda.synchronize()
+    assert torch.equal(got_k.cpu(), want_k)
+    assert torch.equal(got_v.cpu(), want_v)
+    assert torch.equal(dk.cpu(), key) and torch.equal(dv.cpu(), val)
+
+
+@pytest.mark.parametrize("N,R,bits,high,passes", [
+    (300_000, 133, 38, False, 6), (50_000, 1, 64, False, 8),
+    (50_000, 1, 0, False, 0), (4097, 300, 38, False, 7),
+    (100_000, 40, 38, True, 6), (70_000, 3, 64, False, 9),
+])
+def test_sort_kernel_skips_constant_digits(cuda, N, R, bits, high, passes):
+    """The sort's digit histograms on the card equal the plain ones, the
+    plan skips the constant digits (38-bit values: value digits 5-7; one
+    file: the key digit; every digit constant: a copy), and the result
+    equals the plain sort's, the inputs untouched."""
+    rng = np.random.default_rng(N + bits)
+    key, val = _entries(rng, N, R, equal=bits == 0, high=high,
+                        bits=max(bits, 1))
+    kb = max(R - 1, 0).bit_length()
+    dk, dv = _to(cuda, key, val)
+    hist = bo.sort_digit_histograms(dk, dv, key_bits=kb)
+    want_h = bo.sort_digit_histograms_plain(key, val, key_bits=kb)
+    assert torch.equal(hist.cpu(), want_h)
+    assert len(bo.sort_pass_plan(want_h[0], key_bits=kb)) == passes
+    want_k, want_v = bo.sort_entries(key, val, key_bits=kb)
+    before = dict(kernels.LAUNCHES)
+    got_k, got_v = bo.sort_entries(dk, dv, key_bits=kb)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sort"] == before["sort"] + 1
+    assert kernels.LAUNCHES["sort_hist"] == before["sort_hist"] + 1
     assert torch.equal(got_k.cpu(), want_k)
     assert torch.equal(got_v.cpu(), want_v)
     assert torch.equal(dk.cpu(), key) and torch.equal(dv.cpu(), val)
@@ -1089,19 +1128,25 @@ def _dense_buffer(rng, B, K, has_win, n_extra, T):
                                              (False, 2)],
                          ids=["flat", "winners", "group-words"])
 def test_ragged_kernel_matches_plain(cuda, has_win, n_extra):
-    """The ragged stream at a cap of 1, a cap that overflows, an ample
-    cap and B = 3000 (several scan chunks), with and without winners and
-    extra rows."""
+    """The ragged stream at a cap of 1, a cap inside the first block's
+    entries, a cap that overflows, a total exactly at the cap and an ample
+    cap, n_matches past K, at B = 3000 and B = 70,000 (K 4: the chained
+    scan over 274 blocks), with and without winners and extra rows; every
+    call twice, so the second finds the first's status words (of an
+    earlier epoch) in the stream's buffer, and B = 3000 again after the
+    larger call."""
     rng = np.random.default_rng(33 + has_win + n_extra)
-    for B, K in ((5, 4), (3000, 8)):
+    for B, K in ((5, 4), (3000, 8), (70_000, 4), (3000, 8)):
         dense = _dense_buffer(rng, B, K, has_win, n_extra, 11).to(cuda)
-        total = int(torch.clamp(dense[B * K * (1 + has_win):][:B],
-                                max=K).sum())
-        for cap in (1, max(1, total // 2), total + 5):
+        valid = torch.clamp(dense[B * K * (1 + has_win):][:B], min=0, max=K)
+        total = int(valid.sum())
+        first_block = max(1, int(valid[:dev.RAGGED_READS].sum()) // 2)
+        for cap in (1, first_block, max(1, total // 2), total, total + 5):
             kw = dict(has_win=has_win, n_extra=n_extra)
-            got = dev.ragged(dense, B, K, cap, **kw)
             want = dev.ragged_plain(dense, B, K, cap, **kw)
-            assert torch.equal(got, want), (B, cap)
+            for _ in range(2):
+                got = dev.ragged(dense, B, K, cap, **kw)
+                assert torch.equal(got, want), (B, cap)
             res = dev.unpack_batch_result_ragged(
                 got.cpu().numpy(), B, cap, 11, K, has_win, n_extra=n_extra)
             assert res["cap_overflow"] == (total > cap)
