@@ -7,7 +7,9 @@ Phases, one output line each:
 
 1. env       the card (nvidia-smi name and power limit), torch, nvcc, and
              the time to build the CUDA kernels from ``csrc/`` (one nvcc
-             per source, all started together);
+             per source, all started together); ``nvcc -Xptxas -v`` of
+             ``extract.cu`` and ``scan.cu`` (registers, spills) and the
+             extract blocks an SM at k 19, w 31;
 2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
              through the ``extract`` kernel, the IBF through ``scatter``,
              saved raw as ``db.ibf`` (``save_raw``, the ``tpu-raw``
@@ -95,8 +97,11 @@ longreads    the 32-bit counter layout (``select`` in its 32-bit mode) at
              none; without ``--longreads`` the ultra-long reads are skipped
              (``.sta``). Then a flat filter just past the 16-bit bound,
              70,000 targets x 4 kbp (``wide.ibf``), and 65,536 pairs through
-             it (pairs from targets above 0xFFFF found). ``select32``
-             against its plain version at the ultra-long batch and at
+             it (pairs from targets above 0xFFFF found). ``extract``
+             (rows ``extract_ultra_long``, ``extract_mixed_long``) and
+             ``select32`` against their plain versions at the ultra-long
+             batch (64 x 2^20, every window position), ``extract`` also
+             at the mix's 16 kbp bucket (512 reads), ``select32`` also at
              T = 70,000; on the first 4096 reads of each the card and
              ``device="cpu"`` write identical sorted ``.all``, ``.one``,
              ``.rep`` and ``.tre`` and a byte-equal ``.sta``; ``bins``
@@ -164,12 +169,15 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
 Every phase line carries ``wall_s``, the wall time since the line before
 it. Then one JSON line of every kernel mode (its time and its plain
 version's, its bound at these inputs, the larger of bytes over 3.35 TB/s
-and operations over 67 T/s, its launches on the main paths, and the
+and operations over 67 T/s (extract's: 40 INT32 operations a window over
+16.7 T/s, 64 lanes an SM a clock at 1.98 GHz; ``extract_build`` in the
+build's mode, without the zero tail, ``zero_tail_ms`` and
+``zero_tail_bound_ms`` beside), its launches on the main paths, and the
 time of one PyTorch call computing the same function where there is one;
-``sort``, ``ragged`` and ``ragged_winners`` are also timed over a run of
-back-to-back calls, ``device_ms`` and ``library_device_ms``, and by the
-card's activity under torch.profiler, ``profiled_ms`` and
-``library_profiled_ms``, and the ``sort`` row names the digit passes it
+``sort``, ``ragged``, ``ragged_winners`` and ``pairs`` are also timed
+over a run of back-to-back calls, ``device_ms`` and
+``library_device_ms``, and by the card's activity under torch.profiler,
+``profiled_ms`` and ``library_profiled_ms``, and the ``sort`` row names the digit passes it
 planned at the pass-1 group from the card's histograms, the ``sort_hist``
 row),
 and last the device line. Every classify CLI run of phases 4,
@@ -266,14 +274,45 @@ def _max_abs_err(a, b) -> int:
 # here uses them; their integer operations are counted at that rate)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+# the INT32 rate: 64 lanes an SM a clock, 132 SMs at 1.98 GHz (the extract
+# kernel's 64-bit integer work is counted in INT32 operations)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# INT32 operations a window position of the extract kernel: the k-mer
+# value (funnel load, bit reverse, pair swap, complement, two XORs, a
+# 64-bit min), the prefix and suffix argmins and their merge, the flag
+EXTRACT_OPS_PER_POSITION = 40
 
 
-def _bound(nbytes: float, ops: float):
+def _bound(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S):
     """(bound_ms, bound_by) of a function moving ``nbytes`` and doing
-    ``ops`` operations."""
+    ``ops`` operations at ``ops_per_s``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _extract_work(inbuf, L1: int, L2: int, w: int, n, mc: int,
+                  zero_tail: bool = True):
+    """(bytes, ops, rate) of one extract: the packed rows in; n, overflow
+    and the emitted hashes out, or the whole [B, mc] where the zero tail
+    is written; EXTRACT_OPS_PER_POSITION INT32 operations for each window
+    of this batch's lengths (mate 2 only where mate 1 has one)."""
+    import torch
+
+    B = inbuf.shape[0]
+    o = L1 // 4 + L2 // 4
+    lens = inbuf[:, o:o + (8 if L2 else 4)].contiguous().view(
+        torch.int32).to(torch.int64)
+    len1 = lens[:, 0]
+    ok = len1 >= w
+    windows = torch.clamp(torch.clamp(len1, max=L1) - w + 1, min=0)
+    if L2:
+        windows = windows + torch.clamp(
+            torch.clamp(lens[:, 1], max=L2) - w + 1, min=0)
+    positions = int(windows[ok].sum())
+    out = (B * mc if zero_tail else int(torch.clamp(n, max=mc).sum())) * 8
+    return (_nbytes(inbuf) + 5 * B + out,
+            positions * EXTRACT_OPS_PER_POSITION, INT32_OPS_PER_S)
 
 
 def _nbytes(*tensors) -> int:
@@ -755,17 +794,36 @@ def main() -> int:
     so = kernels.build()
     kernels.library()
     build_s = time.perf_counter() - t0
+    # the redesigned kernels' registers, spills and shared memory, as ptxas
+    # reports them, and the extract blocks an SM holds at k 19, w 31
+    ptxas = {}
+    csrc = os.path.join(os.path.dirname(kernels.__file__), "csrc")
+    for src in ("extract.cu", "scan.cu"):
+        obj = f"{so}.{src}.ptxas.o"
+        res = subprocess.run(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             "-o", obj, os.path.join(csrc, src)],
+            capture_output=True, text=True, check=True)
+        os.remove(obj)
+        ptxas[src] = [ln.strip() for ln in res.stderr.splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln]
+        print(f"ptxas -v {src}:\n  " + "\n  ".join(ptxas[src]), flush=True)
+    extract_blocks = kernels.library().ganon_extract_blocks_per_sm(19, 31)
+    print(f"extract: {extract_blocks} blocks of 128 threads an SM at k 19, "
+          f"w 31", flush=True)
     emit("env", {
         "gpu": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "torch": torch.__version__, "torch_cuda": torch.version.cuda,
         "nvcc": nvcc.stdout.strip().splitlines()[-1],
         "kernel_build_s": build_s, "library": os.path.basename(so),
+        "extract_blocks_per_sm": extract_blocks,
     })
 
     rows = []
 
     def compare(name, source, replaces, run_kernel, run_plain, reps,
-                plain_reps, work, library=None, runs=0):
+                plain_reps, work, library=None, runs=0, counted_as=None):
         """Kernel against plain on the same card tensors (equal, or
         raise), both timed; ``work`` is the function's (bytes, ops) at
         these inputs, for the bound. ``library`` times the one PyTorch
@@ -774,7 +832,8 @@ def main() -> int:
         kernel and library are also timed over ``runs`` back-to-back
         calls (``device_ms``, ``library_device_ms``) and by the card's
         activity under torch.profiler (``profiled_ms``,
-        ``library_profiled_ms``)."""
+        ``library_profiled_ms``). ``counted_as`` names the launch counter
+        of a row that times a kernel at another shape (default ``name``)."""
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         errs = [_max_abs_err(a, b) for a, b in zip(got, want)]
@@ -788,6 +847,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": _ms(library, reps) if library else None,
         })
+        if counted_as:
+            rows[-1]["counted_as"] = counted_as
         if runs:
             rows[-1].update(
                 device_ms=_ms_run(run_kernel, runs),
@@ -890,18 +951,40 @@ def main() -> int:
         ekeys = t_in[:, nb0:].contiguous().view(torch.int32).reshape(-1)
         B0, emc = ein.shape[0], L0 - w + 1
         # the emitted hashes: the build reads the first n[b] of each row
-        npk = int(q.extract_plain(ein, L1=L0, L2=0, k=k, w=w,
-                                  mc=emc)[1].sum())
+        # and so runs without the zero tail; the row holds the kernel with
+        # the tail against the plain version bit for bit, and the build's
+        # mode (its time, its bound) against the plain version's first
+        # n[b] slots a row
+        en_plain = q.extract_plain(ein, L1=L0, L2=0, k=k, w=w, mc=emc)[1]
+        npk = int(en_plain.sum())
         eh, en, _ = compare(
             "extract_build", "ganon_tpu_torch/csrc/extract.cu",
             "ganon_tpu/index/builder.py:156",
             lambda: q.extract(ein, L1=L0, L2=0, k=k, w=w, mc=emc,
                               counter="extract_build"),
             lambda: q.extract_plain(ein, L1=L0, L2=0, k=k, w=w, mc=emc), 10, 2,
-            # pieces in; n and the emitted hashes out; ~8 operations per
-            # base
-            (_nbytes(ein) + 4 * B0 + 8 * npk, 8 * B0 * L0),
+            _extract_work(ein, L0, 0, w, en_plain, emc),
         )
+
+        def build_mode():
+            return q.extract(ein, L1=L0, L2=0, k=k, w=w, mc=emc,
+                             counter="extract_build", zero_tail=False)
+
+        bh, bn, _ = build_mode()
+        if not (torch.equal(bn, en) and torch.equal(bh[_valid(bh, bn)],
+                                                    eh[_valid(eh, en)])):
+            raise AssertionError("extract_build: zero_tail=False differs "
+                                 "from the plain version's first n slots")
+        del bh, bn
+        tail_ms, tail_bound = rows[-1]["ms"], rows[-1]["bound_ms"]
+        nt_bound, nt_by = _bound(*_extract_work(ein, L0, 0, w, en_plain, emc,
+                                                zero_tail=False))
+        rows[-1].update(ms=_ms(build_mode, 10), bound_ms=nt_bound,
+                        bound_by=nt_by, zero_tail_ms=tail_ms,
+                        zero_tail_bound_ms=tail_bound)
+        print(f"extract_build: {rows[-1]['ms']:.4f} ms without the zero "
+              f"tail (bound {nt_bound:.4f}, {nt_by}), {tail_ms:.4f} with it "
+              f"(bound {tail_bound:.4f}); {B0} pieces of {L0}", flush=True)
         compare("pack", "ganon_tpu_torch/csrc/sort.cu",
                 "ganon_tpu/index/device_build.py:137",
                 lambda: bo.pack_entries(eh, en, ekeys, npk),
@@ -1178,9 +1261,7 @@ def main() -> int:
         "ganon_tpu/ops/minimizers.py:245",
         lambda: q.extract(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc),
         lambda: q.extract_plain(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc), 20, 5,
-        # inbuf in; hashes, n, overflow out; ~8 integer operations per base
-        (_nbytes(inbuf) + args.bench_pairs * (mc * 8 + 5),
-         8 * args.bench_pairs * (L1 + L2)),
+        _extract_work(inbuf, L1, L2, w, None, mc),
     )
     bin_size, h = cfg.bin_size_bits, cfg.hash_functions
     (counts,) = compare(
@@ -1569,8 +1650,13 @@ def main() -> int:
                                    max_minimizers=mm),
             lambda: lib.minimizers_plain(ocodes, olens, k=k, w=w,
                                          max_minimizers=mm), 20, 3,
-            # ranks and lengths in, hashes and n out; ~8 operations a base
-            (_nbytes(ocodes, olens, oh, on), 8 * ocodes.numel()))
+            # ranks and lengths in, hashes and n out; the extract kernel's
+            # INT32 operations a window of these lengths
+            (_nbytes(ocodes, olens, oh, on),
+             int(torch.clamp(torch.clamp(olens.to(torch.int64),
+                                         max=ocodes.shape[1]) - w + 1,
+                             min=0).sum()) * EXTRACT_OPS_PER_POSITION,
+             INT32_OPS_PER_S))
     compare("bins", "ganon_tpu_torch/csrc/bins.cu",
             "ganon_tpu/ops/ibf_query.py:113",
             lambda: (lib.bulk_count_bins(bits_d, orows, omask),),
@@ -1837,8 +1923,44 @@ def main() -> int:
                           codes2=np.zeros((nu, 0), np.uint8),
                           len2=np.zeros(nu, np.int32))
     uin_np, uL1, uL2 = dev.pack_batch_direct(ubatch, nu)
-    uh, un, uo = q.extract(torch.from_numpy(uin_np).to(cuda), L1=uL1, L2=uL2,
-                           k=k, w=w, mc=uL1 - w + 1)
+    # extract at the long-read shapes: the ultra-long batch at every window
+    # position (2^20-base rows), and one batch of the mix's 16 kbp bucket
+    # at the engine's bp budget (8192 x 1024 bp) and compaction width
+    uin = torch.from_numpy(uin_np).to(cuda)
+    umc = uL1 - w + 1
+    uh, un, uo = compare(
+        "extract_ultra_long", "ganon_tpu_torch/csrc/extract.cu",
+        "ganon_tpu/ops/minimizers.py:245",
+        lambda: q.extract(uin, L1=uL1, L2=uL2, k=k, w=w, mc=umc),
+        lambda: q.extract_plain(uin, L1=uL1, L2=uL2, k=k, w=w, mc=umc), 5, 1,
+        _extract_work(uin, uL1, uL2, w, None, umc), counted_as="extract")
+    rank = np.zeros(256, np.uint8)
+    rank[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    mix_len = MIX_LENS[-1]
+    mseqs = [x for x in lseqs if len(x) == mix_len]
+    nm_ = min(len(mseqs), 8192 * 1024 // dev.bucket_len(mix_len))
+    mcodes = rank[np.frombuffer(b"".join(mseqs[:nm_]), np.uint8)].reshape(
+        nm_, mix_len)
+    mix_in, xL1, xL2 = dev.pack_batch_direct(EncodedBatch(
+        prefix="", paired=False, ids=[str(i) for i in range(nm_)],
+        codes1=mcodes, len1=np.full(nm_, mix_len, np.int32),
+        codes2=np.zeros((nm_, 0), np.uint8), len2=np.zeros(nm_, np.int32)),
+        nm_)
+    mix_in = torch.from_numpy(mix_in).to(cuda)
+    xmc = dev.compact_width(xL1 - w + 1)
+    compare("extract_mixed_long", "ganon_tpu_torch/csrc/extract.cu",
+            "ganon_tpu/ops/minimizers.py:245",
+            lambda: q.extract(mix_in, L1=xL1, L2=xL2, k=k, w=w, mc=xmc),
+            lambda: q.extract_plain(mix_in, L1=xL1, L2=xL2, k=k, w=w,
+                                    mc=xmc), 10, 2,
+            _extract_work(mix_in, xL1, xL2, w, None, xmc),
+            counted_as="extract")
+    rows[-2].update(reads=nu, L=uL1, mc=umc)
+    rows[-1].update(reads=nm_, L=xL1, mc=xmc)
+    print(f"extract at long-read shapes: {nu} x {uL1} (mc {umc}) "
+          f"{rows[-2]['ms']:.3f} ms; {nm_} x {xL1} (mc {xmc}) "
+          f"{rows[-1]['ms']:.3f} ms", flush=True)
+    del uin, mix_in, mcodes, mseqs
     ucounts = f.counts(uh, un)
     usel32 = (ucounts, un, uo, 0.75, 0.1, LONG)
     K32u = min(32, f.num_targets)
@@ -2601,7 +2723,7 @@ def main() -> int:
             lambda: pq.pair_live_plain(slot_ok, govf, pcap), 20, 5,
             # the slot flags and overflow in, live flags and overflow out
             (2 * _nbytes(slot_ok, govf), slot_ok.numel()),
-            library=lambda: torch.cumsum(pflags, 0))
+            library=lambda: torch.cumsum(pflags, 0), runs=50)
     fargs = (fp.ftbl, ph, pn, fp.grp_row_off, fp.grp_bin_size, fp.grp_shift)
     fkw = dict(fine_h=fp.fine_h, group_size=gs)
     Wf = fp.ftbl.shape[1]
@@ -2928,7 +3050,7 @@ def main() -> int:
     emit("checks", {"launches": launches})
 
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r.get("counted_as", r["name"])]
     print(json.dumps({"kernels": rows}))
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"ok": True, "device": {

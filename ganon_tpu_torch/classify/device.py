@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import itertools
 import os
 import warnings
 import zipfile
@@ -400,29 +399,8 @@ def ragged_plain(dense: torch.Tensor, B: int, K: int, match_cap: int, *,
 
 
 # reads a block of the ragged kernel's chained scan (csrc/scan.cu
-# kRaggedReads): the tile counter, then a status word each
+# kRaggedReads): its status words come from kernels.scan_status
 RAGGED_READS = 256
-# the kernel's status words, one buffer per (device index, stream): made
-# zero, written only by the kernel, every call tagged with a new epoch
-# (csrc/scan.cu says why that is safe)
-_RAGGED_STATUS: dict = {}
-_RAGGED_EPOCHS = itertools.count(1)
-_EPOCH_LIMIT = 1 << 31
-
-
-def _ragged_status(device: torch.device, blocks: int):
-    """(status buffer of at least ``blocks + 1`` words, epoch) for a call
-    on ``device``'s current stream."""
-    epoch = next(_RAGGED_EPOCHS) % _EPOCH_LIMIT
-    if not epoch:  # the epochs wrapped: every buffer is made anew
-        _RAGGED_STATUS.clear()
-        epoch = next(_RAGGED_EPOCHS) % _EPOCH_LIMIT
-    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
-    buf = _RAGGED_STATUS.get(key)
-    if buf is None or buf.numel() < blocks + 1:
-        buf = _RAGGED_STATUS[key] = torch.zeros(
-            (max(blocks + 1, 64),), dtype=torch.int64, device=device)
-    return buf, epoch
 
 
 def ragged(dense: torch.Tensor, B: int, K: int, match_cap: int, *,
@@ -462,7 +440,7 @@ def ragged(dense: torch.Tensor, B: int, K: int, match_cap: int, *,
     # the kernel writes every word (the stream slots it leaves read 0)
     out = torch.empty((C * (2 if has_win else 1) + (2 + n_extra) * B + tail,),
                       dtype=torch.int32, device=dense.device)
-    status, epoch = _ragged_status(dense.device, -(-B // RAGGED_READS))
+    status, epoch = kernels.scan_status(dense.device, -(-B // RAGGED_READS))
     kernels.launch("ragged", dense, B, K, int(has_win), n_extra, tail, C,
                    status, epoch, out,
                    counter="ragged_winners" if has_win else "ragged")

@@ -32,105 +32,60 @@
 // the batch is a chain of dependent steps, so launch latency and the
 // scan's serial depth decide the time.
 //
-// ragged's design: one launch over a grid of blocks as a single-pass
-// chained scan (decoupled look-back, Merrill and Garland, 2016). A block
-// draws its run of 256 reads from an atomic counter, scans their
-// min(max(n_matches, 0), K) in the block, publishes its aggregate as a
-// status word, and takes its exclusive prefix from its predecessors'
-// words (one warp reads 32 of them at a time; an inclusive prefix ends
-// the walk). Each thread then copies its read's valid entries and
-// winners (contiguous in both buffers) to consecutive stream slots: a
-// read holds a few, so one thread's loop is short where a warp's would
-// wait on 32 reads in turn. It writes the read's w1, w2 and extra rows,
-// the block copies a stripe of the tail, and the block of the batch's
-// last read zeroes the stream slots from min(total, C) to C, and the
-// winners block's. So every output word is written once and the caller
-// need not clear it. (The earlier design here, one block walking the
-// batch, then a fill kernel, on a zeroed output, took 0.086 ms a call
-// at 8192 pairs and K 32 against torch.cumsum's 0.046; NVIDIA H100 80GB
-// HBM3, 700.00 W.)
-// The status words (the tile counter, then a word a block) live in a
-// buffer the caller keeps for each (device, stream) pair and that only
-// this kernel writes. The buffer is zero when it is made; every call
-// tags its words with an epoch the caller has never passed before for
-// that buffer, so a word of an earlier call reads as not yet published,
-// and the block that draws the last tile sets the counter back to 0, so
-// no clear is needed between calls. Calls on one stream run in order,
-// so no call's words are overwritten while it runs; calls for several
-// mesh shards on views of one card share the card's stream and so run
-// in order as well; a call on another stream has a buffer of its own.
+// Both are one launch over a grid of blocks as a single-pass chained
+// scan (scan.cuh: decoupled look-back, Merrill and Garland, 2016). A
+// block draws its run of 256 reads from the tile counter, scans their
+// counts in the block, publishes its aggregate as a status word, and
+// takes its exclusive prefix from its predecessors' words with
+// chained_prefix (one warp reads 32 of them at a time; an inclusive
+// prefix ends the walk).
 //
-// pairs's design: one block of 1024 threads walks the batch in chunks of
-// 1024 reads, a thread per read: warp shuffles and one shared array scan
-// the chunk, and the carry passes to the next chunk.
+// ragged's block scans its reads' min(max(n_matches, 0), K). Each thread
+// then copies its read's valid entries and winners (contiguous in both
+// buffers) to consecutive stream slots: a read holds a few, so one
+// thread's loop is short where a warp's would wait on 32 reads in turn.
+// It writes the read's w1, w2 and extra rows, the block copies a stripe
+// of the tail, and the block of the batch's last read zeroes the stream
+// slots from min(total, C) to C, and the winners block's. So every
+// output word is written once and the caller need not clear it. (The
+// earlier design, one block walking the batch, then a fill kernel, on a
+// zeroed output, took 0.086 ms a call at 8192 pairs and K 32 against
+// torch.cumsum's 0.046; NVIDIA H100 80GB HBM3, 700.00 W.)
+//
+// pairs's block counts each read's live slots (S <= 8: the row's bytes
+// as one 1-, 2-, 4- or 8-byte load where S and the alignment allow, and
+// its nonzero bytes counted with a mask and a popcount), scans the
+// counts, and writes each read's live row the same way, with the read's
+// overflow byte: the input's, ORed with the spill. It reads its inputs
+// and writes its two outputs once, so a call is one device operation
+// (the earlier design, one block of 1024 threads walking the batch in
+// chunks on a copy of the overflow flags, took 0.045 ms a call at 8192
+// reads, S 2, against torch.cumsum's 0.035; NVIDIA H100 80GB HBM3,
+// 700.00 W).
+//
+// The status words (the tile counter, then a word a block) live in a
+// buffer the caller keeps for each (device, stream) pair
+// (kernels.scan_status), which ragged, pairs and extract.cu's segmented
+// scan share and nothing else writes. The buffer is zero when it is made
+// and grows to the largest grid asked for; every call tags its words
+// with an epoch never passed before for that buffer, so a word of an
+// earlier call, of whichever kernel, reads as not yet published, and the
+// block that draws the last tile sets the counter back to 0, so no clear
+// is needed between calls. Calls on one stream run in order, so no
+// call's words are overwritten while it runs, whichever kernel made
+// them; calls for several mesh shards on views of one card share the
+// card's stream and so run in order as well; a call on another stream
+// has a buffer of its own.
 #include <cuda_runtime.h>
+
+#include "scan.cuh"
 
 namespace {
 
-constexpr int kScanThreads = 1024;
+using namespace ganon_scan;
+
 constexpr int kRaggedReads = 256;  // reads (and threads) a ragged block
-
-// Exclusive prefix of v over the block; *total gets the block's sum.
-__device__ long long block_scan(long long v, long long* warp_sums,
-                                long long* total) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    long long x = v;
-    for (int off = 1; off < 32; off <<= 1) {
-        const long long y = __shfl_up_sync(0xFFFFFFFFu, x, off);
-        if (lane >= off) x += y;
-    }
-    if (lane == 31) warp_sums[wid] = x;
-    __syncthreads();
-    if (wid == 0) {
-        long long s = lane < nwarps ? warp_sums[lane] : 0;
-        for (int off = 1; off < 32; off <<= 1) {
-            const long long y = __shfl_up_sync(0xFFFFFFFFu, s, off);
-            if (lane >= off) s += y;
-        }
-        warp_sums[lane] = s;
-    }
-    __syncthreads();
-    const long long excl = x - v + (wid ? warp_sums[wid - 1] : 0);
-    *total = warp_sums[nwarps - 1];
-    __syncthreads();  // warp_sums is reused by the next call
-    return excl;
-}
-
-// A status word: epoch << 33 | flag << 31 | value, published when its
-// epoch is the call's.
-constexpr int kEpochShift = 33;
-constexpr unsigned long long kFlagAggregate = 1ull << 31;
-constexpr unsigned long long kFlagInclusive = 2ull << 31;
-constexpr unsigned long long kValueMask = kFlagAggregate - 1;
-
-// The exclusive prefix of block `tile` (> 0) of a chained scan whose
-// blocks publish kFlagAggregate | their sum, then kFlagInclusive | their
-// inclusive prefix, tagged with `epoch`: one warp (every lane gets the
-// result) reads its predecessors' words 32 at a time, nearest first,
-// waiting on a word not yet published; the nearest inclusive word ends
-// the walk. A block's predecessors drew their tiles first and publish
-// without waiting, so the walk always ends.
-__device__ long long chained_prefix(const volatile unsigned long long* status,
-                                    long long tile, unsigned long long epoch) {
-    const int lane = threadIdx.x & 31;
-    long long excl = 0;
-    for (long long p = tile - 1;; p -= 32) {
-        const long long q = p - lane;
-        unsigned long long s = kFlagInclusive;  // before block 0: 0
-        if (q >= 0) {
-            while (((s = status[q]) >> kEpochShift) != epoch) __nanosleep(32);
-        }
-        const unsigned incl =
-            __ballot_sync(0xFFFFFFFFu, (s & kFlagInclusive) != 0);
-        const int stop = incl ? __ffs(incl) - 1 : 31;
-        long long x = lane <= stop ? (long long)(s & kValueMask) : 0;
-        for (int off = 16; off; off >>= 1)
-            x += __shfl_xor_sync(0xFFFFFFFFu, x, off);
-        excl += x;
-        if (incl) return excl;
-    }
-}
+constexpr int kPairsReads = 256;   // reads (and threads) a pairs block
 
 __global__ void __launch_bounds__(kRaggedReads)
 ragged_kernel(const int* __restrict__ dense, long long B, int K, int has_win,
@@ -141,12 +96,7 @@ ragged_kernel(const int* __restrict__ dense, long long B, int K, int has_win,
     __shared__ unsigned s_tile;
     __shared__ long long s_excl;
     const int t = threadIdx.x;
-    if (t == 0) {
-        unsigned* counter = (unsigned*)status;
-        s_tile = atomicAdd(counter, 1u);
-        // every tile is drawn: the next call on the stream starts at 0
-        if (s_tile == gridDim.x - 1) atomicExch(counter, 0u);
-    }
+    draw_tile(status, &s_tile);
     __syncthreads();
     const long long tile = s_tile;
     const long long b0 = tile * kRaggedReads;
@@ -169,23 +119,8 @@ ragged_kernel(const int* __restrict__ dense, long long B, int K, int has_win,
     const int c = t < nb ? min(max(nm[b], 0), K) : 0;
     long long total;
     const long long local = block_scan(c, warp_sums, &total);
-    volatile unsigned long long* st = status + 1;
-    const unsigned long long tag = epoch << kEpochShift;
-    if (t < 32) {
-        long long excl = 0;
-        if (tile > 0) {
-            if (t == 0)
-                st[tile] = tag | kFlagAggregate | (unsigned long long)total;
-            excl = chained_prefix(st, tile, epoch);
-        }
-        if (t == 0) {
-            st[tile] = tag | kFlagInclusive
-                       | (unsigned long long)(excl + total);
-            s_excl = excl;
-        }
-    }
-    __syncthreads();
-    const long long excl = s_excl;
+    const long long excl =
+        chain_publish(status + 1, tile, tile == 0, total, epoch, &s_excl);
     if (t < nb) {
         w1[b] = (int)(((unsigned)maxc[b] << 16) | (unsigned)nm[b]);
         w2[b] = (int)(((unsigned)min(nh[b], 0x1FFFF) << 1)
@@ -213,39 +148,103 @@ ragged_kernel(const int* __restrict__ dense, long long B, int K, int has_win,
     }
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-pairs_kernel(const unsigned char* __restrict__ slot_ok, long long B, int S,
-             long long P, unsigned char* __restrict__ live,
-             unsigned char* __restrict__ overflow) {
-    __shared__ long long warp_sums[32];
-    long long carry = 0;
-    for (long long b0 = 0; b0 < B; b0 += blockDim.x) {
-        const long long b = b0 + threadIdx.x;
-        int cnt = 0;
-        if (b < B)
-            for (int s = 0; s < S; ++s) cnt += slot_ok[b * S + s] != 0;
-        long long total;
-        const long long base = carry + block_scan(cnt, warp_sums, &total);
-        if (b < B) {
-            long long pos = base;
-            for (int s = 0; s < S; ++s) {
-                const bool ok = slot_ok[b * S + s] != 0;
-                live[b * S + s] = ok && pos < P;
-                pos += ok;
-            }
-            if (cnt > 0 && base + cnt > P) overflow[b] = 1;
+// 0x80 in each byte of x that is nonzero, 0 in the others
+__device__ __forceinline__ unsigned long long nonzero_bytes(
+        unsigned long long x) {
+    const unsigned long long lo7 = 0x7F7F7F7F7F7F7F7FULL;
+    return (((x & lo7) + lo7) | x) & ~lo7;
+}
+
+// A read's S <= 8 slot bytes as one little-endian word: one load of 1,
+// 2, 4 or 8 bytes when `wide` (S is one of those and the rows aligned),
+// else S byte loads.
+__device__ __forceinline__ unsigned long long load_slots(
+        const unsigned char* p, int S, bool wide) {
+    if (wide) {
+        switch (S) {
+            case 1: return *p;
+            case 2: return *(const unsigned short*)p;
+            case 4: return *(const unsigned*)p;
+            default: return *(const unsigned long long*)p;
         }
-        carry += total;
     }
+    unsigned long long x = 0;
+    for (int s = 0; s < S; ++s) x |= (unsigned long long)p[s] << (8 * s);
+    return x;
+}
+
+__device__ __forceinline__ void store_slots(unsigned char* p, int S,
+                                            bool wide, unsigned long long x) {
+    if (wide) {
+        switch (S) {
+            case 1: *p = (unsigned char)x; return;
+            case 2: *(unsigned short*)p = (unsigned short)x; return;
+            case 4: *(unsigned*)p = (unsigned)x; return;
+            default: *(unsigned long long*)p = x; return;
+        }
+    }
+    for (int s = 0; s < S; ++s) p[s] = (unsigned char)(x >> (8 * s));
+}
+
+__global__ void __launch_bounds__(kPairsReads)
+pairs_kernel(const unsigned char* __restrict__ slot_ok, long long B, int S,
+             bool wide, long long P, const unsigned char* __restrict__ ovf_in,
+             unsigned long long* status, unsigned long long epoch,
+             unsigned char* __restrict__ live,
+             unsigned char* __restrict__ ovf_out) {
+    __shared__ long long warp_sums[32];
+    __shared__ unsigned s_tile;
+    __shared__ long long s_excl;
+    draw_tile(status, &s_tile);
+    __syncthreads();
+    const long long tile = s_tile;
+    const long long b = tile * kPairsReads + threadIdx.x;
+    const bool mine = b < B;
+    // the read's live slots: a word's nonzero bytes (S <= 8), else bytes
+    unsigned long long okm = 0;
+    int cnt = 0;
+    if (mine) {
+        if (S <= 8) {
+            okm = nonzero_bytes(load_slots(slot_ok + b * S, S, wide));
+            cnt = __popcll(okm);
+        } else {
+            for (int s = 0; s < S; ++s) cnt += slot_ok[b * S + s] != 0;
+        }
+    }
+    long long total;
+    const long long local = block_scan(cnt, warp_sums, &total);
+    const long long base =
+        chain_publish(status + 1, tile, tile == 0, total, epoch, &s_excl)
+        + local;
+    if (!mine) return;
+    // the read's first `room` live slots stay live (positions below P)
+    const long long room = P - base;
+    if (S <= 8) {
+        unsigned long long lv = 0;
+        long long j = 0;
+        for (int s = 0; s < S; ++s) {
+            const unsigned long long ok = (okm >> (8 * s + 7)) & 1;
+            lv |= (ok & (unsigned long long)(j < room)) << (8 * s);
+            j += (long long)ok;
+        }
+        store_slots(live + b * S, S, wide, lv);
+    } else {
+        long long j = 0;
+        for (int s = 0; s < S; ++s) {
+            const bool ok = slot_ok[b * S + s] != 0;
+            live[b * S + s] = ok && j < room;
+            j += ok;
+        }
+    }
+    ovf_out[b] = ovf_in[b] != 0 || (cnt > 0 && base + cnt > P);
 }
 
 }  // namespace
 
 // status: int64 [1 + ceil(B / 256)] (the tile counter, 0 between calls,
-// then a word a block), zero when made and then written only by this
-// kernel; epoch:
-// in 1 .. 2^31 - 1, never passed before with this buffer; B * K below
-// 2^31.
+// then a word a block), zero when made and then written only by the
+// chained scans (scan.cuh); epoch in 1 .. 2^31 - 1, never passed before
+// with this buffer; B * K below 2^31.
 extern "C" int ganon_ragged(const void* dense, long long B, int K,
                             int has_win, int n_extra, long long tail,
                             long long C, void* status,
@@ -262,13 +261,21 @@ extern "C" int ganon_ragged(const void* dense, long long B, int K,
     return (int)cudaGetLastError();
 }
 
+// status and epoch as for ganon_ragged, [1 + ceil(B / 256)] words;
+// live and ovf_out are written whole (ovf_in is only read).
 extern "C" int ganon_pairs(const void* slot_ok, long long B, int S,
-                           long long P, void* live, void* overflow,
-                           void* stream) {
-    if (S < 1 || P < 0) return (int)cudaErrorInvalidValue;
+                           long long P, const void* ovf_in, void* status,
+                           unsigned long long epoch, void* live,
+                           void* ovf_out, void* stream) {
+    if (S < 1 || P < 0 || epoch < 1 || epoch >= (1ull << 31))
+        return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaGetLastError();
-    pairs_kernel<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(
-        (const unsigned char*)slot_ok, B, S, P, (unsigned char*)live,
-        (unsigned char*)overflow);
+    const bool wide = (S == 1 || S == 2 || S == 4 || S == 8)
+                      && (size_t)slot_ok % S == 0 && (size_t)live % S == 0;
+    const long long blocks = (B + kPairsReads - 1) / kPairsReads;
+    pairs_kernel<<<(unsigned)blocks, kPairsReads, 0, (cudaStream_t)stream>>>(
+        (const unsigned char*)slot_ok, B, S, wide, P,
+        (const unsigned char*)ovf_in, (unsigned long long*)status, epoch,
+        (unsigned char*)live, (unsigned char*)ovf_out);
     return (int)cudaGetLastError();
 }

@@ -222,6 +222,7 @@ class _HashExtractor:
         hashes, n, _ = extract(
             torch.from_numpy(inbuf).to(self.device), L1=L, L2=0,
             k=self.k, w=self.w, mc=L - self.w + 1, counter="extract_build",
+            zero_tail=False,
         )
         keep = torch.arange(hashes.shape[1], device=self.device)[None, :] < n[:, None]
         vals = torch_to_u64(hashes[keep])

@@ -283,7 +283,7 @@ class DeviceBuildPipeline:
             nb = L // 4 + 4
             hashes, cnt, _ = extract(
                 t[:, :nb].contiguous(), L1=L, L2=0, k=self.k, w=self.w,
-                mc=L - self.w + 1, counter="extract_build")
+                mc=L - self.w + 1, counter="extract_build", zero_tail=False)
             keys = t[:, nb:].contiguous().view(torch.int32).reshape(B)
             m = int(cnt.sum())
             n += m

@@ -33,7 +33,9 @@ single-end mode for ``ganon_tpu_torch.ops.library.minimizers``; ``bins``,
 ``ragged`` compacts ``select``'s dense buffer into the ragged match
 stream (``ragged_winners`` with the winners block of a multi-filter
 level), ``pairs`` compacts a pruned batch's (read, slot) pairs under
-the pair cap (``csrc/scan.cu``); ``probe_sort`` orders each read's
+the pair cap (``csrc/scan.cu``): both chained scans, as is ``extract``,
+whose status words and epochs :func:`scan_status` hands out, one buffer
+a device and stream; ``probe_sort`` orders each read's
 hashes by their first row before ``count`` (``csrc/psort.cu``);
 ``gather_probe`` is the port of the Pallas gather probe
 (``csrc/gprobe.cu``).
@@ -45,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -57,7 +60,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
            "gate.cu", "fine.cu", "sort.cu", "dedup.cu", "shard.cu", "bins.cu",
            "scan.cu", "psort.cu", "gprobe.cu")
-HEADERS = ("ibf_hash.cuh",)
+HEADERS = ("ibf_hash.cuh", "scan.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -67,8 +70,9 @@ _P, _I, _L, _U, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_uint64, ctypes.c_double)
 # C entry points: name -> argtypes (the stream is always the last pointer)
 _SIGNATURES = {
-    # inbuf, B, row_bytes, L1, L2, k, w, mc, hashes, n, overflow
-    "extract": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P),
+    # inbuf, B, row_bytes, L1, L2, k, w, mc, zero_tail, status, epoch,
+    # hashes, n, overflow
+    "extract": (_P, _L, _L, _I, _I, _I, _I, _I, _I, _P, _U, _P, _P, _P),
     # tbl, R, W8, byte_starts, byte_ends, T, hashes, B, M, n_hashes,
     # bin_size, h, shift, counts, ldc, col0, cols (NULL = not column-max),
     # clamp (0 = a shard's partial sums)
@@ -128,8 +132,8 @@ _SIGNATURES = {
     "bins_target": (_P, _L, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     # dense, B, K, has_win, n_extra, tail, C, status, epoch, out
     "ragged": (_P, _L, _I, _I, _I, _L, _L, _P, _U, _P),
-    # slot_ok, B, S, P, live, overflow
-    "pairs": (_P, _L, _I, _L, _P, _P),
+    # slot_ok, B, S, P, overflow, status, epoch, live, overflow out
+    "pairs": (_P, _L, _I, _L, _P, _P, _U, _P, _P),
     # hashes, B, M, n_hashes, bin_size, shift, out
     "probe_sort": (_P, _L, _I, _P, _U, _I, _P),
     # tbl, R, rows, N, out
@@ -220,6 +224,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.ganon_set_device.argtypes = [ctypes.c_int]
         lib.ganon_set_device.restype = ctypes.c_int
+        lib.ganon_extract_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.ganon_extract_blocks_per_sm.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -259,3 +265,38 @@ def launch(name: str, *args, counter: str | None = None) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
     LAUNCHES[counter or name] += 1
+
+
+# The chained scans' status words (csrc/scan.cuh): one buffer per (device,
+# stream), shared by ``ragged``, ``pairs`` and ``extract``; made zero and
+# written only by those kernels, every call tagged with a new epoch
+# (csrc/scan.cu says why that is safe)
+_SCAN_STATUS: dict = {}
+_SCAN_EPOCHS = itertools.count(1)
+EPOCH_LIMIT = 1 << 31
+# the least buffer made, in words
+SCAN_STATUS_MIN = 64
+
+
+def scan_status(device: torch.device, blocks: int):
+    """(status buffer of at least ``blocks + 1`` int64 words, epoch) for a
+    chained-scan launch of ``blocks`` blocks on ``device``'s current
+    stream.
+
+    The buffer is kept per (device, stream) and grows to the largest grid
+    asked for; the epoch is new for every call (when the epochs wrap,
+    every buffer is made anew, zero). A CPU device keys on stream 0.
+    """
+    epoch = next(_SCAN_EPOCHS) % EPOCH_LIMIT
+    if not epoch:  # the epochs wrapped: every buffer is made anew
+        _SCAN_STATUS.clear()
+        epoch = next(_SCAN_EPOCHS) % EPOCH_LIMIT
+    stream = (torch._C._cuda_getCurrentRawStream(device.index)
+              if device.type == "cuda" else 0)
+    key = (device.type, device.index, stream)
+    buf = _SCAN_STATUS.get(key)
+    if buf is None or buf.numel() < blocks + 1:
+        buf = _SCAN_STATUS[key] = torch.zeros(
+            (max(blocks + 1, SCAN_STATUS_MIN),), dtype=torch.int64,
+            device=device)
+    return buf, epoch

@@ -261,8 +261,32 @@ def extract_plain(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
     return hc, n, overflow.to(torch.uint8)
 
 
+# windows a tile of the extract kernel (csrc/extract.cu kWindows)
+EXTRACT_WINDOWS = 512
+# shared memory a block may take on the H100 (227 KB)
+_SMEM_LIMIT = 232_448
+
+
+def extract_tiles(L1: int, L2: int, w: int) -> int:
+    """Tiles (blocks) a read of the ``extract`` kernel: mate 1's
+    ``EXTRACT_WINDOWS``-window tiles (at least one) and mate 2's."""
+    tiles = max(-(-max(L1 - w + 1, 0) // EXTRACT_WINDOWS), 1)
+    if L2:
+        tiles += -(-max(L2 - w + 1, 0) // EXTRACT_WINDOWS)
+    return tiles
+
+
+def extract_smem(k: int, w: int) -> int:
+    """Dynamic shared memory of an ``extract`` block at ``(k, w)``:
+    values and argmins of ``EXTRACT_WINDOWS + w - k + 1`` positions, the
+    tile's emissions and packed bases (csrc/extract.cu smem_bytes)."""
+    np_ = EXTRACT_WINDOWS + w - k + 1
+    n_words = (np_ + 30) // 32 + 2
+    return 8 * np_ + 8 * EXTRACT_WINDOWS + 8 * n_words + -(-4 * np_ // 8) * 8
+
+
 def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
-            mc: int, counter: str | None = None):
+            mc: int, counter: str | None = None, zero_tail: bool = True):
     """Minimizers of a packed (paired or single-end) batch, compacted.
 
     Replaces ``ganon_tpu.classify.device._unpack_batch_input`` +
@@ -276,7 +300,9 @@ def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
     the emitted values in position order (mate 1, then mate 2), zeros
     past ``min(n, mc)``; ``overflow`` marks ``n > mc``. ``counter``
     names the launch count (default ``extract``; the build's pieces count
-    as ``extract_build``).
+    as ``extract_build``). ``zero_tail=False`` leaves the slots past
+    ``min(n, mc)`` unwritten on the card (the build reads only the first
+    ``n`` of each row); the plain version zeroes them either way.
     """
     if L1 % 4 or L2 % 4 or L1 <= 0 or L2 < 0:
         raise ValueError(f"L1={L1}, L2={L2}: lengths must be multiples of 4")
@@ -291,15 +317,23 @@ def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
     if inbuf.device.type == "cpu":
         return extract_plain(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc)
     kernels.check_cuda(inbuf)
+    if extract_smem(k, w) + 512 > _SMEM_LIMIT:
+        raise ValueError(f"w - k + 1 = {w - k + 1}: a window too wide for "
+                         "the extract kernel's shared memory")
     B = inbuf.shape[0]
     hashes = torch.empty((B, mc), dtype=torch.int64, device=inbuf.device)
     n = torch.empty((B,), dtype=torch.int32, device=inbuf.device)
     overflow = torch.empty((B,), dtype=torch.uint8, device=inbuf.device)
     if B == 0:
         return hashes, n, overflow
+    # a zero tail takes one more read's tiles (stripes of the last tail)
+    tiles = (B + bool(zero_tail)) * extract_tiles(L1, L2, w)
+    if tiles >= 1 << 31:
+        raise ValueError(f"{tiles} extract tiles: past the grid's 2^31")
+    status, epoch = kernels.scan_status(inbuf.device, tiles)
     kernels.launch(
-        "extract", inbuf, B, row, L1, L2, k, w, mc, hashes, n, overflow,
-        counter=counter,
+        "extract", inbuf, B, row, L1, L2, k, w, mc, int(zero_tail), status,
+        epoch, hashes, n, overflow, counter=counter,
     )
     return hashes, n, overflow
 

@@ -290,6 +290,11 @@ def fine_counts(ftbl: torch.Tensor, hashes: torch.Tensor,
     return out
 
 
+# reads a block of the pairs kernel's chained scan (csrc/scan.cu
+# kPairsReads)
+PAIRS_READS = 256
+
+
 def pair_live_plain(slot_ok: torch.Tensor, overflow: torch.Tensor,
                     pair_cap: int):
     """Plain version of the ``pairs`` kernel (see :func:`pair_live`)."""
@@ -326,11 +331,15 @@ def pair_live(slot_ok: torch.Tensor, overflow: torch.Tensor, pair_cap: int):
     if slot_ok.device.type == "cpu":
         return pair_live_plain(slot_ok, overflow, pair_cap)
     kernels.check_cuda(slot_ok, overflow)
-    live = torch.empty_like(slot_ok)
-    ovf = overflow.clone()
+    # both outputs in one allocation (the host's cost of a call leads)
+    n = slot_ok.numel()
+    out = torch.empty((n + B,), dtype=torch.uint8, device=slot_ok.device)
+    live, ovf = out[:n].view(slot_ok.shape), out[n:]
     if B:
-        kernels.launch("pairs", slot_ok, B, slot_ok.shape[1], pair_cap, live,
-                       ovf)
+        status, epoch = kernels.scan_status(slot_ok.device,
+                                            -(-B // PAIRS_READS))
+        kernels.launch("pairs", slot_ok, B, slot_ok.shape[1], pair_cap,
+                       overflow, status, epoch, live, ovf)
     return live, ovf
 
 

@@ -38,6 +38,11 @@ group words) over up to 274 blocks, each call twice on the stream's
 status buffer; pairs with every read
 spilling; probe_sort with equal keys; the gather probe; the transfer
 settings (ragged, pair caps, sort_probes) on the card against the CPU.
+The tiled extract at the build's shape, over many 512-window tiles, at
+B 1, with short mates, w == k, k 32 and runs of one base, with and
+without the zero tail; pairs over 274 blocks at S 1-9 and on rows off
+word alignment; ragged, extract and pairs sharing one stream's status
+words, and a second stream's.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
@@ -92,6 +97,91 @@ def test_extract_kernel_matches_plain(cuda, k, w, L1, L2):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+def _set_lens(inbuf, L1, L2, len1, len2=0):
+    """Write the length fields of a packed batch (numpy u8 rows)."""
+    o = L1 // 4 + L2 // 4
+    B = inbuf.shape[0]
+    for at, lens in ((o, len1), (o + 4, len2)) if L2 else ((o, len1),):
+        inbuf[:, at:at + 4] = np.broadcast_to(
+            np.asarray(lens, "<i4"), (B,)).copy().view(np.uint8).reshape(B, 4)
+
+
+def _extract_case(case):
+    """(inbuf numpy, L1, L2, k, w, mcs) of an extract edge case; the first
+    width of the cases past "one_read" overflows some read."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "build":  # the build's pieces, 16 tiles a card's SM
+        k, w, L1, L2, B = 19, 31, 2048, 0, 4096
+        buf = _inbuf(rng, B, L1, L2, w).numpy()
+        lens = np.full(B, L1, np.int64)
+        lens[::7] = rng.integers(w, L1, size=len(lens[::7]))
+        _set_lens(buf, L1, L2, lens)
+        return buf, L1, L2, k, w, (L1 - w + 1,)
+    if case == "one_read":
+        k, w, L1, L2 = 19, 31, 1024, 1024
+        buf = _inbuf(rng, 4, L1, L2, w).numpy()[:1].copy()
+        _set_lens(buf, L1, L2, 1000, 700)
+        return buf, L1, L2, k, w, (2 * (L1 - w + 1),)
+    if case == "several_tiles":  # segment boundaries inside windows
+        k, w, L1, L2 = 19, 31, 65_536, 0
+        buf = _inbuf(rng, 4, L1, L2, w).numpy()[:3].copy()
+        _set_lens(buf, L1, L2, [L1, 40_000, 511 + w])
+        return buf, L1, L2, k, w, (5000, L1 - w + 1)
+    if case == "short_mates":  # len1 < w with a long mate 2; mate 2 < w
+        k, w, L1, L2 = 19, 31, 160, 160
+        buf = _inbuf(rng, 7, L1, L2, w).numpy()
+        _set_lens(buf, L1, L2, [w - 1, 0, 150, 150, w, 160, 160],
+                  [150, 150, w - 1, 0, w, 160, 160])
+        buf[6, :80] = 0x00  # a run of one base: its read overflows 20
+        return buf, L1, L2, k, w, (20, 260)
+    if case == "w_equals_k":
+        k, w, L1, L2 = 21, 21, 1100, 0
+        buf = _inbuf(rng, 40, L1, L2, w).numpy()
+        return buf, L1, L2, k, w, (dev.compact_width(L1 - w + 1), L1 - w + 1)
+    if case == "k32":
+        k, w, L1, L2 = 32, 45, 1600, 800
+        buf = _inbuf(rng, 40, L1, L2, w).numpy()
+        return buf, L1, L2, k, w, (200, 2344)
+    if case == "equal_bases":  # one base repeated: ties on every window
+        k, w, L1, L2 = 19, 31, 1200, 160
+        buf = _inbuf(rng, 8, L1, L2, w).numpy()
+        buf[:4, :L1 // 4 + L2 // 4] = 0x00
+        buf[4:, :L1 // 4 + L2 // 4] = 0xAA
+        buf[6:, 100:140] = 0xE4  # a stretch of ACGT repeats among them
+        _set_lens(buf, L1, L2, [L1, 700, 31, L1, L1, 500, L1, 1000],
+                  [160, 31, 100, 0, 160, 160, 45, 160])
+        m = (L1 - w + 1) + (L2 - w + 1)
+        return buf, L1, L2, k, w, (dev.compact_width(m), m)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["build", "one_read", "several_tiles",
+                                  "short_mates", "w_equals_k", "k32",
+                                  "equal_bases"])
+def test_extract_kernel_edge_shapes(cuda, case):
+    """The tiled extract kernel bit for bit against its plain version: the
+    build's shape (several blocks an SM), B 1, reads of many 512-window
+    tiles (the segmented scan across blocks), mate 1 shorter than w beside
+    a long mate 2 and mate 2 shorter than w, w == k, k 32, runs of one
+    base (ties on every window); at a compacted width that overflows
+    (n > mc) and at every window position; then without the zero tail,
+    the first n[b] slots of each row against the plain version's."""
+    buf, L1, L2, k, w, mcs = _extract_case(case)
+    inbuf = torch.from_numpy(buf).to(cuda)
+    for i, mc in enumerate(mcs):
+        want = q.extract_plain(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc)
+        got = q.extract(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), mc
+        assert bool(want[2].any()) == (len(mcs) == 2 and i == 0)
+        h, n, o = q.extract(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc,
+                            zero_tail=False)
+        keep = torch.arange(mc, device=cuda)[None, :] < n[:, None]
+        assert torch.equal(n, want[1]) and torch.equal(o, want[2])
+        assert torch.equal(h[keep], want[0][keep])
 
 
 @pytest.mark.parametrize("hf", [1, 2, 5])
@@ -1154,7 +1244,7 @@ def test_ragged_kernel_matches_plain(cuda, has_win, n_extra):
 
 def test_pairs_kernel_matches_plain(cuda):
     """Pair compaction: a cap of 0 (every read with a live slot spills),
-    caps inside and past the pairs, B = 5000 (several scan chunks)."""
+    caps inside and past the pairs, B = 5000 (20 scan blocks)."""
     rng = np.random.default_rng(34)
     for B, S in ((7, 2), (5000, 3)):
         ok = torch.from_numpy((rng.random((B, S)) < 0.6).astype(np.uint8))
@@ -1166,6 +1256,69 @@ def test_pairs_kernel_matches_plain(cuda):
             assert all(torch.equal(a, b) for a, b in zip(got, want)), cap
         spill = pq.pair_live(ok.to(cuda), ovf.to(cuda), 0)[1].bool().cpu()
         assert torch.equal(spill, ovf.bool() | ok.bool().any(dim=1))
+
+
+@pytest.mark.parametrize("S", list(range(1, 10)))
+def test_pairs_kernel_many_tiles(cuda, S):
+    """The chained scan over 274 blocks (B = 70,000) at S 1-8 (one word a
+    row where S is 1, 2, 4 or 8) and S 9 (bytes), overflow bytes other
+    than 0 and 1, caps 0, 1, inside and past the pairs; rows at an odd
+    offset (no word loads); the inputs left as they were."""
+    rng = np.random.default_rng(340 + S)
+    B = 70_000
+    ok_np = (rng.random((B, S)) < 0.5).astype(np.uint8)
+    ok_np[ok_np > 0] = rng.integers(1, 256, size=int(ok_np.sum()))
+    ovf_np = (rng.random(B) < 0.1).astype(np.uint8) * 3
+    ok, ovf = torch.from_numpy(ok_np).to(cuda), torch.from_numpy(ovf_np).to(
+        cuda)
+    n_pairs = int((ok_np != 0).sum())
+    flat = torch.zeros(B * S + 1, dtype=torch.uint8, device=cuda)
+    flat[1:] = ok.reshape(-1)
+    shifted = flat[1:].view(B, S)  # contiguous, one byte off alignment
+    for cap in (0, 1, n_pairs // 3, n_pairs, n_pairs + 5):
+        want = pq.pair_live_plain(ok, ovf, cap)
+        for slots in (ok, shifted):
+            got = pq.pair_live(slots, ovf, cap)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), cap
+    assert torch.equal(ok.cpu(), torch.from_numpy(ok_np))
+    assert torch.equal(ovf.cpu(), torch.from_numpy(ovf_np))
+
+
+def test_scans_share_status_words(cuda):
+    """ragged, pairs and extract take their status words from one buffer
+    a stream: two pairs calls in a row after a ragged call and an extract
+    call of more blocks, then pairs on a second stream (a buffer of its
+    own), each equal to its plain version; one launch a pairs call."""
+    rng = np.random.default_rng(36)
+    B, K = 3000, 8
+    dense = _dense_buffer(rng, B, K, False, 0, 11).to(cuda)
+    ok = torch.from_numpy((rng.random((9000, 2)) < 0.6).astype(
+        np.uint8)).to(cuda)
+    ovf = torch.zeros(9000, dtype=torch.uint8, device=cuda)
+    buf, L1, L2, k, w, mcs = _extract_case("one_read")
+    inbuf = torch.from_numpy(np.repeat(buf, 300, axis=0)).to(cuda)
+    cap = int(ok.sum()) // 2
+    want_p = pq.pair_live_plain(ok, ovf, cap)
+    want_r = dev.ragged_plain(dense, B, K, 100)
+    want_x = q.extract_plain(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mcs[0])
+    assert torch.equal(dev.ragged(dense, B, K, 100), want_r)
+    got_x = q.extract(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mcs[0])
+    before = kernels.LAUNCHES["pairs"]
+    for _ in range(2):
+        got = pq.pair_live(ok, ovf, cap)
+        assert all(torch.equal(a, b) for a, b in zip(got, want_p))
+    assert kernels.LAUNCHES["pairs"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got_x, want_x))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = pq.pair_live(ok, ovf, cap)
+        got_r = dev.ragged(dense, B, K, 100)
+    side.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want_p))
+    assert torch.equal(got_r, want_r)
+    keys = {key for key in kernels._SCAN_STATUS if key[0] == "cuda"}
+    assert len(keys) >= 2
 
 
 def test_probe_sort_kernel_matches_plain(cuda):
