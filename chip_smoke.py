@@ -8,8 +8,9 @@ Phases, one output line each:
 1. env       the card (nvidia-smi name and power limit), torch, nvcc, and
              the time to build the CUDA kernels from ``csrc/`` (one nvcc
              per source, all started together); ``nvcc -Xptxas -v`` of
-             ``extract.cu`` and ``scan.cu`` (registers, spills) and the
-             extract blocks an SM at k 19, w 31;
+             ``extract.cu``, ``scan.cu``, ``count.cu`` and ``select.cu``
+             (registers, spills, static shared memory) and the extract
+             blocks an SM at k 19, w 31;
 2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
              through the ``extract`` kernel, the IBF through ``scatter``,
              saved raw as ``db.ibf`` (``save_raw``, the ``tpu-raw``
@@ -73,6 +74,12 @@ ops          the ``ganon_tpu_torch.ops`` library (K18) at the flat
              and ``bulk_target_counts``; the two per-target results equal
              each other and the packed ``count`` (clamp off) on the same
              hashes; each kernel against its plain version;
+extract_wide the wide-window route of ``extract`` (k 19, w 18,104: past a
+             tile's shared memory; one warp a read): 48 pairs of 20-40
+             kbp mates from the genomes against the plain version, the
+             build's mode single-end (first n slots), and the ops
+             library's ``minimizers`` at that w on the card, counted as
+             ``extract_wide`` (row ``extract_wide``);
 mesh         the (batch, bins) device mesh (K17) over eight views of
              ``cuda:0`` (2 x 4), while ``db``'s table is still cached: the
              filter cut into column shards on the card (no host repack),
@@ -125,8 +132,11 @@ raptor       the reference's own files: the flat database written as a
              class, the three classes its children; ``raptor.hibf``) and the
              forest's 2-level export (``rexport.hibf``); ``count`` in
              column-max mode (K12) against its plain version at 8192 pairs
-             over the layout's four subs, and on a small layout with one
-             user bin in two IBFs (both subs count it); 524,288 pairs (95%
+             over the layout's four subs in one launch
+             (``raptor_target_counts``; one launch a sub beside,
+             ``per_sub_ms``), and on a small layout with one user bin in
+             two IBFs (both subs count it, one launch a sub and a batch
+             equal); 524,288 pairs (95%
              sampled, a quarter per class, 5% random) through the CLI with
              ``--db-prefix raptor``, profiled; every sampled pair lists its
              true target in ``.all``, random pairs land in ``.unc``, and on
@@ -798,14 +808,17 @@ def main() -> int:
     # reports them, and the extract blocks an SM holds at k 19, w 31
     ptxas = {}
     csrc = os.path.join(os.path.dirname(kernels.__file__), "csrc")
-    for src in ("extract.cu", "scan.cu"):
-        obj = f"{so}.{src}.ptxas.o"
-        res = subprocess.run(
-            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-             "-o", obj, os.path.join(csrc, src)],
-            capture_output=True, text=True, check=True)
-        os.remove(obj)
-        ptxas[src] = [ln.strip() for ln in res.stderr.splitlines()
+    procs = {src: subprocess.Popen(
+        [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+         "-o", f"{so}.{src}.ptxas.o", os.path.join(csrc, src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src in ("extract.cu", "scan.cu", "count.cu", "select.cu")}
+    for src, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{err}")
+        os.remove(f"{so}.{src}.ptxas.o")
+        ptxas[src] = [ln.strip() for ln in err.splitlines()
                       if "registers" in ln or "spill" in ln
                       or "Compiling entry" in ln]
         print(f"ptxas -v {src}:\n  " + "\n  ".join(ptxas[src]), flush=True)
@@ -1698,6 +1711,72 @@ def main() -> int:
     del obins_f, ocodes, seg, perm_d, b2t_d, f
     torch.cuda.empty_cache()
 
+    # extract_wide: windows past a tile's shared memory (k 19, w 18,104)
+    # take extract's one-thread-a-read route on the card. 48 pairs of
+    # 20-40 kbp mates from the genomes, paired against the plain version
+    # (with the zero tail) and single-end in the build's mode (the first
+    # n slots); then the ops library's minimizers at that w, the entry
+    # point a user calls (its launches count for the checks phase)
+    ww_, wB = 18_104, 48
+    if not q.extract_is_wide(k, ww_) or q.extract_is_wide(k, ww_ - 1):
+        raise AssertionError("extract_wide: the route's threshold moved")
+    wrng = np.random.default_rng(args.seed + 11)
+    wlen = 40_000
+    wl1 = wrng.integers(20_000, wlen + 1, size=wB).astype(np.int32)
+    wl2 = wrng.integers(20_000, wlen + 1, size=wB).astype(np.int32)
+    wt = wrng.integers(0, args.targets, size=wB)
+    wp = wrng.integers(0, args.genome_len - wlen, size=(wB, 2))
+    wc1 = np.stack([genomes[t, a:a + wlen] for t, (a, _) in zip(wt, wp)])
+    wc2 = np.stack([3 - genomes[t, b:b + wlen][::-1]
+                    for t, (_, b) in zip(wt, wp)])
+    for c_, l_ in ((wc1, wl1), (wc2, wl2)):
+        c_[np.arange(wlen)[None, :] >= l_[:, None]] = 0
+    wids = [str(i) for i in range(wB)]
+    wbuf, wL1, wL2 = dev.pack_batch_direct(EncodedBatch(
+        prefix="", paired=True, ids=wids, codes1=wc1, len1=wl1,
+        codes2=np.ascontiguousarray(wc2), len2=wl2), wB)
+    wbuf = torch.from_numpy(wbuf).to(cuda)
+    wmc = dev.compact_width((wL1 - ww_ + 1) + (wL2 - ww_ + 1))
+    compare("extract_wide", "ganon_tpu_torch/csrc/extract.cu",
+            "ganon_tpu/ops/minimizers.py:245",
+            lambda: q.extract(wbuf, L1=wL1, L2=wL2, k=k, w=ww_, mc=wmc),
+            lambda: q.extract_plain(wbuf, L1=wL1, L2=wL2, k=k, w=ww_,
+                                    mc=wmc), 5, 2,
+            _extract_work(wbuf, wL1, wL2, ww_, None, wmc))
+    sbuf, sL1, _ = dev.pack_batch_direct(EncodedBatch(
+        prefix="", paired=False, ids=wids, codes1=wc1, len1=wl1), wB)
+    sbuf = torch.from_numpy(sbuf).to(cuda)
+    smc = sL1 - ww_ + 1
+    sh_, sn_, so_ = q.extract(sbuf, L1=sL1, L2=0, k=k, w=ww_, mc=smc,
+                              zero_tail=False)
+    ph_, pn_, po_ = q.extract_plain(sbuf, L1=sL1, L2=0, k=k, w=ww_, mc=smc)
+    if not (torch.equal(sn_, pn_) and torch.equal(so_, po_) and torch.equal(
+            sh_[_valid(sh_, sn_)], ph_[_valid(ph_, pn_)])):
+        raise AssertionError("extract_wide: zero_tail=False differs from "
+                             "the plain version's first n slots")
+    wcodes = torch.from_numpy(np.ascontiguousarray(wc1)).to(cuda)
+    wlens_d = torch.from_numpy(wl1).to(cuda)
+    kernels.reset_launches()
+    wh_, wn_ = lib.minimizers(wcodes, wlens_d, k=k, w=ww_, max_minimizers=64)
+    torch.cuda.synchronize()
+    wide_launches = dict(kernels.LAUNCHES)
+    want_ = lib.minimizers_plain(wcodes, wlens_d, k=k, w=ww_,
+                                 max_minimizers=64)
+    if not (torch.equal(wh_, want_[0]) and torch.equal(wn_, want_[1])):
+        raise AssertionError("extract_wide: ops.minimizers differs from "
+                             "its plain version")
+    if wide_launches["extract_wide"] != 1 or wide_launches["minimizers"]:
+        raise AssertionError("extract_wide: ops.minimizers at a wide "
+                             "window did not take the wide route")
+    emit("extract_wide", {
+        "k": k, "w": ww_, "pairs": wB, "L1": wL1, "L2": wL2, "mc": wmc,
+        "emitted_mean": float(wn_.float().mean()),
+        "ms": rows[-1]["ms"], "plain_ms": rows[-1]["plain_ms"],
+        "launches": wide_launches,
+    })
+    del wbuf, sbuf, sh_, sn_, so_, ph_, pn_, po_, wcodes, wlens_d, wh_, wn_
+    del want_, wc1, wc2
+
     # mesh: the (batch, bins) device mesh (K17) over eight views of the
     # card, while db's packed table is still in the filter cache -----------
     from ganon_tpu_torch.cli import main as cli_main
@@ -2414,7 +2493,8 @@ def main() -> int:
     if not isinstance(fr, dev.DeviceRaptorHIBF) or len(fr.subs) != 4:
         raise AssertionError("raptor: the layout did not open as 4 subs")
     # K12 against its plain version: 8192 pairs over the four classes,
-    # every sub max-merged into one zeroed [B, 256] matrix
+    # every sub max-merged into one [B, 256] matrix, the four subs in one
+    # launch (raptor_target_counts, DeviceRaptorHIBF.counts's call)
     brng = np.random.default_rng(args.seed + 7)
     bparts = [_sample_pairs(brng, g, args.bench_pairs // 4
                             + (c < args.bench_pairs % 4), args.read_len)
@@ -2426,9 +2506,6 @@ def main() -> int:
     rin_np, rL1, rL2 = dev.pack_batch_direct(rbatch, args.bench_pairs)
     rh, rn, _ = dev._extract_compact(torch.from_numpy(rin_np).to(cuda), k=k,
                                      w=w, L1=rL1, L2=rL2)
-    rout_k = torch.zeros((args.bench_pairs, fr.num_targets),
-                         dtype=torch.int32, device=cuda)
-    rout_p = torch.zeros_like(rout_k)
 
     def raptor_counts(fn, out, subs):
         out.zero_()
@@ -2439,21 +2516,35 @@ def main() -> int:
         return (out,)
 
     # each sub gathers its own distinct rows; the hashes, n and the
-    # [B, T] output are shared by the four launches and counted once
+    # [B, T] output are shared by the subs and counted once
     rvalid = int(_valid(rh, rn).sum())
     compare(
         "count_raptor", "ganon_tpu_torch/csrc/count.cu",
         "ganon_tpu/classify/device.py:488",
-        lambda: raptor_counts(q.bulk_target_counts_packed, rout_k, fr.subs),
-        lambda: raptor_counts(q.bulk_target_counts_packed_plain, rout_p,
-                              fr.subs), 20, 3,
+        lambda: (q.raptor_target_counts(fr.subs, rh, rn,
+                                        num_targets=fr.num_targets,
+                                        desc=fr.sub_desc),),
+        lambda: (q.raptor_target_counts_plain(fr.subs, rh, rn,
+                                              num_targets=fr.num_targets),),
+        20, 3,
         (sum(_distinct_rows(rh, rn, s_.bin_size, s_.hash_funs)
              * s_.tbl8.shape[1] for s_ in fr.subs)
-         + _nbytes(rh, rn, rout_k),
+         + _nbytes(rh, rn) + args.bench_pairs * fr.num_targets * 4,
          sum(rvalid * s_.hash_funs * s_.tbl8.shape[1] for s_ in fr.subs)),
     )
+    # the same subs one launch each (column-max mode into a zeroed
+    # matrix, as the mesh path and single subs run it), beside
+    rout_k = torch.zeros((args.bench_pairs, fr.num_targets),
+                         dtype=torch.int32, device=cuda)
+    if not torch.equal(raptor_counts(q.bulk_target_counts_packed, rout_k,
+                                     fr.subs)[0], fr.counts(rh, rn)):
+        raise AssertionError("count_raptor: one launch a sub differs from "
+                             "one launch a batch")
+    rows[-1]["per_sub_ms"] = _ms(
+        lambda: raptor_counts(q.bulk_target_counts_packed, rout_k, fr.subs),
+        20)
     # a small layout where one user bin sits in two IBFs, so the max
-    # really combines two subs' values
+    # really combines two subs' values (one launch a sub and a batch)
     twin = forest_names[0][0]
     tdb = os.path.join(work, "twin.hibf")
     write_raptor_layout(
@@ -2471,11 +2562,12 @@ def main() -> int:
         hash_functions=s_.hash_funs)[:, s_.cols.tolist().index(tcol)]
         for s_ in ft.subs]
     both = int(((per_sub[0] > 0) & (per_sub[1] > 0)).sum())
-    if not torch.equal(tk, tp) or not both:
+    if not torch.equal(tk, tp) or not both or not torch.equal(
+            ft.counts(rh, rn), tp):
         raise AssertionError(f"raptor twin layout: kernel == plain "
                              f"{torch.equal(tk, tp)}, reads in both subs "
                              f"{both}")
-    del ft, tk, tp, per_sub, rout_k, rout_p, rh, rn
+    del ft, tk, tp, per_sub, rout_k, rh, rn
     # 95% of the pairs from the 256 targets (a quarter per class), 5%
     # random, through the CLI; then profiled
     nr = args.raptor_pairs
@@ -3034,7 +3126,7 @@ def main() -> int:
 
     # 5. checks ------------------------------------------------------------
     main_runs = (build_launches, bc_launches, ref_launches, sp_launches,
-                 gprobe_launches, ops_launches,
+                 gprobe_launches, ops_launches, wide_launches,
                  mesh_build_launches, hier_build_launches, cli_launches,
                  mesh_launches, mesh_forest_launches, l_launches,
                  w_build_launches, w_launches, *leq_launches.values(),

@@ -15,7 +15,7 @@ splits):
   sub-IBF into its columns of one matrix, then ``select``
   (:func:`classify_batch_packed_forest`);
 * a raptor ``.hibf`` (:class:`DeviceRaptorHIBF`): ``extract``, then
-  ``count`` in column-max mode once per sub-IBF into one zeroed matrix
+  ``count`` in column-max mode over every sub-IBF in one launch
   (a user bin may sit in several sub-IBFs), then ``select``
   (:func:`classify_batch_packed`, through :meth:`DeviceRaptorHIBF.counts`);
 * several flat filters on one level: ``extract``, then per filter
@@ -66,7 +66,9 @@ from ganon_tpu_torch.ops.ibf_query import (
     extract,
     pack_table_u8,
     probe_sort,
+    raptor_target_counts,
     shard_table,
+    sub_descriptors,
     table_as_u32,
 )
 from ganon_tpu_torch.ops.pruned_query import (
@@ -1253,18 +1255,25 @@ class DeviceRaptorHIBF:
                 bin_size=int(bin_size), hash_funs=int(hash_funs),
                 cols=torch.from_numpy(used.astype(np.int32)).to(self.device),
             ))
+        # the subs' descriptors for the one-launch count (none on a mesh)
+        self.sub_desc = None
         if mesh is not None:
             self._shard(mesh)
+        else:
+            self.sub_desc = sub_descriptors(self.subs)
 
     def _shard(self, mesh) -> None:
         self.mesh, self.batch_mult = mesh, mesh.shape["batch"]
         self.subs = [s.with_mesh(mesh) for s in self.subs]
+        self.sub_desc = None
 
     def to(self, device) -> "DeviceRaptorHIBF":
         """The same archive with its tables on ``device`` (no repack)."""
         out = copy.copy(self)
         out.device = _resolve_device(device)
         out.subs = [s.to(out.device) for s in self.subs]
+        if self.mesh is None:
+            out.sub_desc = sub_descriptors(out.subs)
         return out
 
     def with_mesh(self, mesh) -> "DeviceRaptorHIBF":
@@ -1288,17 +1297,13 @@ class DeviceRaptorHIBF:
     def counts(self, hashes: torch.Tensor, n_hashes: torch.Tensor) -> torch.Tensor:
         """Clamped counts (int32 ``[B, T]``): each sub max-merges its
         user bins' counts into their columns (``count`` in column-max
-        mode), as JAX's ``DeviceRaptorHIBF.counts``."""
+        mode, every sub in one launch), as JAX's
+        ``DeviceRaptorHIBF.counts``."""
         if self.mesh is not None:
             return _mesh_counts(self, hashes, n_hashes, self.row_counts)
-        out = torch.zeros((hashes.shape[0], self.num_targets),
-                          dtype=torch.int32, device=hashes.device)
-        for sub in self.subs:
-            bulk_target_counts_packed(
-                sub.tbl8, sub.byte_starts, sub.byte_ends, hashes, n_hashes,
-                bin_size=sub.bin_size, hash_functions=sub.hash_funs, out=out,
-                cols=sub.cols)
-        return out
+        return raptor_target_counts(self.subs, hashes, n_hashes,
+                                    num_targets=self.num_targets,
+                                    desc=self.sub_desc)
 
 
 class DevicePrunedForest:

@@ -76,6 +76,23 @@
 // build's 16,384 pieces of 2048 bases and 0.358 ms at 8192 pairs of
 // 150 bp (NVIDIA H100 80GB HBM3, 700.00 W): the lanes of a warp waited on
 // whichever lane rescanned, and 64 ultra-long reads ran on 64 threads.
+//
+// Wide windows (ganon_extract_wide): a tile keeps a window's positions in
+// shared memory, so past w - k + 1 of about 18,000 (k 19: w >= 18,104) a
+// block would need more than the card's 227 KB. Those windows take that
+// earlier walk instead, which keeps only the current minimum in
+// registers and so has no bound on w: the k-mers rolled from the packed
+// codes, the window rescanned from the codes when its minimum slides out
+// (a few times a read on random sequence, w - k + 1 k-mers each), each
+// emission written straight to its slot. One warp a read: its lanes walk
+// the read together (the same state in each) and split each rescan into
+// 32 runs whose minima meet by shuffles. One thread a read, as the walk
+// first ran, made a warp wait through every rescan of its 32 reads in
+// turn: 40.5 ms for 48 pairs of 20-40 kbp mates at w 18,104, where the
+// plain version takes 7.0 (NVIDIA H100 80GB HBM3, 700.00 W). No status
+// words: a read's slots are its warp's alone. The caller picks the route
+// by shape before the launch (ops/ibf_query.py extract); nobody runs it
+// at speed (the default w is 31).
 #include <cuda_runtime.h>
 
 #include "scan.cuh"
@@ -353,5 +370,163 @@ extern "C" int ganon_extract(const void* inbuf, long long B, long long row_bytes
         (const unsigned char*)inbuf, B, row_bytes, L1, L2, T1, T2, mc, p,
         zero_tail, (unsigned long long*)status, epoch, (long long*)hashes,
         (int*)n_hashes, (unsigned char*)overflow);
+    return (int)cudaGetLastError();
+}
+
+// --- wide windows: one warp a read -----------------------------------------
+
+namespace {
+
+__device__ __forceinline__ int base_at(const unsigned char* codes, int j) {
+    return (codes[j >> 2] >> ((j & 3) << 1)) & 3;
+}
+
+struct Roll {
+    unsigned long long kmask;  // low 2k bits
+    unsigned long long seed;   // adjust_seed(k)
+    int k;
+    int rc_shift;              // 2 (k - 1)
+
+    __device__ __forceinline__ void push(unsigned long long& fwd,
+                                         unsigned long long& rc, int c) const {
+        fwd = ((fwd << 2) | (unsigned long long)c) & kmask;
+        rc = (rc >> 2) | ((unsigned long long)(3 - c) << rc_shift);
+    }
+
+    __device__ __forceinline__ unsigned long long canon(
+        unsigned long long fwd, unsigned long long rc) const {
+        const unsigned long long a = fwd ^ seed, b = rc ^ seed;
+        return a < b ? a : b;
+    }
+};
+
+// Leftmost minimum over the canonical values of k-mers [p0, p0 + ww), by
+// the whole warp: each lane rolls its own contiguous run of positions,
+// then the lanes' minima meet by shuffles (the lower position on ties).
+// Every lane returns the same (minv, minp).
+__device__ void rescan(const unsigned char* codes, int p0, int ww,
+                       const Roll& r, unsigned long long& minv, int& minp) {
+    const int lane = threadIdx.x & 31;
+    const int per = (ww + 31) >> 5;
+    const int q0 = min(lane * per, ww), q1 = min(q0 + per, ww);
+    unsigned long long fwd = 0, rc = 0, v = ~0ULL;
+    int pos = 0x7FFFFFFF;  // an empty run loses every comparison
+    if (q0 < q1) {
+        for (int j = 0; j < r.k - 1; ++j)
+            r.push(fwd, rc, base_at(codes, p0 + q0 + j));
+        for (int q = q0; q < q1; ++q) {
+            r.push(fwd, rc, base_at(codes, p0 + q + r.k - 1));
+            const unsigned long long c = r.canon(fwd, rc);
+            if (pos == 0x7FFFFFFF || c < v) {
+                v = c;
+                pos = p0 + q;
+            }
+        }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+        const unsigned long long ov = __shfl_xor_sync(0xFFFFFFFFu, v, o);
+        const int op = __shfl_xor_sync(0xFFFFFFFFu, pos, o);
+        if (ov < v || (ov == v && op < pos)) {
+            v = ov;
+            pos = op;
+        }
+    }
+    minv = v;
+    minp = pos;
+}
+
+// One mate's emissions into out[slot...] (kept while slot < mc); returns
+// the slot count after this mate. Every lane of the warp runs it with the
+// same state; lane 0 writes.
+__device__ long long mate_minimizers(const unsigned char* codes, int len,
+                                     int w, const Roll& r, long long* out,
+                                     long long slot, int mc) {
+    if (len < w) return slot;
+    const int ww = w - r.k + 1;
+    const int nwin = len - w + 1;
+    unsigned long long fwd = 0, rc = 0, minv = 0;
+    int minp = -1;  // no minimum yet: window 0 scans its whole span
+    // the k - 1 bases before the k-mer that enters window 0 (at ww - 1)
+    for (int j = 0; j < r.k - 1; ++j)
+        r.push(fwd, rc, base_at(codes, ww - 1 + j));
+    for (int i = 0; i < nwin; ++i) {
+        const int p = i + ww - 1;  // the k-mer entering window i
+        r.push(fwd, rc, base_at(codes, p + r.k - 1));
+        const unsigned long long v = r.canon(fwd, rc);
+        bool emit = i == 0;
+        if (minp < i) {  // the minimum slid out (or none yet)
+            if (ww == 1) {
+                minv = v;
+                minp = p;
+            } else {
+                rescan(codes, i, ww, r, minv, minp);
+            }
+            emit = true;
+        } else if (v < minv) {  // a strictly smaller value enters
+            minv = v;
+            minp = p;
+            emit = true;
+        }
+        if (emit) {
+            if (slot < mc && (threadIdx.x & 31) == 0)
+                out[slot] = (long long)minv;
+            ++slot;
+        }
+    }
+    return slot;
+}
+
+constexpr int kWideWarps = 4;  // reads a block of the wide route
+
+__global__ void __launch_bounds__(32 * kWideWarps)
+extract_wide_kernel(const unsigned char* __restrict__ inbuf, long long B,
+                    long long row_bytes, int L1, int L2, int w, int mc,
+                    Roll r, long long* __restrict__ hashes,
+                    int* __restrict__ n_out,
+                    unsigned char* __restrict__ overflow) {
+    const long long b =
+        blockIdx.x * (long long)kWideWarps + (threadIdx.x >> 5);
+    if (b >= B) return;  // the whole warp
+    const unsigned char* row = inbuf + b * row_bytes;
+    const int lens_at = L1 / 4 + L2 / 4;
+    const int len1 = load_le32(row + lens_at);
+    const int len2 = L2 ? load_le32(row + lens_at + 4) : 0;
+    long long* out = hashes + b * (long long)mc;
+    long long n = 0;
+    if (len1 >= w) {
+        n = mate_minimizers(row, min(len1, L1), w, r, out, 0, mc);
+        if (L2)
+            n = mate_minimizers(row + L1 / 4, min(len2, L2), w, r, out, n,
+                                mc);
+    }
+    if ((threadIdx.x & 31) == 0) {
+        n_out[b] = (int)n;
+        overflow[b] = n > mc;
+    }
+}
+
+}  // namespace
+
+// The wide-window route: ganon_extract's outputs for any w >= k, without
+// the status words. It writes only the first min(n, mc) slots of a row:
+// the caller zeroes the hashes first where it wants the zero tail.
+extern "C" int ganon_extract_wide(const void* inbuf, long long B,
+                                  long long row_bytes, int L1, int L2, int k,
+                                  int w, int mc, void* hashes,
+                                  void* n_hashes, void* overflow,
+                                  void* stream) {
+    if (k < 1 || k > 32 || w < k || L1 < 0 || L2 < 0 || mc < 1)
+        return (int)cudaErrorInvalidValue;
+    if (B <= 0) return (int)cudaGetLastError();
+    Roll r;
+    r.k = k;
+    r.kmask = k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1);
+    r.seed = 0x8F3F73B5CF1C9ADEULL >> (64 - 2 * k);
+    r.rc_shift = 2 * (k - 1);
+    const long long blocks = (B + kWideWarps - 1) / kWideWarps;
+    extract_wide_kernel<<<(unsigned)blocks, 32 * kWideWarps, 0,
+                          (cudaStream_t)stream>>>(
+        (const unsigned char*)inbuf, B, row_bytes, L1, L2, w, mc, r,
+        (long long*)hashes, (int*)n_hashes, (unsigned char*)overflow);
     return (int)cudaGetLastError();
 }

@@ -11,14 +11,17 @@ turns into an exception.
 ``LAUNCHES`` counts kernel launches (one per :func:`launch`) per kernel
 and mode: ``count_forest`` is ``count`` writing into a column range of a
 shared matrix, ``count_raptor`` is ``count`` in column-max mode (a raptor
-sub-IBF's targets max-merged into their columns), ``select_winners`` is
+sub-IBF's targets max-merged into their columns: one launch a sub, or one
+launch a batch for every sub of an archive), ``select_winners`` is
 ``select`` with the winners payload, ``select32`` is ``select`` in its
 32-bit mode (two [B*K] blocks of counts and ids: ``--longreads``, more
 than 65,535 targets),
 ``fine_all`` is ``fine`` over every group (the pruned forest's probe-all
 path); ``gate``, ``fine``, ``select_lanes`` and ``scatter_pruned`` are the
 pruned forest's; ``extract_build`` is ``extract`` on the build's pieces
-(single-end, a capacity of every window position); ``pack``, ``sort_hist``
+(single-end, a capacity of every window position); ``extract_wide`` is
+``extract``'s route for windows too wide for a tile's shared memory
+(one warp a read), whichever caller asked; ``pack``, ``sort_hist``
 (the digit histograms that start each sort), ``sort``, ``dedup`` and
 ``scatter_ranked`` are the two-pass device build's.
 The device mesh's modes (K17): ``count_shard`` is ``count`` on one
@@ -73,11 +76,17 @@ _SIGNATURES = {
     # inbuf, B, row_bytes, L1, L2, k, w, mc, zero_tail, status, epoch,
     # hashes, n, overflow
     "extract": (_P, _L, _L, _I, _I, _I, _I, _I, _I, _P, _U, _P, _P, _P),
+    # inbuf, B, row_bytes, L1, L2, k, w, mc, hashes, n, overflow (windows
+    # past a tile's shared memory)
+    "extract_wide": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P),
     # tbl, R, W8, byte_starts, byte_ends, T, hashes, B, M, n_hashes,
     # bin_size, h, shift, counts, ldc, col0, cols (NULL = not column-max),
     # clamp (0 = a shard's partial sums)
     "count": (_P, _L, _L, _P, _P, _I, _P, _L, _I, _P, _U, _I, _I, _P, _L,
               _I, _P, _I),
+    # subs (int64 [S, 9] descriptors), S, hmax, wmax, hashes, B, M,
+    # n_hashes, counts, T: every sub of a raptor archive in one launch
+    "count_raptor": (_P, _I, _I, _L, _P, _L, _I, _P, _P, _L),
     # parts, t_lo, t_hi, nb, B, T, n_hashes, counts, ldc, col0, cols
     # (NULL = not column-max)
     "combine": (_P, _P, _P, _I, _L, _I, _P, _P, _L, _I, _P),

@@ -20,6 +20,9 @@ This module holds the classify kernels' wrappers:
   popcount, per-target segment sum and clamp (``csrc/count.cu``; flat,
   forest and column-max modes, and shard mode with the clamp off); plain
   version :func:`bulk_target_counts_packed_plain`.
+* :func:`raptor_target_counts` — every sub of a raptor archive in
+  column-max mode in one launch (``csrc/count.cu``); plain version
+  :func:`raptor_target_counts_plain`.
 * :func:`combine` — the column shards' partial counts summed and clamped
   (``csrc/shard.cu``); plain version :func:`combine_plain`.
 * :func:`probe_sort` — each read's hashes ordered by their first row
@@ -285,6 +288,13 @@ def extract_smem(k: int, w: int) -> int:
     return 8 * np_ + 8 * EXTRACT_WINDOWS + 8 * n_words + -(-4 * np_ // 8) * 8
 
 
+def extract_is_wide(k: int, w: int) -> bool:
+    """Whether ``extract`` on the card takes the wide-window route at
+    ``(k, w)``: a tile's shared memory (:func:`extract_smem`, plus the
+    kernel's static 512 bytes) would pass the card's 227 KB."""
+    return extract_smem(k, w) + 512 > _SMEM_LIMIT
+
+
 def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
             mc: int, counter: str | None = None, zero_tail: bool = True):
     """Minimizers of a packed (paired or single-end) batch, compacted.
@@ -303,6 +313,11 @@ def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
     as ``extract_build``). ``zero_tail=False`` leaves the slots past
     ``min(n, mc)`` unwritten on the card (the build reads only the first
     ``n`` of each row); the plain version zeroes them either way.
+
+    Windows too wide for a tile's shared memory (:func:`extract_is_wide`,
+    ``w - k + 1`` past about 18,000) take the wide-window route on the
+    card: one warp a read (``csrc/extract.cu`` ``ganon_extract_wide``),
+    counted as ``extract_wide`` whoever calls; the outputs are the same.
     """
     if L1 % 4 or L2 % 4 or L1 <= 0 or L2 < 0:
         raise ValueError(f"L1={L1}, L2={L2}: lengths must be multiples of 4")
@@ -317,14 +332,18 @@ def extract(inbuf: torch.Tensor, *, L1: int, L2: int, k: int, w: int,
     if inbuf.device.type == "cpu":
         return extract_plain(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc)
     kernels.check_cuda(inbuf)
-    if extract_smem(k, w) + 512 > _SMEM_LIMIT:
-        raise ValueError(f"w - k + 1 = {w - k + 1}: a window too wide for "
-                         "the extract kernel's shared memory")
     B = inbuf.shape[0]
-    hashes = torch.empty((B, mc), dtype=torch.int64, device=inbuf.device)
+    wide = extract_is_wide(k, w)
+    # the wide route writes only the first min(n, mc) slots of a row
+    hashes = (torch.zeros if wide and zero_tail else torch.empty)(
+        (B, mc), dtype=torch.int64, device=inbuf.device)
     n = torch.empty((B,), dtype=torch.int32, device=inbuf.device)
     overflow = torch.empty((B,), dtype=torch.uint8, device=inbuf.device)
     if B == 0:
+        return hashes, n, overflow
+    if wide:
+        kernels.launch("extract_wide", inbuf, B, row, L1, L2, k, w, mc,
+                       hashes, n, overflow)
         return hashes, n, overflow
     # a zero tail takes one more read's tiles (stripes of the last tail)
     tiles = (B + bool(zero_tail)) * extract_tiles(L1, L2, w)
@@ -494,6 +513,102 @@ def bulk_target_counts_packed(
         T, hashes, B, M, n_hashes, bin_size, hash_functions, clz64(bin_size),
         out, out.shape[1], col0, cols, int(clamp), counter=counter,
     )
+    return out
+
+
+# --- every sub of a raptor archive in one launch (K12) ---------------------
+
+# the int64 fields of a row of :func:`sub_descriptors` (csrc/count.cu
+# struct Table); the three tables and cols are data pointers
+SUB_DESC_FIELDS = ("tbl8", "W32", "byte_starts", "byte_ends", "T",
+                   "bin_size", "hash_functions", "shift", "cols")
+
+
+def sub_descriptors(subs) -> torch.Tensor:
+    """int64 ``[S, 9]`` descriptors of a raptor archive's sub tables, on
+    their device, one row a sub in :data:`SUB_DESC_FIELDS` order.
+
+    ``subs``: objects with ``tbl8`` (u8 ``[R, W8]``, ``W8 % 4 == 0``),
+    ``byte_starts``/``byte_ends``/``cols`` (int32 ``[T]``), ``bin_size``
+    and ``hash_funs`` (``classify.device.RaptorSub``), all on one device.
+    The rows hold the tensors' data pointers: the caller keeps the
+    tensors alive as long as the array, and makes it anew when they move.
+    """
+    rows = []
+    for sub in subs:
+        tbl8, T = sub.tbl8, sub.byte_starts.shape[0]
+        if tbl8.dtype != torch.uint8 or tbl8.dim() != 2 or tbl8.shape[1] % 4:
+            raise ValueError("tbl8 must be u8 [R, W8] with W8 % 4 == 0")
+        if any(x.dtype != torch.int32 or x.shape != (T,)
+               for x in (sub.byte_starts, sub.byte_ends, sub.cols)):
+            raise ValueError("byte_starts, byte_ends and cols must be int32 "
+                             "[T]")
+        if (not 1 <= sub.hash_funs <= MAX_HASH_FUNCTIONS
+                or not 0 < sub.bin_size <= tbl8.shape[0]):
+            raise ValueError("invalid hash_functions or bin_size")
+        rows.append([tbl8.data_ptr(), tbl8.shape[1] // 4,
+                     sub.byte_starts.data_ptr(), sub.byte_ends.data_ptr(), T,
+                     sub.bin_size, sub.hash_funs, clz64(sub.bin_size),
+                     sub.cols.data_ptr()])
+    device = subs[0].tbl8.device if subs else "cpu"
+    return torch.tensor(rows, dtype=torch.int64,
+                        device=device).reshape(len(rows), 9)
+
+
+def raptor_target_counts_plain(subs, hashes: torch.Tensor,
+                               n_hashes: torch.Tensor, *,
+                               num_targets: int) -> torch.Tensor:
+    """Plain version of :func:`raptor_target_counts`: a zeroed
+    ``[B, num_targets]`` matrix and every sub max-merged into it by
+    :func:`bulk_target_counts_packed_plain`."""
+    out = torch.zeros((hashes.shape[0], num_targets), dtype=torch.int32,
+                      device=hashes.device)
+    for sub in subs:
+        bulk_target_counts_packed_plain(
+            sub.tbl8, sub.byte_starts, sub.byte_ends, hashes, n_hashes,
+            bin_size=sub.bin_size, hash_functions=sub.hash_funs, out=out,
+            cols=sub.cols)
+    return out
+
+
+def raptor_target_counts(subs, hashes: torch.Tensor, n_hashes: torch.Tensor,
+                         *, num_targets: int,
+                         desc: torch.Tensor | None = None) -> torch.Tensor:
+    """Clamped counts of a raptor archive: int32 ``[B, num_targets]``,
+    each user bin the largest of its subs' counts (0 in no sub).
+
+    The exact path of ``ganon_tpu.classify.device.DeviceRaptorHIBF.
+    counts``: every sub in column-max mode, in one launch on the card
+    (``csrc/count.cu`` ``ganon_count_raptor``, counted as
+    ``count_raptor``) that writes every cell, so no zeroed matrix. ``subs``
+    as :func:`sub_descriptors` takes them; ``desc`` is their descriptor
+    array (made here when not given).
+    """
+    if hashes.dtype != torch.int64 or hashes.dim() != 2:
+        raise ValueError("hashes must be int64 [B, M]")
+    if n_hashes.dtype != torch.int32 or n_hashes.shape != hashes.shape[:1]:
+        raise ValueError("n_hashes must be int32 [B]")
+    if hashes.device.type == "cpu":
+        return raptor_target_counts_plain(subs, hashes, n_hashes,
+                                          num_targets=num_targets)
+    if desc is None:
+        desc = sub_descriptors(subs)
+    if desc.dtype != torch.int64 or desc.shape != (len(subs), 9):
+        raise ValueError(f"desc must be int64 [{len(subs)}, 9]")
+    kernels.check_cuda(hashes, n_hashes, desc, *(
+        x for sub in subs
+        for x in (sub.tbl8, sub.byte_starts, sub.byte_ends, sub.cols)))
+    B, M = hashes.shape
+    out = torch.empty((B, num_targets), dtype=torch.int32,
+                      device=hashes.device)
+    if B == 0 or num_targets == 0:
+        return out
+    if not subs:
+        return out.zero_()
+    kernels.launch(
+        "count_raptor", desc, len(subs), max(s.hash_funs for s in subs),
+        max(s.tbl8.shape[1] // 4 for s in subs), hashes, B, M, n_hashes, out,
+        num_targets)
     return out
 
 

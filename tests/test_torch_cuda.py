@@ -42,7 +42,13 @@ The tiled extract at the build's shape, over many 512-window tiles, at
 B 1, with short mates, w == k, k 32 and runs of one base, with and
 without the zero tail; pairs over 274 blocks at S 1-9 and on rows off
 word alignment; ragged, extract and pairs sharing one stream's status
-words, and a second stream's.
+words, and a second stream's. Extract's wide-window route at the widest
+window the tiles hold and one past it (k 19 and 32), paired and
+single-end; select in every mode with 2048 and 2049 kept entries (the
+list's capacity and the passes over the row), T % 4 != 0 and K past and
+below the finals; count at rows of 1 to 256 words, h 1-5, in flat,
+forest, shard and column-max modes; every raptor sub in one launch
+against one launch a sub.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
@@ -1393,3 +1399,270 @@ def test_transfer_settings_cuda_match_cpu(cuda):
             max_groups=2, match_cap=B, pair_cap=pair_cap, **kw)
             for f in (pc, pg)]
         assert torch.equal(outs[0], outs[1].cpu()), pair_cap
+
+
+# --------------------------------------------------------------------------
+# the wide-window extract route, select as one read of the row, count for
+# narrow rows and every raptor sub in one launch
+
+
+@pytest.mark.parametrize("k,L2", [(19, 20_000), (19, 0), (32, 20_000)])
+def test_extract_wide_window_matches_plain(cuda, k, L2):
+    """At the widest w the tiled kernel holds (k 19: 18,103) and one past
+    it (18,104, the wide route, counted as extract_wide), paired and
+    single-end, and at k 32, reads of 20-40 kbp: n, overflow and hashes
+    equal the plain version's with the zero tail (at a width that
+    overflows and at every position), and without it the first n slots
+    of each row."""
+    rng = np.random.default_rng(L2 + k)
+    L1, B = 40_000, 48
+    first = next(w for w in range(k, 40_000) if q.extract_is_wide(k, w))
+    assert k != 19 or first == 18_104
+    for w in (first - 1, first):
+        buf = _inbuf(rng, B, L1, L2, w).numpy()
+        len1 = rng.integers(20_000, L1 + 1, size=B)
+        len1[:3] = [w - 1, w, L1]
+        len2 = rng.integers(20_000 if L2 else 0, L2 + 1, size=B)
+        _set_lens(buf, L1, L2, len1, len2)
+        inbuf = torch.from_numpy(buf).to(cuda)
+        m = (L1 - w + 1) + (L2 - w + 1 if L2 else 0)
+        wide = q.extract_is_wide(k, w)
+        assert wide == (w == first)
+        for mc in (2, m):
+            before = dict(kernels.LAUNCHES)
+            got = q.extract(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc)
+            want = q.extract_plain(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["extract_wide"] - before[
+                "extract_wide"] == int(wide)
+            assert kernels.LAUNCHES["extract"] - before["extract"] == int(
+                not wide)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (w, mc)
+            assert bool(want[2].any()) == (mc == 2)
+            h, n, o = q.extract(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mc,
+                                zero_tail=False)
+            keep = torch.arange(mc, device=cuda)[None, :] < n[:, None]
+            assert torch.equal(n, want[1]) and torch.equal(o, want[2])
+            assert torch.equal(h[keep], want[0][keep])
+        assert (want[1][3:] >= 1).all() and (want[1] > 2).any()
+
+
+def _kept_counts(rng, B, C, n, cutoff, kept, live=None):
+    """int32 counts [B, C]: row b keeps exactly kept[b] live entries
+    (count >= cutoff[b], up to n[b]); the others stay below the cutoff,
+    and each row has a few entries at its top count."""
+    counts = np.zeros((B, C), np.int64)
+    for b in range(B):
+        counts[b] = rng.integers(0, max(int(cutoff[b]), 1), size=C)
+        cand = np.flatnonzero(live[b]) if live is not None else np.arange(C)
+        counts[b, np.setdiff1d(np.arange(C), cand)] = rng.integers(
+            0, int(n[b]) + 1, size=C - len(cand))  # dead lanes: anything
+        sel = rng.choice(cand, size=min(int(kept[b]), len(cand)),
+                         replace=False)
+        top = max(int(n[b]), int(cutoff[b]))  # an invalid read: n = 0
+        counts[b, sel] = rng.integers(int(cutoff[b]), top + 1, size=len(sel))
+        counts[b, sel[:3]] = top
+    return counts.astype(np.int32)
+
+
+@pytest.mark.parametrize("mode", ["select", "winners", "select32", "lanes"])
+def test_select_kernel_at_the_list_capacity(cuda, mode):
+    """select in every mode with rows that keep exactly 2048 entries (the
+    list's capacity: one read of the row) and 2049 (the passes over the
+    row), a row keeping none, an invalid read, at T % 4 != 0 (rows off
+    16-byte alignment), with K past the finals (the non-final fill) and
+    with K below them; equal to the plain version."""
+    rng = np.random.default_rng(len(mode))
+    B, cap = 24, 2048
+    if mode == "lanes":
+        S, gs = 31, 67
+        C = S * gs  # 2077
+        G = 40
+        nt = np.full(G, gs, np.int32)
+        nt[-1] = 5  # a partly full group
+        gsel = np.stack([rng.permutation(G)[:S] for _ in range(B)]
+                        ).astype(np.int32)
+        gsel[:4, 0] = G - 1
+        ok = (rng.random((B, S)) < 0.97).astype(np.uint8)
+        ok[:8] = 1
+        gsel[:8] = np.arange(S)  # rows whose every lane is live
+        live = (np.arange(gs)[None, None, :]
+                < np.where(ok.astype(bool), nt[gsel], 0)[:, :, None]
+                ).reshape(B, C)
+    else:
+        C = 4099 if mode == "select32" else 2051
+        live = None
+    assert C % 4 != 0
+    n = rng.integers(50, 120, size=B)
+    if mode == "select32":
+        n = rng.integers(100_000, 200_000, size=B)
+    n[0] = 0  # an invalid read
+    rel_cutoff = 0.25
+    cutoff = np.maximum(np.ceil(n * rel_cutoff), 1).astype(np.int64)
+    kept = rng.integers(0, 40, size=B)
+    kept[1:6] = [cap, cap + 1, cap, cap + 1, 0]  # (lanes: every lane live)
+    counts = _kept_counts(rng, B, C, n, cutoff, kept, live)
+    n32 = n.astype(np.int32)
+    ovf = (rng.random(B) < 0.2).astype(np.uint8)
+    c, nn, o = (torch.from_numpy(x).to(cuda) for x in (counts, n32, ovf))
+    kept_rows = ((counts >= cutoff[:, None])
+                 & (live if live is not None else True)).sum(1)
+    assert {cap, cap + 1} <= set(kept_rows.tolist())
+    limit = (1 << 32) - 1 if mode == "select32" else 65535
+    for top_k in (4, 96):
+        for rel_filter in (0.0, 1.0):
+            cuts = (rel_cutoff, rel_filter, limit)
+            for emit in (True, False):
+                if mode == "lanes":
+                    gs_d, ok_d, nt_d = (torch.from_numpy(x).to(cuda)
+                                        for x in (gsel, ok, nt))
+                    T = int(G * gs)
+                    got = dev.select_lanes(c, nn, o, gs_d, ok_d, nt_d, *cuts,
+                                           group_size=gs, num_targets=T,
+                                           top_k=top_k, emit_matches_t=emit)
+                    want = dev._pack_result(
+                        dev.threshold_topk(c, nn, *cuts, top_k=top_k,
+                                           emit_matches_t=emit,
+                                           lanes=(gs_d, ok_d, nt_d, gs, T)),
+                        nn, o.to(torch.int32), dev.group_words(gs_d, ok_d))
+                elif mode == "winners":
+                    wn = torch.from_numpy(rng.integers(
+                        0, 4, size=(B, C)).astype(np.int32)).to(cuda)
+                    got = dev.select(c, nn, o, *cuts, top_k=top_k,
+                                     emit_matches_t=emit, uwin=wn)
+                    want = dev._pack_result(
+                        dev.threshold_topk(c, nn, *cuts, top_k=top_k,
+                                           emit_matches_t=emit, winners=wn),
+                        nn, o.to(torch.int32))
+                else:
+                    p16 = mode == "select"
+                    got = dev.select(c, nn, o, *cuts, top_k=top_k,
+                                     emit_matches_t=emit, pack16=p16)
+                    want = dev._pack_result(
+                        dev.threshold_topk(c, nn, *cuts, top_k=top_k,
+                                           emit_matches_t=emit, pack16=p16),
+                        nn, o.to(torch.int32), pack16=p16)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (top_k, rel_filter, emit)
+
+
+def _narrow_table(rng, R, W32):
+    """A u8 table of W32 u32 words a row and byte ranges covering it:
+    targets of 1 byte (four in one word), zero-width targets, and targets
+    spanning several words."""
+    W8 = 4 * W32
+    widths = []
+    while sum(widths) < W8:
+        widths.append(int(rng.choice([0, 1, 1, 1, 2, 5, 9, 13])))
+    widths[-1] -= sum(widths) - W8
+    if W32 >= 2:
+        widths[:5] = [1, 1, 1, 1, 0]
+        widths[-1] += W8 - sum(widths)
+    widths = np.array(widths)
+    assert widths.sum() == W8 and (widths >= 0).all()
+    ends = np.cumsum(widths).astype(np.int32)
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int32)
+    tbl8 = rng.integers(0, 256, size=(R, W8), dtype=np.uint8)
+    return [torch.from_numpy(x) for x in (tbl8, starts, ends)]
+
+
+@pytest.mark.parametrize("W32", [1, 7, 16, 17, 63, 64, 65, 255, 256])
+def test_count_kernel_narrow_rows_match_plain(cuda, W32):
+    """count at rows of W32 words (narrow below 256: groups of threads a
+    hash; 256: the tile walk), h 1-5, more hashes than a shared-memory
+    chunk, in flat, forest, shard (clamp off) and column-max modes, equal
+    to the plain version; one launch each, under its mode's counter."""
+    rng = np.random.default_rng(W32)
+    R, B, M = 509, 70, 150
+    tbl8, starts, ends = (x.to(cuda) for x in _narrow_table(rng, R, W32))
+    T = starts.shape[0]
+    h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M))).to(
+        cuda)
+    n = torch.from_numpy(rng.integers(0, M + 30, size=B).astype(np.int32))
+    n[:3] = torch.tensor([0, 1, M])
+    n = n.to(cuda)
+    ldc, col0 = T + 11, 7
+    cols = torch.from_numpy(np.sort(rng.choice(ldc, T, replace=False)).astype(
+        np.int32)).to(cuda)
+    for hf in range(1, 6):
+        args = (tbl8, starts, ends, h, n)
+        kw = dict(bin_size=R - hf, hash_functions=hf)
+        before = dict(kernels.LAUNCHES)
+        flat = q.bulk_target_counts_packed(*args, **kw)
+        assert torch.equal(flat, q.bulk_target_counts_packed_plain(*args,
+                                                                   **kw))
+        part = q.bulk_target_counts_packed(*args, clamp=False, **kw)
+        assert torch.equal(part, q.bulk_target_counts_packed_plain(
+            *args, clamp=False, **kw))
+        # forest mode into columns col0.. of a wider matrix; column-max
+        # mode over earlier values
+        fill = torch.full((B, ldc), -3, dtype=torch.int32, device=cuda)
+        fill[:, col0:col0 + T] = 0
+        prior = torch.from_numpy(rng.integers(0, 4, size=(B, ldc)).astype(
+            np.int32)).to(cuda)
+        outs = []
+        for fn in (q.bulk_target_counts_packed,
+                   q.bulk_target_counts_packed_plain):
+            fo, mo = fill.clone(), prior.clone()
+            fn(*args, out=fo, col0=col0, **kw)
+            fn(*args, out=mo, cols=cols, **kw)
+            outs.append((fo, mo))
+        (fk, mk), (fp, mp) = outs
+        torch.cuda.synchronize()
+        assert torch.equal(fk, fp) and torch.equal(mk, mp), hf
+        assert (fk[:, :col0] == -3).all() and (fk[:, col0 + T:] == -3).all()
+        assert (part >= flat).all() and (flat > 0).any()
+        for name in ("count", "count_shard", "count_forest", "count_raptor"):
+            assert kernels.LAUNCHES[name] == before[name] + 1, name
+
+
+def test_raptor_target_counts_one_launch_matches_per_sub(cuda):
+    """Every sub of the column-max layout above in one launch (a target
+    over three tiles beside subs of a few words, h 1, 5 and 2, a user bin
+    in two subs with equal and unequal counts, a column no sub writes),
+    against the per-sub loop on the card and the plain version; the
+    output needs no zeroing, and the launch counts once."""
+    rng = np.random.default_rng(12)
+    T = 40
+    subs = []
+    widths = np.array([3, 20000, 5, 1, 9000, 8, 8, 700])
+    subs.append((*_sub_table(rng, 512, widths), 512, 1,
+                 np.array([0, 5, 6, 7, 9, 10, 11, 12])))
+    subs.append(subs[0])
+    subs.append((*_sub_table(rng, 300, np.array([40])), 300, 5,
+                 np.array([5])))
+    widths = rng.integers(1, 30, size=20)
+    subs.append((*_sub_table(rng, 2000, widths), 1999, 2,
+                 np.sort(rng.choice(np.arange(1, T - 1), 20, replace=False))))
+    rsubs = [dev.RaptorSub(tbl8=tb.to(cuda), byte_starts=s.to(cuda),
+                           byte_ends=e.to(cuda), bin_size=bs, hash_funs=hf,
+                           cols=torch.from_numpy(c.astype(np.int32)).to(cuda))
+             for tb, s, e, bs, hf, c in subs]
+    B, M = 64, 300
+    h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M))).to(cuda)
+    n = torch.from_numpy(rng.integers(0, M + 50, size=B).astype(np.int32))
+    n[:3] = torch.tensor([0, 1, M])
+    n = n.to(cuda)
+    loop = torch.zeros((B, T), dtype=torch.int32, device=cuda)
+    for s in rsubs:
+        q.bulk_target_counts_packed(
+            s.tbl8, s.byte_starts, s.byte_ends, h, n, bin_size=s.bin_size,
+            hash_functions=s.hash_funs, out=loop, cols=s.cols)
+    desc = q.sub_descriptors(rsubs)
+    assert desc.device == h.device
+    before = kernels.LAUNCHES["count_raptor"]
+    got = q.raptor_target_counts(rsubs, h, n, num_targets=T, desc=desc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["count_raptor"] == before + 1
+    want = q.raptor_target_counts_plain(rsubs, h, n, num_targets=T)
+    assert torch.equal(got, loop) and torch.equal(got, want)
+    untouched = sorted(set(range(T)) - {int(c) for *_, cs in subs
+                                        for c in cs})
+    assert untouched and (got[:, untouched] == 0).all()
+    assert (got[:, 5] > 0).any()
+    # a second call into fresh memory, and the descriptors made in the call
+    again = q.raptor_target_counts(rsubs, h, n, num_targets=T)
+    assert torch.equal(again, want)
+    assert q.raptor_target_counts(rsubs, h[:0], n[:0],
+                                  num_targets=T).shape == (0, T)
