@@ -8,8 +8,9 @@ Phases, one output line each:
 1. env       the card (nvidia-smi name and power limit), torch, nvcc, and
              the time to build the CUDA kernels from ``csrc/`` (one nvcc
              per source, all started together); ``nvcc -Xptxas -v`` of
-             ``extract.cu``, ``scan.cu``, ``count.cu`` and ``select.cu``
-             (registers, spills, static shared memory) and the extract
+             ``extract.cu``, ``scan.cu``, ``count.cu``, ``select.cu``,
+             ``dedup.cu`` and ``scatter.cu`` (registers, spills, static
+             shared memory) and the extract
              blocks an SM at k 19, w 31;
 2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
              through the ``extract`` kernel, the IBF through ``scatter``,
@@ -23,9 +24,12 @@ Phases, one output line each:
              the two-pass device build: ``bc.ibf`` must equal ``db.ibf``
              and ``bc.tax`` exist; its StopClock phases, Mbp/min and peak
              card memory; ``extract`` on the build's pieces, ``pack``,
-             ``sort``, ``dedup`` and ``scatter`` in ranked mode against
-             their plain versions at one pass-1 group of that build (sort
-             beside ``torch.sort``); a 64-target reference-format build of
+             ``sort``, ``dedup`` (its counts mode, as pass 1 runs it, and
+             its rank mode, one chained scan, which no build path runs) and
+             ``scatter`` in ranked mode (pass 2 in one call: first
+             occurrences, ranks, bins, bits) against their plain versions
+             at one pass-1 group of that build (sort beside
+             ``torch.sort``); a 64-target reference-format build of
              two files per target, one target over several bins, through
              ``run_build`` on the card and with ``device="cpu"``, byte-equal;
              ``scatter`` in span mode (one of four row shards) against its
@@ -184,8 +188,9 @@ and operations over 67 T/s (extract's: 40 INT32 operations a window over
 build's mode, without the zero tail, ``zero_tail_ms`` and
 ``zero_tail_bound_ms`` beside), its launches on the main paths, and the
 time of one PyTorch call computing the same function where there is one;
-``sort``, ``ragged``, ``ragged_winners`` and ``pairs`` are also timed
-over a run of back-to-back calls, ``device_ms`` and
+``sort``, ``ragged``, ``ragged_winners``, ``pairs``, ``dedup`` (both
+modes), ``scatter`` and its ranked and span modes are also timed over a
+run of back-to-back calls, ``device_ms`` and
 ``library_device_ms``, and by the card's activity under torch.profiler,
 ``profiled_ms`` and ``library_profiled_ms``, and the ``sort`` row names the digit passes it
 planned at the pass-1 group from the card's histograms, the ``sort_hist``
@@ -812,7 +817,8 @@ def main() -> int:
         [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
          "-o", f"{so}.{src}.ptxas.o", os.path.join(csrc, src)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for src in ("extract.cu", "scan.cu", "count.cu", "select.cu")}
+        for src in ("extract.cu", "scan.cu", "count.cu", "select.cu",
+                    "dedup.cu", "scatter.cu")}
     for src, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
@@ -1049,22 +1055,34 @@ def main() -> int:
         cnt = [torch.zeros(R0, dtype=torch.int32, device=cuda)
                for _ in range(2)]
 
-        def dedup_run(fn, c):
+        def counts_run(fn, c):
             c.zero_()
-            u_, r_ = fn(sk, sv, num_files=R0, counts=c)
-            return u_, r_, c
+            fn(sk, sv, num_files=R0, counts=c, want_rank=False)
+            return (c,)
 
-        uq, rk, gcounts = compare(
+        # pass 1's counts mode: the entries in, the counts out
+        (gcounts,) = compare(
             "dedup", "ganon_tpu_torch/csrc/dedup.cu",
             "ganon_tpu/index/device_build.py:169",
-            lambda: dedup_run(bo.dedup, cnt[0]),
-            lambda: dedup_run(bo.dedup_plain, cnt[1]), 20, 5,
-            # entries in; flags, ranks and counts out
-            (12 * N + 8 * N + 4 * R0, 2 * N))
+            lambda: counts_run(bo.dedup, cnt[0]),
+            lambda: counts_run(bo.dedup_plain, cnt[1]), 20, 5,
+            (12 * N + 4 * R0, N), runs=20)
         counts_np = gcounts.cpu().numpy()
         if [int(c) for c in counts_np] != [ibf.hashes_count[rec.key[0]]
                                             for rec in group.files]:
             raise AssertionError("dedup: group counts differ from db.ibf's")
+
+        def rank_run(fn):
+            return fn(sk, sv, num_files=R0)
+
+        # the rank mode (flags and ranks in one chained scan), which the
+        # ranked scatter runs inside its own call: entries in, flags and
+        # ranks out
+        uq, rk = compare(
+            "dedup_rank", "ganon_tpu_torch/csrc/dedup.cu",
+            "ganon_tpu/index/device_build.py:157",
+            lambda: rank_run(bo.dedup), lambda: rank_run(bo.dedup_plain),
+            20, 5, (12 * N + 8 * N, N), runs=20)
         split = dbuild.target_bins(
             sizing.split_target_bins(cfg, ibf.hashes_count))
         params = np.zeros((4, R0), dtype=np.int32)
@@ -1073,21 +1091,25 @@ def main() -> int:
         params_t = torch.from_numpy(params).to(cuda)
         rbits = [torch.zeros(ibf.bits.shape, dtype=torch.int32, device=cuda)
                  for _ in range(2)]
-        rk_args = (sk, sv, uq, rk, params_t)
+        # pass 2 as the pipeline calls it: the word columns of the group's
+        # bins, the flags and ranks made in the call
         rk_kw = dict(bin_size=cfg.bin_size_bits,
                      hash_functions=cfg.hash_functions)
+        cols = bo.ranked_word_cols(params, counts_np)
         compare("scatter_ranked", "ganon_tpu_torch/csrc/scatter.cu",
                 "ganon_tpu/index/device_build.py:185",
-                lambda: (bo.scatter_ranked(rbits[0], *rk_args, **rk_kw),
-                         rbits[0])[1:],
-                lambda: (bo.scatter_ranked_plain(rbits[1], *rk_args,
-                                                 **rk_kw), rbits[1])[1:],
+                lambda: (bo.scatter_ranked(rbits[0], sk, sv, None, None,
+                                           params_t, **rk_kw,
+                                           word_cols=cols), rbits[0])[1:],
+                lambda: (bo.scatter_ranked_plain(rbits[1], sk, sv, None, None,
+                                                 params_t, **rk_kw),
+                         rbits[1])[1:],
                 10, 3,
-                # entries, flags, ranks and params in; each distinct word
-                # set, out; h bits per distinct entry
-                (_nbytes(*rk_args) + 4 * _ranked_words(
+                # entries and params in; each distinct word set, out; h
+                # bits per distinct entry
+                (_nbytes(sk, sv, params_t) + 4 * _ranked_words(
                     sk, sv, uq, rk, params_t, rbits[0].shape[1], **rk_kw),
-                 int(uq.sum()) * cfg.hash_functions))
+                 int(uq.sum()) * cfg.hash_functions), runs=10)
         # span mode (K17): the second of four row shards of the matrix,
         # as the mesh build's scatter on four devices runs it
         nw = rbits[0].shape[1]
@@ -1097,21 +1119,23 @@ def main() -> int:
                  for _ in range(2)]
         compare("scatter_span", "ganon_tpu_torch/csrc/scatter.cu",
                 "ganon_tpu/index/device_build.py:308",
-                lambda: (bo.scatter_ranked(sbits[0], *rk_args, **rk_kw,
-                                           w0=rps * nw), sbits[0])[1:],
-                lambda: (bo.scatter_ranked_plain(sbits[1], *rk_args, **rk_kw,
+                lambda: (bo.scatter_ranked(sbits[0], sk, sv, None, None,
+                                           params_t, **rk_kw, w0=rps * nw,
+                                           word_cols=cols), sbits[0])[1:],
+                lambda: (bo.scatter_ranked_plain(sbits[1], sk, sv, None, None,
+                                                 params_t, **rk_kw,
                                                  w0=rps * nw), sbits[1])[1:],
                 10, 3,
-                # entries, flags, ranks and params in; each distinct word
-                # of the span set, out; h rows per distinct entry
-                (_nbytes(*rk_args) + 4 * _ranked_words(
+                # entries and params in; each distinct word of the span
+                # set, out; h rows per distinct entry
+                (_nbytes(sk, sv, params_t) + 4 * _ranked_words(
                     sk, sv, uq, rk, params_t, nw, **rk_kw,
                     rows_in=(rps, rps + sbits[0].shape[0])),
-                 int(uq.sum()) * cfg.hash_functions))
+                 int(uq.sum()) * cfg.hash_functions), runs=10)
         if not torch.equal(sbits[0], rbits[0][rps:rps + sbits[0].shape[0]]):
             raise AssertionError("scatter_span: the span differs from the "
                                  "whole matrix's rows")
-        del sk, sv, uq, rk, rbits, sbits, cnt, gcounts, rk_args, arrays
+        del sk, sv, uq, rk, rbits, sbits, cnt, gcounts, arrays
     finally:
         pipe.close()
     torch.cuda.empty_cache()
@@ -1450,8 +1474,12 @@ def main() -> int:
     bits_k = torch.zeros(ibf.bits.shape, dtype=torch.int32, device=cuda)
     bits_p = torch.zeros_like(bits_k)
 
+    # the chunk's bins' word columns, as build_ibf's flush passes them
+    scols = (int(sb.min()) >> 5, (int(sb.max()) >> 5) + 1)
+
     def scatter_kernel():
-        scatter_hashes(bits_k, sh, sb, bin_size=bin_size, hash_functions=h)
+        scatter_hashes(bits_k, sh, sb, bin_size=bin_size, hash_functions=h,
+                       word_cols=scols)
         return (bits_k,)
 
     def scatter_plain():
@@ -1464,7 +1492,7 @@ def main() -> int:
         torch.int64)).numel()
     compare("scatter", "ganon_tpu_torch/csrc/scatter.cu",
             "ganon_tpu/index/ibf.py:231", scatter_kernel, scatter_plain, 10, 3,
-            (_nbytes(sh, sb) + swords * 4, srows.numel()))
+            (_nbytes(sh, sb) + swords * 4, srows.numel()), runs=10)
     del srows
     # the Pallas gather probe's port at its own shapes (its run counted
     # for the checks phase; no PyTorch call gathers, popcounts and sums
@@ -3136,7 +3164,10 @@ def main() -> int:
                  mesh_pruned_launches)
     launches = {name: sum(r[name] for r in main_runs)
                 for name in kernels.LAUNCHES}
-    missing = [name for name, n in launches.items() if n <= 0]
+    # dedup's rank mode is off every main path: the ranked scatter ranks
+    # in its own call (its row times it alone)
+    missing = [name for name, n in launches.items()
+               if n <= 0 and name != "dedup_rank"]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     emit("checks", {"launches": launches})

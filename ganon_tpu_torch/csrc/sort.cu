@@ -395,7 +395,7 @@ __global__ void pack_kernel(const long long* __restrict__ hashes, int mc,
 // Exclusive scan of int32 in[M] into out[M] (out[i] = *base + sum of
 // in[:i]; base may be NULL for 0), *total = *base + sum(in) when total is
 // not NULL (base and total may alias). sums: int64 scratch of
-// ceil(M / 2048) entries. Shared by pack and dedup.
+// ceil(M / 2048) entries. Used by pack.
 extern "C" int ganon_scan(const void* in, void* out, long long M, void* sums,
                           const void* base, void* total, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;

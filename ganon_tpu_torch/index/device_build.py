@@ -13,16 +13,20 @@ extraction to the bit-matrix:
                    bytes a launch of up to 16384 pieces) -> ``pack`` into
                    exact (file key, value) entries -> ``sort`` by (key,
                    unsigned value) -> ``dedup``'s per-file distinct
-                   counts; the counts of every group (4 bytes a file)
-                   come back in one fetch at the end
+                   counts (its counts mode: one read of the entries,
+                   nothing written of their size); the counts of every
+                   group (4 bytes a file) come back in one fetch at the
+                   end
   host             sizing (``sizing.size_filter``, then
                    ``sizing.split_target_bins``) from the counts
   pass 2 (scatter) per group: the sorted entries (kept on the card while
                    they fit ``device_cache_bytes``, else re-extracted
-                   from the host spill of packed pieces) -> ``dedup``'s
-                   ranks -> ``scatter_ranked`` ORs each distinct entry
-                   into its technical bin of the bit-matrix, which lives
-                   on the card whole -> one fetch of the matrix
+                   from the host spill of packed pieces) ->
+                   ``scatter_ranked`` finds the first occurrences and
+                   their ranks (dedup's chained scan, in the same call)
+                   and ORs each into its technical bin of the bit-matrix,
+                   which lives on the card whole -> one fetch of the
+                   matrix
 
 Semantics are the reference's, as in the JAX package: dedup within a
 file, duplicates across files of one target stored and counted twice
@@ -63,7 +67,9 @@ from ganon_tpu_torch.ops.build_ops import (
     check_entry_count,
     dedup,
     pack_entries,
+    ranked_word_cols,
     scatter_ranked,
+    scatter_scratch_bytes,
     sort_entries,
 )
 from ganon_tpu_torch.ops.ibf_query import extract
@@ -168,13 +174,14 @@ class DeviceBuildPipeline:
     ``device_cache_bytes`` bounds the card memory of the sorted entries
     kept between the passes (12 bytes an entry) together with the group
     being sorted (37 bytes an entry: its entries, the radix sort's
-    double buffers and status words) and, in pass 2, the bit-matrix.
+    double buffers and status words) and, in pass 2, the bit-matrix and
+    the scatter's scratch (``build_ops.scatter_scratch_bytes``).
     Before each sort the cache is trimmed to leave room for it (pass 1
     drops the oldest groups, pass 2 the ones it reaches last); a dropped
     group is re-extracted in pass 2 from the host spill. The default is
     half of the card's free memory when the pipeline starts
     (``torch.cuda.mem_get_info``), leaving the rest for one group's
-    extraction and dedup flags; on the CPU it is ``CPU_CACHE_BYTES``.
+    extraction; on the CPU it is ``CPU_CACHE_BYTES``.
     ``device="cuda"`` without CUDA raises here.
     """
 
@@ -358,9 +365,12 @@ class DeviceBuildPipeline:
                      for d, r0 in zip(flat, range(0, R, rps))]
         bits = [torch.zeros((rc, n_words), dtype=torch.int32, device=d)
                 for d, _, rc in spans]
-        bits_bytes = R * n_words * 4
+        # the matrix and the scatter's scratch, at the largest group
+        pass2_bytes = R * n_words * 4 + scatter_scratch_bytes(
+            max((g.n for g in self.groups), default=0),
+            ibf_config.hash_functions, R, n_words)
         newest_first = self.groups[::-1]
-        self._trim_cache(newest_first, reserve=bits_bytes)
+        self._trim_cache(newest_first, reserve=pass2_bytes)
         split = target_bins(splits)
         running: dict[str, int] = {}
         for group in self.groups:
@@ -372,26 +382,29 @@ class DeviceBuildPipeline:
                 params[:, i] = (*split.get(t, (0, 1)), off, key_start)
                 running[t] = off + rec.count
                 key_start += rec.count
+            word_cols = ranked_word_cols(
+                params, [rec.count for rec in group.files])
             if group.sorted is not None:
                 key, val = group.sorted
                 group.sorted = None
                 self._cache_bytes -= _ENTRY_BYTES * group.n
             else:
-                self._trim_cache(newest_first, reserve=bits_bytes
+                self._trim_cache(newest_first, reserve=pass2_bytes
                                  + _SORT_BYTES * group.n)
                 key, val = self._entries(group)
                 key, val = sort_entries(key, val, key_bits=group.key_bits)
-            uniq, rank = dedup(key, val, num_files=len(group.files))
             params = torch.from_numpy(params)
             for b, (d, r0, _) in zip(bits, spans):
                 # the group's entries on the shard's device (a no-op
                 # where the owner is that device)
+                k_, v_, p_ = (x.to(d) for x in (key, val, params))
                 scatter_ranked(
-                    b, *(x.to(d) for x in (key, val, uniq, rank, params)),
+                    b, k_, v_, None, None, p_,
                     bin_size=R, hash_functions=ibf_config.hash_functions,
                     w0=None if mesh is None else r0 * n_words,
+                    word_cols=word_cols,
                 )
-            del key, val, uniq, rank
+            del key, val
         out = np.empty((R, n_words), dtype=np.uint32)
         for b, (_, r0, rc) in zip(bits, spans):
             out[r0:r0 + rc] = b.cpu().numpy().view(np.uint32)

@@ -23,6 +23,12 @@ import torch
 from ganon_tpu_torch import kernels
 from ganon_tpu_torch.index import sizing
 from ganon_tpu_torch.index.config import IBFConfig
+from ganon_tpu_torch.ops.build_ops import (
+    scatter_chunk,
+    scatter_scratch,
+    scatter_windows,
+    vector_aligned,
+)
 from ganon_tpu_torch.ops.ibf_query import clz64, ibf_row_indices
 from ganon_tpu_torch.ops.winnow import u64_to_torch
 
@@ -180,13 +186,21 @@ def _scatter_bits(bits: torch.Tensor, hashes: torch.Tensor, bins: torch.Tensor,
 
 
 def scatter_hashes(bits: torch.Tensor, hashes: torch.Tensor, bins: torch.Tensor,
-                   *, bin_size: int, hash_functions: int) -> None:
+                   *, bin_size: int, hash_functions: int,
+                   word_cols: tuple[int, int] | None = None) -> None:
     """OR every (hash, technical bin) pair into the bit-matrix, in place.
 
     ``bits`` int32 ``[bin_size, n_words]`` (the u32 words' bit patterns)
     is updated in place; ``hashes`` int64 ``[N]`` (u64 bit patterns),
-    ``bins`` int32 ``[N]``. Replaces ``ganon_tpu.index.ibf``'s
-    ``_scatter_chunk_jit`` step.
+    ``bins`` int32 ``[N]``. ``word_cols``: the word columns ``[c0, c1)``
+    the bins lie in (None: all), a hint: the card's tiles cover those
+    columns only, and a bit outside them is set with an ``atomicOr``
+    straight into the matrix (the plain version ignores it). Replaces ``ganon_tpu.index.ibf``'s
+    ``_scatter_chunk_jit`` step. On the card one launch a call of up to
+    ``build_ops.scatter_chunk`` pairs and a window of
+    ``build_ops.scatter_windows`` (``csrc/scatter.cu``: the bits
+    partitioned by shared-memory tile, each tile ORed there and written
+    once).
     """
     if bits.dtype != torch.int32 or bits.dim() != 2 or not bits.is_contiguous():
         raise ValueError("bits must be a contiguous int32 [R, W] tensor")
@@ -204,10 +218,17 @@ def scatter_hashes(bits: torch.Tensor, hashes: torch.Tensor, bins: torch.Tensor,
     N = hashes.shape[0]
     if N == 0:
         return
-    kernels.launch(
-        "scatter", bits, bits.shape[0], bits.shape[1], hashes, bins, N,
-        bin_size, hash_functions, clz64(bin_size),
-    )
+    R, W = bits.shape
+    c0, band, cw, rpt, windows = scatter_windows(R, W, word_cols)
+    loc, items = scatter_scratch(N, hash_functions, R, W, word_cols,
+                                 bits.device)
+    step = scatter_chunk(hash_functions)
+    for r0, r1 in windows:
+        for s in range(0, N, step):
+            h, b = vector_aligned(hashes[s:s + step], bins[s:s + step])
+            kernels.launch("scatter", bits[r0:r1], r1 - r0, W, r0, h, b,
+                           b.shape[0], bin_size, hash_functions,
+                           clz64(bin_size), c0, band, cw, rpt, loc, items)
 
 
 # hashes per scatter launch (x hash_functions bit-inserts each)
@@ -253,12 +274,14 @@ def build_ibf(
                        device=dev)
 
     def flush(acc_h, acc_b):
+        bs = [int(b[0]) for b in acc_b if len(b)]
         scatter_hashes(
             bits,
             u64_to_torch(np.concatenate(acc_h)).to(dev),
             torch.from_numpy(np.concatenate(acc_b)).to(dev),
             bin_size=cfg.bin_size_bits,
             hash_functions=cfg.hash_functions,
+            word_cols=(min(bs) >> 5, (max(bs) >> 5) + 1),
         )
 
     acc_h, acc_b, acc_n = [], [], 0

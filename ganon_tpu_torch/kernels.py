@@ -22,8 +22,12 @@ pruned forest's; ``extract_build`` is ``extract`` on the build's pieces
 (single-end, a capacity of every window position); ``extract_wide`` is
 ``extract``'s route for windows too wide for a tile's shared memory
 (one warp a read), whichever caller asked; ``pack``, ``sort_hist``
-(the digit histograms that start each sort), ``sort``, ``dedup`` and
-``scatter_ranked`` are the two-pass device build's.
+(the digit histograms that start each sort), ``sort``, ``dedup`` (its
+counts mode, pass 1) and ``scatter_ranked`` (pass 2: first occurrences,
+ranks, bins and bits in one call) are the two-pass device build's;
+``dedup_rank`` is dedup's rank mode (flags and ranks in one chained
+scan), which no build path runs since the ranked scatter ranks in its
+own call.
 The device mesh's modes (K17): ``count_shard`` is ``count`` on one
 column shard of a table with the clamp off, ``combine`` adds the shards'
 partials and clamps, ``fine_shard`` is ``fine`` over one shard's groups
@@ -36,7 +40,8 @@ single-end mode for ``ganon_tpu_torch.ops.library.minimizers``; ``bins``,
 ``ragged`` compacts ``select``'s dense buffer into the ragged match
 stream (``ragged_winners`` with the winners block of a multi-filter
 level), ``pairs`` compacts a pruned batch's (read, slot) pairs under
-the pair cap (``csrc/scan.cu``): both chained scans, as is ``extract``,
+the pair cap (``csrc/scan.cu``): both chained scans, as are ``extract``,
+``dedup_rank`` and the ranked scatter's stage step,
 whose status words and epochs :func:`scan_status` hands out, one buffer
 a device and stream; ``probe_sort`` orders each read's
 hashes by their first row before ``count`` (``csrc/psort.cu``);
@@ -63,7 +68,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
            "gate.cu", "fine.cu", "sort.cu", "dedup.cu", "shard.cu", "bins.cu",
            "scan.cu", "psort.cu", "gprobe.cu")
-HEADERS = ("ibf_hash.cuh", "scan.cuh")
+HEADERS = ("ibf_hash.cuh", "scan.cuh", "dedup.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -99,8 +104,11 @@ _SIGNATURES = {
     # counts, B, T, n_hashes, overflow, rel_cutoff, rel_filter,
     # hashes_limit, K, emit_matches_t, packed (the 32-bit mode)
     "select32": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P),
-    # bits, R, W, hashes, bins, N, bin_size, h, shift
-    "scatter": (_P, _L, _L, _P, _P, _L, _U, _I, _I),
+    # bits, rows, W, row0 (the first row bits holds), hashes, bins, N,
+    # bin_size, h, shift, c0, band (the word columns of the bins), cw, rpt
+    # (a tile's columns and rows), loc, items (scratch)
+    "scatter": (_P, _L, _L, _L, _P, _P, _L, _U, _I, _I, _L, _L, _L, _L, _P,
+                _P),
     # counts, B, C, n_hashes, overflow, rel_cutoff, rel_filter,
     # hashes_limit, K, emit_matches_t, gsel, slot_ok, grp_ntargets, S, gs,
     # T, packed
@@ -126,12 +134,14 @@ _SIGNATURES = {
     # key, val, N, digits (bit d: run digit d's pass), offs (hist[1]),
     # key_a, val_a, key_b, val_b, status (scratch)
     "sort": (_P, _P, _L, _I, _P, _P, _P, _P, _P, _P),
-    # key, val, N, R, uniq, rank (NULL = none), counts (NULL = none), sums
-    "dedup": (_P, _P, _L, _I, _P, _P, _P, _P),
-    # bits, R_rows, W, key, val, uniq, rank, N, params, R, bin_size, h,
-    # shift, w0 (the first word of the span bits holds)
-    "scatter_ranked": (_P, _L, _L, _P, _P, _P, _P, _L, _P, _I, _U, _I, _I,
-                       _L),
+    # key, val, N, R, uniq, rank (NULL = counts mode), counts (NULL =
+    # none), status, epoch
+    "dedup": (_P, _P, _L, _I, _P, _P, _P, _P, _U),
+    # bits, rows, W, row0, key, val, start, end, params, R, bin_size, h,
+    # shift, c0, band, cw, rpt, status, epoch, carry_in, carry_out, loc,
+    # items (scratch)
+    "scatter_ranked": (_P, _L, _L, _L, _P, _P, _L, _L, _P, _I, _U, _I, _I,
+                       _L, _L, _L, _L, _P, _U, _P, _P, _P, _P),
     # bits, R, W, rows, B, M, S, mask, out
     "bins": (_P, _L, _L, _P, _L, _I, _I, _P, _P),
     # bin_counts, B, TB, bin_to_target, T, out
@@ -150,7 +160,7 @@ _SIGNATURES = {
 }
 
 # launch counters: each kernel, plus the modes counted apart
-LAUNCHES = {name: 0 for name in (*_SIGNATURES, "count_forest",
+LAUNCHES = {name: 0 for name in (*_SIGNATURES, "dedup_rank", "count_forest",
                                  "count_raptor", "select_winners",
                                  "fine_all", "extract_build", "count_shard",
                                  "fine_shard", "scatter_span", "minimizers",
@@ -277,7 +287,8 @@ def launch(name: str, *args, counter: str | None = None) -> None:
 
 
 # The chained scans' status words (csrc/scan.cuh): one buffer per (device,
-# stream), shared by ``ragged``, ``pairs`` and ``extract``; made zero and
+# stream), shared by ``ragged``, ``pairs``, ``extract``, ``dedup_rank``
+# and ``scatter_ranked`` (its stage step); made zero and
 # written only by those kernels, every call tagged with a new epoch
 # (csrc/scan.cu says why that is safe)
 _SCAN_STATUS: dict = {}

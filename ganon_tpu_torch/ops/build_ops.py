@@ -13,11 +13,12 @@ and radix offsets are int32 on the card, so ``N`` is at most
 * :func:`sort_entries` — stable order by (key, unsigned value), an LSD
   radix sort that runs only the digits :func:`sort_pass_plan` keeps
   (``csrc/sort.cu``);
-* :func:`dedup` — first-occurrence flags, ranks and per-file distinct
-  counts (``csrc/dedup.cu``);
-* :func:`scatter_ranked` — technical bin from the rank and the per-file
-  split parameters, then the bits (``csrc/scatter.cu`` ranked mode; in
-  span mode into one shard's row range of the matrix, K17).
+* :func:`dedup` — per-file distinct counts (pass 1), or first-occurrence
+  flags and ranks (``csrc/dedup.cu``);
+* :func:`scatter_ranked` — first occurrences, their ranks, their
+  technical bins from the per-file split parameters, then the bits
+  (``csrc/scatter.cu`` ranked mode, one call from the entries to the
+  matrix; in span mode into one shard's row range of it, K17).
 
 A wrapper given CPU tensors runs the plain torch version beside it;
 given CUDA tensors it launches the kernel or raises.
@@ -33,9 +34,11 @@ from ganon_tpu_torch.ops.ibf_query import clz64, ibf_row_indices
 from ganon_tpu_torch.ops.winnow import ukey
 
 # entries per radix pass tile and per scan block (csrc/sort.cu kTile,
-# kScanTile): the scratch sizes below follow from them
+# kScanTile), per dedup and scatter tile (csrc/dedup.cuh kTile): the
+# scratch sizes below follow from them
 SORT_TILE = 3072
 SCAN_TILE = 2048
+DEDUP_TILE = 4096
 RADIX = 256
 # the sort's status words past its tiles' (the passes' tile counters)
 _SORT_COUNTERS = 16
@@ -224,27 +227,35 @@ def dedup_plain(key, val, *, num_files: int, counts=None,
     first = torch.ones(key.shape, dtype=torch.bool, device=key.device)
     first[1:] = (key[1:] != key[:-1]) | (val[1:] != val[:-1])
     u = first & (key < num_files)
-    uniq = u.to(torch.int32)
     if counts is not None:
         counts += torch.bincount(key[u].to(torch.int64),
                                  minlength=num_files)[:num_files].to(
                                      torch.int32)
     if not want_rank:
-        return uniq, None
+        return None, None
+    uniq = u.to(torch.int32)
     rank = (torch.cumsum(uniq, 0, dtype=torch.int32) - uniq).to(torch.int32)
     return uniq, rank
+
+
+def vector_aligned(*ts):
+    """The tensors, each copied where its data is not 16-byte aligned (the
+    kernels' vector loads; a fresh allocation always is)."""
+    return [t.clone() if t.data_ptr() % 16 else t for t in ts]
 
 
 def dedup(key: torch.Tensor, val: torch.Tensor, *, num_files: int,
           counts: torch.Tensor | None = None, want_rank: bool = True):
     """First occurrences of sorted entries, their ranks and file counts.
 
-    Over entries sorted by :func:`sort_entries`: ``uniq[i]`` (int32
-    ``[N]``) is 1 where entry ``i`` differs from entry ``i - 1`` and its
-    key is below ``num_files``; ``rank`` (int32 ``[N]``, or None without
-    ``want_rank``) is the exclusive scan of ``uniq``; with ``counts``
-    (int32 ``[num_files]``) each file's distinct entries are added to its
-    slot. Returns ``(uniq, rank)``.
+    Over entries sorted by :func:`sort_entries`, entry ``i`` is a first
+    occurrence where it differs from entry ``i - 1`` and its key is below
+    ``num_files``. With ``counts`` (int32 ``[num_files]``) each file's
+    first occurrences are added to its slot. With ``want_rank`` returns
+    ``(uniq, rank)``: int32 ``[N]`` flags and their exclusive scan (one
+    chained-scan launch on the card, counted as ``dedup_rank``); without,
+    the counts mode, which needs ``counts``, writes nothing of size N and
+    returns ``(None, None)`` (the build's pass 1).
 
     Replaces ``device_build.close_sort``'s first-occurrence mask,
     ``close_counts_sorted`` and the rank of ``_entry_coords``.
@@ -253,18 +264,117 @@ def dedup(key: torch.Tensor, val: torch.Tensor, *, num_files: int,
     if counts is not None and (counts.dtype != torch.int32
                                or counts.shape != (num_files,)):
         raise ValueError(f"counts must be int32 [{num_files}]")
+    if not want_rank and counts is None:
+        raise ValueError("dedup without ranks computes only the counts: "
+                         "pass counts")
     if key.device.type == "cpu":
         return dedup_plain(key, val, num_files=num_files, counts=counts,
                            want_rank=want_rank)
     kernels.check_cuda(key, val, *([] if counts is None else [counts]))
     N = key.shape[0]
-    uniq = torch.empty((N,), dtype=torch.int32, device=key.device)
+    uniq = torch.empty((N,), dtype=torch.int32, device=key.device) \
+        if want_rank else None
     rank = torch.empty_like(uniq) if want_rank else None
     if N == 0:
         return uniq, rank
+    key, val = vector_aligned(key, val)
+    if not want_rank:
+        kernels.launch("dedup", key, val, N, num_files, None, None, counts,
+                       None, 0)
+        return None, None
+    status, epoch = kernels.scan_status(key.device, -(-N // DEDUP_TILE))
     kernels.launch("dedup", key, val, N, num_files, uniq, rank, counts,
-                   _scan_scratch(N, key.device))
+                   status, epoch, counter="dedup_rank")
     return uniq, rank
+
+
+# --- the scatters' tiles (csrc/scatter.cu) ------------------------------------
+
+# the most bit inserts one scatter call takes (int32 items of scratch, 128
+# MB): larger inputs are cut into calls of at most this many
+ITEM_BUDGET = 1 << 25
+# words of a tile, ORed in one block's shared memory (96 KB), and the most
+# tiles a call (csrc/scatter.cu kMaxTiles): more rows are cut into windows
+TILE_WORDS = 24576
+MAX_TILES = 4096
+# a block's dynamic shared memory in words (csrc/scatter.cu
+# kMaxTileBytes): apply holds a tile and two words a stage block of its
+# call
+_SMEM_WORDS = (232448 - 512) // 4
+
+
+def scatter_chunk(hash_functions: int) -> int:
+    """Entries or pairs a scatter call takes at most: ``ITEM_BUDGET``
+    bit inserts, a whole number of 4096-entry blocks, as many blocks as
+    apply's shared memory holds beside a tile."""
+    blocks = min(ITEM_BUDGET // hash_functions // DEDUP_TILE,
+                 (_SMEM_WORDS - TILE_WORDS - 1) // 2)
+    return max(blocks, 1) * DEDUP_TILE
+
+
+def scatter_windows(rows: int, n_words: int, word_cols=None):
+    """``(c0, band, cw, rpt, windows)``: the word columns ``[c0, c0 +
+    band)`` a scatter covers (``word_cols``, or every column), its tiles
+    of ``rpt`` rows by ``cw`` of them (``TILE_WORDS`` words at most) and
+    its windows of rows ``[(r0, r1), ...]``, each of at most
+    ``MAX_TILES`` tiles (a call each)."""
+    c0, c1 = (0, n_words) if word_cols is None else word_cols
+    if not 0 <= c0 < c1 <= n_words:
+        raise ValueError(f"word_cols {word_cols} outside the matrix's "
+                         f"{n_words} word columns")
+    band = c1 - c0
+    cw = min(band, TILE_WORDS)
+    rpt = TILE_WORDS // cw
+    step = MAX_TILES // -(-band // cw) * rpt
+    if not step:
+        raise ValueError(f"{band} word columns: a row past the "
+                         "scatter's tiles")
+    return c0, band, cw, rpt, [(r, min(r + step, rows))
+                               for r in range(0, rows, step)]
+
+
+def _scratch_sizes(n: int, hash_functions: int, rows: int, n_words: int,
+                   word_cols=None):
+    """(loc, items) int32 words of scatter calls of up to
+    ``scatter_chunk`` of ``n`` inputs (``scatter_windows``' tiles)."""
+    blocks = -(-min(n, scatter_chunk(hash_functions)) // DEDUP_TILE)
+    c0, band, cw, rpt, windows = scatter_windows(rows, n_words, word_cols)
+    tiles = -(-band // cw) * -(-(windows[0][1] - windows[0][0]) // rpt)
+    return (tiles + 1) * blocks, blocks * DEDUP_TILE * hash_functions
+
+
+def scatter_scratch_bytes(n: int, hash_functions: int, rows: int,
+                          n_words: int) -> int:
+    """Card bytes a scatter of ``n`` pairs or entries into ``rows`` rows of
+    ``n_words`` words allocates besides the matrix, at most (every word
+    column): its tiles' first slots a block and its items."""
+    return 4 * sum(_scratch_sizes(n, hash_functions, rows, n_words))
+
+
+def scatter_scratch(n: int, hash_functions: int, rows: int, n_words: int,
+                    word_cols, device):
+    """(loc, items): a scatter's scratch for calls of up to
+    ``scatter_chunk`` of ``n`` inputs into ``rows`` rows of ``n_words``
+    words, bins in ``word_cols``."""
+    return tuple(torch.empty((max(m, 1),), dtype=torch.int32, device=device)
+                 for m in _scratch_sizes(n, hash_functions, rows, n_words,
+                                         word_cols))
+
+
+def ranked_word_cols(params, counts) -> tuple[int, int] | None:
+    """The word columns ``[c0, c1)`` the ranked scatter's bins lie in, from
+    the host's ``params`` ([4, R]) and the files' distinct ``counts``
+    ([R]): file f's first occurrences have indices offset[f] ..
+    offset[f] + counts[f] - 1. None when no file has one."""
+    p = np.asarray(params, dtype=np.int64)
+    c = np.asarray(counts, dtype=np.int64)
+    has = c > 0
+    if not has.any():
+        return None
+    nhb = np.maximum(p[1], 1)
+    lo = (p[0] + p[2] // nhb)[has].min()
+    hi = (p[0] + (p[2] + c - 1) // nhb)[has].max()
+    return int(lo) >> 5, (int(hi) >> 5) + 1
 
 
 # --- ranked scatter ----------------------------------------------------------
@@ -283,9 +393,12 @@ def _ranked_bins(key, uniq, rank, params):
 def scatter_ranked_plain(bits, key, val, uniq, rank, params, *,
                          bin_size: int, hash_functions: int,
                          w0: int | None = None) -> None:
-    """Plain version of :func:`scatter_ranked` (and of its span mode)."""
+    """Plain version of :func:`scatter_ranked` (and of its span mode):
+    with ``uniq`` and ``rank`` None, :func:`dedup_plain`'s first."""
     from ganon_tpu_torch.index.ibf import _scatter_bits
 
+    if uniq is None:
+        uniq, rank = dedup_plain(key, val, num_files=params.shape[1])
     u, bins = _ranked_bins(key, uniq, rank, params)
     if w0 is None:
         _scatter_bits(bits, val[u], bins.to(torch.int32), bin_size=bin_size,
@@ -306,49 +419,87 @@ def scatter_ranked_plain(bits, key, val, uniq, rank, params, *,
 
 
 def scatter_ranked(bits: torch.Tensor, key: torch.Tensor, val: torch.Tensor,
-                   uniq: torch.Tensor, rank: torch.Tensor,
+                   uniq: torch.Tensor | None, rank: torch.Tensor | None,
                    params: torch.Tensor, *, bin_size: int,
-                   hash_functions: int, w0: int | None = None) -> None:
-    """OR every distinct entry into the bit-matrix at its technical bin.
+                   hash_functions: int, w0: int | None = None,
+                   word_cols: tuple[int, int] | None = None) -> None:
+    """OR every first occurrence of the sorted entries into the
+    bit-matrix at its technical bin.
 
-    Entry ``i`` with ``uniq[i]`` of file ``f = key[i]`` has index ``idx =
-    rank[i] - key_start[f] + offset[f]`` in its target's order and lands
-    in bin ``bin_base[f] + idx // max(nhb[f], 1)``; ``params`` int32
-    ``[4, R]`` holds ``bin_base, nhb, offset, key_start`` per file.
-    ``bits`` int32 ``[bin_size, n_words]`` is updated in place.
+    First occurrences and ranks are :func:`dedup`'s (``uniq`` and
+    ``rank``, int32 ``[N]``; None, as the card takes them: computed in
+    the same call). Entry ``i`` with ``uniq[i]`` of file ``f = key[i]``
+    has index ``idx = rank[i] - key_start[f] + offset[f]`` in its target's
+    order and lands in bin ``bin_base[f] + idx // max(nhb[f], 1)``;
+    ``params`` int32 ``[4, R]`` holds ``bin_base, nhb, offset, key_start``
+    per file. ``bits`` int32 ``[bin_size, n_words]`` is updated in place.
+    ``word_cols``: the word columns ``[c0, c1)`` the bins lie in
+    (:func:`ranked_word_cols`; None: all), a hint: the card's tiles cover
+    those columns only, and a bit outside them is set with an
+    ``atomicOr`` straight into the matrix, so the bits never depend on
+    it (the plain version ignores it).
 
     Replaces ``device_build.scatter_sorted`` (``_entry_coords`` and
-    ``_scatter_span``).
+    ``_scatter_span``) with ``close_sort``'s first-occurrence mask.
 
     Span mode (K17, a shard of ``device_build.make_scatter_mesh``): with
-    ``w0``, ``bits`` (int32 ``[rows, n_words]``) is the word span ``[w0,
-    w0 + rows * n_words)`` of the ``[bin_size, n_words]`` matrix; a bit
-    whose word falls outside it is dropped, the rest are rebased by
-    ``w0``.
+    ``w0``, the first word of a row, ``bits`` (int32 ``[rows,
+    n_words]``) is the word span ``[w0, w0 + rows * n_words)`` of the
+    ``[bin_size, n_words]`` matrix; a bit whose word falls outside it is
+    dropped, the rest are rebased by ``w0``.
+
+    On the card one launch (counted as ``scatter_ranked``, or
+    ``scatter_span``) a call of up to :func:`scatter_chunk` entries and a
+    window of :func:`scatter_windows`, with :func:`scatter_scratch` of
+    scratch.
     """
     _check_entries(key, val)
     if bits.dtype != torch.int32 or bits.dim() != 2 or not bits.is_contiguous():
         raise ValueError("bits must be a contiguous int32 [R, W] tensor")
-    if uniq.dtype != torch.int32 or rank.dtype != torch.int32 or \
-            uniq.shape != key.shape or rank.shape != key.shape:
-        raise ValueError("uniq and rank must be int32 [N]")
+    if (uniq is None) != (rank is None) or (uniq is not None and (
+            uniq.dtype != torch.int32 or rank.dtype != torch.int32
+            or uniq.shape != key.shape or rank.shape != key.shape)):
+        raise ValueError("uniq and rank must be int32 [N], or both None")
     if params.dtype != torch.int32 or params.dim() != 2 or params.shape[0] != 4:
         raise ValueError("params must be int32 [4, R]")
-    if (w0 is None and bin_size != bits.shape[0]) or (
-            w0 is not None and w0 < 0) or not 1 <= hash_functions <= 5:
-        raise ValueError("bin_size must equal the rows of bits (w0 >= 0 in "
-                         "span mode); h in 1..5")
+    rows, W = bits.shape
+    if (w0 is None and bin_size != rows) or (
+            w0 is not None and (w0 < 0 or w0 % max(W, 1))) or \
+            not 1 <= hash_functions <= 5:
+        raise ValueError("bin_size must equal the rows of bits (in span "
+                         "mode w0 >= 0, the first word of a row); h in 1..5")
     if bits.device.type == "cpu":
         scatter_ranked_plain(bits, key, val, uniq, rank, params,
                              bin_size=bin_size, hash_functions=hash_functions,
                              w0=w0)
         return
+    if uniq is not None:
+        raise ValueError("the card's ranked scatter computes the first "
+                         "occurrences and ranks itself: pass uniq and rank "
+                         "as None")
     params = params.contiguous()
-    kernels.check_cuda(bits, key, val, uniq, rank, params)
+    kernels.check_cuda(bits, key, val, params)
     N = key.shape[0]
-    if N == 0:
+    if N == 0 or bits.numel() == 0:
         return
-    kernels.launch("scatter_ranked", bits, bits.shape[0], bits.shape[1], key,
-                   val, uniq, rank, N, params, params.shape[1], bin_size,
-                   hash_functions, clz64(bin_size), w0 or 0,
-                   counter="scatter_ranked" if w0 is None else "scatter_span")
+    key, val = vector_aligned(key, val)
+    c0, band, cw, rpt, windows = scatter_windows(rows, W, word_cols)
+    loc, items = scatter_scratch(N, hash_functions, rows, W, word_cols,
+                                 bits.device)
+    step = scatter_chunk(hash_functions)
+    starts = range(0, N, step)
+    row0 = (w0 or 0) // max(W, 1)
+    # carry[c]: first occurrences before call c + 1's entries (call 0's: 0)
+    carry = torch.empty((len(starts),), dtype=torch.int64, device=key.device)
+    for r0, r1 in windows:
+        for c, s in enumerate(starts):
+            e = min(s + step, N)
+            status, epoch = kernels.scan_status(key.device,
+                                                -(-(e - s) // DEDUP_TILE))
+            kernels.launch(
+                "scatter_ranked", bits[r0:r1], r1 - r0, W, row0 + r0, key,
+                val, s, e, params, params.shape[1], bin_size, hash_functions,
+                clz64(bin_size), c0, band, cw, rpt, status, epoch,
+                carry[c - 1:c] if c else None,
+                carry[c:c + 1] if e < N else None, loc, items,
+                counter="scatter_ranked" if w0 is None else "scatter_span")

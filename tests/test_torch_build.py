@@ -422,6 +422,161 @@ def test_scatter_ranked_matches_scatter_sorted(h, mhb):
     assert np.array_equal(bits.numpy().view(np.uint32), want)
 
 
+def _ranked_case(h, mhb, R=16, cap=128, bin_size=1021):
+    """JAX close_sort's entries, close_counts_sorted's counts, the split
+    params of two files a target, and scatter_sorted's matrix."""
+    import jax.numpy as jnp
+
+    _, close_sort, close_counts_sorted, scatter_sorted, _ = _jax_kernels()
+    vals, n, keys = _close_inputs(np.random.default_rng(h), R, cap)
+    ovf = jnp.zeros(R, dtype=bool)
+    k_s, hi_s, lo_s, juniq = close_sort(jnp.asarray(vals), jnp.asarray(n),
+                                        jnp.asarray(keys), ovf)
+    counts = np.asarray(close_counts_sorted(k_s, jnp.asarray(keys), ovf,
+                                            juniq)[0])
+    params = np.zeros((4, R), dtype=np.int32)
+    binno = 0
+    for f in range(0, R, 2):
+        c = int(counts[f] + counts[f + 1])
+        nb = -(-c // mhb) if c else 0
+        nhb = min(-(-c // nb), mhb) if nb else 1
+        params[:3, f] = (binno, nhb, 0)
+        params[:3, f + 1] = (binno, nhb, counts[f])
+        binno += nb
+    n_words = -(-binno // 32) + 2  # two word columns no bin reaches
+    params[3] = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    want = np.asarray(scatter_sorted(
+        jnp.zeros(bin_size * n_words, jnp.uint32), k_s, hi_s, lo_s, juniq,
+        jnp.zeros(R, dtype=bool), jnp.asarray(params[:3]),
+        bin_size=bin_size, hash_functions=h, n_words=n_words,
+    )).reshape(bin_size, n_words)
+    return (vals, n, keys), counts, params, want
+
+
+@pytest.mark.parametrize("h, mhb", [(1, 7), (3, 40), (5, 1000)])
+def test_fused_scatter_ranked_matches_scatter_sorted(h, mhb):
+    """K10 as pass 2 runs it: scatter_ranked with uniq and rank None (the
+    first occurrences and ranks made in the call; plain: dedup_plain, then
+    scatter_ranked_plain) equals scatter_sorted, whole and in row spans,
+    and ranked_word_cols holds every first occurrence's bin."""
+    R, bin_size = 16, 1021
+    inputs, counts, params, want = _ranked_case(h, mhb, R, 128, bin_size)
+    key, val, uniq, rank, got_c = _port_close(*inputs, R)
+    assert np.array_equal(got_c.numpy(), counts)
+    pt = torch.from_numpy(params)
+    cols = build_ops.ranked_word_cols(params, counts)
+    _, bins = build_ops._ranked_bins(key, uniq, rank, pt)
+    assert cols[0] <= int(bins.min()) >> 5
+    assert int(bins.max()) >> 5 < cols[1] <= want.shape[1] - 2
+    n_words = want.shape[1]
+    bits = torch.zeros((bin_size, n_words), dtype=torch.int32)
+    build_ops.scatter_ranked(bits, key, val, None, None, pt,
+                             bin_size=bin_size, hash_functions=h,
+                             word_cols=cols)
+    assert want.any()
+    assert np.array_equal(bits.numpy().view(np.uint32), want)
+    for r0, r1 in ((0, 400), (400, 1021), (1021, 1100)):
+        span = torch.zeros((r1 - r0, n_words), dtype=torch.int32)
+        build_ops.scatter_ranked(span, key, val, None, None, pt,
+                                 bin_size=bin_size, hash_functions=h,
+                                 w0=r0 * n_words, word_cols=cols)
+        assert np.array_equal(span.numpy().view(np.uint32)[:max(
+            min(r1, bin_size) - r0, 0)], want[r0:r1])
+    with pytest.raises(ValueError, match="uniq and rank"):
+        build_ops.scatter_ranked(bits, key, val, uniq, None, pt,
+                                 bin_size=bin_size, hash_functions=h)
+    with pytest.raises(ValueError, match="first word of a row"):
+        build_ops.scatter_ranked(bits[:10], key, val, None, None, pt,
+                                 bin_size=bin_size, hash_functions=h, w0=1)
+
+
+@pytest.mark.parametrize("mode", ["flat", "ranked", "span"])
+def test_scatter_bits_do_not_depend_on_word_cols(mode):
+    """word_cols, the band of the card's tiles, is a hint: the plain
+    versions set scatter_sorted's bits whatever band they are given (the
+    card sets a bit outside it with an atomicOr), one that holds every
+    bin, one that leaves bins out on either side, and one that holds
+    none."""
+    from ganon_tpu_torch.index.ibf import scatter_hashes
+
+    h, R, bin_size = 3, 16, 1021
+    inputs, counts, params, want = _ranked_case(h, 7, R, 128, bin_size)
+    key, val, uniq, rank, _ = _port_close(*inputs, R)
+    pt = torch.from_numpy(params)
+    c0, c1 = build_ops.ranked_word_cols(params, counts)
+    assert c1 - c0 >= 2
+    u, bins = build_ops._ranked_bins(key, uniq, rank, pt)
+    r0 = 400 if mode == "span" else 0
+    for cols in ((c0, c1), (c0 + 1, c1), (c0, c1 - 1), (c1, want.shape[1]),
+                 None):
+        bits = torch.zeros((bin_size - r0, want.shape[1]), dtype=torch.int32)
+        if mode == "flat":
+            scatter_hashes(bits, val[u], bins.to(torch.int32),
+                           bin_size=bin_size, hash_functions=h,
+                           word_cols=cols)
+        else:
+            build_ops.scatter_ranked(
+                bits, key, val, None, None, pt, bin_size=bin_size,
+                hash_functions=h, word_cols=cols,
+                w0=r0 * want.shape[1] if mode == "span" else None)
+        assert np.array_equal(bits.numpy().view(np.uint32), want[r0:]), cols
+
+
+@pytest.mark.parametrize("R, cap", [(8, 64), (32, 1024)])
+def test_dedup_counts_mode_matches_jax(R, cap):
+    """Pass 1's dedup: counts only (added to the caller's), no [N] array
+    back; close_counts_sorted's counts. Without counts there is nothing
+    to compute."""
+    import jax.numpy as jnp
+
+    _, close_sort, close_counts_sorted, _, _ = _jax_kernels()
+    vals, n, keys = _close_inputs(np.random.default_rng(R + 1), R, cap)
+    ovf = jnp.zeros(R, dtype=bool)
+    k_s, _, _, juniq = close_sort(jnp.asarray(vals), jnp.asarray(n),
+                                  jnp.asarray(keys), ovf)
+    want = np.asarray(close_counts_sorted(k_s, jnp.asarray(keys), ovf,
+                                          juniq)[0])
+    key, val, _, _, _ = _port_close(vals, n, keys, R)
+    counts = torch.full((R,), 3, dtype=torch.int32)
+    assert build_ops.dedup(key, val, num_files=R, counts=counts,
+                           want_rank=False) == (None, None)
+    assert np.array_equal(counts.numpy() - 3, want)
+    with pytest.raises(ValueError, match="pass counts"):
+        build_ops.dedup(key, val, num_files=R, want_rank=False)
+
+
+@pytest.mark.parametrize("rows, n_words, cols, tile, max_tiles", [
+    (2_709_945, 32, (0, 5), 24576, 4096),
+    (2_709_945, 32, None, 24576, 4096),
+    (9001, 72, (1, 70), 64, 16),
+    (5003, 6, None, 24576, 4096),
+    (100, 200_000, (7, 150_000), 24576, 16),
+])
+def test_scatter_windows_cover_the_rows(rows, n_words, cols, tile, max_tiles,
+                                        monkeypatch):
+    """The card scatter's plan: the band holds word_cols, the tiles fit
+    TILE_WORDS, each window at most MAX_TILES tiles, the windows cut the
+    rows in order; a call's entries are whole 4096-entry blocks whose run
+    positions fit apply's shared memory beside a tile."""
+    monkeypatch.setattr(build_ops, "TILE_WORDS", tile)
+    monkeypatch.setattr(build_ops, "MAX_TILES", max_tiles)
+    c0, band, cw, rpt, windows = build_ops.scatter_windows(rows, n_words,
+                                                           cols)
+    lo, hi = cols or (0, n_words)
+    assert (c0, c0 + band) == (lo, hi)
+    assert 1 <= cw <= band and cw * rpt <= tile
+    ncb = -(-band // cw)
+    assert [w[0] for w in windows] == [0] + [w[1] for w in windows[:-1]]
+    assert windows[-1][1] == rows
+    assert all(ncb * -(-(b - a) // rpt) <= max_tiles for a, b in windows)
+    for h in range(1, 6):
+        chunk = build_ops.scatter_chunk(h)
+        assert chunk % 4096 == 0 and chunk * h <= build_ops.ITEM_BUDGET
+        assert tile + 2 * (chunk // 4096) + 1 <= (232448 - 512) // 4
+    with pytest.raises(ValueError, match="outside"):
+        build_ops.scatter_windows(rows, n_words, (0, n_words + 1))
+
+
 # --- run_build and run_build_hibf against the JAX package ---------------------
 
 

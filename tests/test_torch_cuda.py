@@ -21,9 +21,15 @@ default build on the card. The two-pass build's kernels: sort at N = 0,
 look-back spans more blocks than the card has SMs), all-equal values,
 values >= 2^63, one file and 2^16 files, and its digit histograms and
 pass plan (38-bit values, every digit constant); pack with empty rows;
-dedup with files that have no entries; scatter in ranked mode with a
-target over several bins at h = 1 and 5; the whole pipeline and
-run_build on the card against the CPU.
+dedup in both modes (counts only; flags, ranks and counts in one
+chained scan) with files that have no entries, duplicates across tile
+and warp edges, a file over many tiles and a tile of many files, keys
+past num_files, N = 0 and 1; the fused ranked scatter (flags, ranks,
+bins and bits in one call) with a target over several bins at h = 1 to
+5, nhb 1 and 100,000, into a matrix that already holds bits, and past
+the item budget (several calls, the rank carried between them; span and
+flat modes too); the whole pipeline and run_build on the card against
+the CPU.
 The device mesh's modes (K17): count in shard mode and combine with a
 target over three shards and with one shard (equal to the flat count),
 combine in column-max mode, fine in shard mode over a shard of pad
@@ -41,10 +47,10 @@ settings (ragged, pair caps, sort_probes) on the card against the CPU.
 The tiled extract at the build's shape, over many 512-window tiles, at
 B 1, with short mates, w == k, k 32 and runs of one base, with and
 without the zero tail; pairs over 274 blocks at S 1-9 and on rows off
-word alignment; ragged, extract and pairs sharing one stream's status
-words, and a second stream's. Extract's wide-window route at the widest
-window the tiles hold and one past it (k 19 and 32), paired and
-single-end; select in every mode with 2048 and 2049 kept entries (the
+word alignment; ragged, extract, pairs and dedup's rank mode sharing
+one stream's status words, and a second stream's. Extract's wide-window
+route at the widest window the tiles hold and one past it (k 19 and 32),
+paired and single-end; select in every mode with 2048 and 2049 kept entries (the
 list's capacity and the passes over the row), T % 4 != 0 and K past and
 below the finals; count at rows of 1 to 256 words, h 1-5, in flat,
 forest, shard and column-max modes; every raptor sub in one launch
@@ -53,6 +59,8 @@ Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -284,18 +292,23 @@ def test_select32_kernel_matches_plain(cuda, B, T, case, top_k):
 @pytest.mark.parametrize("hf", [1, 4])
 def test_scatter_kernel_matches_plain(cuda, hf):
     rng = np.random.default_rng(hf)
-    R, W, N = 5003, 6, 20000
+    R, W, N = 5003, 6, 20001
     hashes = rng.integers(-2**63, 2**63 - 1, size=N)
-    hashes[N // 2:] = hashes[: N // 2]  # duplicate pairs
+    hashes[N // 2:2 * (N // 2)] = hashes[: N // 2]  # duplicate pairs
     h = torch.from_numpy(hashes).to(cuda)
     bins = torch.from_numpy(rng.integers(0, W * 32, size=N).astype(np.int32)).to(cuda)
-    a = torch.zeros((R, W), dtype=torch.int32, device=cuda)
-    b = torch.zeros_like(a)
+    # a matrix that already holds bits: the scatter ORs, never overwrites
+    a = torch.from_numpy(rng.integers(-2**31, 2**31, size=(R, W)).astype(
+        np.int32) & (rng.random((R, W)) < 0.1)).to(cuda)
+    b = a.clone()
+    c = a.clone()
     before = kernels.LAUNCHES["scatter"]
     scatter_hashes(a, h, bins, bin_size=R, hash_functions=hf)
+    scatter_hashes(c, h, bins, bin_size=R, hash_functions=hf,
+                   word_cols=(0, W))
     _scatter_bits(b, h, bins, bin_size=R, hash_functions=hf)
-    assert kernels.LAUNCHES["scatter"] == before + 1
-    assert torch.equal(a, b)
+    assert kernels.LAUNCHES["scatter"] == before + 2
+    assert torch.equal(a, b) and torch.equal(c, b)
 
 
 @pytest.mark.parametrize("col0", [0, 37])
@@ -805,37 +818,73 @@ def test_pack_kernel_matches_plain(cuda, B, mc):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("N,R", [(0, 4), (10_000, 40), (123_457, 1000)])
-def test_dedup_kernel_matches_plain(cuda, N, R):
-    """Files with no entries keep count 0; ranks scan every entry."""
-    rng = np.random.default_rng(N + R)
+def _dedup_case(rng, case):
+    """Sorted entries of a dedup edge case and its num_files (keys at or
+    past it are never first occurrences)."""
+    if case == "empty":
+        return bo.sort_entries(*_entries(rng, 0, 4), key_bits=3) + (4,)
+    if case == "one":
+        return bo.sort_entries(*_entries(rng, 1, 1), key_bits=1) + (1,)
+    if case == "tile_edge":
+        # runs of equal entries across every 4096-entry tile edge and
+        # 512-entry warp edge
+        key, val = _entries(rng, 3 * 4096 + 17, 3)
+        sk, sv = bo.sort_entries(key, val, key_bits=2)
+        for edge in range(512, sk.numel(), 512):
+            sk[edge - 3:edge + 3] = sk[edge - 3]
+            sv[edge - 3:edge + 3] = sv[edge - 3]
+        return sk, sv, 3
+    if case == "long_file":
+        # one file over ~70 tiles, then a tile of 200 files of one entry
+        key = np.concatenate([np.zeros(290_001, np.int32),
+                              np.arange(1, 201, dtype=np.int32)])
+        val = rng.integers(0, 1 << 20, size=key.size).astype(np.int64)
+        return bo.sort_entries(torch.from_numpy(key), torch.from_numpy(val),
+                               key_bits=8) + (201,)
+    if case == "keys_past_R":
+        key, val = _entries(rng, 100_003, 40)
+        return bo.sort_entries(key, val, key_bits=6) + (25,)
+    N, R = case
     key, val = _entries(rng, N, R // 2)  # half the files have nothing
-    kb = R.bit_length()
-    sk, sv = bo.sort_entries(key, val, key_bits=kb)
+    return bo.sort_entries(key, val, key_bits=R.bit_length()) + (R,)
+
+
+@pytest.mark.parametrize("case", [
+    (10_000, 40), (123_457, 1000), "empty", "one", "tile_edge", "long_file",
+    "keys_past_R"])
+def test_dedup_kernel_matches_plain(cuda, case):
+    """Both modes against the plain version: the rank mode's flags, ranks
+    and counts in one launch, and the counts mode (the build's pass 1),
+    which returns no [N] array. Files with no entries keep count 0."""
+    rng = np.random.default_rng(7)
+    sk, sv, R = _dedup_case(rng, case)
     want_c = torch.zeros(R, dtype=torch.int32)
     want = bo.dedup(sk, sv, num_files=R, counts=want_c)
     dk, dv = _to(cuda, sk, sv)
-    got_c = torch.zeros(R, dtype=torch.int32, device=cuda)
+    got_c = torch.full((R,), 5, dtype=torch.int32, device=cuda)
+    before = dict(kernels.LAUNCHES)
     got = bo.dedup(dk, dv, num_files=R, counts=got_c)
-    no_rank = bo.dedup(dk, dv, num_files=R, want_rank=False)
+    cnt_c = torch.full((R,), 5, dtype=torch.int32, device=cuda)
+    no_rank = bo.dedup(dk, dv, num_files=R, counts=cnt_c, want_rank=False)
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
-    assert torch.equal(got_c.cpu(), want_c)
-    assert no_rank[1] is None and torch.equal(no_rank[0].cpu(), want[0])
-    assert (want_c[R // 2:] == 0).all()
+    assert torch.equal(got_c.cpu() - 5, want_c)
+    assert no_rank == (None, None)
+    assert torch.equal(cnt_c.cpu() - 5, want_c)
+    launched = sk.numel() > 0
+    assert kernels.LAUNCHES["dedup_rank"] == before["dedup_rank"] + launched
+    assert kernels.LAUNCHES["dedup"] == before["dedup"] + launched
+    if isinstance(case, tuple):
+        assert (want_c[R // 2:] == 0).all()
+    if case == "keys_past_R":
+        assert not want[0][sk >= R].any() and want[0].any()
 
 
-@pytest.mark.parametrize("hf,mhb", [(1, 50), (5, 400), (3, 100_000)])
-def test_scatter_ranked_kernel_matches_plain(cuda, hf, mhb):
-    """Targets of two files each, split over bins of mhb hashes."""
-    rng = np.random.default_rng(hf)
-    R, N, bin_size = 64, 60_000, 20_011
-    key, val = _entries(rng, N, R)
-    sk, sv = bo.sort_entries(key, val, key_bits=6)
-    counts = torch.zeros(R, dtype=torch.int32)
-    uniq, rank = bo.dedup(sk, sv, num_files=R, counts=counts)
+def _ranked_params(counts, mhb):
+    """params of targets of two files each, split over bins of mhb hashes."""
     c = counts.numpy()
+    R = c.size
     params = np.zeros((4, R), dtype=np.int32)
     binno = 0
     for f in range(0, R, 2):
@@ -845,17 +894,312 @@ def test_scatter_ranked_kernel_matches_plain(cuda, hf, mhb):
         params[:3, f], params[:3, f + 1] = (binno, nhb, 0), (binno, nhb, c[f])
         binno += nb
     params[3] = np.concatenate([[0], np.cumsum(c)[:-1]])
+    return torch.from_numpy(params), binno
+
+
+@pytest.mark.parametrize("hf,mhb", [(1, 50), (2, 1), (3, 100_000), (4, 7),
+                                    (5, 400)])
+def test_scatter_ranked_kernel_matches_plain(cuda, hf, mhb):
+    """The fused pass 2 (flags, ranks, bins and bits in one call) against
+    dedup_plain then scatter_ranked_plain: targets of two files each,
+    split over bins of mhb hashes, into a matrix that already holds bits
+    (an overwrite would show); tiles over every word column and over the
+    bins' columns only (ranked_word_cols)."""
+    rng = np.random.default_rng(hf)
+    R, N, bin_size = 64, 60_001, 20_011
+    key, val = _entries(rng, N, R)
+    sk, sv = bo.sort_entries(key, val, key_bits=6)
+    counts = torch.zeros(R, dtype=torch.int32)
+    uniq, rank = bo.dedup(sk, sv, num_files=R, counts=counts)
+    params, binno = _ranked_params(counts, mhb)
+    n_words = -(-binno // 32)
+    old = torch.from_numpy(rng.integers(-2**31, 2**31, size=(
+        bin_size, n_words)).astype(np.int32)
+        & (rng.random((bin_size, n_words)) < 0.05))
+    want = old.clone()
+    bo.scatter_ranked_plain(want, sk, sv, uniq, rank, params,
+                            bin_size=bin_size, hash_functions=hf)
+    fused = old.clone()
+    bo.scatter_ranked(fused, sk, sv, None, None, params, bin_size=bin_size,
+                      hash_functions=hf)
+    before = dict(kernels.LAUNCHES)
+    for cols in (None, bo.ranked_word_cols(params.numpy(), counts.numpy())):
+        got = old.to(cuda)
+        bo.scatter_ranked(got, *_to(cuda, sk, sv), None, None,
+                          params.to(cuda), bin_size=bin_size,
+                          hash_functions=hf, word_cols=cols)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), cols
+    assert binno > R // 2 or mhb > N  # some target over several bins
+    assert torch.equal(fused, want)
+    assert kernels.LAUNCHES["scatter_ranked"] == before["scatter_ranked"] + 2
+    with pytest.raises(ValueError, match="itself"):
+        bo.scatter_ranked(got, *_to(cuda, sk, sv, uniq, rank, params),
+                          bin_size=bin_size, hash_functions=hf)
+
+
+@pytest.mark.parametrize("hf,tiles", [(1, False), (3, False), (2, True)])
+def test_scatter_past_the_item_budget_matches_plain(cuda, hf, tiles,
+                                                    monkeypatch):
+    """Calls cut at a small item budget: the ranked scatter carries the
+    rank from call to call (and the flag compare across the cut), the
+    span mode and the flat scatter cut their inputs too; N not a
+    multiple of the tile. With small tiles (64 words, 16 a call) the rows
+    are cut into windows too, and a band wider than a tile spans
+    several column blocks."""
+    monkeypatch.setattr(bo, "ITEM_BUDGET", 3 * 4096)
+    if tiles:
+        monkeypatch.setattr(bo, "TILE_WORDS", 64)
+        monkeypatch.setattr(bo, "MAX_TILES", 16)
+    rng = np.random.default_rng(40 + hf)
+    R, N, bin_size = 16, 50_003, 9001
+    key, val = _entries(rng, N, R, bits=20)
+    sk, sv = bo.sort_entries(key, val, key_bits=4)
+    counts = torch.zeros(R, dtype=torch.int32)
+    bo.dedup(sk, sv, num_files=R, counts=counts)
+    params, binno = _ranked_params(counts, 900)
     n_words = -(-binno // 32)
     want = torch.zeros((bin_size, n_words), dtype=torch.int32)
-    bo.scatter_ranked(want, sk, sv, uniq, rank, torch.from_numpy(params),
-                      bin_size=bin_size, hash_functions=hf)
+    bo.scatter_ranked_plain(want, sk, sv, None, None, params,
+                            bin_size=bin_size, hash_functions=hf)
+    d_args = (*_to(cuda, sk, sv), None, None, params.to(cuda))
+    before = dict(kernels.LAUNCHES)
     got = torch.zeros_like(want, device=cuda)
-    bo.scatter_ranked(got, *_to(cuda, sk, sv, uniq, rank,
-                                torch.from_numpy(params)),
-                      bin_size=bin_size, hash_functions=hf)
+    bo.scatter_ranked(got, *d_args, bin_size=bin_size, hash_functions=hf)
+    calls = -(-N // bo.scatter_chunk(hf)) * len(
+        bo.scatter_windows(bin_size, n_words)[4])
+    assert calls > 2
+    assert kernels.LAUNCHES["scatter_ranked"] == before["scatter_ranked"] + calls
+    span = torch.zeros((3000, n_words), dtype=torch.int32, device=cuda)
+    bo.scatter_ranked(span, *d_args, bin_size=bin_size, hash_functions=hf,
+                      w0=4000 * n_words)
     torch.cuda.synchronize()
-    assert binno > R // 2 or mhb > N  # some target over several bins
     assert torch.equal(got.cpu(), want)
+    assert torch.equal(span.cpu(), want[4000:7000])
+    h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=N))
+    bins = torch.from_numpy(rng.integers(40, 32 * 70, size=N).astype(
+        np.int32))
+    a = torch.zeros((bin_size, 72), dtype=torch.int32)
+    _scatter_bits(a, h, bins, bin_size=bin_size, hash_functions=hf)
+    for cols in (None, (1, 70)):
+        b = torch.zeros((bin_size, 72), dtype=torch.int32, device=cuda)
+        scatter_hashes(b, h.to(cuda), bins.to(cuda), bin_size=bin_size,
+                       hash_functions=hf, word_cols=cols)
+        torch.cuda.synchronize()
+        assert torch.equal(b.cpu(), a), cols
+
+
+@pytest.mark.parametrize("mode", ["flat", "ranked", "span"])
+def test_scatter_bits_do_not_depend_on_word_cols(cuda, mode, monkeypatch):
+    """word_cols bounds the card's tiles and is only a hint: a bit whose
+    column lies outside the band is set with an atomicOr, so every band
+    gives the plain version's bits (into a matrix that already holds
+    bits): the bins' own band, bands that leave bins out on either side,
+    one that holds none, and all columns; also with small tiles, whose
+    rows are cut into windows."""
+    rng = np.random.default_rng(46)
+    R, N, bin_size, hf = 16, 30_001, 4001, 3
+    sk, sv = bo.sort_entries(*_entries(rng, N, R, bits=20), key_bits=4)
+    counts = torch.zeros(R, dtype=torch.int32)
+    uniq, rank = bo.dedup(sk, sv, num_files=R, counts=counts)
+    params, binno = _ranked_params(counts, 300)
+    n_words = -(-binno // 32) + 2
+    c0, c1 = bo.ranked_word_cols(params.numpy(), counts.numpy())
+    assert c1 - c0 >= 2
+    u, bins = bo._ranked_bins(sk, uniq, rank, params)
+    rows = 2000 if mode == "span" else bin_size
+    old = torch.from_numpy(rng.integers(-2**31, 2**31, size=(
+        rows, n_words)).astype(np.int32) & (rng.random((rows, n_words))
+                                            < 0.05))
+
+    def run(bits, cols):
+        if mode == "flat":
+            scatter_hashes(bits, *_to(bits.device, sv[u].contiguous(),
+                                      bins.to(torch.int32)),
+                           bin_size=bin_size, hash_functions=hf,
+                           word_cols=cols)
+        else:
+            bo.scatter_ranked(bits, *_to(bits.device, sk, sv), None, None,
+                              params.to(bits.device), bin_size=bin_size,
+                              hash_functions=hf, word_cols=cols,
+                              w0=1000 * n_words if mode == "span" else None)
+        return bits
+
+    want = run(old.clone(), None)
+    assert not torch.equal(want, old)
+    for small in (False, True):
+        if small:
+            monkeypatch.setattr(bo, "TILE_WORDS", 64)
+            monkeypatch.setattr(bo, "MAX_TILES", 16)
+        for cols in ((c0, c1), (c0 + 1, c1), (c0, c1 - 1), (c1, n_words),
+                     None):
+            got = run(old.to(cuda), cols)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (small, cols)
+
+
+class _EndOfMapping:
+    """Card memory whose end is followed by reserved, unmapped addresses
+    (CUDA's virtual memory management: cuMemAddressReserve, cuMemCreate,
+    cuMemMap): a kernel that reads one byte past a tensor placed at the
+    end faults instead of reading a neighbour."""
+
+    def __init__(self, n_maps):
+        class Loc(ctypes.Structure):
+            _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+        class Flags(ctypes.Structure):
+            _fields_ = [("compressionType", ctypes.c_ubyte),
+                        ("gpuDirectRDMACapable", ctypes.c_ubyte),
+                        ("usage", ctypes.c_ushort),
+                        ("reserved", ctypes.c_ubyte * 4)]
+
+        class Prop(ctypes.Structure):
+            _fields_ = [("type", ctypes.c_int),
+                        ("requestedHandleTypes", ctypes.c_int),
+                        ("location", Loc), ("win32HandleMetaData",
+                                            ctypes.c_void_p),
+                        ("allocFlags", Flags)]
+
+        class Access(ctypes.Structure):
+            _fields_ = [("location", Loc), ("flags", ctypes.c_int)]
+
+        torch.zeros(1, device="cuda")  # the primary context, current
+        self.cu = cu = ctypes.CDLL("libcuda.so.1")
+        u64 = ctypes.c_uint64
+
+        def ok(r, what):
+            if r:
+                raise RuntimeError(f"{what}: CUresult {r}")
+
+        dev_id = torch.cuda.current_device()
+        prop = Prop(type=1, location=Loc(type=1, id=dev_id))  # pinned, device
+        g = ctypes.c_size_t()
+        ok(cu.cuMemGetAllocationGranularity(ctypes.byref(g),
+                                            ctypes.byref(prop), 0),
+           "cuMemGetAllocationGranularity")
+        self.G = G = g.value
+        self.maps = []
+        for _ in range(n_maps):
+            base, handle = u64(), u64()
+            # two granules reserved, the first mapped
+            ok(cu.cuMemAddressReserve(ctypes.byref(base), ctypes.c_size_t(
+                2 * G), ctypes.c_size_t(G), u64(0), u64(0)),
+               "cuMemAddressReserve")
+            ok(cu.cuMemCreate(ctypes.byref(handle), ctypes.c_size_t(G),
+                              ctypes.byref(prop), u64(0)), "cuMemCreate")
+            ok(cu.cuMemMap(base, ctypes.c_size_t(G), ctypes.c_size_t(0),
+                           handle, u64(0)), "cuMemMap")
+            acc = Access(location=Loc(type=1, id=dev_id), flags=3)
+            ok(cu.cuMemSetAccess(base, ctypes.c_size_t(G), ctypes.byref(acc),
+                                 ctypes.c_size_t(1)), "cuMemSetAccess")
+            self.maps.append((base, handle))
+
+    def at_end(self, i, src):
+        """A card tensor equal to the 1-D ``src`` whose last byte is the
+        last mapped byte of mapping ``i``."""
+        typestr = {torch.int32: "<i4", torch.int64: "<i8"}[src.dtype]
+        nbytes = src.numel() * src.element_size()
+        assert nbytes <= self.G
+
+        class Cai:
+            __cuda_array_interface__ = {
+                "shape": (src.numel(),), "typestr": typestr,
+                "data": (self.maps[i][0].value + self.G - nbytes, False),
+                "strides": None, "version": 3}
+
+        t = torch.as_tensor(Cai(), device="cuda")
+        t.copy_(src)
+        return t
+
+    def free(self):
+        torch.cuda.synchronize()
+        for base, handle in self.maps:
+            self.cu.cuMemUnmap(base, ctypes.c_size_t(self.G))
+            self.cu.cuMemRelease(handle)
+            self.cu.cuMemAddressFree(base, ctypes.c_size_t(2 * self.G))
+
+
+def end_of_mapping_checks():
+    """dedup's two modes and the scatter's flat, ranked (whole, and cut
+    at a small item budget) and span modes on entries that end where the
+    card's mapped memory ends, each against its plain version. The last
+    tile holds one whole warp run and four entries, so six warps' runs
+    start past the end."""
+    N, R, bin_size, hf = 3 * 4096 + 516, 6, 3001, 2
+    rng = np.random.default_rng(47)
+    sk, sv = bo.sort_entries(*_entries(rng, N, R, bits=16), key_bits=3)
+    # keys of file R - 1 lie past num_files
+    want_c = torch.zeros(R - 1, dtype=torch.int32)
+    want = bo.dedup(sk, sv, num_files=R - 1, counts=want_c)
+    mem = _EndOfMapping(2)
+    dk, dv = mem.at_end(0, sk), mem.at_end(1, sv)
+    assert dk.data_ptr() % 16 == 0 and dv.data_ptr() % 16 == 0
+    got_c = torch.zeros(R - 1, dtype=torch.int32, device="cuda")
+    got = bo.dedup(dk, dv, num_files=R - 1, counts=got_c)
+    cnt = torch.zeros_like(got_c)
+    bo.dedup(dk, dv, num_files=R - 1, counts=cnt, want_rank=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert torch.equal(got_c.cpu(), want_c)
+    assert torch.equal(cnt.cpu(), want_c)
+    counts = torch.zeros(R, dtype=torch.int32)
+    bo.dedup(sk, sv, num_files=R, counts=counts)
+    params, binno = _ranked_params(counts, 500)
+    n_words = -(-binno // 32)
+    plain = torch.zeros((bin_size, n_words), dtype=torch.int32)
+    bo.scatter_ranked_plain(plain, sk, sv, None, None, params,
+                            bin_size=bin_size, hash_functions=hf)
+    for budget in (bo.ITEM_BUDGET, 3 * 4096):
+        keep, bo.ITEM_BUDGET = bo.ITEM_BUDGET, budget
+        try:
+            bits = torch.zeros((bin_size, n_words), dtype=torch.int32,
+                               device="cuda")
+            bo.scatter_ranked(bits, dk, dv, None, None, params.cuda(),
+                              bin_size=bin_size, hash_functions=hf)
+            span = torch.zeros((1000, n_words), dtype=torch.int32,
+                               device="cuda")
+            bo.scatter_ranked(span, dk, dv, None, None, params.cuda(),
+                              bin_size=bin_size, hash_functions=hf,
+                              w0=1500 * n_words)
+            torch.cuda.synchronize()
+        finally:
+            bo.ITEM_BUDGET = keep
+        assert torch.equal(bits.cpu(), plain), budget
+        assert torch.equal(span.cpu(), plain[1500:2500]), budget
+    pb = torch.from_numpy(rng.integers(0, 32 * n_words, size=N).astype(
+        np.int32))
+    flat = torch.zeros((bin_size, n_words), dtype=torch.int32)
+    _scatter_bits(flat, sv, pb, bin_size=bin_size, hash_functions=hf)
+    del dk, dv
+    mem2 = _EndOfMapping(2)
+    hb, hh = mem2.at_end(0, pb), mem2.at_end(1, sv)
+    bits = torch.zeros((bin_size, n_words), dtype=torch.int32, device="cuda")
+    scatter_hashes(bits, hh, hb, bin_size=bin_size, hash_functions=hf)
+    torch.cuda.synchronize()
+    assert torch.equal(bits.cpu(), flat)
+    del hb, hh
+    mem.free()
+    mem2.free()
+    print("end-of-mapping checks passed")
+
+
+def test_entries_at_the_end_of_mapped_memory(cuda):
+    """No kernel of the build's write path reads past its entries: they
+    end where mapped card memory ends (a read past them faults), in a
+    child process so a fault cannot spoil this one's context."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import runpy, sys; sys.path.insert(0, {r!r}); runpy.run_path("
+            "{f!r})['end_of_mapping_checks']()").format(
+                r=root, f=os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "end-of-mapping checks passed" in out.stdout
 
 
 @pytest.mark.parametrize("cache", [None, 0])
@@ -1030,9 +1374,9 @@ def test_fine_shard_matches_plain(cuda, pads_only):
 
 
 def test_scatter_span_matches_plain(cuda):
-    """Spans of a ranked scatter: their union is the whole matrix, and a
-    span every entry misses stays zero (entries before it dropped, not
-    wrapped)."""
+    """Spans of the fused ranked scatter: their union is the whole
+    matrix, and a span every entry misses stays zero (entries before it
+    dropped, not wrapped)."""
     rng = np.random.default_rng(21)
     R, N, bin_size, hf = 8, 20_000, 4001, 3
     key, val = _entries(rng, N, R)
@@ -1049,7 +1393,7 @@ def test_scatter_span_matches_plain(cuda):
     full = torch.zeros((bin_size, n_words), dtype=torch.int32)
     bo.scatter_ranked(full, sk, sv, uniq, rank, params, bin_size=bin_size,
                       hash_functions=hf)
-    d_args = _to(cuda, sk, sv, uniq, rank, params)
+    d_args = (*_to(cuda, sk, sv), None, None, params.to(cuda))
     rows = 1000
     got = []
     for r0 in range(0, bin_size, rows):
@@ -1291,11 +1635,22 @@ def test_pairs_kernel_many_tiles(cuda, S):
 
 
 def test_scans_share_status_words(cuda):
-    """ragged, pairs and extract take their status words from one buffer
-    a stream: two pairs calls in a row after a ragged call and an extract
-    call of more blocks, then pairs on a second stream (a buffer of its
-    own), each equal to its plain version; one launch a pairs call."""
+    """ragged, pairs, extract and dedup's rank mode (alone and inside the
+    ranked scatter) take their status words from one buffer a stream:
+    two pairs calls in a row after a ragged call and an extract call of
+    more blocks, dedup's ranks and a ranked scatter between them, then
+    pairs, ragged and dedup on a second stream (a buffer of its own), each
+    equal to its plain version; one launch a pairs call."""
     rng = np.random.default_rng(36)
+    sk, sv = bo.sort_entries(*_entries(rng, 30_001, 10), key_bits=4)
+    want_d = bo.dedup_plain(sk, sv, num_files=10)
+    dk, dv = _to(cuda, sk, sv)
+    sparams, sbins = _ranked_params(
+        torch.bincount(sk[want_d[0].bool()].to(torch.int64),
+                       minlength=10).to(torch.int32), 300)
+    want_s = torch.zeros((1009, -(-sbins // 32)), dtype=torch.int32)
+    bo.scatter_ranked_plain(want_s, sk, sv, *want_d, sparams, bin_size=1009,
+                            hash_functions=2)
     B, K = 3000, 8
     dense = _dense_buffer(rng, B, K, False, 0, 11).to(cuda)
     ok = torch.from_numpy((rng.random((9000, 2)) < 0.6).astype(
@@ -1313,6 +1668,12 @@ def test_scans_share_status_words(cuda):
     for _ in range(2):
         got = pq.pair_live(ok, ovf, cap)
         assert all(torch.equal(a, b) for a, b in zip(got, want_p))
+        got_d = bo.dedup(dk, dv, num_files=10)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got_d, want_d))
+        got_s = torch.zeros_like(want_s, device=cuda)
+        bo.scatter_ranked(got_s, dk, dv, None, None, sparams.to(cuda),
+                          bin_size=1009, hash_functions=2)
+        assert torch.equal(got_s.cpu(), want_s)
     assert kernels.LAUNCHES["pairs"] == before + 2
     assert all(torch.equal(a, b) for a, b in zip(got_x, want_x))
     side = torch.cuda.Stream()
@@ -1320,9 +1681,11 @@ def test_scans_share_status_words(cuda):
     with torch.cuda.stream(side):
         got = pq.pair_live(ok, ovf, cap)
         got_r = dev.ragged(dense, B, K, 100)
+        got_d = bo.dedup(dk, dv, num_files=10)
     side.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want_p))
     assert torch.equal(got_r, want_r)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got_d, want_d))
     keys = {key for key in kernels._SCAN_STATUS if key[0] == "cuda"}
     assert len(keys) >= 2
 
