@@ -189,10 +189,12 @@ build's mode, without the zero tail, ``zero_tail_ms`` and
 ``zero_tail_bound_ms`` beside), its launches on the main paths, and the
 time of one PyTorch call computing the same function where there is one;
 ``sort``, ``ragged``, ``ragged_winners``, ``pairs``, ``dedup`` (both
-modes), ``scatter`` and its ranked and span modes are also timed over a
-run of back-to-back calls, ``device_ms`` and
-``library_device_ms``, and by the card's activity under torch.profiler,
-``profiled_ms`` and ``library_profiled_ms``, and the ``sort`` row names the digit passes it
+modes), ``scatter`` and its ranked and span modes, ``count``, ``gate``,
+``fine``, ``fine_all`` and ``fine_shard`` are also timed over a run of
+back-to-back calls, ``device_ms`` and ``library_device_ms``, and by the
+card's activity under torch.profiler, ``profiled_ms`` and
+``library_profiled_ms`` (null where no profiled window held any device
+activity), and the ``sort`` row names the digit passes it
 planned at the pass-1 group from the card's histograms, the ``sort_hist``
 row),
 and last the device line. Every classify CLI run of phases 4,
@@ -255,21 +257,27 @@ def _ms_run(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def _profiled_ms(fn, n: int) -> float:
+def _profiled_ms(fn, n: int) -> float | None:
     """Device milliseconds a call of ``fn``: the union of the card's
     activity (kernels, memsets, copies) under torch.profiler over ``n``
     calls (warmed), over ``n``; the card's own time, whatever the host
-    adds around it."""
+    adds around it. A window whose trace holds no device activity (the
+    profiler drops one now and then) is profiled again, up to three
+    windows; None if none holds any."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return _device_busy(prof)[0] / n / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        busy = _device_busy(prof)[0]
+        if busy:
+            return busy / n / 1e3
+    return None
 
 
 def _max_abs_err(a, b) -> int:
@@ -1312,6 +1320,7 @@ def main() -> int:
             bin_size=bin_size, hash_functions=h),), 20, 3,
         _count_work(f.tbl8, hashes, n_hashes, bin_size, h,
                     args.bench_pairs * f.num_targets * 4),
+        runs=20,
     )
     # sort_probes (a branch of K5): each read's hashes ordered by their
     # first row before count; the library yardstick sorts the same keys
@@ -2832,6 +2841,7 @@ def main() -> int:
         lambda: pq.gate_plain(fp.ctbl, ph, pn, **gate_kw)[:3], 20, 5,
         _count_work(fp.ctbl, ph, pn, fp.coarse_bin_size, fp.coarse_h,
                     args.bench_pairs * (5 * S + 1)),
+        runs=20,
     )
     # the pair cap the engine takes at this batch (pair_frac 1.0, a
     # multiple of 256); the yardstick is the scan alone
@@ -2858,6 +2868,7 @@ def main() -> int:
                                       **fkw),), 20, 5,
         (frows * Wf + _nbytes(ph, pn, gsel, slot_ok)
          + args.bench_pairs * S * gs * 4, fvalid * fp.fine_h * Wf),
+        runs=20,
     )
     # probe-all: counts_gated's survive mask (no hashes limit, no slots)
     surv = pq.gate(fp.ctbl, ph, pn, **{**gate_kw, "max_groups": 0,
@@ -2874,6 +2885,7 @@ def main() -> int:
         lambda: (pq.fine_counts_plain(*fargs, **akw),), 10, 2,
         (arows * Wf + _nbytes(ph, pn, surv)
          + args.bench_pairs * fp.num_targets * 4, avalid * fp.fine_h * Wf),
+        runs=10,
     )
     PK = min(4, S * gs)
     lc = lane_counts.reshape(args.bench_pairs, -1)
@@ -3139,7 +3151,7 @@ def main() -> int:
         # the shard's columns out
         (srows * Wf + _nbytes(ph, pn, ssurv, soff, sbsz, sshift, sgid)
          + args.bench_pairs * int(mine.numel()) * fp.group_size * 4,
-         svalid * fp.fine_h * Wf))
+         svalid * fp.fine_h * Wf), runs=10)
     emit("mesh_pruned", {
         "mesh": mesh4.shape, "devices": "4 views of cuda:0",
         "groups": fp.num_groups, "groups_per_shard": int(sgid.numel()),

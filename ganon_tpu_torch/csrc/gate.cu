@@ -17,152 +17,142 @@
 // path); S may be 0 there.
 //
 // What bounds it on the H100: the coarse table is small (ceil(G/8) bytes
-// per row, 16 bytes at G = 128) and stays in L2, so per read it is h
-// gathers per hash of a few words and the shared-memory counter adds.
+// per row, 16 bytes at G = 128) and mostly L2-resident, and a read needs
+// ~40 hashes x coarse_h rows of it: a few KB a read, so the bytes bound
+// is microseconds for a batch. A launch costs latency (a hash load, then
+// a row load) and the instructions that turn the rows' bits into counts.
 //
-// Design: one block per read. The block hashes its minimizers into
-// shared memory, then (hash, word) pairs spread over the threads: each
-// ANDs its h coarse words and adds every set bit to its group's counter
-// with a shared atomicAdd. Counters are int32 (exact at any n) in tiles
-// of kGroupTile groups (32 KB), so any G fits shared memory: a tile is
-// counted, its survivors written and counted, and its best S keys merged
-// into a running top-S list. A key is (count << 32) | (~g): unique, and
-// ordered exactly as the argmax passes order their picks. The coarse
-// table is bit-packed per group (no per-target byte padding); padding
-// bits past G are never set and are skipped.
+// Design: one warp a read, kWarps reads a block, no shared memory and no
+// block barrier (warp_bits.cuh). In each round of 32 hashes lane i takes
+// hash m0 + i, computes its coarse_h rows and loads each row's words of
+// the current group tile (one 16-byte load at G = 128), ANDed over
+// coarse_h. The warp then counts every group bit of the round at once by
+// a bit transpose of shuffles: group g0 + 32 r
+// + k is cnt[r] of lane k, NW registers a lane for a tile of 32 NW groups
+// (NW <= 32, so up to 1024 groups; a larger G walks tiles and hashes the
+// rows again). After a tile its survivors are written coalesced, and its
+// best keys enter a running top-S list held by lanes 0..S-1: rounds of a
+// warp max (__shfl_xor_sync) over the key (count << 32) | ~g, unique and
+// ordered as the argmax passes order their picks, each inserted in place
+// by a ballot of the keys above it, until a key falls below the list.
+// The coarse table is bit-packed per group; padding bits past G are never
+// counted.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "ibf_hash.cuh"
+#include "warp_bits.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kGroupTile = 8192;  // int32 counters per tile: 32 KB
-constexpr int kHashChunk = 128;   // hashes whose rows sit in shared memory
-constexpr int kMaxH = 5;
-constexpr int kMaxS = 32;
+constexpr int kWarps = 8;  // reads a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxS = 32;  // one slot a lane
+constexpr int kMaxWords = 32;  // group words a tile: 1024 groups
 
-__device__ unsigned long long block_max_u64(unsigned long long v,
-                                            unsigned long long* scratch) {
+__device__ __forceinline__ unsigned long long warp_max_u64(
+    unsigned long long v) {
+#pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-        const unsigned long long u = __shfl_xor_sync(0xFFFFFFFFu, v, o);
+        const unsigned long long u = __shfl_xor_sync(kFullMask, v, o);
         v = u > v ? u : v;
     }
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();  // scratch is free
-    if (lane == 0) scratch[warp] = v;
-    __syncthreads();
-    v = scratch[0];
-    for (int i = 1; i < kWarps; ++i) v = scratch[i] > v ? scratch[i] : v;
     return v;
 }
 
-__device__ int block_sum(int v, unsigned long long* scratch) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();
-    if (lane == 0) scratch[warp] = (unsigned long long)v;
-    __syncthreads();
-    int s = 0;
-    for (int i = 0; i < kWarps; ++i) s += (int)scratch[i];
-    return s;
+// the top-S key of group g with count c: 0 for a group out of the running
+__device__ __forceinline__ unsigned long long top_key(int c, int g) {
+    return c < 0 ? 0ULL
+                 : ((unsigned long long)c << 32) | (0xFFFFFFFFu - (unsigned)g);
 }
 
+template <int NW>
 __global__ void __launch_bounds__(kThreads)
-gate_kernel(const unsigned* __restrict__ ctbl, long long W32,
-            const long long* __restrict__ hashes, int M,
+gate_kernel(const unsigned* __restrict__ ctbl, long long W32, bool vec,
+            const long long* __restrict__ hashes, long long B, int M,
             const int* __restrict__ n_hashes, unsigned long long bin_size,
             int h, int shift, int G, double rel_cutoff, long long hashes_limit,
             int S, const unsigned char* __restrict__ overflow_in,
             int* __restrict__ gsel, unsigned char* __restrict__ slot_ok,
             unsigned char* __restrict__ overflow_out,
             unsigned char* __restrict__ surv) {
-    __shared__ int cnt[kGroupTile];
-    __shared__ unsigned long long rows[kHashChunk * kMaxH];
-    __shared__ unsigned long long scratch[kWarps];
-    __shared__ unsigned long long top[kMaxS];
-
-    const long long b = blockIdx.x;
+    constexpr int kTile = 32 * NW;  // groups a tile
+    const int lane = threadIdx.x & 31;
+    const long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (b >= B) return;  // the whole warp
     const int n = n_hashes[b];
     const bool valid = n > 0 && (long long)n <= hashes_limit;
     const int nvalid = valid ? min(n, M) : 0;  // invalid reads count nothing
     const int cutoff = (int)fmax(ceil((double)n * rel_cutoff), 1.0);
     const long long* hrow = hashes + b * M;
-    if (threadIdx.x < S) top[threadIdx.x] = 0;  // 0: an empty slot
 
-    int n_surv = 0;  // this thread's survivors
-    for (int g0 = 0; g0 < G; g0 += kGroupTile) {
-        const int tg = min(kGroupTile, G - g0);
-        const int tw = (tg + 31) >> 5;        // words of the tile
-        const long long w0 = g0 >> 5;         // kGroupTile is a multiple of 32
-        for (int j = threadIdx.x; j < tg; j += blockDim.x) cnt[j] = 0;
-        for (int m0 = 0; m0 < nvalid; m0 += kHashChunk) {
-            const int mn = min(kHashChunk, nvalid - m0);
-            __syncthreads();  // counters cleared; the last chunk's rows read
-            for (int q = threadIdx.x; q < mn * h; q += blockDim.x) {
-                const int m = q / h, s = q - m * h;
-                rows[q] = ganon_ibf_row((unsigned long long)hrow[m0 + m], s,
-                                        bin_size, shift);
-            }
-            __syncthreads();
-            for (int q = threadIdx.x; q < mn * tw; q += blockDim.x) {
-                const int m = q / tw, j = q - m * tw;
-                const unsigned long long* r = rows + m * h;
-                unsigned v = ctbl[(long long)r[0] * W32 + w0 + j];
-                for (int s = 1; s < h; ++s)
-                    v &= ctbl[(long long)r[s] * W32 + w0 + j];
-                while (v) {
-                    const int g = (j << 5) + __ffs(v) - 1;
-                    v &= v - 1;
-                    if (g < tg) atomicAdd(cnt + g, 1);
-                }
-            }
+    unsigned long long top = 0;      // lane s < S: the s-th best key, 0 empty
+    unsigned long long top_min = 0;  // lane S - 1's key
+    int n_surv = 0;                  // the same in every lane
+    for (int g0 = 0; g0 < G; g0 += kTile) {
+        const long long w0 = g0 >> 5;
+        int cnt[NW];
+#pragma unroll
+        for (int r = 0; r < NW; ++r) cnt[r] = 0;
+        count_rows<NW>(ctbl, W32, vec, w0, hrow, nvalid, bin_size, shift, 0,
+                       h, G - g0, lane, cnt);
+        // survivors; every other group leaves the running (count -1)
+#pragma unroll
+        for (int r = 0; r < NW; ++r) {
+            const int g = g0 + 32 * r + lane;
+            const bool sv = valid && g < G && cnt[r] >= cutoff;
+            n_surv += __popc(__ballot_sync(kFullMask, sv));
+            if (surv && g < G) surv[b * G + g] = sv;
+            if (!sv) cnt[r] = -1;
         }
-        __syncthreads();  // the tile's counts are complete
-        for (int j = threadIdx.x; j < tg; j += blockDim.x) {
-            const bool sv = valid && cnt[j] >= cutoff;
-            n_surv += sv;
-            if (surv) surv[b * G + g0 + j] = sv;
-        }
-        // the tile's best S keys, merged into the running top (thread 0)
-        unsigned long long prev = ~0ULL;
+        // the tile's keys in descending order, while they beat the list
         for (int s = 0; s < S; ++s) {
             unsigned long long best = 0;
-            for (int j = threadIdx.x; j < tg; j += blockDim.x) {
-                if (valid && cnt[j] >= cutoff) {
-                    const unsigned long long key =
-                        ((unsigned long long)cnt[j] << 32) |
-                        (0xFFFFFFFFu - (unsigned)(g0 + j));
-                    if (key < prev && key > best) best = key;
-                }
+#pragma unroll
+            for (int r = 0; r < NW; ++r) {
+                const unsigned long long key =
+                    top_key(cnt[r], g0 + 32 * r + lane);
+                best = key > best ? key : best;
             }
-            best = block_max_u64(best, scratch);
-            if (best == 0) break;  // uniform: every thread read the same
-            prev = best;
-            if (threadIdx.x == 0 && best > top[S - 1]) {
-                int i = S - 1;
-                while (i > 0 && top[i - 1] < best) {
-                    top[i] = top[i - 1];
-                    --i;
-                }
-                top[i] = best;
-            }
+            best = warp_max_u64(best);
+            if (best <= top_min) break;  // uniform; 0 when none is left
+#pragma unroll
+            for (int r = 0; r < NW; ++r)
+                if (top_key(cnt[r], g0 + 32 * r + lane) == best) cnt[r] = -1;
+            // insert: lanes past its place shift down one, the last drops
+            const int pos = __popc(__ballot_sync(kFullMask,
+                                                 lane < S && top > best));
+            const unsigned long long up = __shfl_up_sync(kFullMask, top, 1);
+            if (lane > pos) top = up;
+            if (lane == pos) top = best;
+            top_min = __shfl_sync(kFullMask, top, S - 1);
         }
-        __syncthreads();  // before the next tile clears the counters
     }
-    n_surv = block_sum(n_surv, scratch);  // syncs: top[] is final
-    if (threadIdx.x < S) {
-        const unsigned long long key = top[threadIdx.x];
-        gsel[b * S + threadIdx.x] =
-            key ? (int)(0xFFFFFFFFu - (unsigned)(key & 0xFFFFFFFFu)) : 0;
-        slot_ok[b * S + threadIdx.x] = key != 0;
+    if (lane < S) {
+        gsel[b * S + lane] =
+            top ? (int)(0xFFFFFFFFu - (unsigned)(top & 0xFFFFFFFFu)) : 0;
+        slot_ok[b * S + lane] = top != 0;
     }
-    if (threadIdx.x == 0 && overflow_out)
+    if (lane == 0 && overflow_out)
         overflow_out[b] = (unsigned char)((overflow_in ? overflow_in[b] : 0) |
                                           (n_surv > S ? 1 : 0));
+}
+
+template <int NW>
+int launch(const void* ctbl, long long W8, const void* hashes, long long B,
+           int M, const void* n_hashes, unsigned long long bin_size, int h,
+           int shift, int G, double rel_cutoff, long long hashes_limit, int S,
+           const void* overflow_in, void* gsel, void* slot_ok,
+           void* overflow_out, void* surv, cudaStream_t stream) {
+    const long long blocks = (B + kWarps - 1) / kWarps;
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    gate_kernel<NW><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        (const unsigned*)ctbl, W8 / 4, rows_vectorizable<NW>(ctbl, W8 / 4),
+        (const long long*)hashes, B, M, (const int*)n_hashes, bin_size, h,
+        shift, G, rel_cutoff, hashes_limit, S,
+        (const unsigned char*)overflow_in, (int*)gsel, (unsigned char*)slot_ok,
+        (unsigned char*)overflow_out, (unsigned char*)surv);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -175,14 +165,18 @@ extern "C" int ganon_gate(const void* ctbl, long long R, long long W8,
                           const void* overflow_in, void* gsel, void* slot_ok,
                           void* overflow_out, void* surv, void* stream) {
     (void)R;
-    if (h < 1 || h > kMaxH || W8 % 4 || S < 0 || S > kMaxS || G < 1 ||
+    if (h < 1 || h > kMaxHashFns || W8 % 4 || S < 0 || S > kMaxS || G < 1 ||
         (long long)(G + 31) / 32 > W8 / 4)
         return (int)cudaErrorInvalidValue;
-    gate_kernel<<<(unsigned)B, kThreads, 0, (cudaStream_t)stream>>>(
-        (const unsigned*)ctbl, W8 / 4, (const long long*)hashes, M,
-        (const int*)n_hashes, bin_size, h, shift, G, rel_cutoff, hashes_limit,
-        S, (const unsigned char*)overflow_in, (int*)gsel,
-        (unsigned char*)slot_ok, (unsigned char*)overflow_out,
-        (unsigned char*)surv);
-    return (int)cudaGetLastError();
+    if (B == 0) return (int)cudaSuccess;
+    const int words = (G + 31) / 32;  // the smallest tile that holds G
+    const auto run = words <= 1    ? &launch<1>
+                     : words <= 2  ? &launch<2>
+                     : words <= 4  ? &launch<4>
+                     : words <= 8  ? &launch<8>
+                     : words <= 16 ? &launch<16>
+                                   : &launch<kMaxWords>;
+    return run(ctbl, W8, hashes, B, M, n_hashes, bin_size, h, shift, G,
+               rel_cutoff, hashes_limit, S, overflow_in, gsel, slot_ok,
+               overflow_out, surv, (cudaStream_t)stream);
 }

@@ -68,7 +68,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
            "gate.cu", "fine.cu", "sort.cu", "dedup.cu", "shard.cu", "bins.cu",
            "scan.cu", "psort.cu", "gprobe.cu")
-HEADERS = ("ibf_hash.cuh", "scan.cuh", "dedup.cuh")
+HEADERS = ("ibf_hash.cuh", "scan.cuh", "dedup.cuh", "warp_bits.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",

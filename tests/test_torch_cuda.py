@@ -9,10 +9,13 @@ K = T; select in its 32-bit mode at B = 0, T = 65,536 and 65,537,
 counts at 2^31 - 1 and with every or no target final. The pruned
 forest's modes: gate, fine (dense and probe-all),
 select in lanes mode and scatter in pruned mode, at group counts that
-are not multiples of 8 or 32 (and past one gate counter tile), group
-size 16 (padded rows), a partly full last group, ties, reads with no
-survivor, exactly S and more than S survivors, reads without hashes and
-reads at the hashes limit. Count in column-max mode (raptor subs): a
+are not multiples of 8 or 32, at the gate's 1024-group tile and one group
+past it (and at 9001 groups), S 2 and 32 at 128 groups, coarse_h and
+fine_h 5, group sizes 8, 16 (padded rows), 40 (a partial word), 256 (the
+fine kernel's lane tile) and 264 (past it), a partly full last group,
+ties at S 3 and 32, reads with no survivor, exactly S and more than S
+survivors, reads without hashes, reads at the hashes limit and more
+hashes than slots (several 32-hash rounds, a partial last one). Count in column-max mode (raptor subs): a
 target over three tiles, h = 1 and 5 in one layout, a one-target sub, a
 user bin in two subs with equal and unequal counts, a column no sub
 writes; the raptor batch on the card against the CPU; build_pruned's
@@ -408,7 +411,11 @@ def _gate_inputs(rng, G, R, B, M, hf, S):
     return torch.from_numpy(ctbl), torch.from_numpy(h), torch.from_numpy(n)
 
 
-@pytest.mark.parametrize("G,S,hf", [(37, 2, 2), (200, 3, 1), (9001, 4, 1)])
+# G = 128 is the pruned forest's shape; 1024 and 1025 groups are one
+# group tile of the kernel and one group past it
+@pytest.mark.parametrize("G,S,hf", [
+    (37, 2, 2), (200, 3, 1), (9001, 4, 1), (128, 2, 1), (128, 32, 1),
+    (1024, 3, 2), (1025, 3, 1), (37, 2, 5)])
 def test_gate_kernel_matches_plain(cuda, G, S, hf):
     rng = np.random.default_rng(G + S)
     R, B, M = 777, 300, 90
@@ -431,7 +438,8 @@ def test_gate_kernel_matches_plain(cuda, G, S, hf):
     assert seen == {-1, 0, 1, 2}
 
 
-def test_gate_kernel_ties(cuda):
+@pytest.mark.parametrize("S", [3, 32])
+def test_gate_kernel_ties(cuda, S):
     """Every group's coarse bit set in every row: all survivors tie, and
     the slots take the lowest group ids."""
     G, R, B, M = 45, 64, 40, 30
@@ -440,12 +448,12 @@ def test_gate_kernel_ties(cuda):
     h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M))).to(cuda)
     n = torch.full((B,), M, dtype=torch.int32, device=cuda)
     kw = dict(coarse_bin_size=R, coarse_h=1, num_groups=G, rel_cutoff=0.5,
-              hashes_limit=65535, max_groups=3)
+              hashes_limit=65535, max_groups=S)
     got = pq.gate(ctbl, h, n, **kw)
     want = pq.gate_plain(ctbl, h, n, **kw)
     for a, b in zip(got[:3], want[:3]):
         assert torch.equal(a, b)
-    assert (got[0] == torch.tensor([0, 1, 2], device=cuda)).all()
+    assert (got[0] == torch.arange(S, device=cuda)).all()
 
 
 def _fine_inputs(rng, G, gs, nt_last, B, M):
@@ -465,7 +473,11 @@ def _fine_inputs(rng, G, gs, nt_last, B, M):
     return t, T
 
 
-@pytest.mark.parametrize("G,gs,hf", [(13, 16, 2), (70, 64, 1)])
+# group sizes of one word, a partial second word (40), the kernel's
+# widest lane tile (256) and one word past it (264); fine_h 5
+@pytest.mark.parametrize("G,gs,hf", [
+    (13, 16, 2), (70, 64, 1), (13, 8, 1), (21, 40, 3), (9, 256, 2),
+    (5, 264, 1), (13, 64, 5)])
 def test_fine_kernel_matches_plain(cuda, G, gs, hf):
     rng = np.random.default_rng(G * gs)
     B, M, S = 200, 300, 3
@@ -1346,12 +1358,13 @@ def test_combine_column_max_mode_matches_plain(cuda):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("gs", [16, 40])
 @pytest.mark.parametrize("pads_only", [False, True])
-def test_fine_shard_matches_plain(cuda, pads_only):
+def test_fine_shard_matches_plain(cuda, pads_only, gs):
     """A shard of real groups and pad groups, and a shard made only of pad
     groups (it writes nothing)."""
     rng = np.random.default_rng(11)
-    G, gs, B, M = 10, 16, 120, 200
+    G, B, M = 10, 120, 200
     (ftbl, h, n, off, bsz, shift), T = _fine_inputs(rng, G, gs, 5, B, M)
     gid = torch.tensor([-1, -1] if pads_only else [1, 4, 9, -1],
                        dtype=torch.int32)
