@@ -190,7 +190,8 @@ build's mode, without the zero tail, ``zero_tail_ms`` and
 time of one PyTorch call computing the same function where there is one;
 ``sort``, ``ragged``, ``ragged_winners``, ``pairs``, ``dedup`` (both
 modes), ``scatter`` and its ranked and span modes, ``count``, ``gate``,
-``fine``, ``fine_all`` and ``fine_shard`` are also timed over a run of
+``fine``, ``fine_all``, ``fine_shard``, ``pack``, ``merge`` and
+``combine`` are also timed over a run of
 back-to-back calls, ``device_ms`` and ``library_device_ms``, and by the
 card's activity under torch.profiler, ``profiled_ms`` and
 ``library_profiled_ms`` (null where no profiled window held any device
@@ -1017,7 +1018,7 @@ def main() -> int:
                 lambda: bo.pack_entries(eh, en, ekeys, npk),
                 lambda: bo.pack_entries_plain(eh, en, ekeys, npk), 20, 5,
                 # n and keys in, each emitted hash read once; entries out
-                (_nbytes(en, ekeys) + npk * (8 + 12), npk))
+                (_nbytes(en, ekeys) + npk * (8 + 12), npk), runs=20)
         del eh, en, t_in, ein
         gkey, gval = pipe._entries(group, arrays)
         N = group.n
@@ -1409,6 +1410,7 @@ def main() -> int:
         (_nbytes(counts, counts_b, n_hashes, *cols)
          + 2 * args.bench_pairs * U * 4,
          4 * args.bench_pairs * (counts.shape[1] + counts_b.shape[1])),
+        runs=20,
     )
     K = min(32, f.num_targets)
     sel_args = (counts, n_hashes, overflow, 0.75, 0.1, 65535)
@@ -1869,7 +1871,9 @@ def main() -> int:
             20, 3,
             _count_work(sh0.tbl8, h0, n0, cfg.bin_size_bits,
                         cfg.hash_functions, Bh * tab.widths[0] * 4))
-    parts = torch.zeros(Bh * sum(tab.widths), dtype=torch.int32, device=cuda)
+    # poisoned: count in shard mode stores every cell of its block
+    parts = torch.full((Bh * sum(tab.widths),), -1, dtype=torch.int32,
+                       device=cuda)
     dense = torch.zeros((len(tab.widths), Bh, T), dtype=torch.int32,
                         device=cuda)
     off = 0
@@ -1880,8 +1884,9 @@ def main() -> int:
                                         s_.byte_ends, h0, n0, out=blk, **ckw)
             dense[j, :, s_.t_lo:s_.t_hi] = blk
         off += Bh * w_
-    lo, hi = tab.spans[0]
-    couts = [torch.zeros((Bh, T), dtype=torch.int32, device=cuda)
+    lo, hi = tab.spans  # host tensors: the kernel takes them by value
+    # poisoned: combine stores every column in flat mode
+    couts = [torch.full((Bh, T), -1, dtype=torch.int32, device=cuda)
              for _ in range(2)]
     (comb,) = compare(
         "combine", "ganon_tpu_torch/csrc/shard.cu",
@@ -1894,7 +1899,7 @@ def main() -> int:
         (_nbytes(parts, lo, hi, n0) + Bh * T * 4, Bh * T * len(tab.widths)),
         # one PyTorch call: the sum over the shard axis of the partials
         # laid out dense ([shards, B, T]; the clamp is a second call)
-        library=lambda: torch.sum(dense, dim=0))
+        library=lambda: torch.sum(dense, dim=0), runs=20)
     if not torch.equal(comb, single[:Bh]):
         raise AssertionError("combine: differs from one device's counts")
     spans = [(s_.t_lo, s_.t_hi) for s_ in tab.shards[0]]

@@ -63,6 +63,7 @@ from ganon_tpu_torch.ops.ibf_query import (
     bulk_target_counts_packed,
     clz64,
     combine,
+    count_writes_every_cell,
     extract,
     pack_table_u8,
     probe_sort,
@@ -969,11 +970,14 @@ class ShardedTable:
         self.widths = [s.t_hi - s.t_lo for s in shards]
         self.shards = [[s.to(d) for s, d in zip(shards, row)]
                        for row in mesh.devices]
-        spans = [torch.tensor([getattr(s, a) for s in shards],
-                              dtype=torch.int32) for a in ("t_lo", "t_hi")]
-        # combine's inputs on each batch row's first device
-        self.spans = [tuple(x.to(row[0]) for x in spans)
-                      for row in mesh.devices]
+        # combine's spans stay on the host: its kernel takes them by value
+        self.spans = tuple(torch.tensor([getattr(s, a) for s in shards],
+                                        dtype=torch.int32)
+                           for a in ("t_lo", "t_hi"))
+        # the partials' buffer needs a zero fill only where count's tile
+        # walk may leave a cell unstored (an empty byte range in a shard of
+        # 256 words or more); every other route stores every cell
+        self.fill_parts = not all(count_writes_every_cell(s) for s in shards)
         self.cols = (None if cols is None else
                      [cols.to(row[0]) for row in mesh.devices])
 
@@ -986,8 +990,8 @@ class ShardedTable:
         ``out[:, cols]`` for a raptor sub."""
         row = self.mesh.devices[i]
         B = hashes.shape[0]
-        parts = torch.zeros(B * sum(self.widths), dtype=torch.int32,
-                            device=row[0])
+        parts = (torch.zeros if self.fill_parts else torch.empty)(
+            B * sum(self.widths), dtype=torch.int32, device=row[0])
         inputs = {row[0]: (hashes, n_hashes)}
         kw = dict(bin_size=self.bin_size, hash_functions=self.hash_functions,
                   clamp=False)
@@ -1007,10 +1011,10 @@ class ShardedTable:
                         sh.tbl8, sh.byte_starts, sh.byte_ends, *inputs[d],
                         **kw), non_blocking=True)
             off += B * w
-        if out is None:
-            out = torch.zeros((B, self.num_targets), dtype=torch.int32,
+        if out is None:  # combine stores every column of a flat row
+            out = torch.empty((B, self.num_targets), dtype=torch.int32,
                               device=row[0])
-        return combine(parts, *self.spans[i], n_hashes, out,
+        return combine(parts, *self.spans, n_hashes, out,
                        num_targets=self.num_targets, col0=col0,
                        cols=None if self.cols is None else self.cols[i])
 

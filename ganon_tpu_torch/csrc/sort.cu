@@ -1,5 +1,5 @@
 // sort: the build's (file key, u64 value) entries in lexicographic order,
-// plus the scan and the pack that feed it.
+// plus the pack that feeds it.
 //
 // Replaces the JAX device programs
 //   ganon_tpu/ops/bigsort.py:31 sort_flat (K19, Leighton's columnsort of
@@ -50,16 +50,33 @@
 // blocks an SM (36 KB of staging and 11 KB of counters a block). The
 // status words carry their pass in their high bits, so one clear a call
 // serves every pass.
+//
+// `pack` is one launch, a chained scan on the status words that ragged,
+// pairs, extract, dedup's rank mode and the ranked scatter share
+// (scan.cuh, kernels.scan_status; a new epoch a call): a block draws a
+// tile of 32 rows, scans their counts in a warp, takes its first slot by
+// decoupled look-back and copies its rows' valid slots as one run, with
+// coalesced 8-byte loads and stores, the first loads in flight during
+// the look-back. No scratch of its own, no second read of n. (The earlier
+// design scanned n in three kernels, scan_reduce, scan_top and
+// scan_down, into an offsets buffer, then copied each row with a block of
+// 128 threads: four launches and two scratch allocations a call, 0.091 ms
+// at the build's first pass-1 group, bound 0.0276; NVIDIA H100 80GB HBM3,
+// 700.00 W.)
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "scan.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanItems = 8;
-constexpr int kScanTile = kThreads * kScanItems;
+constexpr int kPackRows = 32;      // rows a pack tile (a warp's lanes)
+static_assert(kPackRows <= 32, "warp 0 scans a pack tile's counts");
+constexpr int kPackThreads = 256;
+constexpr int kPackUnroll = 8;     // 8-byte loads a thread in flight
 
 constexpr int kRadix = 256;
 constexpr int kItems = 12;                  // entries a thread in a pass
@@ -101,63 +118,6 @@ __device__ long long block_scan(long long v, long long* warp_sums,
     *total = warp_sums[kWarps - 1];
     __syncthreads();
     return before + x - v;
-}
-
-__global__ void scan_reduce(const int* __restrict__ in, long long M,
-                            long long* __restrict__ sums) {
-    __shared__ long long ws[32];
-    const long long t0 = (long long)blockIdx.x * kScanTile;
-    long long s = 0;
-    for (int r = 0; r < kScanItems; ++r) {
-        const long long i = t0 + (long long)r * kThreads + threadIdx.x;
-        if (i < M) s += in[i];
-    }
-    long long total;
-    block_scan(s, ws, &total);
-    if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// One block: exclusive scan of the block sums in place, offset by *base;
-// *total_out = *base + the sum (base and total_out may alias).
-__global__ void scan_top(long long* __restrict__ sums, long long nb,
-                         const long long* base, long long* total_out) {
-    __shared__ long long ws[32];
-    __shared__ long long carry;
-    if (threadIdx.x == 0) carry = base ? *base : 0;
-    __syncthreads();
-    for (long long c0 = 0; c0 < nb; c0 += kThreads) {
-        const long long i = c0 + threadIdx.x;
-        const long long v = i < nb ? sums[i] : 0;
-        long long total;
-        const long long ex = block_scan(v, ws, &total);
-        if (i < nb) sums[i] = carry + ex;
-        __syncthreads();
-        if (threadIdx.x == 0) carry += total;
-        __syncthreads();
-    }
-    if (threadIdx.x == 0 && total_out) *total_out = carry;
-}
-
-// in and out may alias: each thread reads its entries before it writes
-// them.
-__global__ void scan_down(const int* in, int* out, long long M,
-                          const long long* __restrict__ offs) {
-    __shared__ long long ws[32];
-    // each thread owns kScanItems consecutive entries
-    const long long i0 = (long long)blockIdx.x * kScanTile
-                         + (long long)threadIdx.x * kScanItems;
-    int v[kScanItems];
-    long long s = 0;
-    for (int r = 0; r < kScanItems; ++r) {
-        v[r] = i0 + r < M ? in[i0 + r] : 0;
-        s += v[r];
-    }
-    long long total;
-    long long run = offs[blockIdx.x] + block_scan(s, ws, &total);
-    for (int r = 0; r < kScanItems; ++r) {
-        if (i0 + r < M) out[i0 + r] = (int)run;
-        run += v[r];
-    }
 }
 
 // The [D, 256] digit histograms of the entries, added into counts (zeroed
@@ -372,60 +332,103 @@ void launch_pass(const int* kin, const unsigned long long* vin, int* kout,
                                       (unsigned long long)epoch);
 }
 
-// One block per extract row: its first n[b] slots go to offs[b]..
-// (slots at or past N, the buffers' size, are dropped).
-__global__ void pack_kernel(const long long* __restrict__ hashes, int mc,
-                            const int* __restrict__ n,
-                            const int* __restrict__ keys,
-                            const int* __restrict__ offs,
-                            int* __restrict__ out_key,
-                            long long* __restrict__ out_val, long long N) {
-    const long long b = blockIdx.x;
-    const int cnt = min(n[b], mc);
-    const long long o = offs[b];
-    const int key = keys[b];
-    for (int j = threadIdx.x; j < cnt && o + j < N; j += blockDim.x) {
-        out_key[o + j] = key;
-        out_val[o + j] = hashes[b * mc + j];
+// pack: one block a tile of kPackRows rows, drawn from the shared scan
+// status words (scan.cuh). Warp 0 scans the tile's counts min(max(n, 0),
+// mc) by shuffles into s_off (a row's first slot in the tile). The
+// tile's slots then form one run, which the block walks flat: thread t
+// takes slots t, t + kPackThreads, ..., each from its row (found by
+// walking s_off forward), so neighbouring threads read neighbouring
+// values of a row and write neighbouring entries. The first kPackUnroll
+// rounds' loads go out before the look-back that gives the tile its
+// first slot, the later rounds kPackUnroll loads in flight at a time.
+// Slots at or past N, the buffers' size, are dropped.
+__global__ void __launch_bounds__(kPackThreads)
+pack_kernel(const long long* __restrict__ hashes, long long B, int mc,
+            const int* __restrict__ n, const int* __restrict__ keys,
+            unsigned long long* status, unsigned long long epoch,
+            int* __restrict__ out_key, long long* __restrict__ out_val,
+            long long N) {
+    __shared__ unsigned s_tile;
+    __shared__ long long s_excl;
+    __shared__ int s_off[kPackRows + 1];
+    __shared__ int s_key[kPackRows];
+    ganon_scan::draw_tile(status, &s_tile);
+    __syncthreads();
+    const long long tile = s_tile;
+    const long long b0 = tile * kPackRows;
+    if (threadIdx.x < 32) {
+        const int lane = threadIdx.x;
+        const long long b = b0 + lane;
+        const bool row = lane < kPackRows && b < B;
+        const int c = row ? min(max(__ldg(n + b), 0), mc) : 0;
+        int x = c;
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+            if (lane >= o) x += y;
+        }
+        if (lane < kPackRows) {
+            s_off[lane] = x - c;
+            s_key[lane] = row ? __ldg(keys + b) : 0;
+        }
+        if (lane == kPackRows - 1) s_off[kPackRows] = x;
+    }
+    __syncthreads();
+    const int total = s_off[kPackRows];
+    const long long* src = hashes + b0 * mc;
+    int r = 0;  // the row of the thread's current slot
+    long long v[kPackUnroll];
+    int key[kPackUnroll];
+    auto load = [&](int p0) {
+#pragma unroll
+        for (int u = 0; u < kPackUnroll; ++u) {
+            const int p = p0 + u * kPackThreads;
+            if (p < total) {
+                while (s_off[r + 1] <= p) ++r;  // s_off[kPackRows] > p
+                v[u] = __ldg(src + (long long)r * mc + (p - s_off[r]));
+                key[u] = s_key[r];
+            }
+        }
+    };
+    int p0 = threadIdx.x;
+    load(p0);
+    const long long excl = ganon_scan::chain_publish(
+        status + 1, tile, tile == 0, total, epoch, &s_excl);
+    const long long lim = min((long long)total, N - excl);
+    for (;;) {
+#pragma unroll
+        for (int u = 0; u < kPackUnroll; ++u) {
+            const int p = p0 + u * kPackThreads;
+            if (p < lim) {
+                out_key[excl + p] = key[u];
+                out_val[excl + p] = v[u];
+            }
+        }
+        p0 += kPackUnroll * kPackThreads;
+        if (p0 >= total) break;
+        load(p0);
     }
 }
 
 }  // namespace
 
-// Exclusive scan of int32 in[M] into out[M] (out[i] = *base + sum of
-// in[:i]; base may be NULL for 0), *total = *base + sum(in) when total is
-// not NULL (base and total may alias). sums: int64 scratch of
-// ceil(M / 2048) entries. Used by pack.
-extern "C" int ganon_scan(const void* in, void* out, long long M, void* sums,
-                          const void* base, void* total, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const long long nb = (M + kScanTile - 1) / kScanTile;
-    if (nb > 0) {
-        scan_reduce<<<(unsigned)nb, kThreads, 0, s>>>((const int*)in, M,
-                                                      (long long*)sums);
-    }
-    scan_top<<<1, kThreads, 0, s>>>((long long*)sums, nb,
-                                    (const long long*)base, (long long*)total);
-    if (nb > 0) {
-        scan_down<<<(unsigned)nb, kThreads, 0, s>>>(
-            (const int*)in, (int*)out, M, (const long long*)sums);
-    }
-    return (int)cudaGetLastError();
-}
-
 // Copy the valid slots of an extract output into entry buffers of N =
-// sum(min(n[b], mc)) slots. offs: int32 [B] scratch; sums: int64
-// [ceil(B / 2048)] scratch.
+// sum(min(n[b], mc)) slots, in one launch of ceil(B / kPackRows) blocks.
+// status: the stream's chained-scan status words (at least that many
+// blocks + 1), epoch: a tag never passed before for that buffer
+// (kernels.scan_status).
 extern "C" int ganon_pack(const void* hashes, long long B, int mc,
-                          const void* n, const void* keys, void* offs,
-                          void* sums, void* out_key, void* out_val,
-                          long long N, void* stream) {
-    if (B <= 0 || N <= 0) return (int)cudaGetLastError();
-    int err = ganon_scan(n, offs, B, sums, nullptr, nullptr, stream);
-    if (err) return err;
-    pack_kernel<<<(unsigned)B, 128, 0, (cudaStream_t)stream>>>(
-        (const long long*)hashes, mc, (const int*)n, (const int*)keys,
-        (const int*)offs, (int*)out_key, (long long*)out_val, N);
+                          const void* n, const void* keys, void* status,
+                          unsigned long long epoch, void* out_key,
+                          void* out_val, long long N, void* stream) {
+    // a tile's slots are int32
+    if (mc < 0 || B < 0 || (long long)mc * kPackRows > 0x7FFFFFFFll)
+        return (int)cudaErrorInvalidValue;
+    if (B == 0 || N <= 0) return (int)cudaGetLastError();
+    const long long blocks = (B + kPackRows - 1) / kPackRows;
+    pack_kernel<<<(unsigned)blocks, kPackThreads, 0, (cudaStream_t)stream>>>(
+        (const long long*)hashes, B, mc, (const int*)n, (const int*)keys,
+        (unsigned long long*)status, epoch, (int*)out_key,
+        (long long*)out_val, N);
     return (int)cudaGetLastError();
 }
 

@@ -41,7 +41,7 @@ single-end mode for ``ganon_tpu_torch.ops.library.minimizers``; ``bins``,
 stream (``ragged_winners`` with the winners block of a multi-filter
 level), ``pairs`` compacts a pruned batch's (read, slot) pairs under
 the pair cap (``csrc/scan.cu``): both chained scans, as are ``extract``,
-``dedup_rank`` and the ranked scatter's stage step,
+``dedup_rank``, the ranked scatter's stage step and ``pack``,
 whose status words and epochs :func:`scan_status` hands out, one buffer
 a device and stream; ``probe_sort`` orders each read's
 hashes by their first row before ``count`` (``csrc/psort.cu``);
@@ -92,9 +92,10 @@ _SIGNATURES = {
     # subs (int64 [S, 9] descriptors), S, hmax, wmax, hashes, B, M,
     # n_hashes, counts, T: every sub of a raptor archive in one launch
     "count_raptor": (_P, _I, _I, _L, _P, _L, _I, _P, _P, _L),
-    # parts, t_lo, t_hi, nb, B, T, n_hashes, counts, ldc, col0, cols
-    # (NULL = not column-max)
-    "combine": (_P, _P, _P, _I, _L, _I, _P, _P, _L, _I, _P),
+    # parts, parts_n, t_lo, t_hi (host int32 [nb]: passed to the kernel by
+    # value), nb, B, T, n_hashes, counts, ldc, col0, cols (NULL = not
+    # column-max)
+    "combine": (_P, _L, _P, _P, _I, _L, _I, _P, _P, _L, _I, _P),
     # counts, B, T_f, n_hashes, rel_cutoff, hashes_limit, cols, f,
     # ucounts, uwin, U
     "merge": (_P, _L, _I, _P, _D, _L, _P, _I, _P, _P, _I),
@@ -127,8 +128,8 @@ _SIGNATURES = {
     # (NULL = ungated), out, T, gid (NULL = not a shard), Gs
     "fine": (_P, _L, _L, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
              _P, _P, _L, _P, _I),
-    # hashes, B, mc, n, keys, offs, sums, out_key, out_val, N
-    "pack": (_P, _L, _I, _P, _P, _P, _P, _P, _P, _L),
+    # hashes, B, mc, n, keys, status, epoch, out_key, out_val, N
+    "pack": (_P, _L, _I, _P, _P, _P, _U, _P, _P, _L),
     # key, val, N, D (digits), hist ([2, D, 256]: counts, offsets)
     "sort_hist": (_P, _P, _L, _I, _P),
     # key, val, N, digits (bit d: run digit d's pass), offs (hist[1]),
@@ -287,8 +288,8 @@ def launch(name: str, *args, counter: str | None = None) -> None:
 
 
 # The chained scans' status words (csrc/scan.cuh): one buffer per (device,
-# stream), shared by ``ragged``, ``pairs``, ``extract``, ``dedup_rank``
-# and ``scatter_ranked`` (its stage step); made zero and
+# stream), shared by ``ragged``, ``pairs``, ``extract``, ``dedup_rank``,
+# ``scatter_ranked`` (its stage step) and ``pack``; made zero and
 # written only by those kernels, every call tagged with a new epoch
 # (csrc/scan.cu says why that is safe)
 _SCAN_STATUS: dict = {}

@@ -33,12 +33,12 @@ from ganon_tpu_torch import kernels
 from ganon_tpu_torch.ops.ibf_query import clz64, ibf_row_indices
 from ganon_tpu_torch.ops.winnow import ukey
 
-# entries per radix pass tile and per scan block (csrc/sort.cu kTile,
-# kScanTile), per dedup and scatter tile (csrc/dedup.cuh kTile): the
-# scratch sizes below follow from them
+# entries per radix pass tile (csrc/sort.cu kTile), per dedup and scatter
+# tile (csrc/dedup.cuh kTile): the scratch sizes below follow from them;
+# extract rows per pack tile (csrc/sort.cu kPackRows): pack's status words
 SORT_TILE = 3072
-SCAN_TILE = 2048
 DEDUP_TILE = 4096
+PACK_ROWS = 32
 RADIX = 256
 # the sort's status words past its tiles' (the passes' tile counters)
 _SORT_COUNTERS = 16
@@ -53,11 +53,6 @@ def check_entry_count(n: int) -> None:
             f"{n} build entries in one group: the build kernels index at "
             f"most {MAX_ENTRIES} (int32); a group is one file or more, so "
             "split the input file that holds them")
-
-
-def _scan_scratch(M: int, device) -> torch.Tensor:
-    return torch.empty((max(-(-M // SCAN_TILE), 1),), dtype=torch.int64,
-                       device=device)
 
 
 def _check_entries(key: torch.Tensor, val: torch.Tensor):
@@ -90,7 +85,9 @@ def pack_entries(hashes: torch.Tensor, n_rows: torch.Tensor,
     Replaces the flatten and valid-slot mask of
     ``ganon_tpu.index.device_build.close_sort``. ``hashes`` int64
     ``[B, mc]`` with ``n_rows`` int32 ``[B]`` at most ``mc`` (the build
-    extracts at a capacity of every window position).
+    extracts at a capacity of every window position). On the card: one
+    launch on the stream's chained-scan status words
+    (:func:`kernels.scan_status`), no allocation but the outputs.
     """
     if hashes.dtype != torch.int64 or hashes.dim() != 2:
         raise ValueError("hashes must be int64 [B, mc]")
@@ -102,13 +99,16 @@ def pack_entries(hashes: torch.Tensor, n_rows: torch.Tensor,
     if hashes.device.type == "cpu":
         return pack_entries_plain(hashes, n_rows, keys, total)
     kernels.check_cuda(hashes, n_rows, keys)
+    if mc * PACK_ROWS > MAX_ENTRIES:
+        raise ValueError(f"rows of {mc} slots: a pack tile of {PACK_ROWS} "
+                         "rows indexes its slots in int32")
     out_key = torch.empty((total,), dtype=torch.int32, device=hashes.device)
     out_val = torch.empty((total,), dtype=torch.int64, device=hashes.device)
     if B and total:
-        offs = torch.empty((B,), dtype=torch.int32, device=hashes.device)
-        kernels.launch("pack", hashes, B, mc, n_rows, keys, offs,
-                       _scan_scratch(B, hashes.device), out_key, out_val,
-                       total)
+        status, epoch = kernels.scan_status(hashes.device,
+                                            -(-B // PACK_ROWS))
+        kernels.launch("pack", hashes, B, mc, n_rows, keys, status, epoch,
+                       out_key, out_val, total)
     return out_key, out_val
 
 

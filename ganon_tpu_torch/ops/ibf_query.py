@@ -735,11 +735,33 @@ def shard_table(tbl8: torch.Tensor, byte_starts, byte_ends, nb: int,
     return shards
 
 
+# count.cu takes rows of fewer u32 words than this (its threads a block)
+# on its narrow-row route, wider rows on its tile walk
+COUNT_NARROW_WORDS = 256
+# the most shards combine's kernel takes by value (csrc/shard.cu
+# kMaxShards)
+COMBINE_MAX_SHARDS = 32
+
+
+def count_writes_every_cell(shard: "TableShard") -> bool:
+    """Whether ``count`` in shard mode stores every cell of the shard's
+    ``[B, t_hi - t_lo]`` partials on the card (so its buffer needs no
+    fill): the narrow-row route stores every target of its row; the tile
+    walk stores a target at the tile its byte range ends in, which misses
+    an empty range on a tile edge."""
+    if shard.tbl8.shape[1] // 4 < COUNT_NARROW_WORDS:
+        return True
+    return bool((shard.byte_ends > shard.byte_starts).all())
+
+
 def _check_combine(parts, t_lo, t_hi, n_hashes, out, col0, cols):
     nb = t_lo.shape[0] if t_lo.dim() == 1 else -1
     if (t_lo.dtype != torch.int32 or t_hi.dtype != torch.int32 or nb < 1
             or t_hi.shape != (nb,)):
         raise ValueError("t_lo and t_hi must be int32 [nb], nb >= 1")
+    if t_lo.device.type != "cpu" or t_hi.device.type != "cpu":
+        raise ValueError("t_lo and t_hi must be host tensors: the kernel "
+                         "takes the spans by value")
     if n_hashes.dtype != torch.int32 or n_hashes.dim() != 1:
         raise ValueError("n_hashes must be int32 [B]")
     B = n_hashes.shape[0]
@@ -786,8 +808,13 @@ def combine(parts: torch.Tensor, t_lo: torch.Tensor, t_hi: torch.Tensor,
     targets ``t_lo[j] .. t_hi[j] - 1`` (int32 ``[nb]``), blocks in shard
     order; ``counts[b, t] = min(n_hashes[b], sum of the partials of
     (b, t))``, the clamp after the sum. Written into ``out[:, col0:col0 +
-    num_targets]``, or max-merged into ``out[:, cols]`` with ``cols``
-    (column-max mode, a raptor sub); ``out`` is returned.
+    num_targets]`` (every column of it, so ``out`` needs no fill there),
+    or max-merged into ``out[:, cols]`` with ``cols`` (column-max mode, a
+    raptor sub); ``out`` is returned. ``t_lo`` and ``t_hi`` are host
+    tensors (the kernel takes them by value); on the card the spans must
+    be sorted (both nondecreasing, within ``[0, num_targets]``), at most
+    :data:`COMBINE_MAX_SHARDS` of them (else ``ValueError``), their
+    blocks inside ``parts`` (else the launch raises).
     """
     _check_combine(parts, t_lo, t_hi, n_hashes, out, col0, cols)
     B = n_hashes.shape[0]
@@ -798,10 +825,16 @@ def combine(parts: torch.Tensor, t_lo: torch.Tensor, t_hi: torch.Tensor,
     if out.device.type == "cpu":
         return combine_plain(parts, t_lo, t_hi, n_hashes, out,
                              num_targets=num_targets, col0=col0, cols=cols)
-    kernels.check_cuda(parts, t_lo, t_hi, n_hashes, out,
+    kernels.check_cuda(parts, n_hashes, out,
                        *([] if cols is None else [cols]))
+    nb = t_lo.shape[0]
+    if nb > COMBINE_MAX_SHARDS:
+        raise ValueError(f"{nb} shards: the combine kernel takes at most "
+                         f"{COMBINE_MAX_SHARDS}")
     if B == 0 or num_targets == 0:
         return out
-    kernels.launch("combine", parts, t_lo, t_hi, t_lo.shape[0], B,
-                   num_targets, n_hashes, out, out.shape[1], col0, cols)
+    # the C entry checks the spans (sorted, inside parts) before launching
+    kernels.launch("combine", parts, parts.numel(), t_lo.contiguous(),
+                   t_hi.contiguous(), nb, B, num_targets, n_hashes, out,
+                   out.shape[1], col0, cols)
     return out

@@ -258,7 +258,8 @@ def main() -> int:
     cnt = [torch.zeros_like(counts) for _ in range(2)]
     ubuf = torch.empty((N,), dtype=torch.int32, device=cuda)
     rbuf = torch.empty_like(ubuf)
-    sums = torch.empty((-(-N // bo.SCAN_TILE),), dtype=torch.int64,
+    # the earlier dedup's scratch: an int64 sum a scan block of 2048
+    sums = torch.empty((-(-N // 2048),), dtype=torch.int64,
                        device=cuda)
 
     def old_counts():

@@ -23,7 +23,8 @@ default build on the card. The two-pass build's kernels: sort at N = 0,
 1, one block, one entry past a block and up to ~4000 blocks (the
 look-back spans more blocks than the card has SMs), all-equal values,
 values >= 2^63, one file and 2^16 files, and its digit histograms and
-pass plan (38-bit values, every digit constant); pack with empty rows;
+pass plan (38-bit values, every digit constant); pack with empty and
+full rows, at B = 1 and B off its 32-row tile, twice on one stream;
 dedup in both modes (counts only; flags, ranks and counts in one
 chained scan) with files that have no entries, duplicates across tile
 and warp edges, a file over many tiles and a tile of many files, keys
@@ -35,7 +36,9 @@ flat modes too); the whole pipeline and run_build on the card against
 the CPU.
 The device mesh's modes (K17): count in shard mode and combine with a
 target over three shards and with one shard (equal to the flat count),
-combine in column-max mode, fine in shard mode over a shard of pad
+on poisoned buffers (neither is filled by the caller), combine in
+column-max mode, at T and block rows off its 16-byte quads, in forest
+mode at col0 and ldc off 4, at its 32 shards and past them (raises), fine in shard mode over a shard of pad
 groups only, and the ranked scatter in span mode with every entry
 outside the span; a mesh of the card and the CPU, so inputs and partials
 cross devices. The ops library (K18): minimizers at L not a multiple of
@@ -830,6 +833,37 @@ def test_pack_kernel_matches_plain(cuda, B, mc):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("B,mc", [(1, 2048), (33, 64), (16_389, 130)])
+def test_pack_kernel_edges(cuda, B, mc):
+    """pack at B = 1 and B not a multiple of its 32-row tile, rows with
+    n = 0 and n = mc (and n past mc, read as mc), twice in a row on one
+    stream (the tile counter and the status words left by the first call
+    serve the second); one launch a call."""
+    rng = np.random.default_rng(B + mc)
+    hashes = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1,
+                                           size=(B, mc)))
+    nrows = torch.from_numpy(rng.integers(0, mc + 1, size=B).astype(np.int32))
+    nrows[::3] = mc
+    nrows[1::5] = 0
+    keys = torch.from_numpy(rng.integers(0, 1 << 16, size=B).astype(np.int32))
+    total = int(nrows.sum())
+    want = bo.pack_entries(hashes, nrows, keys, total)
+    args = _to(cuda, hashes, nrows, keys)
+    before = kernels.LAUNCHES["pack"]
+    got = [bo.pack_entries(*args, total) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pack"] == before + 2
+    for g in got:
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(g, want))
+    over = nrows.clone()
+    over[0] = mc + 7  # read as mc, as the plain version's mask does
+    got = bo.pack_entries(hashes.to(cuda), over.to(cuda), keys.to(cuda),
+                          total - int(nrows[0]) + mc)
+    want = bo.pack_entries_plain(hashes, over, keys,
+                                 total - int(nrows[0]) + mc)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
 def _dedup_case(rng, case):
     """Sorted entries of a dedup edge case and its num_files (keys at or
     past it are never first occurrences)."""
@@ -1284,7 +1318,10 @@ def _shard_counts(sh_list, h, n, R, hf, T, fn_count, fn_combine):
     """Every shard's unclamped partials into one buffer, then combine."""
     B = h.shape[0]
     widths = [s.t_hi - s.t_lo for s in sh_list]
-    parts = torch.zeros(B * sum(widths), dtype=torch.int32, device=h.device)
+    # poisoned, not zeroed: count in shard mode and combine in flat mode
+    # store every cell, so the caller fills neither buffer
+    parts = torch.full((B * sum(widths),), -1, dtype=torch.int32,
+                       device=h.device)
     off = 0
     for s, w in zip(sh_list, widths):
         if w:
@@ -1292,9 +1329,9 @@ def _shard_counts(sh_list, h, n, R, hf, T, fn_count, fn_combine):
                      hash_functions=hf, out=parts[off:off + B * w].view(B, w),
                      clamp=False)
         off += B * w
-    lo, hi = (torch.tensor([getattr(s, a) for s in sh_list], dtype=torch.int32,
-                           device=h.device) for a in ("t_lo", "t_hi"))
-    out = torch.zeros((B, T), dtype=torch.int32, device=h.device)
+    lo, hi = (torch.tensor([getattr(s, a) for s in sh_list], dtype=torch.int32)
+              for a in ("t_lo", "t_hi"))
+    out = torch.full((B, T), -1, dtype=torch.int32, device=h.device)
     return fn_combine(parts, lo, hi, n, out, num_targets=T)
 
 
@@ -1352,10 +1389,104 @@ def test_combine_column_max_mode_matches_plain(cuda):
     base = torch.from_numpy(rng.integers(0, 60, size=(B, 60)).astype(np.int32))
     want = q.combine_plain(parts, lo, hi, n, base.clone(), num_targets=T,
                            cols=cols)
-    got = q.combine(*_to(cuda, parts, lo, hi, n, base), num_targets=T,
-                    cols=cols.to(cuda))
+    got = q.combine(parts.to(cuda), lo, hi, *_to(cuda, n, base),
+                    num_targets=T, cols=cols.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+def _combine_spans(rng, nb, T):
+    """nb sorted spans over T targets that overlap at boundary targets:
+    shard 0 starts at 0, the last ends at T; a middle shard may be empty
+    or one target wide (so a target can sit in three shards or more),
+    and may leave a gap (a target no shard holds)."""
+    cuts = np.sort(rng.integers(0, T + 1, size=nb - 1))
+    lo = np.concatenate([[0], cuts]).astype(np.int64)
+    hi = np.concatenate([cuts, [T]]).astype(np.int64)
+    for j in range(nb - 1):
+        r = rng.random()
+        if r < 0.5:  # the next shard's first target is split
+            hi[j] = min(hi[j] + 1, T)
+        elif r < 0.6 and lo[j + 1] < hi[j + 1]:  # a gap
+            lo[j + 1] += 1
+    hi = np.maximum.accumulate(np.maximum(hi, lo))
+    return (torch.from_numpy(lo.astype(np.int32)),
+            torch.from_numpy(hi.astype(np.int32)))
+
+
+@pytest.mark.parametrize("case", ["t_odd", "forest", "nb1", "nb_max",
+                                  "nb_max_cols", "three_shards"])
+def test_combine_kernel_edges(cuda, case):
+    """combine against its plain version on poisoned buffers: T not a
+    multiple of the kernel's 4 targets a thread (and a row start off
+    16 bytes), forest mode at col0 and ldc not multiples of 4 (the
+    columns outside untouched), nb = 1, nb at COMBINE_MAX_SHARDS (flat
+    and column-max) and a target in three shards; parts offset by one
+    element so no block row is 16-byte aligned in one case."""
+    rng = np.random.default_rng(len(case))
+    nb, T, B, col0, ldc = {
+        "t_odd": (4, 1027, 300, 0, 1027),
+        "forest": (3, 41, 257, 5, 59),
+        "nb1": (1, 13, 100, 0, 13),
+        "nb_max": (q.COMBINE_MAX_SHARDS, 301, 129, 0, 301),
+        "nb_max_cols": (q.COMBINE_MAX_SHARDS, 150, 64, 0, 211),
+        "three_shards": (4, 40, 97, 1, 42),
+    }[case]
+    if case == "three_shards":
+        lo = torch.tensor([0, 10, 10, 11], dtype=torch.int32)
+        hi = torch.tensor([11, 11, 12, 40], dtype=torch.int32)
+    else:
+        lo, hi = _combine_spans(rng, nb, T)
+    width = int((hi - lo).sum())
+    skew = 1 if case == "t_odd" else 0
+    parts = torch.from_numpy(rng.integers(0, 60, size=skew + B * width)
+                             .astype(np.int32))
+    n = torch.from_numpy(rng.integers(0, 150, size=B).astype(np.int32))
+    cols = (torch.from_numpy(rng.permutation(ldc)[:T].astype(np.int32))
+            if case == "nb_max_cols" else None)
+    base = (torch.from_numpy(rng.integers(0, 60, size=(B, ldc))
+                             .astype(np.int32)) if cols is not None
+            else torch.full((B, ldc), -1, dtype=torch.int32))
+    want = q.combine_plain(parts[skew:], lo, hi, n, base.clone(),
+                           num_targets=T, col0=col0, cols=cols)
+    dparts = parts.to(cuda)[skew:]
+    before = kernels.LAUNCHES["combine"]
+    got = q.combine(dparts, lo, hi, *_to(cuda, n, base), num_targets=T,
+                    col0=col0, cols=None if cols is None else cols.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["combine"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    if cols is None:
+        assert (want[:, :col0] == -1).all() and (
+            want[:, col0 + T:] == -1).all()
+        assert (want[:, col0:col0 + T] >= 0).all()
+    if case == "three_shards":
+        assert int(((lo <= 10) & (10 < hi)).sum()) == 3
+
+
+def test_combine_kernel_rejects_its_limits(cuda):
+    """Past COMBINE_MAX_SHARDS shards or with spans on the card the
+    wrapper raises; with spans out of order, past T or past the partials
+    the launch raises; it takes no slower route."""
+    B, T, nb = 8, 40, q.COMBINE_MAX_SHARDS + 1
+    lo = torch.arange(nb, dtype=torch.int32)
+    hi = lo + 1
+    parts = torch.zeros(B * nb, dtype=torch.int32, device=cuda)
+    n = torch.ones(B, dtype=torch.int32, device=cuda)
+    out = torch.zeros((B, T), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        q.combine(parts, lo, hi, n, out, num_targets=T)
+    before = kernels.LAUNCHES["combine"]
+    for a, b in (([2, 0], [4, 4]), ([0, 2], [4, 3]), ([0, 30], [30, 41]),
+                 ([0, 0], [40, 40])):  # the last: 2 x 40 x B partials
+        with pytest.raises(RuntimeError, match="combine"):
+            q.combine(parts, torch.tensor(a, dtype=torch.int32),
+                      torch.tensor(b, dtype=torch.int32), n, out,
+                      num_targets=T)
+    assert kernels.LAUNCHES["combine"] == before
+    with pytest.raises(ValueError, match="host"):
+        q.combine(parts, lo[:2].to(cuda), hi[:2].to(cuda), n, out,
+                  num_targets=T)
 
 
 @pytest.mark.parametrize("gs", [16, 40])
@@ -1648,12 +1779,13 @@ def test_pairs_kernel_many_tiles(cuda, S):
 
 
 def test_scans_share_status_words(cuda):
-    """ragged, pairs, extract and dedup's rank mode (alone and inside the
-    ranked scatter) take their status words from one buffer a stream:
-    two pairs calls in a row after a ragged call and an extract call of
-    more blocks, dedup's ranks and a ranked scatter between them, then
-    pairs, ragged and dedup on a second stream (a buffer of its own), each
-    equal to its plain version; one launch a pairs call."""
+    """ragged, pairs, extract, pack and dedup's rank mode (alone and
+    inside the ranked scatter) take their status words from one buffer a
+    stream: a pack call between a ragged call and an extract call of more
+    blocks, two pairs calls in a row after them, dedup's ranks, a ranked
+    scatter and pack between them, then pairs, ragged, pack and dedup on
+    a second stream (a buffer of its own), each equal to its plain
+    version; one launch a pairs call."""
     rng = np.random.default_rng(36)
     sk, sv = bo.sort_entries(*_entries(rng, 30_001, 10), key_bits=4)
     want_d = bo.dedup_plain(sk, sv, num_files=10)
@@ -1675,12 +1807,25 @@ def test_scans_share_status_words(cuda):
     want_p = pq.pair_live_plain(ok, ovf, cap)
     want_r = dev.ragged_plain(dense, B, K, 100)
     want_x = q.extract_plain(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mcs[0])
+    ph = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, size=(2500, 40)))
+    pn = torch.from_numpy(rng.integers(0, 41, size=2500).astype(np.int32))
+    pkeys = torch.from_numpy(rng.integers(0, 9, size=2500).astype(np.int32))
+    ptotal = int(pn.sum())
+    want_pk = bo.pack_entries_plain(ph, pn, pkeys, ptotal)
+    pargs = (*_to(cuda, ph, pn, pkeys), ptotal)
+
+    def pack_ok():
+        got_pk = bo.pack_entries(*pargs)
+        return all(torch.equal(a.cpu(), b) for a, b in zip(got_pk, want_pk))
+
     assert torch.equal(dev.ragged(dense, B, K, 100), want_r)
+    assert pack_ok()
     got_x = q.extract(inbuf, L1=L1, L2=L2, k=k, w=w, mc=mcs[0])
     before = kernels.LAUNCHES["pairs"]
     for _ in range(2):
         got = pq.pair_live(ok, ovf, cap)
         assert all(torch.equal(a, b) for a, b in zip(got, want_p))
+        assert pack_ok()
         got_d = bo.dedup(dk, dv, num_files=10)
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got_d, want_d))
         got_s = torch.zeros_like(want_s, device=cuda)
@@ -1694,10 +1839,12 @@ def test_scans_share_status_words(cuda):
     with torch.cuda.stream(side):
         got = pq.pair_live(ok, ovf, cap)
         got_r = dev.ragged(dense, B, K, 100)
+        got_pk = bo.pack_entries(*pargs)
         got_d = bo.dedup(dk, dv, num_files=10)
     side.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want_p))
     assert torch.equal(got_r, want_r)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got_pk, want_pk))
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got_d, want_d))
     keys = {key for key in kernels._SCAN_STATUS if key[0] == "cuda"}
     assert len(keys) >= 2

@@ -151,6 +151,72 @@ def test_sharded_classifier_matches_jax(flat, batch, bins):
     assert torch.equal(got_c, torch.minimum(raw, n[:, None]))
 
 
+@pytest.fixture(scope="module")
+def split3(tmp_path_factory):
+    """4 targets: T05 of 600 kbp between three of 3 kbp (T00, T01 before
+    it, T06 after), so that at 3 shards its technical bins cover the
+    middle shard and reach into both others. The JAX build, saved and
+    loaded by both packages."""
+    rng = np.random.default_rng(73)
+    genomes = {f"T{i:02d}": rng.integers(
+        0, 4, size=600_000 if i == 5 else 3000, dtype=np.uint8)
+        for i in (0, 1, 5, 6)}
+    path = str(tmp_path_factory.mktemp("split3") / "db.ibf")
+    jax_build_ibf(_hashes(genomes), kmer_size=K, window_size=W,
+                  max_fp=0.05).save(path)
+    return genomes, path
+
+
+def test_sharded_table_forest_mode_writes_only_its_columns(split3):
+    """``ShardedTable.counts`` in forest mode at an odd ``col0`` over 3
+    shards, a target split across all three, into a matrix filled with 7
+    beforehand: its columns equal ``ganon_tpu``'s sharded counts, every
+    other column still holds 7 (the caller's matrix is not cleared)."""
+    genomes, path = split3
+    codes, lengths = _codes(np.random.default_rng(74), genomes)
+    jm = jmesh.make_mesh(jax.devices()[:3], batch_axis=1)
+    want_c, _ = jmesh.ShardedClassifier(JaxIBF.load(path), jm).counts(
+        codes, lengths)
+    ibf = IBF.load(path)
+    f = tdev.DeviceFilter(ibf, "cpu", mesh=_cpu_mesh(1, 3))
+    shards = f.table.shards[0]
+    T = f.num_targets
+    assert any(sum(s.t_lo <= t < s.t_hi for s in shards) == 3
+               for t in range(T))
+    L4 = 152
+    inbuf = np.zeros((len(lengths), L4 // 4 + 4), np.uint8)
+    inbuf[:, :L4 // 4] = tdev.pack_codes_2bit(codes)
+    inbuf[:, L4 // 4:] = lengths.astype("<i4").view(np.uint8).reshape(-1, 4)
+    h, n, _ = q.extract(torch.from_numpy(inbuf), L1=L4, L2=0, k=K, w=W,
+                        mc=L4 - W + 1)
+    col0 = 3
+    out = torch.full((len(lengths), col0 + T + 2), 7, dtype=torch.int32)
+    got = f.table.counts(0, h, n, out=out, col0=col0)
+    assert got is out
+    assert np.array_equal(out[:, col0:col0 + T].numpy(), np.asarray(want_c))
+    assert np.asarray(want_c).any()
+    assert (out[:, :col0] == 7).all() and (out[:, col0 + T:] == 7).all()
+
+
+def test_sharded_table_fills_partials_only_for_the_tile_walk():
+    """The partials' buffer skips its zero fill unless a shard takes
+    count's tile walk (rows of 256 words or more) with an empty byte
+    range, the one case where count leaves a cell unstored."""
+    mesh = _cpu_mesh(1, 2)
+    for W8, widths, fill in ((64, [8, 8, 16], False),
+                             (4096, [8, 8, 16], False),
+                             (64, [8, 0, 16], False),
+                             (4096, [8, 0, 16], True)):
+        ends = np.cumsum(widths).astype(np.int32)
+        starts = np.concatenate([[0], ends[:-1]]).astype(np.int32)
+        tbl8 = torch.zeros((16, W8), dtype=torch.uint8)
+        table = tdev.ShardedTable(tbl8, torch.from_numpy(starts),
+                                  torch.from_numpy(ends), len(widths), mesh,
+                                  bin_size=16, hash_functions=1)
+        assert table.fill_parts == fill, (W8, widths)
+        assert all(s.device.type == "cpu" for s in table.spans)
+
+
 def test_sharded_filter_from_packed_table(flat):
     """``with_mesh`` cuts the cached filter's table (no repack) and counts
     as the single-device filter; the cache keys on the mesh."""
