@@ -47,8 +47,9 @@ Phases, one output line each:
              kernel mode) against its plain torch version on the same CUDA
              tensors at main-path shapes (8192 pairs of 150 bp; count on
              ``db.ibf`` and, in forest mode, on the forest's last sub; merge
-             and select with winners on the 1024 + 448 union of ``db`` and
-             ``db_b``), required equal, both timed with CUDA events;
+             (one launch a level, into unfilled buffers) and select with
+             winners on the 1024 + 448 union of ``db`` and ``db_b``),
+             required equal, both timed with CUDA events;
              the transfer kernels at the same shapes: ``ragged`` on
              select's buffer (with and without winners) at the engine's
              cap of 2 slots a read, ``probe_sort`` (count's input with
@@ -158,7 +159,8 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              8192 targets), byte-equal to ``pruned.hibf`` (line
              ``pruned_build_custom``); ``gate``, ``fine``, ``fine``
              probe-all, ``select`` in lanes mode and ``scatter`` in pruned
-             mode (4M pairs) against their plain versions at 8192 pairs,
+             mode (one build flush of both tables, 4M hashes in runs) against
+             their plain versions at 8192 pairs,
              and ``pairs`` at the engine's pair cap (line
              ``pruned_kernels``, rows of the kernels line); the packed
              batch on the card equal to the CPU's at pair caps 0, 8 and
@@ -190,12 +192,13 @@ build's mode, without the zero tail, ``zero_tail_ms`` and
 time of one PyTorch call computing the same function where there is one;
 ``sort``, ``ragged``, ``ragged_winners``, ``pairs``, ``dedup`` (both
 modes), ``scatter`` and its ranked and span modes, ``count``, ``gate``,
-``fine``, ``fine_all``, ``fine_shard``, ``pack``, ``merge`` and
-``combine`` are also timed over a run of
-back-to-back calls, ``device_ms`` and ``library_device_ms``, and by the
+``fine``, ``fine_all``, ``fine_shard``, ``pack``, ``merge``,
+``scatter_pruned`` and ``combine`` are also timed over a run of
+back-to-back calls queued while the card sleeps, ``device_ms`` and
+``library_device_ms``, and by the
 card's activity under torch.profiler, ``profiled_ms`` and
-``library_profiled_ms`` (null where no profiled window held any device
-activity), and the ``sort`` row names the digit passes it
+``library_profiled_ms`` (null where no profiled window held every
+device record of its calls' own activities), and the ``sort`` row names the digit passes it
 planned at the pass-1 group from the card's histograms, the ``sort_hist``
 row),
 and last the device line. Every classify CLI run of phases 4,
@@ -242,14 +245,16 @@ def _ms(fn, reps: int) -> float:
 
 def _ms_run(fn, n: int) -> float:
     """Milliseconds a call of ``fn`` over ``n`` back-to-back calls
-    between one CUDA event pair (warmed): the device time where the host
-    keeps ahead of the card."""
+    between one CUDA event pair (warmed), queued behind ~10 ms of sleep
+    on the card: the device time, the host's time a call hidden, unless
+    ``fn`` waits on the card."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(n):
         fn()
@@ -262,22 +267,34 @@ def _profiled_ms(fn, n: int) -> float | None:
     """Device milliseconds a call of ``fn``: the union of the card's
     activity (kernels, memsets, copies) under torch.profiler over ``n``
     calls (warmed), over ``n``; the card's own time, whatever the host
-    adds around it. A window whose trace holds no device activity (the
-    profiler drops one now and then) is profiled again, up to three
-    windows; None if none holds any."""
+    adds around it. One call's activities are those two windows of one
+    call both hold (by name); a window of ``n`` calls counts only those,
+    and must hold ``n`` times each (the profiler loses records now and
+    then in a long process: such a window reads low), else it is
+    profiled again, up to five windows; None if none holds them all."""
+    from collections import Counter
+
     import torch
+    from torch.autograd import DeviceType
+
+    def window(calls):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        busy = _device_busy(prof)[0]
-        if busy:
-            return busy / n / 1e3
+    own = (Counter(e.name for e in window(1))
+           & Counter(e.name for e in window(1)))
+    for _ in range(5):
+        mine = [e for e in window(n) if e.name in own]
+        if own and Counter(e.name for e in mine) == Counter(
+                {k: v * n for k, v in own.items()}):
+            return _union_us([(e.time_range.start, e.time_range.end)
+                              for e in mine]) / n / 1e3
     return None
 
 
@@ -482,6 +499,11 @@ def _device_busy(prof):
         name = re.split(r"[(<]", name.removeprefix("void "), maxsplit=1)[0]
         name = name.split("::")[-1].strip() or e.name[:40]
         totals[name] = totals.get(name, 0) + e.time_range.elapsed_us()
+    return _union_us(spans), totals
+
+
+def _union_us(spans):
+    """The length of the union of ``(start, end)`` spans."""
     busy, end = 0, None
     for s, t in sorted(spans):
         if end is None or s > end:
@@ -490,7 +512,7 @@ def _device_busy(prof):
         elif t > end:
             busy += t - end
             end = t
-    return busy, totals
+    return busy
 
 
 def _sorted_rows(path):
@@ -775,7 +797,7 @@ def main() -> int:
     )
     from ganon_tpu_torch.index.serialize import write_ibf
     from ganon_tpu_torch.index.pruned import (
-        build_pruned, scatter_pruned, scatter_pruned_plain,
+        build_pruned, pruned_plan, scatter_pruned, scatter_pruned_plain,
     )
     from ganon_tpu_torch.io.pipeline import EncodedBatch
     from ganon_tpu_torch.ops import build_ops as bo
@@ -827,7 +849,7 @@ def main() -> int:
          "-o", f"{so}.{src}.ptxas.o", os.path.join(csrc, src)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for src in ("extract.cu", "scan.cu", "count.cu", "select.cu",
-                    "dedup.cu", "scatter.cu")}
+                    "dedup.cu", "scatter.cu", "merge.cu")}
     for src, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
@@ -1384,21 +1406,19 @@ def main() -> int:
                     args.bench_pairs * sub.num_targets * 4),
     )
     # the union step of the 2_refs level: db then db_b into 1024 + 448
-    # columns (zeroing both [B, U] tensors, as the main path does)
+    # columns, one level merge into buffers neither side fills
     counts_b = fb.counts(hashes, n_hashes)
     U = f.num_targets + fb.num_targets - n_shared
-    cols = [torch.arange(f.num_targets, dtype=torch.int32, device=cuda),
-            torch.cat([torch.arange(n_shared, dtype=torch.int32),
-                       torch.arange(f.num_targets, U, dtype=torch.int32)
-                       ]).to(cuda)]
-    uk = [torch.zeros((args.bench_pairs, U), dtype=torch.int32, device=cuda)
+    colmap = dev.merge_colmap(
+        [np.arange(f.num_targets),
+         np.concatenate([np.arange(n_shared),
+                         np.arange(f.num_targets, U)])], U, cuda)
+    uk = [torch.empty((args.bench_pairs, U), dtype=torch.int32, device=cuda)
           for _ in range(4)]
 
     def union(fn, uc, uw):
-        uc.zero_()
-        uw.zero_()
-        for fi, (c, cl) in enumerate(zip((counts, counts_b), cols)):
-            fn(c, n_hashes, 0.75, 65535, cl, fi, uc, uw)
+        fn([counts, counts_b], n_hashes, [0.75, 0.75], 65535, colmap, uc,
+           uw)
         return uc, uw
 
     ucounts, uwin = compare(
@@ -1406,8 +1426,9 @@ def main() -> int:
         "ganon_tpu/classify/device.py:542",
         lambda: union(dev.merge, uk[0], uk[1]),
         lambda: union(dev.merge_plain, uk[2], uk[3]), 20, 5,
-        # both filters' counts, n and cols in; union counts and winners out
-        (_nbytes(counts, counts_b, n_hashes, *cols)
+        # both filters' counts, n and the map in; union counts and winners
+        # out
+        (_nbytes(counts, counts_b, n_hashes, colmap)
          + 2 * args.bench_pairs * U * 4,
          4 * args.bench_pairs * (counts.shape[1] + counts_b.shape[1])),
         runs=20,
@@ -2912,51 +2933,68 @@ def main() -> int:
          + 4 * (args.bench_pairs * (PK + 4 + -(-S // 2)) + fp.num_targets
                 + 3), 4 * lc.numel()),
     )
-    # one main-path scatter chunk of the fine table: the first 4M hashes
-    # of the build's group-major member stream
-    fh_, fg_, fj_, n = [], [], [], 0
+    # one main-path flush of both tables: the build's group-major member
+    # stream, whole targets, until 4M hashes (SCATTER_CHUNK)
+    fh_, runs_, n = [], [], 0
     for t, name in enumerate(pf.targets()):
         part = phashes[name]
+        if not len(part):
+            continue
+        runs_.append((n, t // gs, t % gs))
         fh_.append(part)
-        fg_.append(np.full(len(part), t // gs, np.int32))
-        fj_.append(np.full(len(part), t % gs, np.int32))
         n += len(part)
         if n >= SCATTER_CHUNK:
             break
-    sph = u64_to_torch(np.concatenate(fh_)[:SCATTER_CHUNK]).to(cuda)
-    spg = torch.from_numpy(np.concatenate(fg_)[:SCATTER_CHUNK]).to(cuda)
-    spj = torch.from_numpy(np.concatenate(fj_)[:SCATTER_CHUNK]).to(cuda)
-    fparams = (fp.grp_bin_size, fp.grp_shift, fp.grp_row_off)
-    fine_k = torch.zeros((pf.fine.shape[0], -(-pf.fine.shape[1] // 4)),
-                         dtype=torch.int32, device=cuda)
-    fine_p = torch.zeros_like(fine_k)
+    sph = u64_to_torch(np.concatenate(fh_)).to(cuda)
+    spruns = np.asarray(runs_, dtype=np.int64)
+    skw = dict(grp_bin_size=pf.grp_bin_size, grp_row_off=pf.grp_row_off,
+               fine_h=pf.fine_h, coarse_h=pf.coarse_h)
+    # both tables staged by word column, as the build stages them
+    tabs = [torch.zeros((-(-width // 4), rows_), dtype=torch.int32,
+                        device=cuda)
+            for _ in range(2) for rows_, width in (pf.fine.shape,
+                                                   pf.coarse.shape)]
 
     def scatter_pruned_kernel():
-        scatter_pruned(fine_k, sph, spg, spj, *fparams, fp.fine_h)
-        return (fine_k,)
+        scatter_pruned(tabs[0], tabs[1], sph, spruns, **skw)
+        return tabs[0], tabs[1]
 
     def scatter_pruned_run_plain():
-        scatter_pruned_plain(fine_p, sph, spg, spj, *fparams, fp.fine_h)
-        return (fine_p,)
+        scatter_pruned_plain(tabs[2], tabs[3], sph, spruns, **skw)
+        return tabs[2], tabs[3]
 
-    # the (hash, group, lane) triples in; each distinct u32 word set, out
-    pg64 = spg.to(torch.int64)
-    prow = torch.cat([
-        q.ibf_row_dyn(sph, i, fp.grp_bin_size[pg64],
-                      fp.grp_shift[pg64].to(torch.int64))
-        + fp.grp_row_off[pg64] for i in range(fp.fine_h)])
-    pwords = torch.unique(prow * fine_k.shape[1] + (spj // 32).to(
-        torch.int64).repeat(fp.fine_h)).numel()
+    # the hashes and the run table in; each distinct u32 word of both
+    # tables read and written once; a bit set a hash and hash function
+    sizes_ = torch.from_numpy(np.diff(np.append(spruns[:, 0], sph.numel()))
+                              ).to(cuda)
+    pg64 = torch.from_numpy(spruns[:, 1]).to(cuda).repeat_interleave(sizes_)
+    plane = torch.from_numpy(spruns[:, 2]).to(cuda).repeat_interleave(sizes_)
+    fwords = torch.unique(torch.cat([
+        (q.ibf_row_dyn(sph, i, fp.grp_bin_size[pg64],
+                       fp.grp_shift[pg64].to(torch.int64))
+         + fp.grp_row_off[pg64]) * tabs[0].shape[0] + plane // 32
+        for i in range(pf.fine_h)])).numel()
+    cbs = torch.tensor(pf.coarse_bin_size, device=cuda)
+    csh = torch.tensor(q.clz64(pf.coarse_bin_size), device=cuda)
+    cwords = torch.unique(torch.cat([
+        q.ibf_row_dyn(sph, i, cbs, csh) * tabs[1].shape[0] + pg64 // 32
+        for i in range(pf.coarse_h)])).numel()
     compare("scatter_pruned", "ganon_tpu_torch/csrc/scatter.cu",
             "ganon_tpu/index/pruned.py:283", scatter_pruned_kernel,
             scatter_pruned_run_plain, 10, 3,
-            (_nbytes(sph, spg, spj) + pwords * 4, prow.numel()))
-    del pg64, prow
+            (_nbytes(sph) + spruns.nbytes + 2 * 4 * (fwords + cwords),
+             sph.numel() * (pf.fine_h + pf.coarse_h)), runs=10)
+    rows[-1].update(fine_words=fwords, coarse_words=cwords,
+                    runs=len(spruns),
+                    fine_slices=pruned_plan(spruns, sph.numel(),
+                                            pf.grp_bin_size, pf.grp_row_off,
+                                            tabs[0].shape[0])[2])
+    del pg64, plane, sizes_
     emit("pruned_kernels", {
         "pairs": args.bench_pairs, "L1": pL1, "L2": pL2, "S": S, "K": PK,
         "gate_overflow_reads": int(govf.sum()),
         "live_slots": int(slot_ok.sum()),
-        "scatter_pairs": int(sph.numel()),
+        "scatter_hashes": int(sph.numel()), "scatter_runs": len(spruns),
         "pair_cap": pcap, "live_pairs": int(slot_ok.sum()),
         "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows[-6:]},
     })
@@ -2982,7 +3020,7 @@ def main() -> int:
     del fpc, bufs, pflags
     del ph, pn, povf, gsel, slot_ok, govf, lane_counts, lc, lsel, surv
     del live_b, live_s, surv_b, surv_g
-    del fine_k, fine_p, sph, spg, spj, fargs, akw, phashes
+    del tabs, sph, fargs, akw, phashes
     torch.cuda.empty_cache()
 
     # classify: 95% sampled pairs, 5% random, through the CLI, then profiled

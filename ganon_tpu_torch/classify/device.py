@@ -19,8 +19,9 @@ splits):
   (a user bin may sit in several sub-IBFs), then ``select``
   (:func:`classify_batch_packed`, through :meth:`DeviceRaptorHIBF.counts`);
 * several flat filters on one level: ``extract``, then per filter
-  ``count`` and ``merge`` into the union counts and winners, then
-  ``select`` with the winners payload (:func:`classify_batch_packed_multi`);
+  ``count``, then one ``merge`` of the level into the union counts and
+  winners, then ``select`` with the winners payload
+  (:func:`classify_batch_packed_multi`);
 * a pruned forest (:class:`DevicePrunedForest`): ``extract``, ``gate``
   (coarse group counts, top-S surviving groups), ``fine`` on those
   groups' lanes, then ``select`` in lanes mode with the group words
@@ -530,55 +531,106 @@ def select_lanes(counts: torch.Tensor, n_hashes: torch.Tensor,
     return packed
 
 
-def merge_plain(counts: torch.Tensor, n_hashes: torch.Tensor,
-                rel_cutoff: float, hashes_limit: int, cols: torch.Tensor,
-                f: int, ucounts: torch.Tensor, uwin: torch.Tensor) -> None:
+# filters a merge launch takes (csrc/merge.cu kMaxFilters); a level of
+# more takes further launches, each merging into what the one before wrote
+MERGE_MAX_FILTERS = 16
+
+
+def merge_colmap(cols: list, num_union: int, device=None) -> torch.Tensor:
+    """A level's inverse column map for :func:`merge`: int32 ``[F, U]``,
+    filter ``f``'s local target at union column ``u``, or -1 where ``f``
+    does not hold ``u``. ``cols[f]`` maps filter ``f``'s targets to union
+    columns (no column twice); a level's columns are fixed, so the map is
+    built once a level, not a batch."""
+    m = np.full((len(cols), num_union), -1, dtype=np.int32)
+    for f, c in enumerate(cols):
+        c = np.asarray(c.cpu() if isinstance(c, torch.Tensor) else c,
+                       dtype=np.int64)
+        if c.size and (c.min() < 0 or c.max() >= num_union
+                       or np.unique(c).size != c.size):
+            raise ValueError(f"filter {f}: union columns must be distinct "
+                             f"and in [0, {num_union})")
+        m[f, c] = np.arange(c.size, dtype=np.int32)
+    return torch.from_numpy(m).to(device or "cpu")
+
+
+def merge_plain(counts: list, n_hashes: torch.Tensor, rel_cutoffs: list,
+                hashes_limit: int, colmap: torch.Tensor,
+                ucounts: torch.Tensor, uwin: torch.Tensor, *,
+                f0: int = 0) -> None:
     """Plain version of the ``merge`` kernel (see :func:`merge`)."""
     n = n_hashes.to(torch.int64)
-    cutoff = torch.clamp(torch.ceil(n_hashes.to(torch.float64) * rel_cutoff),
-                         min=1.0).to(torch.int64)
-    valid = (n > 0) & (n <= hashes_limit)
-    cand = torch.where((counts >= cutoff[:, None]) & valid[:, None], counts,
-                       torch.zeros_like(counts))
-    idx = cols.to(torch.int64)
-    cur = ucounts[:, idx]
-    better = cand > cur
-    ucounts[:, idx] = torch.where(better, cand, cur)
-    uwin[:, idx] = torch.where(better, torch.full_like(cur, f), uwin[:, idx])
+    valid = ((n > 0) & (n <= hashes_limit))[:, None]
+    best = torch.zeros_like(ucounts) if f0 == 0 else ucounts.clone()
+    win = torch.zeros_like(uwin) if f0 == 0 else uwin.clone()
+    for f, (c, rc) in enumerate(zip(counts, rel_cutoffs), start=f0):
+        cutoff = torch.clamp(torch.ceil(n_hashes.to(torch.float64) * rc),
+                             min=1.0).to(torch.int64)
+        cand = torch.where((c >= cutoff[:, None]) & valid, c,
+                           torch.zeros_like(c))
+        m = colmap[f].to(torch.int64)
+        has = (m >= 0) & (m < c.shape[1])
+        cu = torch.zeros_like(best)
+        cu[:, has] = cand[:, m[has]]
+        better = cu > best
+        best = torch.where(better, cu, best)
+        win = torch.where(better, torch.full_like(win, f), win)
+    ucounts.copy_(best)
+    uwin.copy_(win)
 
 
-def merge(counts: torch.Tensor, n_hashes: torch.Tensor, rel_cutoff: float,
-          hashes_limit: int, cols: torch.Tensor, f: int,
-          ucounts: torch.Tensor, uwin: torch.Tensor) -> None:
-    """Merge filter ``f``'s clamped counts into the level's union, in place.
+def merge(counts: list, n_hashes: torch.Tensor, rel_cutoffs: list,
+          hashes_limit: int, colmap: torch.Tensor, ucounts: torch.Tensor,
+          uwin: torch.Tensor, *, f0: int = 0) -> None:
+    """Merge a level's filters' clamped counts into its union counts and
+    winners, writing every entry of ``ucounts`` and ``uwin``.
 
-    Replaces the per-filter step of ``ganon_tpu.classify.device.
-    classify_batch_packed_multi``: the filter's own rel-cutoff (float64,
-    floor 1) on valid reads (``0 < n <= hashes_limit``), the scatter of
-    its ``[B, T_f]`` counts into union columns ``cols`` (int32 ``[T_f]``,
-    no repeats), and a strict-greater max into ``ucounts`` that records
-    ``f`` in ``uwin`` (both int32 ``[B, U]``, zeroed before the first
-    filter). Called in filter order, the first filter wins ties.
+    Replaces the union step of ``ganon_tpu.classify.device.
+    classify_batch_packed_multi``: for filter ``f`` in order, its own
+    rel-cutoff (float64, floor 1) on valid reads (``0 < n <=
+    hashes_limit``), its ``counts[f]`` (int32 ``[B, T_f]``) placed at the
+    union columns of ``colmap`` (:func:`merge_colmap`, int32 ``[F, U]``),
+    and a strict-greater max into ``ucounts`` that records ``f`` in
+    ``uwin`` (both int32 ``[B, U]``; neither needs a fill), so the first
+    filter wins ties and a column no filter passes holds count 0 and
+    winner 0. ``counts`` may be the level's filters ``f0 ..`` alone: with
+    ``f0 > 0`` they merge into what ``ucounts`` and ``uwin`` hold from
+    filters ``0 .. f0 - 1``. On the card one launch takes up to
+    :data:`MERGE_MAX_FILTERS` filters; more take further launches.
     """
-    B, Tf = counts.shape
-    U = ucounts.shape[1] if ucounts.dim() == 2 else -1
-    if (counts.dtype != torch.int32 or n_hashes.dtype != torch.int32
-            or cols.dtype != torch.int32 or ucounts.dtype != torch.int32
-            or uwin.dtype != torch.int32):
+    F = len(counts)
+    B = n_hashes.shape[0] if n_hashes.dim() == 1 else -1
+    U = colmap.shape[1] if colmap.dim() == 2 else -1
+    if (not F or len(rel_cutoffs) != F or f0 < 0
+            or colmap.shape[0] < f0 + F):
+        raise ValueError("merge takes F >= 1 counts, F rel-cutoffs and a "
+                         "[f0 + F, U] column map or larger")
+    if any(t.dtype != torch.int32
+           for t in (n_hashes, colmap, ucounts, uwin, *counts)):
         raise ValueError("merge takes int32 tensors")
-    if (n_hashes.shape != (B,) or cols.shape != (Tf,)
-            or ucounts.shape != (B, U) or uwin.shape != (B, U)):
-        raise ValueError("shapes: counts [B, T_f], n [B], cols [T_f], "
+    if (B < 0 or ucounts.shape != (B, U) or uwin.shape != (B, U)
+            or any(c.dim() != 2 or c.shape[0] != B or c.shape[1] > U
+                   for c in counts)):
+        raise ValueError("shapes: counts [B, T_f] (T_f <= U), n [B], "
                          "ucounts/uwin [B, U]")
-    if counts.device.type == "cpu":
-        merge_plain(counts, n_hashes, rel_cutoff, hashes_limit, cols, f,
-                    ucounts, uwin)
+    if ucounts.device.type == "cpu":
+        merge_plain(counts, n_hashes, rel_cutoffs, hashes_limit, colmap,
+                    ucounts, uwin, f0=f0)
         return
-    kernels.check_cuda(counts, n_hashes, cols, ucounts, uwin)
-    if B == 0 or Tf == 0:
+    kernels.check_cuda(n_hashes, colmap, ucounts, uwin, *counts)
+    if B == 0 or U == 0:
         return
-    kernels.launch("merge", counts, B, Tf, n_hashes, float(rel_cutoff),
-                   int(hashes_limit), cols, int(f), ucounts, uwin, U)
+    for c0 in range(0, F, MERGE_MAX_FILTERS):
+        part = counts[c0:c0 + MERGE_MAX_FILTERS]
+        # host arrays, passed to the kernel by value (their addresses)
+        ptrs = np.array([c.data_ptr() for c in part], dtype=np.int64)
+        tfs = np.array([c.shape[1] for c in part], dtype=np.int32)
+        rcs = np.array(rel_cutoffs[c0:c0 + MERGE_MAX_FILTERS],
+                       dtype=np.float64)
+        kernels.launch("merge", n_hashes, B, ptrs.ctypes.data,
+                       tfs.ctypes.data, rcs.ctypes.data, len(part), f0 + c0,
+                       int(hashes_limit), colmap, U, int(f0 + c0 == 0),
+                       ucounts, uwin)
 
 
 def split_rows(x, mesh) -> list:
@@ -698,7 +750,8 @@ def classify_batch_packed_forest(f: "DeviceHIBF", inbuf: torch.Tensor,
         match_cap=match_cap)
 
 
-def classify_batch_packed_multi(filters: list, cols: list, inbuf: torch.Tensor,
+def classify_batch_packed_multi(filters: list, colmap: torch.Tensor,
+                                inbuf: torch.Tensor,
                                 rel_cutoffs: list, rel_filter: float,
                                 hashes_limit: int, *, k: int, w: int, L1: int,
                                 L2: int, num_union: int, top_k: int,
@@ -707,12 +760,14 @@ def classify_batch_packed_multi(filters: list, cols: list, inbuf: torch.Tensor,
     """One batch against several flat filters of one level: one buffer.
 
     Port of ``ganon_tpu.classify.device.classify_batch_packed_multi``:
-    ``extract`` once; per filter ``count`` and
-    ``merge`` (its own rel-cutoff, strict-greater union max, first filter
-    wins ties) into ``[B, U]`` union counts and winners; then ``select``
-    with ``rel_cutoff = 0`` (the cutoffs are applied, and its floor of 1
-    drops the zeros) and the winners payload. ``cols[i]`` maps filter
-    ``i``'s targets to union columns (int32, on the filters' device).
+    ``extract`` once; per filter ``count``, and a ``merge`` of the level
+    (each filter's own rel-cutoff, strict-greater union max, first filter
+    wins ties) into ``[B, U]`` union counts and winners, one launch after
+    each :data:`MERGE_MAX_FILTERS` filters' counts; then
+    ``select`` with ``rel_cutoff = 0`` (the cutoffs are applied, and its
+    floor of 1 drops the zeros) and the winners payload. ``colmap`` is
+    the level's inverse column map (:func:`merge_colmap` of the filters'
+    union columns, int32 ``[F, U]``, built once a level).
     Layout: ``[B*K] matches | [B*K] winners | [B] n_matches | ...``, or
     with ``match_cap > 0`` the ragged stream and its winners stream
     (:func:`ragged`); the rel-filter's min count is taken over the final
@@ -727,14 +782,20 @@ def classify_batch_packed_multi(filters: list, cols: list, inbuf: torch.Tensor,
         hashes, n_hashes, overflow = _extract_compact(x, k=k, w=w, L1=L1,
                                                       L2=L2)
         B = hashes.shape[0]
-        ucounts = torch.zeros((B, num_union), dtype=torch.int32,
+        ucounts = torch.empty((B, num_union), dtype=torch.int32,
                               device=hashes.device)
-        uwin = torch.zeros_like(ucounts)
-        for fi, (f, c, rc) in enumerate(zip(filters, cols, rel_cutoffs)):
-            counts = (f.counts(hashes, n_hashes) if mesh is None
-                      else f.row_counts(i, hashes, n_hashes))
-            merge(counts, n_hashes, rc, hashes_limit, c.to(hashes.device),
-                  fi, ucounts, uwin)
+        uwin = torch.empty_like(ucounts)
+        cmap = colmap.to(hashes.device)
+        for f0 in range(0, len(filters), MERGE_MAX_FILTERS):
+            # a merge launch's filters counted at once: their [B, T_f]
+            # counts, sum_f B * T_f * 4 bytes, stay alive until it (50 MB
+            # at 8192 reads and 1024 + 512 targets)
+            fs = filters[f0:f0 + MERGE_MAX_FILTERS]
+            counts = [f.counts(hashes, n_hashes) if mesh is None
+                      else f.row_counts(i, hashes, n_hashes) for f in fs]
+            merge(counts, n_hashes, rel_cutoffs[f0:f0 + len(fs)],
+                  hashes_limit, cmap, ucounts, uwin, f0=f0)
+            del counts
         parts.append((ucounts, uwin, n_hashes, overflow))
     if mesh is not None:
         parts = [tuple(gather_rows(list(p), filters[0].device)

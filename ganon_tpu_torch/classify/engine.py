@@ -319,11 +319,11 @@ class LevelContext:
                 fprs[j] = f.target_fpr[t]
             self.filter_cols.append(cols)
             self.filter_fprs.append(fprs)
-        # the union columns on the filters' device (the merge kernel's map)
-        self.filter_cols_dev = [
-            torch.from_numpy(c.astype(np.int32)).to(self.filters[0].device)
-            for c in self.filter_cols
-        ]
+        # the merge kernel's inverse column map on the filters' device,
+        # built once a level
+        self.filter_colmap = dev.merge_colmap(
+            self.filter_cols, len(self.union_targets),
+            self.filters[0].device)
         # per-filter fpr indexed by UNION column: the winning filter's fpr
         # rides with each match of a multi-filter level
         self.union_fprs: list[np.ndarray] = []
@@ -828,7 +828,7 @@ def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
     emit_mt = ctx.level.fpr_query >= 1.0
     cap = _match_cap(ctx, batch_pad, K, True)
     packed = dev.classify_batch_packed_multi(
-        ctx.filters, ctx.filter_cols_dev, ctx.filters[0].put_batch(inbuf),
+        ctx.filters, ctx.filter_colmap, ctx.filters[0].put_batch(inbuf),
         [s.rel_cutoff for s in ctx.specs], ctx.level.rel_filter,
         cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1, L2=L2,
         num_union=U, top_k=K, emit_matches_t=emit_mt, match_cap=cap,

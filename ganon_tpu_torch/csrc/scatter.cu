@@ -71,16 +71,60 @@
 // 1.02 ms on the card ranked; this one, 0.53.
 //
 // Pruned mode (K16: ganon_tpu/index/pruned.py:283 _pruned_scatter_jit
-// .step, driven by :337 _device_scatter_table): the pruned forest's fine
-// table has a bin size per group, so each pair names a parameter set p
-// (grp[i], or set 0 when grp is NULL) of [P] arrays (bin_size, shift =
-// clz64(bin_size), row_off) and a bit column; it sets bit `bit` of row
-// ganon_ibf_row(x, s, bin_size[p], shift[p]) + row_off[p] for each hash
-// function s. The fine table passes one set per group and the lane in the
-// group; the coarse table one set of all its rows and the group as the
-// bit. Rows are u32 words of the little-endian byte table (row bytes
-// padded to x4), so bit c of a row is bit c & 31 of word c >> 5. One
-// thread per pair, atomicOr: it keeps its own kernel (PERF.md says why).
+// .step, driven by :337 _device_scatter_table): a flush of the pruned
+// forest's build sets both its tables in one launch. Its hashes come in
+// runs, one a target: run r covers hashes [start[r], start[r + 1]) of
+// group grp[r] at lane lane[r]. For each hash x of a run and hash
+// function s, the fine table gets bit lane of row row_off[g] +
+// ganon_ibf_row(x, s, bin_size[g]) (fine_h functions; a bin size per
+// group), the coarse table bit g of row ganon_ibf_row(x, s,
+// coarse_bin_size) (coarse_h functions). Rows are u32 words of the
+// little-endian byte tables (row bytes padded to x4), so bit c of a row is
+// bit c & 31 of word c >> 5.
+//
+// What bounds it on the H100: memory requests. A flush's 4M hashes are
+// read (32 MB) and each distinct word set is read and written once: the
+// fine rows of the ~24 groups a flush touches (~10 MB) and random rows of
+// the 27.7 MB coarse table. The earlier design, two launches a flush
+// (fine, then coarse), a thread a pair and an atomicOr a bit in device
+// memory, read the hashes twice and per-pair group and lane arrays the
+// host expanded and copied (32 of the fine call's 67 MB), and took 0.162
+// ms on the card a flush (0.064 fine, 0.077 coarse; NVIDIA H100 80GB
+// HBM3, 700.00 W).
+//
+// Design: one launch, two kinds of blocks, on tables staged by word
+// column (the caller transposes them back once a build): word w of row r
+// at w * R + r, so a flush's coarse bits, whose groups share one or two
+// word columns, touch one 7 MB column of the coarse table rather than
+// every 32-byte sector of it, and a slice's fine words are contiguous.
+// A fine block owns a slice of one word column of one group's rows (at
+// most SLICE_BYTES of pruned.py, 216 KB: a group's whole column at the
+// build's shapes), zeroes it in shared memory, walks the runs of its
+// group whose lanes lie in its column (the host hands the runs grouped by
+// group and column, a CSR of run ids, so the stream need not be
+// group-major: a warp a run, four hashes a lane in flight), ORs the bits
+// that fall in its slice into shared memory with shared atomics, and ORs
+// the slice's nonzero words into the table with plain reads and writes,
+// eight in flight a thread: no other block writes those words, so no fine
+// bit takes a device-memory atomic. A hash is read by the slices of its
+// column, one at the build's shapes, more as a group's bin size passes
+// 55,296 rows. The host's plan (pruned.py pruned_plan) gives a column no
+// slice where it would need more than MAX_COLUMN_SLICES or holds more
+// than 1 / COLUMN_SHARE of the flush (genome-sized targets, a small
+// flush): its fine bits take an atomicOr in the coarse blocks, which
+// read each hash once, since there one block reading a column alone
+// took up to 29x the atomics' time. A coarse block reads a chunk of the
+// hashes once (the run that holds its first hash by binary search, then
+// the runs on) and sets their coarse bits, and those fine bits, with
+// atomicOr, bound by the L2's atomic rate (77G a second, the coarse
+// blocks alone); a flush with no slice takes no shared memory and up to
+// four coarse blocks an SM. The plan lists the slices (bin size, first
+// row in the group, rows, first row in the table, the span of the run
+// CSR and the word column) and each run's fine bin size and first row
+// where the coarse blocks set its fine bits. The first design, slices of
+// whole rows at 56 KB with 256 threads a block, every slice re-reading
+// its group's hashes, took 0.32 ms on the card (scripts/
+// torch_merge_pruned_ab.py, PERF.md).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -88,6 +132,7 @@
 #include "dedup.cuh"
 #include "ibf_hash.cuh"
 #include "scan.cuh"
+#include "sm_count.cuh"
 
 namespace {
 
@@ -420,27 +465,130 @@ apply_kernel(unsigned* __restrict__ bits, const unsigned* __restrict__ items,
     }
 }
 
-__global__ void scatter_pruned_kernel(unsigned* __restrict__ bits, long long W,
-                                      const long long* __restrict__ hashes,
-                                      const int* __restrict__ grp,
-                                      const int* __restrict__ bit, long long N,
-                                      const long long* __restrict__ bin_size,
-                                      const int* __restrict__ shift,
-                                      const long long* __restrict__ row_off,
-                                      int h) {
-    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (i >= N) return;
-    const int p = grp ? grp[i] : 0;
-    const unsigned long long x = (unsigned long long)hashes[i];
-    const unsigned long long bsz = (unsigned long long)bin_size[p];
-    const int sh = shift[p];
-    const long long off = row_off[p];
-    const int c = bit[i];
-    const unsigned mask = 1u << (c & 31);
-    const long long word = c >> 5;
-    for (int s = 0; s < h; ++s) {
-        const long long row = (long long)ganon_ibf_row(x, s, bsz, sh) + off;
-        atomicOr(bits + row * W + word, mask);
+constexpr int kPrunedThreads = 1024;
+constexpr int kPrunedUnroll = 4;     // hashes a lane in flight
+constexpr int kWriteBatch = 8;       // slice words a thread in flight
+constexpr int kSliceFields = 8;      // a fine slice's int64 fields
+constexpr int kCoarseChunk = 8192;   // the least hashes a coarse block
+
+// Tables by word column: fine_t int32 [Wf, Rf], coarse_t [Wc, Rc] (the
+// build's staging layout; word w of row r at w * R + r).
+// meta (int64): start [nr + 1], grp [nr], lane [nr], order [nr] (run ids
+// by group and word column, stable), fbsz [nr] and foff [nr] (the run's
+// group's fine bin size and first row where the coarse blocks set its
+// fine bits, fbsz 0 where its column's slices do), then nfb slices of kSliceFields:
+// bin_size, r0 (first row in the group), rows, arow (first row in the
+// table), lo, hi (the runs of the slice's group and column: order[lo ..
+// hi)), wc (the word column), 0.
+__global__ void __launch_bounds__(kPrunedThreads, 1)
+scatter_pruned_kernel(unsigned* __restrict__ fine_t, long long Rf,
+                      unsigned* __restrict__ coarse_t,
+                      unsigned long long Rc,
+                      const unsigned long long* __restrict__ hashes,
+                      long long N, const long long* __restrict__ meta,
+                      int nr, int nfb, long long chunk, int fh, int ch) {
+    const long long* start = meta;
+    const long long* rgrp = start + nr + 1;
+    const long long* rlane = rgrp + nr;
+    const long long* order = rlane + nr;
+    const long long* fbsz = order + nr;
+    const long long* foff = fbsz + nr;
+    extern __shared__ unsigned slice[];
+    if ((int)blockIdx.x < nfb) {
+        const long long* sl =
+            foff + nr + (long long)blockIdx.x * kSliceFields;
+        const unsigned long long bsz = (unsigned long long)sl[0];
+        const unsigned long long r0 = (unsigned long long)sl[1];
+        const int rows = (int)sl[2];
+        const long long arow = sl[3], lo = sl[4], hi = sl[5];
+        const int sh = __clzll((long long)bsz);
+        for (int w = threadIdx.x; w < rows; w += kPrunedThreads)
+            slice[w] = 0u;
+        __syncthreads();
+        // a warp a run: the run's lane is one bit of the slice's column
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        for (long long k = lo + warp; k < hi; k += kPrunedThreads / 32) {
+            const long long r = order[k];
+            const long long s0 = start[r], s1 = start[r + 1];
+            const unsigned mask = 1u << (rlane[r] & 31);
+            for (long long i = s0 + lane; i < s1;
+                 i += 32 * kPrunedUnroll) {
+                unsigned long long x[kPrunedUnroll];
+#pragma unroll
+                for (int q = 0; q < kPrunedUnroll; ++q)
+                    x[q] = i + 32 * q < s1 ? __ldg(hashes + i + 32 * q) : 0;
+#pragma unroll
+                for (int q = 0; q < kPrunedUnroll; ++q) {
+                    if (i + 32 * q >= s1) continue;
+                    for (int s = 0; s < fh; ++s) {
+                        // a row before the slice wraps past rows
+                        const unsigned long long row =
+                            ganon_ibf_row(x[q], s, bsz, sh) - r0;
+                        if (row < (unsigned long long)rows)
+                            atomicOr(slice + row, mask);
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        // the slice's nonzero words ORed into its rows of the column, a
+        // batch of loads in flight a thread
+        unsigned* out = fine_t + sl[6] * Rf + arow;
+        for (int w0 = 0; w0 < rows; w0 += kPrunedThreads * kWriteBatch) {
+            unsigned v[kWriteBatch], old[kWriteBatch];
+#pragma unroll
+            for (int q = 0; q < kWriteBatch; ++q) {
+                const int w = w0 + q * kPrunedThreads + threadIdx.x;
+                v[q] = w < rows ? slice[w] : 0u;
+                old[q] = v[q] ? out[w] : 0u;
+            }
+#pragma unroll
+            for (int q = 0; q < kWriteBatch; ++q)
+                if (v[q]) out[w0 + q * kPrunedThreads + threadIdx.x] =
+                    old[q] | v[q];
+        }
+        return;
+    }
+    // a coarse block: hashes [i0, i1), from the run that holds i0 (the
+    // last whose start is at most i0); the fine bits too of a run whose
+    // column has no slices
+    const long long i0 = (long long)(blockIdx.x - nfb) * chunk;
+    const long long i1 = min(i0 + chunk, N);
+    int a = 0, b = nr - 1;
+    while (a < b) {
+        const int m = (a + b + 1) >> 1;
+        if (start[m] <= i0) a = m;
+        else b = m - 1;
+    }
+    const int csh = __clzll((long long)Rc);
+    for (int r = a; r < nr && start[r] < i1; ++r) {
+        const long long s0 = max(start[r], i0), s1 = min(start[r + 1], i1);
+        const int g = (int)rgrp[r];
+        unsigned* col = coarse_t + (unsigned long long)(g >> 5) * Rc;
+        const unsigned mask = 1u << (g & 31);
+        const unsigned long long fb = (unsigned long long)fbsz[r];
+        const int fsh = fb ? __clzll((long long)fb) : 0;
+        unsigned* fcol = fine_t + (rlane[r] >> 5) * Rf + foff[r];
+        const unsigned fmask = 1u << (rlane[r] & 31);
+        for (long long i = s0 + threadIdx.x; i < s1;
+             i += kPrunedThreads * kPrunedUnroll) {
+            unsigned long long x[kPrunedUnroll];
+#pragma unroll
+            for (int q = 0; q < kPrunedUnroll; ++q) {
+                const long long j = i + kPrunedThreads * q;
+                x[q] = j < s1 ? __ldg(hashes + j) : 0;
+            }
+#pragma unroll
+            for (int q = 0; q < kPrunedUnroll; ++q) {
+                if (i + kPrunedThreads * q >= s1) continue;
+                for (int s = 0; s < ch; ++s)
+                    atomicOr(col + ganon_ibf_row(x[q], s, Rc, csh), mask);
+                if (fb)
+                    for (int s = 0; s < fh; ++s)
+                        atomicOr(fcol + ganon_ibf_row(x[q], s, fb, fsh),
+                                 fmask);
+            }
+        }
     }
 }
 
@@ -584,19 +732,41 @@ extern "C" int ganon_scatter_ranked(
                                    items, (cudaStream_t)stream);
 }
 
-extern "C" int ganon_scatter_pruned(void* bits, long long R, long long W,
-                                    const void* hashes, const void* grp,
-                                    const void* bit, long long N,
-                                    const void* bin_size, const void* shift,
-                                    const void* row_off, int h, void* stream) {
-    (void)R;
-    if (h < 1 || h > 5) return (int)cudaErrorInvalidValue;
-    const int threads = 256;
-    const long long blocks = (N + threads - 1) / threads;
-    scatter_pruned_kernel<<<(unsigned)blocks, threads, 0,
-                            (cudaStream_t)stream>>>(
-        (unsigned*)bits, W, (const long long*)hashes, (const int*)grp,
-        (const int*)bit, N, (const long long*)bin_size, (const int*)shift,
-        (const long long*)row_off, h);
+// The pruned flush (K16): fine_t int32 [Wf, Rf] and coarse_t int32 [Wc,
+// Rc] by word column (Rc the coarse bin size), N hashes (int64, u64 bit
+// patterns), meta as scatter_pruned_kernel reads it (nr runs, nfb slices,
+// each slice at most slice_rows rows; the host's plan keeps every slice
+// and every run's fine rows inside its column, every lane below Wf * 32
+// and every group below Wc * 32).
+extern "C" int ganon_scatter_pruned(void* fine_t, long long Rf, long long Wf,
+                                    void* coarse_t, long long Rc,
+                                    long long Wc, const void* hashes,
+                                    long long N, const void* meta, int nr,
+                                    int nfb, long long slice_rows, int fh,
+                                    int ch, void* stream) {
+    if (fh < 1 || fh > 5 || ch < 1 || ch > 5 || Rf < 1 || Wf < 1 || Rc < 1
+        || Wc < 1 || N < 0 || nfb < 0 || (N > 0 && nr < 1)
+        || slice_rows < 1 || slice_rows * 4 > kMaxTileBytes)
+        return (int)cudaErrorInvalidValue;
+    if (N == 0) return (int)cudaGetLastError();
+    // with slices, a block an SM (each holds a slice's shared memory);
+    // without, the coarse blocks alone, smaller chunks and more of them
+    // in flight
+    const long long smem = nfb ? slice_rows * 4 : 0;
+    const long long least = nfb ? kCoarseChunk : kCoarseChunk / 4;
+    const long long cap = (nfb ? 1ll : 4ll) * sm_count();
+    long long ncb = (N + least - 1) / least;
+    if (ncb > cap) ncb = cap;
+    const long long chunk = (N + ncb - 1) / ncb;
+    if (nfb + ncb >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    const int err = (int)cudaFuncSetAttribute(
+        scatter_pruned_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err) return err;
+    scatter_pruned_kernel<<<(unsigned)(nfb + ncb), kPrunedThreads,
+                            (size_t)smem, (cudaStream_t)stream>>>(
+        (unsigned*)fine_t, Rf, (unsigned*)coarse_t, (unsigned long long)Rc,
+        (const unsigned long long*)hashes, N, (const long long*)meta, nr,
+        nfb, chunk, fh, ch);
     return (int)cudaGetLastError();
 }

@@ -46,6 +46,8 @@
 
 #include <cstdint>
 
+#include "sm_count.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -134,15 +136,6 @@ combine_kernel(const __grid_constant__ Spans sp,
             }
         }
     }
-}
-
-int sm_count() {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess
-        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-               != cudaSuccess)
-        return 132;
-    return sms;
 }
 
 }  // namespace

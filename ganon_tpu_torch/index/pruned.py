@@ -245,71 +245,204 @@ def is_pruned_file(path: str) -> bool:
 # --- device build: the scatter kernel in pruned mode ---------------------------
 
 
-def scatter_pruned_plain(bits: torch.Tensor, hashes: torch.Tensor,
-                         grp: torch.Tensor | None, bit: torch.Tensor,
-                         bin_size: torch.Tensor, shift: torch.Tensor,
-                         row_off: torch.Tensor, hash_functions: int) -> None:
-    """Plain version of the ``scatter`` kernel's pruned mode (see
-    :func:`scatter_pruned`): deduplicate the flat bit indices, after
-    which OR equals ADD."""
-    R, W = bits.shape
-    p = (torch.zeros_like(bit, dtype=torch.int64) if grp is None
-         else grp.to(torch.int64))
-    bsz, sh, off = bin_size[p], shift[p].to(torch.int64), row_off[p]
+def _or_bits(bits_t: torch.Tensor, hashes: torch.Tensor, bin_size, shift,
+             row_off, bit: torch.Tensor, hash_functions: int) -> None:
+    """OR bit ``bit[i]`` of row ``fastrange_s(hashes[i], bin_size) +
+    row_off`` (each broadcast per hash) into ``bits_t``, a table by word
+    column (int32 ``[W, R]``), for every hash function ``s``: deduplicate
+    the flat bit indices, after which OR equals ADD."""
+    W, R = bits_t.shape
+    bit = bit.to(torch.int64)
     flat = torch.cat([
-        (ibf_row_dyn(hashes, i, bsz, sh) + off) * (W * 32) + bit.to(torch.int64)
-        for i in range(hash_functions)
+        ((bit >> 5) * R + ibf_row_dyn(hashes, i, bin_size, shift) + row_off)
+        * 32 + (bit & 31) for i in range(hash_functions)
     ])
     flat = torch.unique(flat)
-    delta = torch.zeros(R * W, dtype=torch.int64, device=bits.device)
+    delta = torch.zeros(W * R, dtype=torch.int64, device=bits_t.device)
     delta.index_add_(0, flat >> 5, torch.ones_like(flat) << (flat & 31))
     delta = torch.where(delta >= 1 << 31, delta - (1 << 32), delta)
-    bits |= delta.to(torch.int32).reshape(R, W)
+    bits_t |= delta.to(torch.int32).reshape(W, R)
 
 
-def scatter_pruned(bits: torch.Tensor, hashes: torch.Tensor,
-                   grp: torch.Tensor | None, bit: torch.Tensor,
-                   bin_size: torch.Tensor, shift: torch.Tensor,
-                   row_off: torch.Tensor, hash_functions: int) -> None:
-    """OR every (hash, parameter set, bit column) into a table, in place.
+def scatter_pruned_plain(fine_t: torch.Tensor, coarse_t: torch.Tensor,
+                         hashes: torch.Tensor, runs, *, grp_bin_size,
+                         grp_row_off, fine_h: int, coarse_h: int) -> None:
+    """Plain version of the ``scatter`` kernel's pruned mode (see
+    :func:`scatter_pruned`): the runs expanded to a group and a lane a
+    hash, then each table's bit indices deduplicated and added."""
+    dev = fine_t.device
+    runs = np.asarray(runs, dtype=np.int64).reshape(-1, 3)
+    sizes = torch.from_numpy(
+        np.diff(np.append(runs[:, 0], hashes.shape[0]))).to(dev)
+    grp = torch.from_numpy(runs[:, 1]).to(dev).repeat_interleave(sizes)
+    lane = torch.from_numpy(runs[:, 2]).to(dev).repeat_interleave(sizes)
+    bsz = np.asarray(grp_bin_size, dtype=np.int64)
+    shift = torch.tensor([clz64(int(x)) for x in bsz], dtype=torch.int64,
+                         device=dev)
+    _or_bits(fine_t, hashes, torch.from_numpy(bsz).to(dev)[grp], shift[grp],
+             torch.from_numpy(np.asarray(grp_row_off, np.int64)).to(dev)[grp],
+             lane, fine_h)
+    Rc = coarse_t.shape[1]
+    _or_bits(coarse_t, hashes, torch.tensor(Rc, device=dev),
+             torch.tensor(clz64(Rc), device=dev), 0, grp, coarse_h)
 
-    Replaces ``ganon_tpu.index.pruned``'s ``_pruned_scatter_jit`` step.
-    ``bits`` int32 ``[R, W]`` (u32 words of the little-endian byte table,
-    row bytes padded to x4); for each ``i`` and hash function ``s``, bit
-    ``bit[i]`` of row ``fastrange_s(hashes[i], bin_size[p]) + row_off[p]``
-    is set, with ``p = grp[i]`` (``grp`` None: every pair uses set 0).
-    The fine table passes one set per group and the lane in the group;
-    the coarse table one set of all rows and the group as the bit.
-    ``hashes`` int64 ``[N]`` (u64 bit patterns), ``grp``/``bit`` int32
-    ``[N]``, ``bin_size``/``row_off`` int64 ``[P]``, ``shift`` int32
-    ``[P]`` (``clz64(bin_size)``).
+
+# a fine slice's shared memory at most: one word column of 55,296 rows, a
+# group's whole column at the build's shapes (a flush took 0.084 ms on
+# the card at 216 KB, 0.093 at 112 KB, 0.117 at 56 KB, 0.169 at 28 KB;
+# NVIDIA H100 80GB HBM3, 700.00 W, scripts/torch_merge_pruned_ab.py)
+SLICE_BYTES = 216 << 10
+# which (group, word column)s get slices: a slice block reads all of its
+# column's hashes, one block alone, so a column gets slices only where
+# that takes no longer than the flush's atomics would: at most
+# MAX_COLUMN_SLICES slices (a bin size up to 4 * 55,296 rows; every
+# slice reads the column again) and at most 1 / COLUMN_SHARE of the
+# flush's hashes. Any other column has its fine bits set by the coarse
+# blocks, which read each hash once, with an atomicOr a bit. Card ms a
+# flush, this rule against slices everywhere and the earlier design's
+# two launches (fine, then coarse, an atomicOr a bit): 4M hashes in ~24
+# columns of 55K rows (the build's shape) 0.084 (all slices; all atomics
+# 0.112) against 0.165; targets of 5K-700K hashes in groups of 64 (a
+# column 1/4 to all of a flush, 2-270 slices), atomics 0.022-0.60
+# against slices 0.072-18.4 and the earlier 0.020-0.63; NVIDIA H100
+# 80GB HBM3, 700.00 W, scripts/torch_merge_pruned_ab.py
+MAX_COLUMN_SLICES = 4
+COLUMN_SHARE = 8
+
+
+def pruned_plan(runs: np.ndarray, N: int, grp_bin_size: np.ndarray,
+                grp_row_off: np.ndarray, row_words: int):
+    """A flush's plan for the pruned scatter kernel: ``(meta, nr, nfb,
+    slice_rows)``, ``meta`` the host int64 array the kernel reads (run
+    starts with ``N`` appended, groups, lanes, the run ids by group and
+    word column, each run's fine bin size and first row where the coarse
+    blocks set its fine bits (bin size 0 where slices do), then ``nfb``
+    slices of bin size, first row in the group, rows, first row in the
+    table, the span of those run ids, the word column and a pad).
+    ``runs`` is int64 ``[nr, 3]`` (:func:`scatter_pruned`), the group
+    parameters int64 ``[G]``. Runs of no hash are dropped; each (group,
+    word column) the runs name is cut into slices of at most
+    ``slice_rows`` rows (:data:`SLICE_BYTES`, a u32 word a row), unless
+    it needs more than :data:`MAX_COLUMN_SLICES` or holds more than
+    ``1 / COLUMN_SHARE`` of the flush's hashes (then the coarse blocks
+    set its fine bits); ``row_words`` is the fine table's words a row."""
+    ends = np.append(runs[1:, 0], N)
+    live = ends > runs[:, 0]
+    if not live.all():
+        runs, ends = runs[live], ends[live]
+    slice_rows = SLICE_BYTES // 4
+    key = runs[:, 1] * row_words + (runs[:, 2] >> 5)
+    order = np.argsort(key, kind="stable")
+    sk = key[order]
+    new = np.empty(len(sk), dtype=bool)
+    new[:1] = True
+    np.not_equal(sk[1:], sk[:-1], out=new[1:])
+    lo = np.flatnonzero(new)
+    hi = np.append(lo[1:], len(sk))
+    # each column's hashes and slices; a run takes its column's choice
+    n_col = np.add.reduceat((ends - runs[:, 0])[order], lo) if len(lo) else lo
+    sliced = ((-(-grp_bin_size[sk[lo] // row_words] // slice_rows)
+               <= MAX_COLUMN_SLICES) & (n_col * COLUMN_SHARE <= N))
+    by_atomic = np.empty(len(runs), dtype=bool)
+    by_atomic[order] = ~np.repeat(sliced, hi - lo)
+    rbsz = grp_bin_size[runs[:, 1]]
+    lo, hi = lo[sliced], hi[sliced]
+    g, wc = np.divmod(sk[lo], row_words)
+    bsz = grp_bin_size[g]
+    ns = -(-bsz // slice_rows)
+    j = np.repeat(np.arange(len(lo)), ns)
+    r0 = (np.arange(len(j)) - np.repeat(np.cumsum(ns) - ns, ns)) * slice_rows
+    slices = np.empty((len(j), 8), dtype=np.int64)
+    slices[:, 0] = bsz[j]
+    slices[:, 1] = r0
+    slices[:, 2] = np.minimum(slice_rows, slices[:, 0] - r0)
+    slices[:, 3] = grp_row_off[g][j] + r0
+    slices[:, 4] = lo[j]
+    slices[:, 5] = hi[j]
+    slices[:, 6] = wc[j]
+    slices[:, 7] = 0
+    nr = len(runs)
+    meta = np.empty(6 * nr + 1 + slices.size, dtype=np.int64)
+    meta[:nr] = runs[:, 0]
+    meta[nr] = N
+    meta[nr + 1:2 * nr + 1] = runs[:, 1]
+    meta[2 * nr + 1:3 * nr + 1] = runs[:, 2]
+    meta[3 * nr + 1:4 * nr + 1] = order
+    meta[4 * nr + 1:5 * nr + 1] = np.where(by_atomic, rbsz, 0)
+    meta[5 * nr + 1:6 * nr + 1] = np.where(by_atomic,
+                                           grp_row_off[runs[:, 1]], 0)
+    meta[6 * nr + 1:] = slices.reshape(-1)
+    return meta, nr, len(j), slice_rows
+
+
+def scatter_pruned(fine_t: torch.Tensor, coarse_t: torch.Tensor,
+                   hashes: torch.Tensor, runs, *, grp_bin_size, grp_row_off,
+                   fine_h: int, coarse_h: int) -> None:
+    """OR a flush of the pruned build's hashes into both tables, in place.
+
+    Replaces ``ganon_tpu.index.pruned``'s ``_pruned_scatter_jit`` step (the
+    fine and the coarse table's). The tables are staged by word column:
+    ``fine_t`` int32 ``[Wf, R_total]`` and ``coarse_t`` int32 ``[Wc,
+    coarse_bin_size]``, the transposes of the u32-word tables (row bytes
+    padded to x4; ``fine_t.t()`` is the little-endian byte table's
+    words). ``hashes`` int64 ``[N]`` (u64 bit patterns) on their device;
+    ``runs`` a host int64 ``[nr, 3]`` table, one run a target: ``(start,
+    group, lane)``, run ``r`` covering hashes ``start[r] .. start[r + 1] -
+    1`` (the last to ``N``; starts from 0, nondecreasing, groups in any
+    order). For each hash and hash function ``s``, bit ``lane`` of fine
+    row ``grp_row_off[g] + fastrange_s(x, grp_bin_size[g])`` (``fine_h``
+    functions) and bit ``g`` of coarse row ``fastrange_s(x,
+    coarse_bin_size)`` (``coarse_h``) are set. ``grp_bin_size`` and
+    ``grp_row_off`` are the host int64 ``[G]`` group parameters. On the
+    card: one launch a flush (:func:`pruned_plan`'s slices, then the
+    coarse chunks, which also set the fine bits of a group too large for
+    slices).
     """
-    if bits.dtype != torch.int32 or bits.dim() != 2 or not bits.is_contiguous():
-        raise ValueError("bits must be a contiguous int32 [R, W] tensor")
-    N = hashes.shape[0]
-    if (hashes.dtype != torch.int64 or bit.dtype != torch.int32
-            or hashes.shape != (N,) or bit.shape != (N,)
-            or (grp is not None and (grp.dtype != torch.int32
-                                     or grp.shape != (N,)))):
-        raise ValueError("hashes int64 [N], grp and bit int32 [N]")
-    P = bin_size.shape[0]
-    if (bin_size.dtype != torch.int64 or row_off.dtype != torch.int64
-            or shift.dtype != torch.int32 or row_off.shape != (P,)
-            or shift.shape != (P,)):
-        raise ValueError("bin_size/row_off int64 [P], shift int32 [P]")
-    if not 1 <= hash_functions <= MAX_HASH_FUNCTIONS:
-        raise ValueError("hash_functions must be in 1..5")
-    if bits.device.type == "cpu":
-        scatter_pruned_plain(bits, hashes, grp, bit, bin_size, shift, row_off,
-                             hash_functions)
+    for name, t in (("fine_t", fine_t), ("coarse_t", coarse_t)):
+        if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 [W, R] "
+                             f"tensor")
+    N = hashes.shape[0] if hashes.dim() == 1 else -1
+    if hashes.dtype != torch.int64 or N < 0:
+        raise ValueError("hashes must be int64 [N]")
+    runs = np.asarray(runs, dtype=np.int64).reshape(-1, 3)
+    bsz = np.asarray(grp_bin_size, dtype=np.int64)
+    off = np.asarray(grp_row_off, dtype=np.int64)
+    G = bsz.shape[0]
+    if not len(runs):
+        if N:
+            raise ValueError("hashes without runs")
         return
-    kernels.check_cuda(bits, hashes, bit, bin_size, shift, row_off,
-                       *([] if grp is None else [grp]))
+    lo, hi = runs.min(axis=0), runs.max(axis=0)
+    if runs[0, 0] != 0 or hi[0] > N or (runs[1:, 0] < runs[:-1, 0]).any():
+        raise ValueError("run starts must rise from 0 to at most N")
+    if (off.shape != (G,) or (bsz < 1).any() or (off < 0).any()
+            or (off + bsz).max() > fine_t.shape[1]):
+        raise ValueError("grp_bin_size, grp_row_off: int64 [G], every "
+                         "group's rows inside fine_t")
+    if (lo[1] < 0 or hi[1] >= min(G, 32 * coarse_t.shape[0]) or lo[2] < 0
+            or hi[2] >= 32 * fine_t.shape[0]):
+        raise ValueError("a run's group or lane lies outside the tables")
+    if not (1 <= fine_h <= MAX_HASH_FUNCTIONS
+            and 1 <= coarse_h <= MAX_HASH_FUNCTIONS):
+        raise ValueError("hash functions must be in 1..5")
+    if fine_t.device.type == "cpu":
+        scatter_pruned_plain(fine_t, coarse_t, hashes, runs,
+                             grp_bin_size=bsz, grp_row_off=off,
+                             fine_h=fine_h, coarse_h=coarse_h)
+        return
+    kernels.check_cuda(fine_t, coarse_t, hashes)
     if N == 0:
         return
-    kernels.launch("scatter_pruned", bits, bits.shape[0], bits.shape[1],
-                   hashes, grp, bit, N, bin_size, shift, row_off,
-                   hash_functions)
+    meta, nr, nfb, slice_rows = pruned_plan(runs, N, bsz, off,
+                                            fine_t.shape[0])
+    # from pinned memory, so the upload does not wait for the card
+    meta = torch.from_numpy(meta).pin_memory().to(fine_t.device,
+                                                  non_blocking=True)
+    kernels.launch("scatter_pruned", fine_t, fine_t.shape[1],
+                   fine_t.shape[0], coarse_t, coarse_t.shape[1],
+                   coarse_t.shape[0], hashes, N, meta, nr, nfb, slice_rows,
+                   fine_h, coarse_h)
 
 
 # hashes per scatter launch (each sets fine_h + coarse_h bits)
@@ -320,33 +453,23 @@ def _device_tables(dev: torch.device, member_stream, *, R_total: int, Wf: int,
                    grp_bin_size, grp_row_off, fine_h: int,
                    coarse_bin_size: int, Wc: int, coarse_h: int):
     """The fine and coarse u8 tables, set by :func:`scatter_pruned` on
-    ``dev`` in chunks of up to ``SCATTER_CHUNK`` hashes. Row widths pad
-    to x4 bytes for the u32 words and are sliced back."""
-    Wf4, Wc4 = Wf + (-Wf % 4), Wc + (-Wc % 4)
-    fine = torch.zeros((R_total, Wf4 // 4), dtype=torch.int32, device=dev)
-    coarse = torch.zeros((coarse_bin_size, Wc4 // 4), dtype=torch.int32,
+    ``dev`` in flushes of up to ``SCATTER_CHUNK`` hashes (one launch
+    each) into tables staged by word column, transposed back once at the
+    end. Row widths pad to x4 bytes for the u32 words and are sliced
+    back."""
+    fine_t = torch.zeros((-(-Wf // 4), R_total), dtype=torch.int32,
                          device=dev)
-    fparams = (
-        torch.from_numpy(np.asarray(grp_bin_size, np.int64)).to(dev),
-        torch.tensor([clz64(int(b)) for b in grp_bin_size], dtype=torch.int32,
-                     device=dev),
-        torch.from_numpy(np.asarray(grp_row_off, np.int64)).to(dev),
-    )
-    cparams = (
-        torch.tensor([coarse_bin_size], dtype=torch.int64, device=dev),
-        torch.tensor([clz64(coarse_bin_size)], dtype=torch.int32, device=dev),
-        torch.zeros((1,), dtype=torch.int64, device=dev),
-    )
+    coarse_t = torch.zeros((-(-Wc // 4), coarse_bin_size), dtype=torch.int32,
+                           device=dev)
 
     def flush(acc):
         h = u64_to_torch(np.concatenate([a[2] for a in acc])).to(dev)
-        sizes = [len(a[2]) for a in acc]
-        g = np.repeat(np.asarray([a[0] for a in acc], np.int32), sizes)
-        j = np.repeat(np.asarray([a[1] for a in acc], np.int32), sizes)
-        g = torch.from_numpy(g).to(dev)
-        scatter_pruned(fine, h, g, torch.from_numpy(j).to(dev), *fparams,
-                       fine_h)
-        scatter_pruned(coarse, h, None, g, *cparams, coarse_h)
+        starts = np.cumsum([0] + [len(a[2]) for a in acc[:-1]])
+        runs = np.stack([starts, [a[0] for a in acc], [a[1] for a in acc]],
+                        axis=1)
+        scatter_pruned(fine_t, coarse_t, h, runs, grp_bin_size=grp_bin_size,
+                       grp_row_off=grp_row_off, fine_h=fine_h,
+                       coarse_h=coarse_h)
 
     acc, n = [], 0
     for g, j, hs in member_stream():
@@ -360,11 +483,12 @@ def _device_tables(dev: torch.device, member_stream, *, R_total: int, Wf: int,
     if n:
         flush(acc)
 
-    def host(t, R, W):
+    def host(t_, R, W):
         return np.ascontiguousarray(
-            t.cpu().numpy().view(np.uint8).reshape(R, -1)[:, :W])
+            t_.t().contiguous().cpu().numpy().view(np.uint8)
+            .reshape(R, -1)[:, :W])
 
-    return host(fine, R_total, Wf), host(coarse, coarse_bin_size, Wc)
+    return host(fine_t, R_total, Wf), host(coarse_t, coarse_bin_size, Wc)
 
 
 def build_pruned(

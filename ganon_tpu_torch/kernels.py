@@ -17,9 +17,10 @@ launch a batch for every sub of an archive), ``select_winners`` is
 32-bit mode (two [B*K] blocks of counts and ids: ``--longreads``, more
 than 65,535 targets),
 ``fine_all`` is ``fine`` over every group (the pruned forest's probe-all
-path); ``gate``, ``fine``, ``select_lanes`` and ``scatter_pruned`` are the
-pruned forest's; ``extract_build`` is ``extract`` on the build's pieces
-(single-end, a capacity of every window position); ``extract_wide`` is
+path); ``gate``, ``fine``, ``select_lanes`` and ``scatter_pruned`` (both
+tables of a build flush in one launch) are the pruned forest's;
+``extract_build`` is ``extract`` on the build's pieces (single-end, a
+capacity of every window position); ``extract_wide`` is
 ``extract``'s route for windows too wide for a tile's shared memory
 (one warp a read), whichever caller asked; ``pack``, ``sort_hist``
 (the digit histograms that start each sort), ``sort``, ``dedup`` (its
@@ -68,7 +69,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
            "gate.cu", "fine.cu", "sort.cu", "dedup.cu", "shard.cu", "bins.cu",
            "scan.cu", "psort.cu", "gprobe.cu")
-HEADERS = ("ibf_hash.cuh", "scan.cuh", "dedup.cuh", "warp_bits.cuh")
+HEADERS = ("ibf_hash.cuh", "scan.cuh", "dedup.cuh", "warp_bits.cuh",
+           "sm_count.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -96,9 +98,11 @@ _SIGNATURES = {
     # value), nb, B, T, n_hashes, counts, ldc, col0, cols (NULL = not
     # column-max)
     "combine": (_P, _L, _P, _P, _I, _L, _I, _P, _P, _L, _I, _P),
-    # counts, B, T_f, n_hashes, rel_cutoff, hashes_limit, cols, f,
-    # ucounts, uwin, U
-    "merge": (_P, _L, _I, _P, _D, _L, _P, _I, _P, _P, _I),
+    # n_hashes, B, counts, tf, rel_cutoffs (host int64 pointers, int32
+    # T_f and doubles [nf]: passed to the kernel by value), nf, f0,
+    # hashes_limit, colmap, U, init (0 = merge into ucounts/uwin),
+    # ucounts, uwin
+    "merge": (_P, _L, _P, _P, _P, _I, _I, _L, _P, _I, _I, _P, _P),
     # counts, B, T, n_hashes, overflow, rel_cutoff, rel_filter,
     # hashes_limit, K, emit_matches_t, uwin (NULL = no winners), packed
     "select": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P, _P),
@@ -115,9 +119,11 @@ _SIGNATURES = {
     # T, packed
     "select_lanes": (_P, _L, _I, _P, _P, _D, _D, _L, _I, _I, _P, _P, _P, _I,
                      _I, _I, _P),
-    # bits, R, W, hashes, grp (NULL = set 0), bit, N, bin_size, shift,
-    # row_off, h
-    "scatter_pruned": (_P, _L, _L, _P, _P, _P, _L, _P, _P, _P, _I),
+    # fine_t, Rf, Wf, coarse_t, Rc (the coarse bin size), Wc (the tables by
+    # word column, [Wf, Rf] and [Wc, Rc]), hashes, N, meta
+    # (index.pruned.pruned_plan), nr, nfb, slice_rows, fine_h, coarse_h
+    "scatter_pruned": (_P, _L, _L, _P, _L, _L, _P, _L, _P, _I, _I, _L, _I,
+                       _I),
     # ctbl, R, W8, hashes, B, M, n_hashes, bin_size, h, shift, G,
     # rel_cutoff, hashes_limit, S, overflow_in, gsel, slot_ok,
     # overflow_out, surv (NULL = not written)

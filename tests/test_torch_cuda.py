@@ -3,12 +3,15 @@
 Edge shapes beyond the main path: windows of one k-mer, k = 32, long
 reads, overflowing compaction, table rows spanning several count tiles,
 more hashes than one shared-memory chunk, wide target sets and large K;
-count into a column range of a wider matrix (forest mode), merge with
-ties and with a one-target filter, select with winners at K = 1 and
+count into a column range of a wider matrix (forest mode), merge of a
+level in one launch (two past 16 filters) with ties and a one-target
+filter into garbage-filled union rows off 16 bytes, select with winners at K = 1 and
 K = T; select in its 32-bit mode at B = 0, T = 65,536 and 65,537,
 counts at 2^31 - 1 and with every or no target final. The pruned
 forest's modes: gate, fine (dense and probe-all),
-select in lanes mode and scatter in pruned mode, at group counts that
+select in lanes mode and scatter in pruned mode (a flush of runs out of
+group order in one launch, groups over several slices, h up to 5 on both
+tables, into tables that hold bits), at group counts that
 are not multiples of 8 or 32, at the gate's 1024-group tile and one group
 past it (and at 9001 groups), S 2 and 32 at 128 groups, coarse_h and
 fine_h 5, group sizes 8, 16 (padded rows), 40 (a partial word), 256 (the
@@ -347,29 +350,67 @@ def test_count_kernel_forest_mode_matches_plain(cuda, col0):
     assert (got[:, col0 + T:] == -7).all()
 
 
-def test_merge_kernel_matches_plain(cuda):
-    """Three filters in order: a tie with an earlier filter keeps it, a
-    one-target filter, cutoffs, invalid reads and an over-limit read."""
-    rng = np.random.default_rng(3)
-    B, U = 300, 50
+def _offset_view(shape, offset, fill, device):
+    """A contiguous int32 tensor of ``shape`` that starts ``offset``
+    elements into its buffer (rows off 16 bytes), filled with ``fill``."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 4,), fill, dtype=torch.int32, device=device)
+    return buf[offset:offset + n].view(*shape)
+
+
+@pytest.mark.parametrize("F,U", [(1, 50), (2, 50), (3, 50), (16, 1473),
+                                 (20, 1473)])
+def test_merge_kernel_matches_plain(cuda, F, U):
+    """A level in one launch (two past MERGE_MAX_FILTERS, the second
+    merging into the first's): ties with an earlier filter keep it, a
+    one-target filter, cutoffs, invalid reads and an over-limit read;
+    union counts and winners prefilled with garbage, rows off 16 bytes
+    (U not a multiple of 4, the buffers at other offsets), counts rows off
+    16 bytes too."""
+    rng = np.random.default_rng(F * 7 + U)
+    B = 300
     n = rng.integers(0, 60, size=B).astype(np.int32)
     n[:3] = [0, 70, 1]
-    colss = [rng.permutation(U)[:40], np.array([7]), rng.permutation(U)[:25]]
+    colss = [rng.permutation(U)[:int(rng.integers(1, U + 1))]
+             for _ in range(F)]
+    colss[min(1, F - 1)] = np.array([7])
+    colss[0] = np.arange(U)[:max(U - 3, 1)]  # the union's head, in order
     base = np.minimum(rng.integers(0, 60, size=(B, U)), n[:, None])
-    got_c = torch.zeros((B, U), dtype=torch.int32, device=cuda)
-    got_w, want_c, want_w = (torch.zeros_like(got_c) for _ in range(3))
-    nn = torch.from_numpy(n).to(cuda)
-    for f, (cols, rc) in enumerate(zip(colss, (0.2, 0.5, 0.0))):
+    counts, rcs = [], list(rng.random(F) * 0.6)
+    for f, cols in enumerate(colss):
         c = base[:, cols].copy()  # ties: every filter reads the same base
         c[rng.random(c.shape) < 0.3] += 1
         c = np.minimum(c, n[:, None]).astype(np.int32)
-        c_d = torch.from_numpy(c).to(cuda)
-        cols_d = torch.from_numpy(cols.astype(np.int32)).to(cuda)
-        dev.merge(c_d, nn, rc, 65, cols_d, f, got_c, got_w)
-        dev.merge_plain(c_d, nn, rc, 65, cols_d, f, want_c, want_w)
+        view = _offset_view(c.shape, f % 3, -1, cuda)
+        view.copy_(torch.from_numpy(c))
+        counts.append(view)
+    nn = torch.from_numpy(n).to(cuda)
+    colmap = dev.merge_colmap(colss, U, cuda)
+    for offs in ((0, 0), (1, 3), (2, 1)):
+        got_c = _offset_view((B, U), offs[0], -5, cuda)
+        got_w = _offset_view((B, U), offs[1], 99, cuda)
+        want_c = torch.full((B, U), -5, dtype=torch.int32, device=cuda)
+        want_w = torch.full_like(want_c, 99)
+        before = kernels.LAUNCHES["merge"]
+        dev.merge(counts, nn, rcs, 65, colmap, got_c, got_w)
+        assert kernels.LAUNCHES["merge"] == before + -(
+            -F // dev.MERGE_MAX_FILTERS)
+        dev.merge_plain(counts, nn, rcs, 65, colmap, want_c, want_w)
         torch.cuda.synchronize()
         assert torch.equal(got_c, want_c) and torch.equal(got_w, want_w)
-    assert (got_w == 1).any() and (got_w == 2).any()
+    if F > 2:
+        assert (got_w == 1).any() and (got_w == F - 1).any()
+        # in two calls, the second from f0 into what the first wrote
+        got_c.fill_(-5)
+        got_w.fill_(99)
+        cut = F // 2
+        before = kernels.LAUNCHES["merge"]
+        dev.merge(counts[:cut], nn, rcs[:cut], 65, colmap, got_c, got_w)
+        dev.merge(counts[cut:], nn, rcs[cut:], 65, colmap, got_c, got_w,
+                  f0=cut)
+        assert kernels.LAUNCHES["merge"] == before + 2
+        torch.cuda.synchronize()
+        assert torch.equal(got_c, want_c) and torch.equal(got_w, want_w)
 
 
 @pytest.mark.parametrize("top_k", [1, 5000])
@@ -540,36 +581,65 @@ def test_select_lanes_kernel_matches_plain(cuda, S, gs, top_k, emit):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("hf", [1, 3])
-def test_scatter_pruned_kernel_matches_plain(cuda, hf):
-    """Fine mode (a parameter set per group, the lane as the bit) and
-    coarse mode (one set of all rows, the group as the bit), duplicates
-    included."""
-    rng = np.random.default_rng(hf)
-    G, gs, N = 11, 16, 30000
-    bsz = rng.integers(64, 900, size=G).astype(np.int64)
+@pytest.mark.parametrize("fh,ch,gs,slice_bytes,plan", [
+    (1, 1, 64, None, "default"), (3, 2, 40, None, "skewed"),
+    (5, 5, 8, 1024, "slices"), (2, 4, 256, 4096, "slices"),
+    (1, 3, 64, 512, "slices"), (5, 5, 8, 1024, "default"),
+    (2, 3, 64, 4096, "default")])
+def test_scatter_pruned_kernel_matches_plain(cuda, monkeypatch, fh, ch, gs,
+                                             slice_bytes, plan):
+    """A flush in one launch: runs out of group order (a group's runs
+    apart, empty runs, duplicate hashes), word columns over several
+    slices, rows of 1, 2 and 8 words, h up to 5 on each table, into
+    tables (staged by word column) that already hold bits. ``slices``:
+    every column in slices; ``default``: at small slices, columns past
+    MAX_COLUMN_SLICES have their fine bits set by the coarse blocks in
+    the same flush; ``skewed``: half the runs in one group, whose columns
+    hold more than 1 / COLUMN_SHARE of the flush, so those too."""
+    from ganon_tpu_torch.index import pruned as tp
+
+    if slice_bytes:
+        monkeypatch.setattr(tp, "SLICE_BYTES", slice_bytes)
+    if plan == "slices":
+        monkeypatch.setattr(tp, "MAX_COLUMN_SLICES", 10**9)
+        monkeypatch.setattr(tp, "COLUMN_SHARE", 1)
+    rng = np.random.default_rng(fh * 10 + ch + gs)
+    G, nr = 13, 300
+    bsz = rng.integers(64, 3000, size=G).astype(np.int64)
+    bsz[2] = 40000
     off = np.concatenate([[0], np.cumsum(bsz)[:-1]]).astype(np.int64)
-    shift = np.array([q.clz64(int(b)) for b in bsz], np.int32)
-    hashes = rng.integers(-2**63, 2**63 - 1, size=N)
-    hashes[N // 2:] = hashes[: N // 2]
-    grp = rng.integers(0, G, size=N).astype(np.int32)
-    lane = rng.integers(0, gs, size=N).astype(np.int32)
-    h, g, j = (torch.from_numpy(x).to(cuda) for x in (hashes, grp, lane))
-    fine = (torch.from_numpy(bsz).to(cuda), torch.from_numpy(shift).to(cuda),
-            torch.from_numpy(off).to(cuda))
-    Rc = 4000
-    coarse = (torch.tensor([Rc], dtype=torch.int64, device=cuda),
-              torch.tensor([q.clz64(Rc)], dtype=torch.int32, device=cuda),
-              torch.zeros(1, dtype=torch.int64, device=cuda))
-    for R, W, gg, bit, params in ((int(bsz.sum()), 1, g, j, fine),
-                                  (Rc, 1, None, g, coarse)):
-        a = torch.zeros((R, W), dtype=torch.int32, device=cuda)
-        b = torch.zeros_like(a)
-        before = kernels.LAUNCHES["scatter_pruned"]
-        scatter_pruned(a, h, gg, bit, *params, hf)
-        scatter_pruned_plain(b, h, gg, bit, *params, hf)
-        assert kernels.LAUNCHES["scatter_pruned"] == before + 1
-        assert torch.equal(a, b) and a.any()
+    sizes = rng.integers(0, 900, size=nr)
+    sizes[5:9] = 0
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    runs = np.stack([starts, rng.integers(0, G, size=nr),
+                     rng.integers(0, gs, size=nr)], axis=1)
+    if plan == "skewed":
+        runs[::2, 1] = 2
+    hashes = rng.integers(-2**63, 2**63 - 1, size=int(sizes.sum()))
+    hashes[-500:] = hashes[:500]
+    h = torch.from_numpy(hashes).to(cuda)
+    Wf, Wc, Rc = -(-gs // 32), 1, 20000
+    # the tables staged by word column, holding bits already
+    fine = torch.from_numpy(rng.integers(-2**31, 2**31, size=(
+        Wf, int(bsz.sum()))).astype(np.int32) & 0x01010101).to(cuda)
+    coarse = torch.from_numpy(rng.integers(-2**31, 2**31, size=(
+        Wc, Rc)).astype(np.int32) & 0x00100100).to(cuda)
+    got = (fine.clone(), coarse.clone())
+    want = (fine.clone(), coarse.clone())
+    kw = dict(grp_bin_size=bsz, grp_row_off=off, fine_h=fh, coarse_h=ch)
+    before = kernels.LAUNCHES["scatter_pruned"]
+    scatter_pruned(*got, h, runs, **kw)
+    assert kernels.LAUNCHES["scatter_pruned"] == before + 1
+    scatter_pruned_plain(*want, h, runs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], fine) and not torch.equal(got[1], coarse)
+    meta, nr, nfb, _ = tp.pruned_plan(runs, len(hashes), bsz, off, Wf)
+    by_atomic = meta[4 * nr + 1:5 * nr + 1] > 0
+    if plan == "slices":
+        assert nfb > G * Wf and not by_atomic.any()  # several a column
+    elif slice_bytes or plan == "skewed":
+        assert by_atomic.any() and not by_atomic.all()
 
 
 def test_pruned_batch_cuda_matches_cpu(cuda):

@@ -159,7 +159,7 @@ def test_classify_batch_packed_multi_matches_jax(n_filters, top_k, emit,
         num_union=U, top_k=K, match_cap=0, emit_matches_t=emit,
     ))
     got = tdev.classify_batch_packed_multi(
-        tfs, [torch.from_numpy(c) for c in cols], torch.from_numpy(inbuf),
+        tfs, tdev.merge_colmap(cols, U), torch.from_numpy(inbuf),
         list(rel_cutoffs), rel_filter, 65535, k=k, w=w, L1=L1, L2=L2,
         num_union=U, top_k=K, emit_matches_t=emit,
     )
@@ -195,21 +195,25 @@ def test_classify_batch_packed_multi_matches_jax(n_filters, top_k, emit,
 
 
 def test_merge_plain_strict_greater_first_wins():
-    """Two filters over overlapping union columns: ties keep filter 0,
-    a larger later count takes over, cutoffs and invalid reads give 0."""
+    """Filters over overlapping union columns in one level merge: ties keep
+    the earlier filter, a larger later count takes over, cutoffs and
+    invalid reads give 0; the buffers start as garbage (no fill needed)."""
     n = torch.tensor([10, 10, 0, 70000], dtype=torch.int32)
-    uc = torch.zeros((4, 3), dtype=torch.int32)
-    uw = torch.zeros_like(uc)
     c0 = torch.tensor([[5, 7], [2, 9], [3, 3], [9, 9]], dtype=torch.int32)
     c1 = torch.tensor([[5, 8], [9, 1], [3, 3], [9, 9]], dtype=torch.int32)
-    tdev.merge(c0, n, 0.3, 65535, torch.tensor([0, 1], dtype=torch.int32), 0,
-               uc, uw)
-    tdev.merge(c1, n, 0.3, 65535, torch.tensor([1, 2], dtype=torch.int32), 1,
-               uc, uw)
+
+    def level(counts, cols):
+        uc = torch.full((4, 3), -5, dtype=torch.int32)
+        uw = torch.full_like(uc, 7)
+        tdev.merge(counts, n, [0.3] * len(counts), 65535,
+                   tdev.merge_colmap(cols, 3), uc, uw)
+        return uc, uw
+
+    uc, uw = level([c0, c1], [[0, 1], [1, 2]])
     assert uc.tolist() == [[5, 7, 8], [0, 9, 0], [0, 0, 0], [0, 0, 0]]
     assert uw.tolist() == [[0, 0, 1], [0, 0, 0], [0, 0, 0], [0, 0, 0]]
-    tdev.merge(c1, n, 0.3, 65535, torch.tensor([0, 1], dtype=torch.int32), 2,
-               uc, uw)  # equal 5 at col 0 stays; 8 > 7 at col 1 wins
+    # a third filter: equal 5 at col 0 stays; 8 > 7 at col 1 wins
+    uc, uw = level([c0, c1, c1], [[0, 1], [1, 2], [0, 1]])
     assert uc[0].tolist() == [5, 8, 8] and uw[0].tolist() == [0, 2, 1]
     assert uc[1].tolist() == [9, 9, 0] and uw[1].tolist() == [2, 0, 0]
 

@@ -142,7 +142,7 @@ def _multi(tmp):
 
     def port_run(inbuf, L1, L2, cap):
         return tdev.classify_batch_packed_multi(
-            tfs, [torch.from_numpy(c) for c in cols], inbuf, list(cuts), 1.0,
+            tfs, tdev.merge_colmap(cols, len(union)), inbuf, list(cuts), 1.0,
             65535, k=K, w=W, L1=L1, L2=L2, num_union=len(union),
             top_k=TOP_K, match_cap=cap)
 
