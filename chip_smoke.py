@@ -9,8 +9,8 @@ Phases, one output line each:
              the time to build the CUDA kernels from ``csrc/`` (one nvcc
              per source, all started together); ``nvcc -Xptxas -v`` of
              ``extract.cu``, ``scan.cu``, ``count.cu``, ``select.cu``,
-             ``dedup.cu`` and ``scatter.cu`` (registers, spills, static
-             shared memory) and the extract
+             ``dedup.cu``, ``scatter.cu``, ``merge.cu`` and ``bins.cu``
+             (registers, spills, static shared memory) and the extract
              blocks an SM at k 19, w 31;
 2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
              through the ``extract`` kernel, the IBF through ``scatter``,
@@ -116,9 +116,11 @@ longreads    the 32-bit counter layout (``select`` in its 32-bit mode) at
              at the mix's 16 kbp bucket (512 reads), ``select32`` also at
              T = 70,000; on the first 4096 reads of each the card and
              ``device="cpu"`` write identical sorted ``.all``, ``.one``,
-             ``.rep`` and ``.tre`` and a byte-equal ``.sta``; ``bins``
-             and ``tsum`` on ``wide.ibf``'s matrix at 1024 reads, equal to
-             their plain versions and to the packed count;
+             ``.rep`` and ``.tre`` and a byte-equal ``.sta``; ``bins``,
+             ``tsum`` and ``bins_target`` (its two-launch route: 2188
+             words a row) on ``wide.ibf``'s matrix at 1024 reads, equal
+             to their plain versions and the per-target two to the
+             packed count;
 hierarchy    524,288 pairs (25% from the forest's targets, 70% from the
              level-2 targets, 5% random) through the CLI with
              ``--db-prefix host db db_b --hierarchy-labels 1_host 2_refs
@@ -849,7 +851,7 @@ def main() -> int:
          "-o", f"{so}.{src}.ptxas.o", os.path.join(csrc, src)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for src in ("extract.cu", "scan.cu", "count.cu", "select.cu",
-                    "dedup.cu", "scatter.cu", "merge.cu")}
+                    "dedup.cu", "scatter.cu", "merge.cu", "bins.cu")}
     for src, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
@@ -1737,7 +1739,7 @@ def main() -> int:
             # the distinct rows probed, rows and mask in, [B, 32 W] out; an
             # AND per row word and an add per bit
             (ob_rows * Wd * 4 + _nbytes(orows, omask, obins),
-             nvalid * Wd * (h + 32)))
+             nvalid * Wd * (h + 32)), runs=20)
     onehot = torch.nn.functional.one_hot(
         b2t_d.to(torch.int64), T_db + 1).to(torch.float32)
     obins_f = obins.to(torch.float32)
@@ -1750,7 +1752,7 @@ def main() -> int:
             (_nbytes(obins, b2t_d, otc), obins.numel()),
             # JAX's own form: f32 counts by the one-hot map (exact below
             # 2^24, and no int64 out)
-            library=lambda: torch.matmul(obins_f, onehot))
+            library=lambda: torch.matmul(obins_f, onehot), runs=20)
     compare("bins_target", "ganon_tpu_torch/csrc/bins.cu",
             "ganon_tpu/ops/ibf_query.py:470",
             lambda: (lib.bulk_target_counts(bits_d, orows, omask, *seg,
@@ -1758,7 +1760,7 @@ def main() -> int:
             lambda: (lib.bulk_target_counts_plain(bits_d, orows, omask, *seg,
                                                   perm_d),), 10, 3,
             (ob_rows * Wd * 4 + _nbytes(orows, omask, otc, *seg),
-             nvalid * Wd * (h + 32) + nr * TB))
+             nvalid * Wd * (h + 32) + nr * TB), runs=20)
     emit("ops", {
         "reads": nr, "max_minimizers": mm, "bits_bytes": int(ibf.bits.nbytes),
         "upload_s": upload_s, "n_words": Wd, "targets": T_db,
@@ -2246,8 +2248,9 @@ def main() -> int:
          + 4 * (args.bench_pairs * (2 * K32 + 4) + fw.num_targets + 3),
          4 * wcounts.numel()),
     )
-    # the ops library's bins and tsum on the wide matrix (T = wide
-    # targets): 1024 single reads, both mates of the first 512 pairs
+    # the ops library's bins, tsum and bins_target (past the one-launch
+    # route's width) on the wide matrix (T = wide targets): 1024 single
+    # reads, both mates of the first 512 pairs
     from ganon_tpu_torch.ops import library as lib
 
     Tw = fw.num_targets
@@ -2261,11 +2264,20 @@ def main() -> int:
     wrows = lib.ibf_row_indices(woh, bin_size=wcfg.bin_size_bits,
                                 hash_functions=wcfg.hash_functions)
     wmask = torch.arange(wmm, device=cuda)[None, :] < won[:, None]
+    wperm, wstarts, wends = lib.target_segments(wb2t, Tw)
+    wseg = [torch.from_numpy(x).to(cuda) for x in (wstarts, wends)]
+    wperm_d = (None if wperm is None else
+               torch.from_numpy(wperm.astype(np.int32)).to(cuda))
+    if lib.bins_target_fused(wbits_d.shape[1]):
+        raise AssertionError("wide bins_target: not on its two-launch route")
     wide_ops = {}
     for name, kern, plain, a in (
             ("bins", lib.bulk_count_bins, lib.bulk_count_bins_plain,
              (wbits_d, wrows, wmask)),
-            ("tsum", lib.target_counts, lib.target_counts_plain, None)):
+            ("tsum", lib.target_counts, lib.target_counts_plain, None),
+            ("bins_target", lib.bulk_target_counts,
+             lib.bulk_target_counts_plain,
+             (wbits_d, wrows, wmask, *wseg, wperm_d))):
         if a is None:
             a = (wide_ops["bins"][0], wb2t_d)
             kern = functools.partial(kern, num_targets=Tw)
@@ -2274,16 +2286,22 @@ def main() -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"wide {name}: kernel != plain")
         wide_ops[name] = (got, _ms(lambda: kern(*a), 5),
-                          _ms(lambda: plain(*a), 1))
+                          _ms(lambda: plain(*a), 1),
+                          _ms_run(lambda: kern(*a), 10))
     wpacked = q.bulk_target_counts_packed(
         fw.tbl8, fw.byte_starts, fw.byte_ends, woh, won,
         bin_size=wcfg.bin_size_bits, hash_functions=wcfg.hash_functions,
         clamp=False)
     if not torch.equal(wide_ops["tsum"][0], wpacked):
         raise AssertionError("wide tsum: differs from the packed count")
-    wide_ops_ms = {n_: v[1:] for n_, v in wide_ops.items()}
+    if not torch.equal(wide_ops["bins_target"][0], wpacked):
+        raise AssertionError("wide bins_target: differs from the packed "
+                             "count")
+    wide_ops_ms = {n_: v[1:3] for n_, v in wide_ops.items()}
+    wide_ops_device_ms = {n_: v[3] for n_, v in wide_ops.items()}
     del fw, wh, wn, wo, wcounts, wsel, wbatch, win_np, a_, b_, wbits
     del wbits_d, wb2t_d, wcodes, woh, won, wrows, wmask, wide_ops, wpacked
+    del wseg, wperm_d
     torch.cuda.empty_cache()
     # wide pairs through the CLI at default flags: 5% random, an eighth
     # of the rest from the targets above 0xFFFF, the others from all
@@ -2387,6 +2405,7 @@ def main() -> int:
         "profiled_device_us": lkernel_us,
         "skipped_without_longreads": skipped,
         "wide_ops_reads": 1024, "wide_ops_ms_kernel_plain": wide_ops_ms,
+        "wide_ops_device_ms": wide_ops_device_ms,
         "wide": {"targets": args.wide_targets,
                  "genome_len": args.wide_genome_len,
                  "build_s": w_build_s, "build_launches": w_build_launches,

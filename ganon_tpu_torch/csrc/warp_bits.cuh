@@ -1,6 +1,7 @@
-// Warp-level row loads and bit counts shared by the gate and fine kernels.
+// Warp-level row loads and bit counts shared by the gate, fine and bins
+// kernels.
 //
-// Both kernels give a read (or a (read, group) pair) to one warp and walk
+// The kernels give a read (or a (read, group) pair) to one warp and walk
 // its hashes in rounds of 32, lane i on hash m0 + i: each lane loads the
 // words of its hash's table rows, and the warp counts, for every bit k of
 // those words, the lanes that have it set. The count of bit k of word r
@@ -53,6 +54,10 @@ __device__ __forceinline__ void load_words(const unsigned* __restrict__ p,
 // transpose it (stage j swaps the j x j blocks off the diagonal between
 // lanes i and i ^ j), so lane k ends with column k and counts it with one
 // popcount. (One ballot a bit took 4x the card time at the gate's shape.)
+// A stage takes the partner's word whole and rotates it so that the
+// half-blocks it gives land in the half-blocks this lane does not keep
+// (j up in the lower lane, j down in the upper): the shuffle, a funnel
+// shift and one three-input logic op.
 template <int NW>
 __device__ __forceinline__ void warp_count(const unsigned (&v)[NW], int nbits,
                                            int lane, int (&cnt)[NW]) {
@@ -68,9 +73,11 @@ __device__ __forceinline__ void warp_count(const unsigned (&v)[NW], int nbits,
                                    : j == 4 ? 0x0F0F0F0Fu
                                    : j == 2 ? 0x33333333u
                                             : 0x55555555u;
+                const bool up = lane & j;
+                const unsigned keep = up ? ~m : m;
                 const unsigned y = __shfl_xor_sync(kFullMask, x, j);
-                x = (lane & j) ? ((x & ~m) | ((y >> j) & m))
-                               : ((x & m) | ((y & m) << j));
+                const unsigned z = __funnelshift_l(y, y, up ? 32 - j : j);
+                x = (x & keep) | (z & ~keep);
             }
             cnt[r] += __popc(x);
         }

@@ -153,8 +153,9 @@ _SIGNATURES = {
     "bins": (_P, _L, _L, _P, _L, _I, _I, _P, _P),
     # bin_counts, B, TB, bin_to_target, T, out
     "tsum": (_P, _L, _L, _P, _I, _P),
-    # bits, R, W, rows, B, M, S, mask, scratch, perm (NULL = identity),
-    # starts, ends, T, out
+    # bits, R, W, rows, B, M, S, mask, scratch (NULL = one launch, the
+    # counts in shared memory), perm (NULL = identity), starts, ends, T,
+    # out
     "bins_target": (_P, _L, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     # dense, B, K, has_win, n_extra, tail, C, status, epoch, out
     "ragged": (_P, _L, _I, _I, _I, _L, _L, _P, _U, _P),

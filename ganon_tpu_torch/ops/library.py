@@ -36,6 +36,9 @@ from ganon_tpu_torch.ops.winnow import minimizers_masked
 
 # gathered member words the plain per-bin count holds at once
 _PLAIN_MEMBER_WORDS = 1 << 24
+# dynamic shared memory one block may take on the H100 (227 KB): the
+# fused bulk_target_counts route holds a read's per-bin counts there
+BINS_TARGET_SHARED_BYTES = 232_448
 
 
 # --- minimizers (K18a) ----------------------------------------------------
@@ -232,6 +235,15 @@ def target_counts(bin_counts: torch.Tensor, bin_to_target: torch.Tensor, *,
     return out
 
 
+def bins_target_fused(n_words: int) -> bool:
+    """Whether :func:`bulk_target_counts` takes its one-launch route on
+    the card for a matrix of ``n_words`` words a row: a read's per-bin
+    counts (32 int32 a word) fit one block's shared memory (up to 1816
+    words). Wider rows take two launches: the per-bin counts into a
+    ``[B, 32 n_words]`` scratch, then the segment pass."""
+    return 0 < n_words * 32 * 4 <= BINS_TARGET_SHARED_BYTES
+
+
 def bulk_target_counts_plain(bits: torch.Tensor, rows: torch.Tensor,
                              hash_mask: torch.Tensor, starts: torch.Tensor,
                              ends: torch.Tensor,
@@ -258,7 +270,8 @@ def bulk_target_counts(bits: torch.Tensor, rows: torch.Tensor,
     over ``[starts[t], ends[t])`` (int32 ``[T]``, indices into the
     permuted bins; :func:`target_segments` makes all three). Equals
     ``target_counts(bulk_count_bins(...))`` for the segments of a bin
-    map.
+    map. On the card one launch, or two past the shared memory's width
+    (:func:`bins_target_fused`).
     """
     _check_bins(bits, rows, hash_mask)
     T = starts.shape[0] if starts.dim() == 1 else -1
@@ -276,8 +289,8 @@ def bulk_target_counts(bits: torch.Tensor, rows: torch.Tensor,
     W = bits.shape[1]
     out = torch.empty((B, T), dtype=torch.int32, device=bits.device)
     if B:
-        scratch = torch.empty((B, W * 32), dtype=torch.int32,
-                              device=bits.device)
+        scratch = None if bins_target_fused(W) else torch.empty(
+            (B, W * 32), dtype=torch.int32, device=bits.device)
         kernels.launch("bins_target", bits, bits.shape[0], W, rows, B, M, S,
                        hash_mask, scratch, perm, starts, ends, T, out)
     return out

@@ -46,8 +46,11 @@ groups only, and the ranked scatter in span mode with every entry
 outside the span; a mesh of the card and the CPU, so inputs and partials
 cross devices. The ops library (K18): minimizers at L not a multiple of
 4 and past max_minimizers, bins with a row wider than a block and with
-M = 0, tsum with ids out of range and past its shared-memory width,
-bins_target with and without a permutation; the ragged stream at a cap
+M = 0, more than 32 valid hashes under a mask with holes, S 1 and 8,
+rows off its 4-word tile and 16-word span, tsum with ids out of range
+and past its shared-memory width, bins_target with and without a
+permutation, with reversed ranges, in one launch up to 1816 words a row
+and in two past it; the ragged stream at a cap
 of 1, inside the first block, overflowing and exact caps (winners,
 group words) over up to 274 blocks, each call twice on the stream's
 status buffer; pairs with every read
@@ -1727,7 +1730,8 @@ def test_bins_kernels_match_plain(cuda):
     """bins with a row wider than a block (n_words 300) and with M = 0;
     tsum with ids out of range, in shared memory and past it
     (T = 13,000); bins_target with and without a permutation, equal to
-    target_counts of the per-bin counts."""
+    target_counts of the per-bin counts; both at the edges of bins.cu's
+    warp design and both bins_target routes."""
     from ganon_tpu_torch.ops import library as lib
 
     rng = np.random.default_rng(32)
@@ -1761,6 +1765,41 @@ def test_bins_kernels_match_plain(cuda):
                                                                  pt))
             assert torch.equal(btc, lib.target_counts(
                 got, torch.from_numpy(b2t_np).to(cuda), num_targets=7))
+    # more than 32 valid hashes under a mask with holes, S 1 and 8, rows
+    # off the 4-word tile and the 16-word span, bins_target's one-launch
+    # route up to its limit (1816 words: one read a block, 227 KB) and
+    # the two-launch route past it (1817, and T = 70,000's 2188 words);
+    # ranges with ends < starts, B off the fused route's reads a block
+    for W, M, S, dens in ((33, 100, 2, 0.5), (32, 40, 1, 0.3),
+                          (12, 50, 8, 0.9), (7, 45, 3, 0.7),
+                          (100, 33, 2, 0.5), (1816, 40, 2, 0.5),
+                          (1817, 40, 2, 0.5), (2188, 70, 1, 0.2)):
+        R, B = 61, 21
+        planes = rng.random((R, W, 32)) < dens
+        bits = torch.from_numpy((planes.astype(np.uint64) << np.arange(
+            32, dtype=np.uint64)).sum(axis=2).astype(np.uint32).view(
+                np.int32)).to(cuda)
+        rows = torch.from_numpy(rng.integers(0, R, size=(B, M, S)).astype(
+            np.int32)).to(cuda)
+        mask_np = rng.random((B, M)) < 0.6
+        mask_np[1], mask_np[2], mask_np[3, :M // 2] = True, False, False
+        mask = torch.from_numpy(mask_np).to(cuda)
+        got = lib.bulk_count_bins(bits, rows, mask)
+        assert torch.equal(got, lib.bulk_count_bins_plain(bits, rows, mask))
+        assert got[0].any() and not got[2].any()
+        TB = W * 32
+        starts = rng.integers(0, TB + 1, size=300).astype(np.int32)
+        ends = rng.integers(0, TB + 1, size=300).astype(np.int32)
+        starts[:3], ends[:3] = [0, TB, 5], [TB, 0, 5]
+        seg = [torch.from_numpy(x).to(cuda) for x in (starts, ends)]
+        for pt in (None, torch.from_numpy(
+                rng.permutation(TB).astype(np.int32)).to(cuda)):
+            before = kernels.LAUNCHES["bins_target"]
+            btc = lib.bulk_target_counts(bits, rows, mask, *seg, pt)
+            assert kernels.LAUNCHES["bins_target"] == before + 1
+            want = lib.bulk_target_counts_plain(bits, rows, mask, *seg, pt)
+            assert torch.equal(btc, want) and (want < 0).any()
+        assert lib.bins_target_fused(W) == (W <= 1816)
 
 
 def _dense_buffer(rng, B, K, has_win, n_extra, T):

@@ -16,6 +16,7 @@ import ganon_tpu  # noqa: F401  (turns on jax x64 for the u64 reference)
 import ganon_tpu.ops as jops
 import ganon_tpu_torch.ops as tops
 from ganon_tpu.index import build_ibf
+from ganon_tpu_torch.ops import library as lib
 from ganon_tpu_torch.ops.winnow import torch_to_u64, u64_to_torch
 
 K, W = 19, 31
@@ -166,3 +167,100 @@ def test_bulk_target_counts_matches_jax(jibf, shuffle):
     two_step = tops.target_counts(tops.bulk_count_bins(*args),
                                   torch.from_numpy(b2t), num_targets=T)
     assert np.array_equal(two_step.numpy(), want) and want.sum() > 0
+
+
+def _random_matrix(rng, R, W, density):
+    """int32 ``[R, W]`` of random bits, each set with ``density``."""
+    planes = rng.random((R, W, 32)) < density
+    words = (planes.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(
+        axis=2)
+    return words.astype(np.uint32)
+
+
+# (W, M, S, mask density, bit density): reads of more than 32 valid hashes
+# under a mask with holes, S at 1 and at the kernel's 8, row widths off the
+# kernel's 4-word tile and its 16-word span, a row past the one-launch
+# bulk_target_counts route (bins_target_fused)
+_BINS_CASES = {
+    "over-32-holes": (33, 100, 2, 0.6, 0.5),
+    "S1": (32, 40, 1, 0.5, 0.3),
+    "S8": (12, 50, 8, 0.8, 0.9),
+    "W7-off-tile": (7, 45, 3, 0.7, 0.7),
+    "W2000-past-fused": (2000, 40, 2, 0.5, 0.5),
+}
+
+
+@pytest.mark.parametrize("case", list(_BINS_CASES), ids=list(_BINS_CASES))
+def test_bins_shapes_match_jax(case):
+    """bulk_count_bins and bulk_target_counts (a shuffled bin map, so a
+    permutation) against JAX's at the kernels' edge shapes."""
+    W, M, S, mdens, bdens = _BINS_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    R, B = 61, 5
+    bits = _random_matrix(rng, R, W, bdens)
+    rows = rng.integers(0, R, size=(B, M, S)).astype(np.int32)
+    mask = rng.random((B, M)) < mdens
+    mask[1] = True  # every slot
+    mask[2] = False  # none
+    mask[3, :M // 2] = False  # valid slots after a hole only
+    if case == "over-32-holes":
+        assert mask[0].sum() > 32 and not mask[0, :mask[0].sum()].all()
+    want = np.asarray(jops.bulk_count_bins(jnp.asarray(bits),
+                                           jnp.asarray(rows),
+                                           jnp.asarray(mask)))
+    args = (torch.from_numpy(bits.view(np.int32)), torch.from_numpy(rows),
+            torch.from_numpy(mask))
+    got = tops.bulk_count_bins(*args)
+    assert np.array_equal(got.numpy(), want)
+    assert want[0].sum() > 0 and not want[2].any()
+    T = 9
+    b2t = rng.integers(0, T + 1, size=W * 32).astype(np.int32)  # T: padding
+    perm, starts, ends = tops.target_segments(b2t, T)
+    assert perm is not None
+    want_t = np.asarray(jops.bulk_target_counts(
+        jnp.asarray(bits), jnp.asarray(rows), jnp.asarray(mask),
+        jnp.asarray(starts), jnp.asarray(ends), jnp.asarray(perm)))
+    got_t = tops.bulk_target_counts(*args, torch.from_numpy(starts),
+                                    torch.from_numpy(ends),
+                                    torch.from_numpy(perm.astype(np.int32)))
+    assert np.array_equal(got_t.numpy(), want_t) and want_t.sum() > 0
+    assert lib.bins_target_fused(W) == (W <= 1816)
+
+
+@pytest.mark.parametrize("with_perm", [False, True],
+                         ids=["identity", "perm"])
+def test_bulk_target_counts_reversed_ranges_match_jax(jibf, with_perm):
+    """Hand-made ranges: some with ends < starts (JAX's cumsum difference
+    reads minus the sum over [ends, starts)), empty ones, the whole row."""
+    ibf, _, rows, mask = jibf
+    TB = ibf.bits.shape[1] * 32
+    rng = np.random.default_rng(21 + with_perm)
+    starts = rng.integers(0, TB + 1, size=40).astype(np.int32)
+    ends = rng.integers(0, TB + 1, size=40).astype(np.int32)
+    starts[:3], ends[:3] = [0, TB, 17], [TB, 0, 17]
+    assert (ends < starts).sum() > 5 and (ends > starts).sum() > 5
+    perm = rng.permutation(TB).astype(np.int32) if with_perm else None
+    want = np.asarray(jops.bulk_target_counts(
+        jnp.asarray(ibf.bits), jnp.asarray(rows), jnp.asarray(mask),
+        jnp.asarray(starts), jnp.asarray(ends),
+        None if perm is None else jnp.asarray(perm)))
+    got = tops.bulk_target_counts(
+        *_port_args(ibf, rows, mask), torch.from_numpy(starts),
+        torch.from_numpy(ends),
+        None if perm is None else torch.from_numpy(perm))
+    assert np.array_equal(got.numpy(), want)
+    assert (want < 0).any() and (want > 0).any()
+
+
+@pytest.mark.parametrize("n_words,fused", [
+    (32, True),        # chip_smoke.py's db: 1024 targets
+    (1815, True), (1816, True), (1817, False),  # the limit, 227 KB a block
+    (2188, False),     # 70,000 targets
+    (0, False),
+], ids=["db-32", "limit-1", "limit", "limit+1", "T70000-2188", "empty"])
+def test_bins_target_route_by_shape(n_words, fused):
+    """The card's bulk_target_counts route is a rule on the row width
+    alone: one launch while a read's 32 n_words int32 counts fit a block's
+    shared memory, bins into scratch and the segment pass past it."""
+    assert lib.bins_target_fused(n_words) is fused
+    assert lib.BINS_TARGET_SHARED_BYTES == 227 * 1024
