@@ -9,9 +9,9 @@ Phases, one output line each:
              the time to build the CUDA kernels from ``csrc/`` (one nvcc
              per source, all started together); ``nvcc -Xptxas -v`` of
              ``extract.cu``, ``scan.cu``, ``count.cu``, ``select.cu``,
-             ``dedup.cu``, ``scatter.cu``, ``merge.cu`` and ``bins.cu``
-             (registers, spills, static shared memory) and the extract
-             blocks an SM at k 19, w 31;
+             ``dedup.cu``, ``scatter.cu``, ``merge.cu``, ``bins.cu`` and
+             ``psort.cu`` (registers, spills, static shared memory) and
+             the extract blocks an SM at k 19, w 31;
 2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
              through the ``extract`` kernel, the IBF through ``scatter``,
              saved raw as ``db.ibf`` (``save_raw``, the ``tpu-raw``
@@ -118,9 +118,11 @@ longreads    the 32-bit counter layout (``select`` in its 32-bit mode) at
              ``device="cpu"`` write identical sorted ``.all``, ``.one``,
              ``.rep`` and ``.tre`` and a byte-equal ``.sta``; ``bins``,
              ``tsum`` and ``bins_target`` (its two-launch route: 2188
-             words a row) on ``wide.ibf``'s matrix at 1024 reads, equal
-             to their plain versions and the per-target two to the
-             packed count;
+             words a row) on ``wide.ibf``'s matrix at 1024 reads, a main
+             path of their own (``tsum`` past one tile of targets, after
+             its plan ``tsum_plan``), equal to their plain versions and
+             the per-target two to the packed count, and the plan against
+             its plain version (row ``tsum_plan``);
 hierarchy    524,288 pairs (25% from the forest's targets, 70% from the
              level-2 targets, 5% random) through the CLI with
              ``--db-prefix host db db_b --hierarchy-labels 1_host 2_refs
@@ -179,7 +181,8 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              ``DevicePrunedForest.counts_gated``, and ``fine`` in shard
              mode against its plain version at shard 0;
 5. checks    every kernel mode launched on the main paths (builds, the
-             ops library, the sort_probes batch, the gather probe, the
+             ops library at db's and at the wide filter's widths, the
+             sort_probes batch, the gather probe, the
              two build-custom runs, the reference-format build, the mesh
              build, the classify CLI runs and the mesh runs, the longreads
              phase's runs and the raptor and pruned phases' card runs).
@@ -195,11 +198,11 @@ time of one PyTorch call computing the same function where there is one;
 ``sort``, ``ragged``, ``ragged_winners``, ``pairs``, ``dedup`` (both
 modes), ``scatter`` and its ranked and span modes, ``count``, ``gate``,
 ``fine``, ``fine_all``, ``fine_shard``, ``pack``, ``merge``,
-``scatter_pruned`` and ``combine`` are also timed over a run of
-back-to-back calls queued while the card sleeps, ``device_ms`` and
-``library_device_ms``, and by the
-card's activity under torch.profiler, ``profiled_ms`` and
-``library_profiled_ms`` (null where no profiled window held every
+``scatter_pruned``, ``combine``, ``bins``, ``tsum``, ``tsum_plan``,
+``bins_target``, ``probe_sort`` and ``gather_probe`` are also timed over
+a run of back-to-back calls queued while the card sleeps, ``device_ms``
+and ``library_device_ms``, and by the card's activity under
+torch.profiler, ``profiled_ms`` and ``library_profiled_ms`` (null where no profiled window held every
 device record of its calls' own activities), and the ``sort`` row names the digit passes it
 planned at the pass-1 group from the card's histograms, the ``sort_hist``
 row),
@@ -851,7 +854,8 @@ def main() -> int:
          "-o", f"{so}.{src}.ptxas.o", os.path.join(csrc, src)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for src in ("extract.cu", "scan.cu", "count.cu", "select.cu",
-                    "dedup.cu", "scatter.cu", "merge.cu", "bins.cu")}
+                    "dedup.cu", "scatter.cu", "merge.cu", "bins.cu",
+                    "psort.cu")}
     for src, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
@@ -1361,7 +1365,7 @@ def main() -> int:
         # compares per read
         (2 * _nbytes(hashes) + _nbytes(n_hashes),
          args.bench_pairs * M_c * max(1, (M_c - 1).bit_length())),
-        library=lambda: torch.sort(pkeys, dim=1, stable=True))
+        library=lambda: torch.sort(pkeys, dim=1, stable=True), runs=20)
 
     def count_of(hs):
         return q.bulk_target_counts_packed(
@@ -1549,7 +1553,7 @@ def main() -> int:
             # the distinct rows probed, the rows and the lanes; a popcount
             # and an add per word
             (int(torch.unique(grows).numel()) * probe.W8 + _nbytes(grows)
-             + 512, 16 * probe.NPROBE))
+             + 512, 16 * probe.NPROBE), runs=20)
     gprobe_ms = rows[-1]["ms"]
     del gtbl, grows
     emit("kernels", {
@@ -2270,6 +2274,20 @@ def main() -> int:
                torch.from_numpy(wperm.astype(np.int32)).to(cuda))
     if lib.bins_target_fused(wbits_d.shape[1]):
         raise AssertionError("wide bins_target: not on its two-launch route")
+    # the library's entry points at this width, a main path of its own:
+    # past one tile of targets tsum runs after its plan (tsum_plan)
+    wtiles, wwidth = lib.tsum_tiles(Tw)
+    kernels.reset_launches()
+    wbins = lib.bulk_count_bins(wbits_d, wrows, wmask)
+    lib.target_counts(wbins, wb2t_d, num_targets=Tw)
+    lib.bulk_target_counts(wbits_d, wrows, wmask, *wseg, wperm_d)
+    torch.cuda.synchronize()
+    wide_ops_launches = dict(kernels.LAUNCHES)
+    if (wtiles < 2 or wide_ops_launches["tsum_plan"] != 1
+            or wide_ops_launches["tsum"] != 1):
+        raise AssertionError(f"wide tsum: not past one tile "
+                             f"({wtiles} tiles): {wide_ops_launches}")
+    del wbins
     wide_ops = {}
     for name, kern, plain, a in (
             ("bins", lib.bulk_count_bins, lib.bulk_count_bins_plain,
@@ -2294,6 +2312,12 @@ def main() -> int:
         clamp=False)
     if not torch.equal(wide_ops["tsum"][0], wpacked):
         raise AssertionError("wide tsum: differs from the packed count")
+    compare("tsum_plan", "ganon_tpu_torch/csrc/bins.cu",
+            "ganon_tpu/ops/ibf_query.py:137",
+            lambda: (lib.target_windows(wb2t_d, Tw, wwidth),),
+            lambda: (lib.target_windows_plain(wb2t_d, Tw, wwidth),), 20, 5,
+            # the map in, a window a tile out; a compare a bin
+            (_nbytes(wb2t_d) + 8 * wtiles, wb2t_d.numel()), runs=20)
     if not torch.equal(wide_ops["bins_target"][0], wpacked):
         raise AssertionError("wide bins_target: differs from the packed "
                              "count")
@@ -2406,6 +2430,8 @@ def main() -> int:
         "skipped_without_longreads": skipped,
         "wide_ops_reads": 1024, "wide_ops_ms_kernel_plain": wide_ops_ms,
         "wide_ops_device_ms": wide_ops_device_ms,
+        "wide_ops_launches": wide_ops_launches,
+        "wide_tsum_tiles_width": [wtiles, wwidth],
         "wide": {"targets": args.wide_targets,
                  "genome_len": args.wide_genome_len,
                  "build_s": w_build_s, "build_launches": w_build_launches,
@@ -3229,6 +3255,7 @@ def main() -> int:
     # 5. checks ------------------------------------------------------------
     main_runs = (build_launches, bc_launches, ref_launches, sp_launches,
                  gprobe_launches, ops_launches, wide_launches,
+                 wide_ops_launches,
                  mesh_build_launches, hier_build_launches, cli_launches,
                  mesh_launches, mesh_forest_launches, l_launches,
                  w_build_launches, w_launches, *leq_launches.values(),

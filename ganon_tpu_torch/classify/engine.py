@@ -99,9 +99,11 @@ class ClassifyConfig:
     # pruned-forest fast path: surviving-group slots per read (a read
     # with more surviving groups takes the exact probe-all path)
     pruned_max_groups: int = 2
-    # kept for parity with the JAX config and ignored: the TPU program
-    # compacts (read, slot) pairs to a static cap, while a dead slot costs
-    # the card nothing, so there is no cap and no spill to retry
+    # the pruned fast path's pair cap, as a fraction of the batch: the
+    # (read, slot) pairs are compacted to it on the card (the "pairs"
+    # kernel); a batch that overflows under the cap is retried once with
+    # dense slots and the level's fraction raised by 0.5 (sticky), as the
+    # JAX engine does; 0 turns the cap off
     pruned_pair_frac: float = 1.0
     device_thresholding: bool = True  # on-device cutoff/filter + top-K
     top_k_matches: int = 128  # compact output width (falls back if exceeded)

@@ -1,5 +1,5 @@
-// bins, tsum, bins_target: the ops library's counts over the interleaved
-// bit-matrix.
+// bins, tsum (with its plan, tsum_plan), bins_target: the ops library's
+// counts over the interleaved bit-matrix.
 //
 // Replaces the JAX device programs of the library API (K18):
 //   ganon_tpu/ops/ibf_query.py:113 bulk_count_bins     (mode bins),
@@ -45,11 +45,30 @@
 // wrapper decides by shape: ops.library.bins_target_fused) takes two
 // launches: bins into the caller's [B, 32 W] scratch, then one block a
 // read walks each target's range there. Both walks load several targets'
-// ranges, then their first counts, at once. tsum is one block per read: a
-// row of at most kSharedT targets accumulates in shared memory with
-// shared atomics and is written once, a wider row adds straight into the
-// zeroed output with global atomics (integer adds, so the order does not
-// matter).
+// ranges, then their first counts, at once.
+//
+// tsum cuts the targets into nt tiles of TT (the caller's
+// ops.library.tsum_tiles: balanced, a multiple of 4, at most kSharedT, so
+// a tile's sums fit 48 KB of shared memory) and gives each (read, tile) to
+// a team of 1-8 warps (enough for one pass of kTsumLoads 16-byte loads a
+// lane over the tile's expected bins: two warps a read at a 1024-bin row,
+// four reads a block; 64 registers, 32 warps an SM). The team issues its
+// first pass's loads of counts and ids, zeroes its sums meanwhile, meets
+// at its own barrier, adds the nonzero counts of the tile's bins with
+// shared atomics, meets again and stores the tile whole (zeros included;
+// 16 bytes a store where T % 4 == 0): the output comes unfilled from the
+// caller, every cell is written once by its team, and no global atomic
+// is left. Past one tile a team reads only its tile's window of bins,
+// [lo, hi) from the first to one past the last bin whose id falls in the
+// tile, which tsum_plan computes on the card beforehand (a block a tile
+// over the map, from L2; no host sync). For every map a ganon filter
+// makes (ascending ids, the padding bins' T at the end) the windows are
+// disjoint and each bin is read once; for any other map they may
+// overlap, and a bin of another tile inside a window is skipped by the
+// id check, so the sums stay exact and only the time grows. Rows off 16 bytes (TB % 4 != 0, or a view at an offset)
+// take one int a load, kTsumScalar of them in flight.
+#include <climits>
+
 #include <cuda_runtime.h>
 
 #include "sm_count.cuh"
@@ -58,8 +77,12 @@
 namespace {
 
 constexpr int kMaxS = 8;         // hash functions (rows per hash)
-constexpr int kSharedT = 12288;  // targets a tsum block sums in shared
-constexpr int kWarps = 8;        // warps a bins / bins_target block
+constexpr int kSharedT = 12288;  // targets a tsum tile, at most: 48 KB
+constexpr int kTsumLoads = 4;    // 16-byte loads of counts a tsum lane
+constexpr int kTsumScalar = 16;  // loads a lane where rows are not aligned
+constexpr long long kMaxTsumBins = 1LL << 30;  // bins a tsum row
+constexpr int kPlanThreads = 1024;  // a tsum_plan block (a tile)
+constexpr int kWarps = 8;        // warps a block of each kernel here
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMinBlocks = 4;    // blocks an SM: 64 registers a thread
 constexpr int kTile = 4;         // words a load: 16 bytes
@@ -294,26 +317,157 @@ bins_target_kernel(const unsigned* __restrict__ bits, long long W, bool vec,
                                  wpr * 32, out + b * T);
 }
 
-__global__ void tsum_kernel(const int* __restrict__ bc, long long TB,
-                            const int* __restrict__ b2t, int T,
-                            int* __restrict__ out, int use_shared) {
-    extern __shared__ int acc[];
-    const long long b = blockIdx.x;
-    int* orow = out + b * (long long)T;
-    if (use_shared) {
-        for (int t = threadIdx.x; t < T; t += blockDim.x) acc[t] = 0;
-        __syncthreads();
+// Syncs a team of wpt warps of a tsum block: its own named barrier (1 +
+// team; 0 is __syncthreads'), so teams do not wait for each other.
+__device__ __forceinline__ void team_sync(int wpt, int team) {
+    if (wpt == 1)
+        __syncwarp();
+    else
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(32 * wpt)
+                     : "memory");
+}
+
+// acc[t - t0] += v for a bin of target t in the tile [t0, t1) with a
+// count (zeros and other tiles' bins are skipped).
+__device__ __forceinline__ void tsum_add(int* acc, int t0, int t1, int t,
+                                         int v) {
+    if (v != 0 && t >= t0 && t < t1) atomicAdd(acc + (t - t0), v);
+}
+
+// Windows of the tsum tiles: win[k] = [lo, hi), the first and one past the
+// last bin whose id lies in tile k ([k TT, min(T, (k + 1) TT))); [0, 0)
+// for a tile with no bin. A block a tile, over the whole map (from L2).
+__global__ void __launch_bounds__(kPlanThreads)
+tsum_plan_kernel(const int* __restrict__ b2t, int TB, int T, int TT,
+                 bool vec, int* __restrict__ win) {
+    __shared__ int part[2][kPlanThreads / 32];
+    const int k = blockIdx.x;
+    const int t0 = k * TT, t1 = t0 + min(TT, T - t0);
+    int lo = INT_MAX, hi = 0;
+    if (vec) {
+        const int4* m4 = reinterpret_cast<const int4*>(b2t);
+#pragma unroll 4
+        for (int q = threadIdx.x; q < TB / 4; q += kPlanThreads) {
+            const int4 m = __ldg(m4 + q);
+            const int ids[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                if (ids[r] >= t0 && ids[r] < t1) {
+                    lo = min(lo, 4 * q + r);
+                    hi = max(hi, 4 * q + r + 1);
+                }
+        }
+    } else {
+#pragma unroll 4
+        for (int j = threadIdx.x; j < TB; j += kPlanThreads) {
+            const int t = __ldg(b2t + j);
+            if (t >= t0 && t < t1) {
+                lo = min(lo, j);
+                hi = max(hi, j + 1);
+            }
+        }
     }
+    lo = __reduce_min_sync(kFullMask, lo);
+    hi = __reduce_max_sync(kFullMask, hi);
+    if ((threadIdx.x & 31) == 0) {
+        part[0][threadIdx.x >> 5] = lo;
+        part[1][threadIdx.x >> 5] = hi;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int w = 1; w < kPlanThreads / 32; ++w) {
+            lo = min(lo, part[0][w]);
+            hi = max(hi, part[1][w]);
+        }
+        win[2 * k] = hi ? lo : 0;
+        win[2 * k + 1] = hi;
+    }
+}
+
+// A team of wpt warps (kWarps / wpt teams a block) for each (read, tile of
+// TT targets), read-major: the read's counts over the tile's bin window
+// (win[k], or the whole row when win is NULL), kTsumLoads 16-byte loads of
+// counts and of ids a lane in flight before its adds (the first pass's
+// issued before the team zeroes its TT sums in shared memory), shared
+// atomics for the nonzero counts of the tile's bins, then the tile stored
+// whole, 16 bytes a store where the output rows allow (vec_out). `vec`:
+// the rows and the map are 16-byte aligned (TB % 4 == 0); else one int a
+// load, kTsumScalar of them in flight.
+__global__ void __launch_bounds__(kThreads)
+tsum_kernel(const int* __restrict__ bc, long long B, int TB,
+            const int* __restrict__ b2t, int T, int TT, int nt,
+            const int* __restrict__ win, int wpt, bool vec, bool vec_out,
+            int* __restrict__ out) {
+    extern __shared__ int4 tsum_sums[];
+    const int team = (threadIdx.x >> 5) / wpt, nthr = 32 * wpt;
+    const int tid = threadIdx.x - team * nthr;
+    const long long u = (long long)blockIdx.x * (kWarps / wpt) + team;
+    if (u >= B * nt) return;  // the whole team
+    const long long b = u / nt;
+    const int k = (int)(u - b * nt);
+    const int t0 = k * TT, tw = min(TT, T - t0), t1 = t0 + tw;
+    const int lo = win ? win[2 * k] : 0, hi = win ? win[2 * k + 1] : TB;
+    int4* acc4 = tsum_sums + (long long)team * (TT / 4);
+    int* acc = reinterpret_cast<int*>(acc4);
+    const int zero4 = (tw + 3) / 4;
     const int* row = bc + b * TB;
-    for (long long j = threadIdx.x; j < TB; j += blockDim.x) {
-        const int t = b2t[j];
-        const int v = row[j];
-        if (t < 0 || t >= T || v == 0) continue;
-        atomicAdd(use_shared ? acc + t : orow + t, v);
+    if (vec) {
+        const int4* r4 = reinterpret_cast<const int4*>(row);
+        const int4* m4 = reinterpret_cast<const int4*>(b2t);
+        // the quads over [lo, hi): their bins outside it hold other
+        // tiles' ids
+        const int q1 = (hi + 3) >> 2;
+        bool first = true;
+        for (int q0 = lo >> 2; first || q0 < q1; q0 += kTsumLoads * nthr) {
+            int4 c[kTsumLoads], m[kTsumLoads];
+#pragma unroll
+            for (int i = 0; i < kTsumLoads; ++i) {
+                const int q = q0 + i * nthr + tid;
+                c[i] = q < q1 ? __ldg(r4 + q) : make_int4(0, 0, 0, 0);
+                m[i] = q < q1 ? __ldg(m4 + q) : make_int4(-1, -1, -1, -1);
+            }
+            if (first) {
+                for (int x = tid; x < zero4; x += nthr)
+                    acc4[x] = make_int4(0, 0, 0, 0);
+                team_sync(wpt, team);
+                first = false;
+            }
+#pragma unroll
+            for (int i = 0; i < kTsumLoads; ++i) {
+                tsum_add(acc, t0, t1, m[i].x, c[i].x);
+                tsum_add(acc, t0, t1, m[i].y, c[i].y);
+                tsum_add(acc, t0, t1, m[i].z, c[i].z);
+                tsum_add(acc, t0, t1, m[i].w, c[i].w);
+            }
+        }
+    } else {
+        bool first = true;
+        for (int j0 = lo; first || j0 < hi; j0 += kTsumScalar * nthr) {
+            int c[kTsumScalar], m[kTsumScalar];
+#pragma unroll
+            for (int i = 0; i < kTsumScalar; ++i) {
+                const int j = j0 + i * nthr + tid;
+                c[i] = j < hi ? __ldg(row + j) : 0;
+                m[i] = j < hi ? __ldg(b2t + j) : -1;
+            }
+            if (first) {
+                for (int x = tid; x < zero4; x += nthr)
+                    acc4[x] = make_int4(0, 0, 0, 0);
+                team_sync(wpt, team);
+                first = false;
+            }
+#pragma unroll
+            for (int i = 0; i < kTsumScalar; ++i)
+                tsum_add(acc, t0, t1, m[i], c[i]);
+        }
     }
-    if (use_shared) {
-        __syncthreads();
-        for (int t = threadIdx.x; t < T; t += blockDim.x) orow[t] = acc[t];
+    team_sync(wpt, team);
+    int* orow = out + b * T + t0;
+    if (vec_out) {
+        int4* o4 = reinterpret_cast<int4*>(orow);
+        for (int x = tid; x < tw / 4; x += nthr) o4[x] = acc4[x];
+    } else {
+        for (int x = tid; x < tw; x += nthr) orow[x] = acc[x];
     }
 }
 
@@ -357,14 +511,46 @@ extern "C" int ganon_bins(const void* bits, long long R, long long W,
                        (cudaStream_t)stream);
 }
 
+// The tile width TT (a multiple of 4, at most kSharedT) is the caller's
+// (ops.library.tsum_tiles); past one tile, win holds the plan's windows.
+extern "C" int ganon_tsum_plan(const void* b2t, long long TB, int T, int TT,
+                               void* win, void* stream) {
+    if (T <= 0 || TB < 0 || TB > kMaxTsumBins || TT < 4 || TT > kSharedT
+        || TT % 4)
+        return (int)cudaErrorInvalidValue;
+    const int nt = (int)(((long long)T + TT - 1) / TT);
+    tsum_plan_kernel<<<(unsigned)nt, kPlanThreads, 0,
+                       (cudaStream_t)stream>>>(
+        (const int*)b2t, (int)TB, T, TT, rows_vectorizable<4>(b2t, TB),
+        (int*)win);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int ganon_tsum(const void* bc, long long B, long long TB,
-                          const void* b2t, int T, void* out, void* stream) {
-    if (T <= 0 || TB < 0) return (int)cudaErrorInvalidValue;
+                          const void* b2t, int T, int TT, const void* win,
+                          void* out, void* stream) {
+    if (T <= 0 || TB < 0 || TB > kMaxTsumBins || TT < 4 || TT > kSharedT
+        || TT % 4)
+        return (int)cudaErrorInvalidValue;
+    const long long nt = ((long long)T + TT - 1) / TT;
+    if (nt > 1 && !win) return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaGetLastError();
-    const int use_shared = T <= kSharedT;
-    tsum_kernel<<<(unsigned)B, 256, use_shared ? T * sizeof(int) : 0,
+    // a team's warps: enough for a pass over its expected window (a tile's
+    // share of the row, or the whole row) and for its TT sums
+    long long ew = nt == 1 ? TB : (TB + nt - 1) / nt;
+    if (ew < TT) ew = TT;
+    int wpt = 1;
+    while (wpt < kWarps && (long long)wpt * 32 * 4 * kTsumLoads < ew)
+        wpt <<= 1;
+    const int tpb = kWarps / wpt;
+    const long long blocks = (B * nt + tpb - 1) / tpb;
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    tsum_kernel<<<(unsigned)blocks, kThreads, (size_t)tpb * TT * sizeof(int),
                   (cudaStream_t)stream>>>(
-        (const int*)bc, TB, (const int*)b2t, T, (int*)out, use_shared);
+        (const int*)bc, B, (int)TB, (const int*)b2t, T, TT, (int)nt,
+        (const int*)win, wpt,
+        rows_vectorizable<4>(bc, TB) && rows_vectorizable<4>(b2t, TB),
+        rows_vectorizable<4>(out, T), (int*)out);
     return (int)cudaGetLastError();
 }
 

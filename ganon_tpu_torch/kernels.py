@@ -37,7 +37,8 @@ into one shard's row range of the build's bit-matrix.
 The ``ops`` library API (K18): ``minimizers`` is ``extract`` in
 single-end mode for ``ganon_tpu_torch.ops.library.minimizers``; ``bins``,
 ``tsum`` and ``bins_target`` count the interleaved bit-matrix
-(``csrc/bins.cu``). The JAX engine's default transfer settings:
+(``csrc/bins.cu``); ``tsum_plan`` finds ``tsum``'s bin window of each
+target tile past the first. The JAX engine's default transfer settings:
 ``ragged`` compacts ``select``'s dense buffer into the ragged match
 stream (``ragged_winners`` with the winners block of a multi-filter
 level), ``pairs`` compacts a pruned batch's (read, slot) pairs under
@@ -151,8 +152,11 @@ _SIGNATURES = {
                        _L, _L, _L, _L, _P, _U, _P, _P, _P, _P),
     # bits, R, W, rows, B, M, S, mask, out
     "bins": (_P, _L, _L, _P, _L, _I, _I, _P, _P),
-    # bin_counts, B, TB, bin_to_target, T, out
-    "tsum": (_P, _L, _L, _P, _I, _P),
+    # bin_counts, B, TB, bin_to_target, T, TT (the tile width), win (the
+    # tiles' bin windows; NULL at one tile), out
+    "tsum": (_P, _L, _L, _P, _I, _I, _P, _P),
+    # bin_to_target, TB, T, TT, win (out: [lo, hi) a tile)
+    "tsum_plan": (_P, _L, _I, _I, _P),
     # bits, R, W, rows, B, M, S, mask, scratch (NULL = one launch, the
     # counts in shared memory), perm (NULL = identity), starts, ends, T,
     # out

@@ -14,7 +14,8 @@ bit ``j % 32``), without the classify path's byte-aligned repack.
 * :func:`bulk_count_bins` — per-bin hit counts (``csrc/bins.cu`` mode
   ``bins``); plain version :func:`bulk_count_bins_plain`.
 * :func:`target_counts` — per-bin counts summed per target (mode
-  ``tsum``); plain version :func:`target_counts_plain`.
+  ``tsum``, past one tile of targets after ``tsum_plan``,
+  :func:`target_windows`); plain version :func:`target_counts_plain`.
 * :func:`bulk_target_counts` — both at once over permuted bin ranges
   (mode ``bins_target``); plain version :func:`bulk_target_counts_plain`.
 * :func:`target_segments` — the host-side ``(perm, starts, ends)``.
@@ -39,6 +40,9 @@ _PLAIN_MEMBER_WORDS = 1 << 24
 # dynamic shared memory one block may take on the H100 (227 KB): the
 # fused bulk_target_counts route holds a read's per-bin counts there
 BINS_TARGET_SHARED_BYTES = 232_448
+# targets a tile of the card's tsum sums in shared memory, at most
+# (csrc/bins.cu kSharedT: 48 KB)
+TSUM_TILE_TARGETS = 12_288
 
 
 # --- minimizers (K18a) ----------------------------------------------------
@@ -211,6 +215,49 @@ def target_counts_plain(bin_counts: torch.Tensor, bin_to_target: torch.Tensor,
     return out[:, :T].to(torch.int32)
 
 
+def tsum_tiles(num_targets: int) -> tuple[int, int]:
+    """``(tiles, width)`` of the card's :func:`target_counts`: the
+    targets cut into ``tiles`` tiles of ``width`` (the last may be
+    narrower), as few as fit :data:`TSUM_TILE_TARGETS` each, balanced and
+    rounded up to a multiple of 4 (16-byte rows of sums)."""
+    tiles = -(-num_targets // TSUM_TILE_TARGETS)
+    width = (-(-num_targets // tiles) + 3) // 4 * 4
+    return -(-num_targets // width), width
+
+
+def target_windows_plain(bin_to_target: torch.Tensor, num_targets: int,
+                         width: int) -> torch.Tensor:
+    """Plain version of :func:`target_windows`."""
+    TB = bin_to_target.shape[0]
+    tiles = -(-num_targets // width)
+    ids = bin_to_target.to(torch.int64)
+    tile = torch.where((ids >= 0) & (ids < num_targets), ids // width, tiles)
+    j = torch.arange(TB, device=ids.device)
+    lo = torch.full((tiles + 1,), TB, dtype=torch.int64, device=ids.device)
+    lo.scatter_reduce_(0, tile, j, "amin")
+    hi = torch.zeros((tiles + 1,), dtype=torch.int64, device=ids.device)
+    hi.scatter_reduce_(0, tile, j + 1, "amax")
+    lo = torch.where(hi > 0, lo, 0)
+    return torch.stack([lo[:tiles], hi[:tiles]], dim=1).to(torch.int32)
+
+
+def target_windows(bin_to_target: torch.Tensor, num_targets: int,
+                   width: int) -> torch.Tensor:
+    """The bin window of each tile of ``width`` targets: int32 ``[tiles,
+    2]``, row ``k`` the first and one past the last bin whose id lies in
+    ``[k width, (k + 1) width)`` (``[0, 0]`` for a tile with no bin). The
+    card's :func:`target_counts` reads a tile's bins there (kernel
+    ``tsum_plan``, past one tile)."""
+    if bin_to_target.device.type == "cpu":
+        return target_windows_plain(bin_to_target, num_targets, width)
+    kernels.check_cuda(bin_to_target)
+    win = torch.empty((-(-num_targets // width), 2), dtype=torch.int32,
+                      device=bin_to_target.device)
+    kernels.launch("tsum_plan", bin_to_target, bin_to_target.shape[0],
+                   num_targets, width, win)
+    return win
+
+
 def target_counts(bin_counts: torch.Tensor, bin_to_target: torch.Tensor, *,
                   num_targets: int) -> torch.Tensor:
     """Per-target sums of per-bin counts: int32 ``[B, num_targets]``.
@@ -220,6 +267,9 @@ def target_counts(bin_counts: torch.Tensor, bin_to_target: torch.Tensor, *,
     here): ``out[b, t]`` sums ``bin_counts[b, j]`` over the bins with
     ``bin_to_target[j] == t``; a bin whose id lies outside ``[0,
     num_targets)`` (the padding bins carry ``num_targets``) is dropped.
+    On the card the targets go in :func:`tsum_tiles`' tiles, each
+    written whole by the kernel (the output is not filled first); past
+    one tile, :func:`target_windows` first finds each tile's bins.
     """
     _check_tsum(bin_counts, bin_to_target, num_targets)
     if bin_counts.device.type == "cpu":
@@ -227,11 +277,14 @@ def target_counts(bin_counts: torch.Tensor, bin_to_target: torch.Tensor, *,
                                    num_targets=num_targets)
     kernels.check_cuda(bin_counts, bin_to_target)
     B, TB = bin_counts.shape
-    out = torch.zeros((B, num_targets), dtype=torch.int32,
+    out = torch.empty((B, num_targets), dtype=torch.int32,
                       device=bin_counts.device)
     if B:
+        tiles, width = tsum_tiles(num_targets)
+        win = (target_windows(bin_to_target, num_targets, width)
+               if tiles > 1 else None)
         kernels.launch("tsum", bin_counts, B, TB, bin_to_target, num_targets,
-                       out)
+                       width, win, out)
     return out
 
 

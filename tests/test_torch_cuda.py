@@ -47,14 +47,17 @@ outside the span; a mesh of the card and the CPU, so inputs and partials
 cross devices. The ops library (K18): minimizers at L not a multiple of
 4 and past max_minimizers, bins with a row wider than a block and with
 M = 0, more than 32 valid hashes under a mask with holes, S 1 and 8,
-rows off its 4-word tile and 16-word span, tsum with ids out of range
-and past its shared-memory width, bins_target with and without a
+rows off its 4-word tile and 16-word span, tsum with ids out of range,
+at and around its 12,288-target tile (one tile, two), at 70,000 targets
+with an ascending and a shuffled map, every bin on one target, a tile
+with no bin, rows off 16 bytes and B = 1, bins_target with and without a
 permutation, with reversed ranges, in one launch up to 1816 words a row
 and in two past it; the ragged stream at a cap
 of 1, inside the first block, overflowing and exact caps (winners,
 group words) over up to 274 blocks, each call twice on the stream's
 status buffer; pairs with every read
-spilling; probe_sort with equal keys; the gather probe; the transfer
+spilling; probe_sort with equal keys at both routes' edges (M 1 to
+4096, n = 0 and past M, bin_size near 2^46); the gather probe; the transfer
 settings (ragged, pair caps, sort_probes) on the card against the CPU.
 The tiled extract at the build's shape, over many 512-window tiles, at
 B 1, with short mates, w == k, k 32 and runs of one base, with and
@@ -1728,8 +1731,10 @@ def test_minimizers_kernel_matches_plain(cuda):
 
 def test_bins_kernels_match_plain(cuda):
     """bins with a row wider than a block (n_words 300) and with M = 0;
-    tsum with ids out of range, in shared memory and past it
-    (T = 13,000); bins_target with and without a permutation, equal to
+    tsum with ids out of range, in one tile and past it (T = 13,000),
+    at its tile edges, at T = 70,000 with ascending and shuffled maps, on
+    one target, with an empty tile, off 16 bytes and at B = 1 (each
+    with its launches: the plan only past one tile); bins_target with and without a permutation, equal to
     target_counts of the per-bin counts; both at the edges of bins.cu's
     warp design and both bins_target routes."""
     from ganon_tpu_torch.ops import library as lib
@@ -1800,6 +1805,58 @@ def test_bins_kernels_match_plain(cuda):
             want = lib.bulk_target_counts_plain(bits, rows, mask, *seg, pt)
             assert torch.equal(btc, want) and (want < 0).any()
         assert lib.bins_target_fused(W) == (W <= 1816)
+    # tsum at its tile edges (1 target, one under, at and one over 12,288),
+    # T = 70,000 with an ascending map (16 padding bins last) and a
+    # shuffled one, ids below 0 and at or past T, every bin on one target,
+    # a tile with no bin, TB off 4 and rows at an odd offset, B = 1
+
+    def tsum(bc, b2t, T):
+        before = dict(kernels.LAUNCHES)
+        got = lib.target_counts(bc, b2t, num_targets=T)
+        tiles, width = lib.tsum_tiles(T)
+        assert kernels.LAUNCHES["tsum"] == before["tsum"] + 1
+        assert (kernels.LAUNCHES["tsum_plan"]
+                == before["tsum_plan"] + (tiles > 1))
+        assert torch.equal(got, lib.target_counts_plain(bc, b2t,
+                                                        num_targets=T))
+        if tiles > 1:
+            assert torch.equal(lib.target_windows(b2t, T, width),
+                               lib.target_windows_plain(b2t, T, width))
+        return got
+
+    def counts(B, TB):
+        c = rng.integers(0, 50, size=(B, TB)).astype(np.int32)
+        c[rng.random((B, TB)) < 0.3] = 0
+        return torch.from_numpy(c).to(cuda)
+
+    def ids(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(cuda)
+
+    for T in (1, 12287, 12288, 12289):
+        TB = T + 16 + 100 * (T == 1)
+        m = np.minimum(np.arange(TB) % (T + 8), T)  # some targets twice
+        m[::5], m[1::7] = -3, T + 2
+        for B in (1, 5):
+            assert tsum(counts(B, TB), ids(m), T).any()
+    T, TB = 70_000, 70_016
+    bc = counts(9, TB)
+    asc = np.minimum(np.arange(TB), T)
+    assert tsum(bc, ids(asc), T).any()
+    assert tsum(bc, ids(rng.permutation(asc)), T).any()
+    one = tsum(bc, ids(np.full(TB, 40_000)), T)
+    assert torch.equal(one[:, 40_000], bc.sum(dim=1, dtype=torch.int32))
+    assert one.sum() == one[:, 40_000].sum()
+    width = lib.tsum_tiles(T)[1]
+    gap = asc.copy()
+    gap[(gap >= 2 * width) & (gap < 3 * width)] = -1
+    assert not tsum(bc, ids(gap), T)[:, 2 * width:3 * width].any()
+    tsum(counts(3, TB + 1), ids(np.minimum(np.arange(TB + 1), T)), T)
+    for TB in (1029, 1024):  # rows (and the map) one int past 16 bytes
+        rows = counts(1, 3 * TB + 1)[0, 1:].view(3, TB)
+        m = ids(rng.integers(-2, 1030, size=TB + 1))[1:]
+        assert rows.is_contiguous() and rows.data_ptr() % 16
+        tsum(rows, m, 1024)
+        tsum(rows, m, 13_000)
 
 
 def _dense_buffer(rng, B, K, has_win, n_extra, T):
@@ -1961,7 +2018,8 @@ def test_scans_share_status_words(cuda):
 
 def test_probe_sort_kernel_matches_plain(cuda):
     """probe_sort with equal keys (a hash repeated), n = 0, n past M, M
-    not a power of two, and M = 4096."""
+    not a power of two, and M = 4096; both routes at their edges (M 1,
+    31, 32, 33, 56, 64, 256, 257, 4096) and bin_size near 2^46."""
     rng = np.random.default_rng(35)
     for B, M in ((40, 56), (3, 4096)):
         h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M)))
@@ -1971,6 +2029,23 @@ def test_probe_sort_kernel_matches_plain(cuda):
         hg, ng = h.to(cuda), n.to(cuda)
         for bin_size in (97, 1 << 30):
             got = q.probe_sort(hg, ng, bin_size=bin_size)
+            assert torch.equal(got, q.probe_sort_plain(hg, ng,
+                                                       bin_size=bin_size))
+    # both routes at their edges (a warp a read up to 256 slots, 1 to 8
+    # keys a lane; a block a read past it), B off the warp route's 8 reads
+    # a block, n = 0 and past M, repeated hashes, bin_size near 2^46
+    for M in (1, 31, 32, 33, 56, 64, 256, 257, 4096):
+        B = 3 if M == 4096 else 21
+        h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M)))
+        h[0, :] = h[0, 0]
+        h[2, M // 2:] = h[2, 0]
+        n = torch.from_numpy(rng.integers(0, M + 1, size=B).astype(np.int32))
+        n[1], n[-1] = 0, M + 5
+        hg, ng = h.to(cuda), n.to(cuda)
+        for bin_size in (97, 2_787_889, (1 << 46) - 1):
+            before = kernels.LAUNCHES["probe_sort"]
+            got = q.probe_sort(hg, ng, bin_size=bin_size)
+            assert kernels.LAUNCHES["probe_sort"] == before + 1
             assert torch.equal(got, q.probe_sort_plain(hg, ng,
                                                        bin_size=bin_size))
 

@@ -264,3 +264,103 @@ def test_bins_target_route_by_shape(n_words, fused):
     shared memory, bins into scratch and the segment pass past it."""
     assert lib.bins_target_fused(n_words) is fused
     assert lib.BINS_TARGET_SHARED_BYTES == 227 * 1024
+
+
+def _tile_sums(bins, ids, T):
+    """What the card's tsum computes, tile by tile: each tile of
+    ``tsum_tiles(T)`` sums the bins of its window (``target_windows``;
+    the whole row at one tile) whose ids fall in it."""
+    tiles, width = lib.tsum_tiles(T)
+    win = (lib.target_windows(torch.from_numpy(ids), T, width).numpy()
+           if tiles > 1 else np.array([[0, ids.size]]))
+    out = np.empty((bins.shape[0], T), np.int64)
+    for k, (lo, hi) in enumerate(win):
+        t0, t1 = k * width, min(T, (k + 1) * width)
+        acc = np.zeros((bins.shape[0], t1 - t0), np.int64)
+        j = np.arange(lo, hi)
+        j = j[(ids[j] >= t0) & (ids[j] < t1)]
+        np.add.at(acc, (slice(None), ids[j] - t0), bins[:, j])
+        out[:, t0:t1] = acc
+    return out
+
+
+# (T, TB, map): the tile edges of the card's tsum (12,288 targets a tile:
+# one target, one under, at, one over), T = 70,000 ascending (padding bins
+# carry T) and shuffled, ids far out of range, every bin on one target, a
+# tile with no bin
+_TSUM_CASES = {
+    "T1": (1, 40, "edges"),
+    "T12287-under-tile": (12_287, 96, "edges"),
+    "T12288-at-tile": (12_288, 96, "edges"),
+    "T12289-over-tile": (12_289, 96, "edges"),
+    "T70000-ascending": (70_000, 128, "ascending"),
+    "T70000-shuffled": (70_000, 128, "shuffled"),
+    "out-of-range": (24_577, 64, "out"),
+    "one-target": (30_000, 64, "one"),
+    "empty-tile": (36_864, 96, "gap"),
+}
+
+
+@pytest.mark.parametrize("case", list(_TSUM_CASES), ids=list(_TSUM_CASES))
+def test_target_counts_tiles_match_jax(case):
+    """target_counts against JAX's one-hot matmul at the card's tile edges
+    and maps, and the card's tile-by-tile sums over the plan's windows
+    equal to both."""
+    T, TB, kind = _TSUM_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    width = lib.tsum_tiles(T)[1]
+    if kind == "edges":  # ids around every tile edge, and out of range
+        edges = np.arange(0, T + 1, width)
+        near = np.concatenate([edges - 1, edges, edges + 1, [T - 1, T, -1]])
+        ids = rng.choice(near, size=TB)
+    elif kind in ("ascending", "shuffled"):
+        ids = np.sort(rng.integers(0, T, size=TB))
+        ids[-16:] = T  # padding bins
+        if kind == "shuffled":
+            rng.shuffle(ids)
+    elif kind == "out":
+        ids = rng.integers(0, T, size=TB)
+        ids[::3] = rng.choice([-1, -2**31, T, T + 7, 2**31 - 1], size=len(
+            ids[::3]))
+    elif kind == "one":
+        ids = np.full(TB, T // 2)
+    else:  # no bin in the middle tile
+        ids = rng.integers(0, T, size=TB)
+        ids[(ids >= width) & (ids < 2 * width)] = 0
+    ids = ids.astype(np.int32)
+    bins = rng.integers(0, 40, size=(4, TB)).astype(np.int32)
+    bins[rng.random(bins.shape) < 0.3] = 0
+    want = np.asarray(jops.target_counts(jnp.asarray(bins), jnp.asarray(ids),
+                                         num_targets=T))
+    got = tops.target_counts(torch.from_numpy(bins), torch.from_numpy(ids),
+                             num_targets=T)
+    assert np.array_equal(got.numpy(), want) and want.sum() > 0
+    assert np.array_equal(_tile_sums(bins, ids, T), want)
+
+
+@pytest.mark.parametrize("T,tiles,width", [
+    (1, 1, 4), (3, 1, 4), (1024, 1, 1024),  # db: one warp a read
+    (12_287, 1, 12_288), (12_288, 1, 12_288),  # one tile, 48 KB of sums
+    (12_289, 2, 6148), (24_577, 3, 8196),  # balanced tiles past it
+    (70_000, 6, 11_668), (10**7, 814, 12_288),
+], ids=["T1", "T3", "db-1024", "T12287", "T12288", "T12289", "T24577",
+        "T70000", "T1e7"])
+def test_tsum_tiles_by_targets(T, tiles, width):
+    """The card's tsum tiles are a rule on T alone: as few tiles as hold
+    12,288 targets each, balanced, widths a multiple of 4; the plan runs
+    only past one tile."""
+    assert lib.tsum_tiles(T) == (tiles, width)
+    assert width % 4 == 0 and width <= lib.TSUM_TILE_TARGETS
+    assert (tiles - 1) * width < T <= tiles * width
+
+
+def test_target_windows_plain():
+    """A tile's window runs from its first bin to one past its last, over
+    an unsorted map (other tiles' bins inside it), and is [0, 0] for a
+    tile with no bin."""
+    ids = torch.tensor([5, -1, 0, 9, 4, 12, 3, 8, 99], dtype=torch.int32)
+    win = lib.target_windows(ids, 14, 4)
+    assert win.dtype == torch.int32
+    assert win.tolist() == [[2, 7], [0, 5], [3, 8], [5, 6]]
+    assert lib.target_windows(ids, 24, 8).tolist() == [[0, 7], [3, 8],
+                                                       [0, 0]]
