@@ -9,8 +9,9 @@ Phases, one output line each:
              the time to build the CUDA kernels from ``csrc/`` (one nvcc
              per source, all started together); ``nvcc -Xptxas -v`` of
              ``extract.cu``, ``scan.cu``, ``count.cu``, ``select.cu``,
-             ``dedup.cu``, ``scatter.cu``, ``merge.cu``, ``bins.cu`` and
-             ``psort.cu`` (registers, spills, static shared memory) and
+             ``dedup.cu``, ``scatter.cu``, ``merge.cu``, ``bins.cu``,
+             ``psort.cu`` and ``gprobe.cu`` (registers, spills, static
+             shared memory) and
              the extract blocks an SM at k 19, w 31;
 2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
              through the ``extract`` kernel, the IBF through ``scatter``,
@@ -855,7 +856,7 @@ def main() -> int:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for src in ("extract.cu", "scan.cu", "count.cu", "select.cu",
                     "dedup.cu", "scatter.cu", "merge.cu", "bins.cu",
-                    "psort.cu")}
+                    "psort.cu", "gprobe.cu")}
     for src, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
@@ -1554,7 +1555,7 @@ def main() -> int:
             # and an add per word
             (int(torch.unique(grows).numel()) * probe.W8 + _nbytes(grows)
              + 512, 16 * probe.NPROBE), runs=20)
-    gprobe_ms = rows[-1]["ms"]
+    gprobe_ms, gprobe_card_ms = rows[-1]["ms"], rows[-1]["device_ms"]
     del gtbl, grows
     emit("kernels", {
         "pairs": args.bench_pairs, "L1": L1, "L2": L2, "mc": mc,
@@ -1567,6 +1568,7 @@ def main() -> int:
         "sort_probes_buffer_equal": True,
         "ragged_cap": rcap, "ragged_entries": ragged_total,
         "gather_probe_rows_per_s": probe.NPROBE / (gprobe_ms / 1e3),
+        "gather_probe_rows_per_s_card": probe.NPROBE / (gprobe_card_ms / 1e3),
         "equal": [r["name"] for r in rows],
         "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
     })

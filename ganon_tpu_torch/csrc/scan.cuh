@@ -64,6 +64,21 @@ __device__ __forceinline__ void draw_tile(unsigned long long* status,
     }
 }
 
+// draw_tile for a block that publishes what it stored before the ticket
+// (the caller syncs before and after): thread 0's acq_rel atomic orders
+// the block's stores, made before the barrier, ahead of its ticket, and
+// the drawer's later reads after the tickets drawn before it, so the
+// drawer of the last ticket sees every block's stores.
+__device__ __forceinline__ void draw_ticket_release(
+        unsigned long long* status, unsigned* s_ticket) {
+    if (threadIdx.x == 0) {
+        unsigned* counter = (unsigned*)status;
+        asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                     : "=r"(*s_ticket) : "l"(counter) : "memory");
+        if (*s_ticket == gridDim.x - 1) atomicExch(counter, 0u);
+    }
+}
+
 // The exclusive prefix of block `tile` (> 0) of a chained scan whose
 // blocks publish kFlagAggregate | their sum, then kFlagInclusive | their
 // inclusive prefix, tagged with `epoch`: one warp (every lane gets the

@@ -167,8 +167,9 @@ _SIGNATURES = {
     "pairs": (_P, _L, _I, _L, _P, _P, _U, _P, _P),
     # hashes, B, M, n_hashes, bin_size, shift, out
     "probe_sort": (_P, _L, _I, _P, _U, _I, _P),
-    # tbl, R, rows, N, out
-    "gather_probe": (_P, _L, _P, _L, _P),
+    # tbl, R, rows, N, partials, max_blocks (the partials' rows), status,
+    # out
+    "gather_probe": (_P, _L, _P, _L, _P, _I, _P, _P),
 }
 
 # launch counters: each kernel, plus the modes counted apart
@@ -300,7 +301,8 @@ def launch(name: str, *args, counter: str | None = None) -> None:
 
 # The chained scans' status words (csrc/scan.cuh): one buffer per (device,
 # stream), shared by ``ragged``, ``pairs``, ``extract``, ``dedup_rank``,
-# ``scatter_ranked`` (its stage step) and ``pack``; made zero and
+# ``scatter_ranked`` (its stage step) and ``pack`` (and the counter alone
+# by ``gather_probe``, its last block's ticket); made zero and
 # written only by those kernels, every call tagged with a new epoch
 # (csrc/scan.cu says why that is safe)
 _SCAN_STATUS: dict = {}

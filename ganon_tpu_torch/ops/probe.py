@@ -8,11 +8,15 @@ lanes ``8 (r & 15) .. 8 (r & 15) + 7`` of an int32 ``[1, 128]`` result.
 No classify or build path runs it: it measures the rate that the count
 kernels' gathers rest on (``chip_smoke.py``).
 
-:func:`gather_probe` launches ``csrc/gprobe.cu`` on CUDA tensors; its
+:func:`gather_probe` launches ``csrc/gprobe.cu`` on CUDA tensors (one
+launch a call: a block an SM at most, each storing a partial of the 128
+lanes into a scratch, the last block adding them into the output); its
 plain version :func:`gather_probe_plain` runs on the CPU.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -54,8 +58,16 @@ def gather_probe(tbl: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     if tbl.device.type == "cpu":
         return gather_probe_plain(tbl, rows)
     kernels.check_cuda(tbl, rows)
-    out = torch.zeros((1, 128), dtype=torch.int32, device=tbl.device)
-    if rows.numel():
-        kernels.launch("gather_probe", tbl, tbl.shape[0], rows, rows.numel(),
-                       out)
+    dev = tbl.device
+    sms = _sm_count(dev.index)
+    partials = torch.empty((sms, 128), dtype=torch.int32, device=dev)
+    status, _ = kernels.scan_status(dev, 0)  # its counter: the ticket
+    out = torch.empty((1, 128), dtype=torch.int32, device=dev)
+    kernels.launch("gather_probe", tbl, tbl.shape[0], rows, rows.numel(),
+                   partials, sms, status, out)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

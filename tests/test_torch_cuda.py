@@ -57,8 +57,11 @@ of 1, inside the first block, overflowing and exact caps (winners,
 group words) over up to 274 blocks, each call twice on the stream's
 status buffer; pairs with every read
 spilling; probe_sort with equal keys at both routes' edges (M 1 to
-4096, n = 0 and past M, bin_size near 2^46); the gather probe; the transfer
-settings (ragged, pair caps, sort_probes) on the card against the CPU.
+4096, n = 0 and past M, bin_size near 2^46); the gather probe at N 0 to
+2^20 (the warp step's edges), R 16, one group, the int32 wrap at 2^26 +
+5 probes, rows off 16 bytes, two streams, garbage in the allocator; the
+transfer settings (ragged, pair caps, sort_probes) on the card against
+the CPU.
 The tiled extract at the build's shape, over many 512-window tiles, at
 B 1, with short mates, w == k, k 32 and runs of one base, with and
 without the zero tail; pairs over 274 blocks at S 1-9 and on rows off
@@ -1947,11 +1950,14 @@ def test_pairs_kernel_many_tiles(cuda, S):
 def test_scans_share_status_words(cuda):
     """ragged, pairs, extract, pack and dedup's rank mode (alone and
     inside the ranked scatter) take their status words from one buffer a
-    stream: a pack call between a ragged call and an extract call of more
-    blocks, two pairs calls in a row after them, dedup's ranks, a ranked
-    scatter and pack between them, then pairs, ragged, pack and dedup on
-    a second stream (a buffer of its own), each equal to its plain
-    version; one launch a pairs call."""
+    stream, and gather_probe its ticket counter: a pack call between a
+    ragged call and an extract call of more blocks, two pairs calls in a
+    row after them, dedup's ranks, a ranked scatter, pack and
+    gather_probe between them, then pairs, gather_probe, ragged, pack,
+    gather_probe and dedup on a second stream (a buffer of its own), each
+    equal to its plain version; one launch a pairs call."""
+    from ganon_tpu_torch.ops import probe
+
     rng = np.random.default_rng(36)
     sk, sv = bo.sort_entries(*_entries(rng, 30_001, 10), key_bits=4)
     want_d = bo.dedup_plain(sk, sv, num_files=10)
@@ -1979,6 +1985,12 @@ def test_scans_share_status_words(cuda):
     ptotal = int(pn.sum())
     want_pk = bo.pack_entries_plain(ph, pn, pkeys, ptotal)
     pargs = (*_to(cuda, ph, pn, pkeys), ptotal)
+    gtbl = torch.from_numpy(rng.integers(0, 256, size=(1 << 12, 32),
+                                         dtype=np.uint8))
+    grows = torch.from_numpy(rng.integers(0, 1 << 12, size=50_000).astype(
+        np.int32))
+    want_g = probe.gather_probe_plain(gtbl, grows)
+    gargs = _to(cuda, gtbl, grows)
 
     def pack_ok():
         got_pk = bo.pack_entries(*pargs)
@@ -1998,16 +2010,21 @@ def test_scans_share_status_words(cuda):
         bo.scatter_ranked(got_s, dk, dv, None, None, sparams.to(cuda),
                           bin_size=1009, hash_functions=2)
         assert torch.equal(got_s.cpu(), want_s)
+        assert torch.equal(probe.gather_probe(*gargs).cpu(), want_g)
     assert kernels.LAUNCHES["pairs"] == before + 2
     assert all(torch.equal(a, b) for a, b in zip(got_x, want_x))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         got = pq.pair_live(ok, ovf, cap)
+        got_g = probe.gather_probe(*gargs)
         got_r = dev.ragged(dense, B, K, 100)
         got_pk = bo.pack_entries(*pargs)
+        got_g2 = probe.gather_probe(*gargs)
         got_d = bo.dedup(dk, dv, num_files=10)
     side.synchronize()
+    assert torch.equal(got_g.cpu(), want_g) and torch.equal(got_g2.cpu(),
+                                                            want_g)
     assert all(torch.equal(a, b) for a, b in zip(got, want_p))
     assert torch.equal(got_r, want_r)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got_pk, want_pk))
@@ -2050,18 +2067,119 @@ def test_probe_sort_kernel_matches_plain(cuda):
                                                        bin_size=bin_size))
 
 
-def test_gather_probe_kernel_matches_plain(cuda):
-    """The Pallas probe's port at its own shapes and at a few probes."""
+@pytest.mark.parametrize("case", ["n_edges", "r16", "one_group", "wrap",
+                                  "streams", "garbage", "rows_off_16",
+                                  "repeat"])
+def test_gather_probe_kernel_matches_plain(cuda, case):
+    """The Pallas probe's port at its own shapes and at a few probes: N
+    at the warp step's edges (0, 1, 31, 32, 33, 4097 and NPROBE), the
+    smallest table (R 16), every probe in one group (the most
+    contention), an all-ones table with 2^26 + 5 probes in one group
+    against the closed form (32 N) mod 2^32 (the int32 sum wraps),
+    back-to-back calls on one stream and calls on two streams, the
+    allocator's memory filled with garbage first (a store the kernel
+    misses shows), rows off 16 bytes, 600 back-to-back calls (the last
+    block's ticket orders every partial before its sum); one launch a
+    call."""
     from ganon_tpu_torch.ops import probe
 
     rng = np.random.default_rng(36)
-    tbl = torch.from_numpy(rng.integers(0, 256, size=(probe.R, 32),
-                                        dtype=np.uint8)).to(cuda)
-    for n in (5, probe.NPROBE):
-        rows = torch.from_numpy(rng.integers(0, probe.R, size=n).astype(
-            np.int32)).to(cuda)
-        assert torch.equal(probe.gather_probe(tbl, rows),
-                           probe.gather_probe_plain(tbl, rows))
+
+    def table(R):
+        return torch.from_numpy(rng.integers(0, 256, size=(R, 32),
+                                             dtype=np.uint8)).to(cuda)
+
+    def rows_of(R, n, group=None):
+        if group is None:
+            r = rng.integers(0, R, size=n)
+        else:
+            r = rng.integers(0, R // 16, size=n) * 16 + group
+        return torch.from_numpy(r.astype(np.int32)).to(cuda)
+
+    def check(tbl, rows):
+        before = kernels.LAUNCHES["gather_probe"]
+        got = probe.gather_probe(tbl, rows)
+        assert kernels.LAUNCHES["gather_probe"] == before + 1
+        assert torch.equal(got, probe.gather_probe_plain(tbl, rows)), (
+            tbl.shape, rows.numel())
+
+    if case == "n_edges":
+        tbl = table(probe.R)
+        for n in (0, 1, 31, 32, 33, 4097, probe.NPROBE):
+            check(tbl, rows_of(probe.R, n))
+    elif case == "r16":
+        tbl = table(16)
+        for n in (1, 33, 4097, probe.NPROBE):
+            check(tbl, rows_of(16, n))
+    elif case == "one_group":
+        tbl = table(probe.R)
+        for n in (33, probe.NPROBE):
+            check(tbl, rows_of(probe.R, n, group=7))
+    elif case == "wrap":
+        n = (1 << 26) + 5
+        tbl = torch.full((probe.R, 32), 0xFF, dtype=torch.uint8, device=cuda)
+        rows = torch.randint(0, probe.R // 16, (n,), device=cuda,
+                             dtype=torch.int32) * 16 + 3
+        before = kernels.LAUNCHES["gather_probe"]
+        got = probe.gather_probe(tbl, rows)
+        assert kernels.LAUNCHES["gather_probe"] == before + 1
+        want = torch.zeros((16, 8), dtype=torch.int64)
+        want[3] = 32 * n
+        want = ((want + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+        assert int(want[3, 0]) < 0  # the sum passed 2^31 and wrapped
+        assert torch.equal(got.cpu(), want.reshape(1, 128))
+    elif case == "streams":
+        tbl = table(probe.R)
+        rows = [rows_of(probe.R, n) for n in (probe.NPROBE, 4097, 33, 70_001)]
+        wants = [probe.gather_probe_plain(tbl, r) for r in rows]
+        before = kernels.LAUNCHES["gather_probe"]
+        gots = [probe.gather_probe(tbl, r) for r in rows]  # back to back
+        assert kernels.LAUNCHES["gather_probe"] == before + len(rows)
+        assert all(torch.equal(a, b) for a, b in zip(gots, wants))
+        sides = [torch.cuda.Stream() for _ in range(2)]
+        for _ in range(3):
+            outs = []
+            for i, side in enumerate(sides):
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    outs.append([probe.gather_probe(tbl, r)
+                                 for r in rows[i::2]])
+            for side in sides:
+                side.synchronize()
+            for i, got in enumerate(outs):
+                assert all(torch.equal(a, b)
+                           for a, b in zip(got, wants[i::2]))
+    elif case == "garbage":
+        tbl = table(probe.R)
+        rows = rows_of(probe.R, probe.NPROBE)
+        want = probe.gather_probe_plain(tbl, rows)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        for n in (probe.NPROBE, 33, 0):
+            r = rows[:n]
+            # blocks of the scratch's and the output's sizes, filled with
+            # -1 and given back to the allocator, which hands them out
+            # again unchanged
+            junk = [torch.full(shape, -1, dtype=torch.int32, device=cuda)
+                    for shape in ((sms, 128), (1, 128)) * 4]
+            del junk
+            got = probe.gather_probe(tbl, r)
+            if n == probe.NPROBE:
+                assert torch.equal(got, want)
+            else:
+                assert torch.equal(got, probe.gather_probe_plain(tbl, r))
+    elif case == "rows_off_16":
+        tbl = table(probe.R)
+        flat = rows_of(probe.R, 4097 + 3)
+        for off in (1, 2, 3):
+            check(tbl, flat[off:off + 4097])  # contiguous, off 16 bytes
+    else:
+        tbl = table(probe.R)
+        rows = [rows_of(probe.R, n) for n in (4097, 65_536, probe.NPROBE)]
+        wants = [probe.gather_probe_plain(tbl, r) for r in rows]
+        gots = [probe.gather_probe(tbl, rows[i % 3]) for i in range(600)]
+        bad = [i for i, got in enumerate(gots)
+               if not torch.equal(got, wants[i % 3])]
+        assert not bad, bad[:10]
 
 
 def test_transfer_settings_cuda_match_cpu(cuda):
