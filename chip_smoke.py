@@ -35,6 +35,18 @@ Phases, one output line each:
              ``run_build`` on the card and with ``device="cpu"``, byte-equal;
              ``scatter`` in span mode (one of four row shards) against its
              plain version at that group; then
+             (line ``build_acquire``) ``ganon build`` and ``update``
+             through the CLI on a local repository tree (``local_dir``)
+             of the same genomes as ``.fna.gz`` files: the first state
+             lists all but the last 32 genomes, 16 decoys of 64 kbp and an
+             ``na`` row, ``build`` fetches them, the taxdump of the 32
+             genera and the genome sizes (1008 targets, a ``.tax``, the
+             five build kernels launched); then the 32 come in and the
+             decoys go, and ``update`` (32 ``A``, 16 ``R`` in changes.tsv,
+             the kept files hard links to the first snapshot's) must give
+             ``db.ibf`` again; its seconds of acquisition, build and
+             update, Mbp/min, StopClock phases, peak card memory and
+             launches; then
              (line ``mesh_build``) the same FASTA files through
              ``run_build`` with four views of ``cuda:0`` as the local
              devices (K17: the groups round-robin over them, the matrix is
@@ -184,7 +196,8 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
 5. checks    every kernel mode launched on the main paths (builds, the
              ops library at db's and at the wide filter's widths, the
              sort_probes batch, the gather probe, the
-             two build-custom runs, the reference-format build, the mesh
+             two build-custom runs, ``build_acquire``'s build and update,
+             the reference-format build, the mesh
              build, the classify CLI runs and the mesh runs, the longreads
              phase's runs and the raptor and pruned phases' card runs).
 
@@ -695,7 +708,7 @@ def _run_cli(argv):
         sys.argv = saved
 
 
-def _write_fasta(path, name, codes, width=80):
+def _fasta_bytes(name, codes, width=80) -> bytes:
     """A one-sequence FASTA of dna4 codes, ``width`` bases a line."""
     import numpy as np
 
@@ -703,11 +716,24 @@ def _write_fasta(path, name, codes, width=80):
     full = len(s) // width * width
     lines = np.concatenate([s[:full].reshape(-1, width),
                             np.full((full // width, 1), 10, np.uint8)], axis=1)
+    tail = s[full:].tobytes() + b"\n" if full < len(s) else b""
+    return b">%s\n" % name.encode() + lines.tobytes() + tail
+
+
+def _write_fasta(path, name, codes, width=80):
     with open(path, "wb") as f:
-        f.write(b">%s\n" % name.encode())
-        f.write(lines.tobytes())
-        if full < len(s):
-            f.write(s[full:].tobytes() + b"\n")
+        f.write(_fasta_bytes(name, codes, width))
+
+
+def _load_test_helper(name):
+    """A helper module of ``tests/``, loaded by its path: a ``tests``
+    package installed on the machine would shadow the repo's directory."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _write_input(folder, named_genomes, nodes=None):
@@ -744,6 +770,176 @@ def _with_build_phases(fn):
     finally:
         builder._finish_build = real
     return res, seen.get("phases", {}), seen.get("bp", 0)
+
+
+def _build_acquire(args, work, genomes, ibf, names, emit):
+    """Phase ``build_acquire``: ``ganon build`` and ``update`` on the card
+    through the CLI, fetching from a local repository tree.
+
+    The tree (``local_dir``) holds refseq bacteria's assembly_summary.txt
+    in the 38-column layout, one ``{ftp_path}/{asm}_genomic.fna.gz`` a row
+    (gzip level 1), a new_taxdump of the 32 genera and the species genome
+    sizes. Its first state lists the first ``targets - 32`` genomes as
+    latest, 16 decoys of 64 kbp (random from the seed) and the last 32
+    genomes as replaced, and a row whose ftp_path is ``na``. ``build``
+    (taxonomy and genome sizes fetched, ``--max-fp 0.05 --hash-functions 0
+    --tpu-sizing auto --threads 8``) must give ``targets - 16`` targets and
+    a ``.tax``, launching ``extract_build``, ``pack``, ``sort``, ``dedup``
+    and ``scatter_ranked``. Then the 32 become latest and the decoys
+    replaced, and ``update`` takes the saved configuration: its
+    changes.tsv holds 32 ``A`` and 16 ``R`` rows, the kept files are hard
+    links to the first snapshot's, and the filter equals ``db.ibf`` (bits,
+    config, hashes count, and the bin map once each accession is mapped to
+    its genome's name; accessions sort in genome order, as the build
+    orders its files). Returns the launches of the build and of the
+    update, for the checks."""
+    import gzip
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from ganon_tpu_torch import acquire, kernels
+    from ganon_tpu_torch.index.ibf import IBF
+
+    tree = _load_test_helper("ncbi_tree")
+    n_new = min(32, args.targets // 2)
+    n_decoys = 16
+    root = os.path.join(work, "acq_repo")
+    drng = np.random.default_rng(args.seed + 19)
+    decoys = drng.integers(0, 4, size=(n_decoys, 64_000), dtype=np.uint8)
+    genus = [str(1000 + t % 32) for t in range(args.targets + n_decoys + 1)]
+    rows = [tree.Assembly(f"GCF_{i + 1:09d}.1", genus[i])
+            for i in range(args.targets + n_decoys + 1)]
+    rows[-1].ftp_na = True
+    name_of = {a.acc: names[i] for i, a in enumerate(rows[:args.targets])}
+
+    def state(first):
+        for i, a in enumerate(rows[:-1]):
+            new, decoy = (args.targets - n_new <= i < args.targets,
+                          i >= args.targets)
+            a.status = "replaced" if (new if first else decoy) else "latest"
+        tree.write_summaries(root, rows)
+
+    def write_one(i):
+        a = rows[i]
+        codes = genomes[i] if i < args.targets else decoys[i - args.targets]
+        path = os.path.join(tree.local_path(root, a.ftp_path),
+                            a.name + "_genomic.fna.gz")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(gzip.compress(_fasta_bytes(a.acc + "_seq1", codes),
+                                  compresslevel=1))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_one, range(len(rows) - 1)))
+    tree.write_taxdump(root, [("1", "1", "no rank")] + [
+        (str(1000 + j), "1", "genus") for j in range(32)],
+        names={str(1000 + j): f"G{j}" for j in range(32)})
+    tree.write_genome_sizes(root, {str(1000 + j): args.genome_len
+                                   for j in range(32)})
+    state(first=True)
+    tree_s = time.perf_counter() - t0
+
+    # the acquisition's own seconds, inside each CLI run
+    acq_seconds = []
+    real_acquire = acquire.acquire
+
+    def timed_acquire(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_acquire(*a, **kw)
+        finally:
+            acq_seconds.append(time.perf_counter() - t)
+
+    db = os.path.join(work, "acq", "db")
+    os.makedirs(os.path.dirname(db))
+    os.environ["local_dir"] = root
+    acquire.acquire = timed_acquire
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, b_phases, b_bp = _with_build_phases(lambda: _run_cli([
+            "ganon-tpu-torch", "build", "--db-prefix", db, "--source",
+            "refseq", "--organism-group", "bacteria", "--taxonomy", "ncbi",
+            "--threads", "8", "--max-fp", "0.05", "--hash-functions", "0",
+            "--tpu-sizing", "auto", "--write-info-file", "--verbose"]))
+        b_s = time.perf_counter() - t0
+        b_launches = dict(kernels.LAUNCHES)
+        b_peak = torch.cuda.max_memory_allocated()
+        folder = db + "_files"
+        v1 = acquire.current_version(folder)
+        with open(db + ".info.tsv") as f:
+            n_info = sum(1 for _ in f)
+        if n_info != args.targets - n_new + n_decoys:
+            raise AssertionError(f"build: {n_info} targets in .info.tsv")
+        if not os.path.getsize(db + ".tax"):
+            raise AssertionError("build: no .tax")
+
+        state(first=False)
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, u_phases, u_bp = _with_build_phases(lambda: _run_cli([
+            "ganon-tpu-torch", "update", "--db-prefix", db, "--threads", "8",
+            "--write-info-file", "--verbose"]))
+        u_s = time.perf_counter() - t0
+        u_launches = dict(kernels.LAUNCHES)
+        u_peak = torch.cuda.max_memory_allocated()
+    finally:
+        acquire.acquire = real_acquire
+        os.environ.pop("local_dir", None)
+    for what, launched in (("build", b_launches), ("update", u_launches)):
+        missing = [x for x in ("extract_build", "pack", "sort", "dedup",
+                               "scatter_ranked") if launched[x] <= 0]
+        if missing:
+            raise AssertionError(f"{what}: not launched: {missing}")
+    v2 = acquire.current_version(folder)
+    with open(os.path.join(folder, v2, "changes.tsv")) as f:
+        ops = [line.split("\t")[0] for line in f]
+    if (ops.count("A"), ops.count("R"), len(ops)) != (n_new, n_decoys,
+                                                    n_new + n_decoys):
+        raise AssertionError(f"update: changes.tsv {ops.count('A')} A, "
+                             f"{ops.count('R')} R")
+    kept = [a.name + "_genomic.fna.gz"
+            for a in rows[:args.targets - n_new]]
+    linked = sum(
+        os.stat(os.path.join(folder, v1, "files", f)).st_ino
+        == os.stat(os.path.join(folder, v2, "files", f)).st_ino for f in kept)
+    if linked != len(kept):
+        raise AssertionError(f"update: {linked} of {len(kept)} kept files "
+                             "are hard links")
+    t0 = time.perf_counter()
+    got = IBF.load(db + ".ibf")
+    load_s = time.perf_counter() - t0
+    if not (np.array_equal(got.bits, ibf.bits)
+            and got.ibf_config.to_dict() == ibf.ibf_config.to_dict()
+            and [(name_of[t], c) for t, c in got.hashes_count.items()]
+            == list(ibf.hashes_count.items())
+            and [(b, name_of[t]) for b, t in got.bin_map] == ibf.bin_map):
+        raise AssertionError("update: the filter differs from db.ibf")
+    del got
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(db), ignore_errors=True)
+    emit("build_acquire", {
+        "assemblies": {"first": args.targets - n_new + n_decoys,
+                       "update_added": n_new, "update_removed": n_decoys,
+                       "na_rows": 1},
+        "tree_write_s": tree_s,
+        "acquire_s": acq_seconds,
+        "build": {"seconds": b_s, "bp": b_bp,
+                  "mbp_per_min": b_bp / 1e6 / (b_s / 60),
+                  "stopclock_s": b_phases, "max_memory_allocated": b_peak,
+                  "launches": b_launches},
+        "update": {"seconds": u_s, "bp": u_bp,
+                   "mbp_per_min": u_bp / 1e6 / (u_s / 60),
+                   "stopclock_s": u_phases, "max_memory_allocated": u_peak,
+                   "launches": u_launches, "hard_links": linked,
+                   "equals_db_ibf": True, "filter_load_s": load_s},
+    })
+    return b_launches, u_launches
 
 
 def main() -> int:
@@ -810,14 +1006,8 @@ def main() -> int:
     from ganon_tpu_torch.ops import ibf_query as q
     from ganon_tpu_torch.ops import pruned_query as pq
     from ganon_tpu_torch.ops.winnow import u64_to_torch
-    # the tests' layout writer, loaded by its path: a `tests` package
-    # installed on the machine would shadow the repo's directory
-    spec = importlib.util.spec_from_file_location(
-        "raptor_layout", os.path.join(os.path.dirname(os.path.abspath(
-            __file__)), "tests", "raptor_layout.py"))
-    raptor_layout = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(raptor_layout)
-    write_raptor_layout = raptor_layout.write_raptor_layout
+    write_raptor_layout = _load_test_helper(
+        "raptor_layout").write_raptor_layout
 
     cuda = torch.device("cuda")
     work = os.path.abspath(args.workdir)
@@ -1221,6 +1411,11 @@ def main() -> int:
                              "launches": ref_launches},
         "ms": {r["name"]: [r["ms"], r["plain_ms"]] for r in rows},
     })
+    # build_acquire: `ganon build` and `update` through the CLI on a
+    # local repository tree (local_dir) of the same genomes --------------------
+    acq_launches, upd_launches = _build_acquire(args, work, genomes, ibf,
+                                                names, emit)
+
     # the mesh build (K17): the same FASTA files through run_build with
     # four views of the card as the local devices, so the groups
     # round-robin over them and the scatter's matrix is cut into four row
@@ -3255,7 +3450,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. checks ------------------------------------------------------------
-    main_runs = (build_launches, bc_launches, ref_launches, sp_launches,
+    main_runs = (build_launches, bc_launches, acq_launches, upd_launches,
+                 ref_launches, sp_launches,
                  gprobe_launches, ops_launches, wide_launches,
                  wide_ops_launches,
                  mesh_build_launches, hier_build_launches, cli_launches,

@@ -1,23 +1,30 @@
-"""``build-custom`` orchestration without pandas.
+"""``build-custom`` and ``update`` orchestration without pandas.
 
-Port of ``ganon_tpu.build``'s ``build_custom``: parse the input files or
-sequences, resolve taxonomy from local files (NCBI, GTDB or custom),
+Port of ``ganon_tpu.build``: parse the input files or sequences, resolve
+their taxonomy (NCBI, GTDB or custom; ``--convert-taxonomy`` to another),
 write ``.tax``, ``target_info.tsv`` and ``.info.tsv``, run the build
 (:func:`~ganon_tpu_torch.index.builder.run_build` on the card, or
 :func:`~ganon_tpu_torch.index.hibf.run_build_hibf`), keep resume states
-and save the configuration. The files equal the JAX package's byte for
-byte.
+and save the configuration; ``update`` rebuilds a database from its saved
+configuration, on a new snapshot when it was made by ``build``. The files
+equal the JAX package's byte for byte.
+
+What is not local is fetched as the JAX package fetches it: the NCBI
+taxdump, the GTDB taxonomy and the genome-size files through
+:mod:`ganon_tpu_torch.acquire` (``local_dir`` points them at a local copy
+of the repository tree), the assembly_summary and accession2taxid
+prefixes from ``--ncbi-url`` (``file://`` URLs work), and sequence
+information from NCBI e-utils (:mod:`ganon_tpu_torch.eutils`; the
+``eutils_url`` environment variable names the endpoint). One difference
+by design: the taxonomy ``--convert-taxonomy`` fetches lands in the
+build's folder, where the JAX package writes it to the working directory.
 
 The table the JAX package keeps as a DataFrame indexed by target is an
 ordered ``{target: row}`` dict here, each row a dict of the other
 :data:`INFO_COLS` with ``None`` for a missing value; the pandas steps
 are written out (``dropna``, ``drop_duplicates``, the inner merge on
-target, ``DataFrame.update``'s non-null writes, ``to_csv``'s empty NaN).
-
-Every branch that downloads raises ``NotImplementedError`` before any
-work: taxonomy without ``--taxonomy-files``, assembly_summary and
-accession2taxid prefixes, NCBI e-utils, the genome-size fetch and
-``--convert-taxonomy`` (ROADMAP queue 1, the acquisition item).
+target, ``DataFrame.update``'s non-null writes, ``apply``, ``to_csv``'s
+empty NaN).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from ganon_tpu_torch.index.builder import BuildConfig, run_build
 from ganon_tpu_torch.util import (
     check_file,
     clear_states,
+    download,
     load_state,
     print_log,
     rm_files,
@@ -62,8 +70,6 @@ _NA_STRINGS = frozenset({
     "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
     "nan", "null",
 })
-_ACQUISITION = ("ROADMAP queue 1, 'build and update with offline "
-                "acquisition'")
 
 
 def _na(v) -> str | None:
@@ -81,48 +87,6 @@ def _tsv_rows(path: str, skip: int = 0):
             line = line.rstrip("\r\n")
             if line:
                 yield line.split("\t")
-
-
-# --------------------------------------------------------------------------
-# offline guard
-
-
-def check_offline(cfg) -> None:
-    """Raise NotImplementedError for every branch of ``cfg`` that would
-    download; called before any file is written."""
-    if getattr(cfg, "convert_taxonomy", ""):
-        raise NotImplementedError(
-            f"--convert-taxonomy is not ported yet ({_ACQUISITION})")
-    if cfg.taxonomy != "skip" and not cfg.taxonomy_files:
-        raise NotImplementedError(
-            f"--taxonomy {cfg.taxonomy} without --taxonomy-files downloads "
-            f"the taxonomy, which is not ported yet ({_ACQUISITION}); pass "
-            "--taxonomy-files")
-    if not cfg.input_file and (cfg.taxonomy != "skip"
-                               or cfg.level == "assembly"):
-        if cfg.input_target == "sequence":
-            info = cfg.ncbi_sequence_info
-            if (not info or "eutils" in info
-                    or any(e in ACC2TXID_PREFIXES for e in info)
-                    or cfg.level == "assembly"):
-                raise NotImplementedError(
-                    "sequence information from NCBI e-utils or "
-                    "accession2taxid downloads is not ported yet "
-                    f"({_ACQUISITION}); pass local accession2taxid files "
-                    "with --ncbi-sequence-info")
-        elif (not cfg.taxonomy.startswith("gtdb")
-              and any(e in ASSEMBLY_SUMMARY_PREFIXES
-                      for e in cfg.ncbi_file_info)):
-            raise NotImplementedError(
-                "assembly_summary downloads are not ported yet "
-                f"({_ACQUISITION}); pass local assembly_summary files with "
-                "--ncbi-file-info")
-    if (cfg.taxonomy != "skip" and not cfg.skip_genome_size
-            and not cfg.genome_size_files):
-        raise NotImplementedError(
-            "fetching genome sizes is not ported yet "
-            f"({_ACQUISITION}); pass --genome-size-files or "
-            "--skip-genome-size")
 
 
 # --------------------------------------------------------------------------
@@ -237,12 +201,19 @@ def _update(info: dict, other: dict) -> None:
 # taxonomy resolution
 
 
-def load_taxonomy(cfg):
+def load_taxonomy(cfg, build_output_folder=None):
+    """The taxonomy of ``cfg.taxonomy``: from ``--taxonomy-files``, else
+    the NCBI taxdump or the GTDB files fetched into the build folder."""
+    from ganon_tpu_torch import acquire
+
     tax_ver = cfg.taxonomy.split("-")
+    folder = build_output_folder or "."
     if tax_ver[0] == "ncbi":
-        tax = taxmod.load_ncbi(files=cfg.taxonomy_files)
+        tax = taxmod.load_ncbi(files=cfg.taxonomy_files or [
+            acquire.fetch_taxdump(folder, cfg.quiet)])
     elif tax_ver[0] == "gtdb":
-        tax = taxmod.load_gtdb(files=cfg.taxonomy_files)
+        tax = taxmod.load_gtdb(files=cfg.taxonomy_files
+                               or acquire.fetch_gtdb_tax(folder, cfg.quiet))
     else:
         raise ValueError(f"unknown taxonomy: {cfg.taxonomy}")
     if cfg.level not in [None, "", "leaves"] + CHOICES_LEVEL:
@@ -256,14 +227,35 @@ def load_taxonomy(cfg):
     return tax
 
 
-def get_file_info(cfg, info, tax) -> None:
+def _local_or_fetched(cfg, entries, prefixes, url_of, folder) -> list[str]:
+    """``entries`` with each prefix of ``prefixes`` replaced by the file
+    fetched from ``--ncbi-url`` (``url_of(base, prefix)``), the fetched
+    files last; only the non-empty files."""
+    files, urls = [], []
+    base = getattr(cfg, "ncbi_url", "https://ftp.ncbi.nlm.nih.gov/").rstrip(
+        "/")
+    for entry in entries:
+        if entry in prefixes:
+            urls.append(url_of(base, entry))
+        else:
+            files.append(entry)
+    if urls:
+        files.extend(download(urls, folder or "."))
+    return [f for f in files if check_file(f)]
+
+
+def get_file_info(cfg, info, tax, build_output_folder=None) -> None:
     """Taxids (and the assembly specialization) of file accessions
-    (tax_util.get_file_info:227-281): local assembly_summary files for
-    NCBI, the taxonomy files' accessions for GTDB."""
+    (tax_util.get_file_info:227-281): assembly_summary files or prefixes
+    for NCBI, the taxonomy files' accessions for GTDB."""
     if cfg.taxonomy.startswith("gtdb"):
         _update(info, get_gtdb_target_node(tax, cfg.level))
         return
-    files = [f for f in cfg.ncbi_file_info if check_file(f)]
+    files = _local_or_fetched(
+        cfg, cfg.ncbi_file_info, ASSEMBLY_SUMMARY_PREFIXES,
+        lambda base, e: (f"{base}/genomes/{e.split('_')[0]}"
+                         f"/assembly_summary_{e}.txt"),
+        build_output_folder)
     if not files:
         raise ValueError(
             "no valid assembly_summary file(s) via --ncbi-file-info"
@@ -291,11 +283,37 @@ def get_gtdb_target_node(tax, level) -> dict:
     return rows
 
 
-def get_sequence_info(cfg, info) -> None:
-    """Taxids of sequence accessions from local accession2taxid files
-    (tax_util.get_sequence_info:318-437); the download modes raise in
-    :func:`check_offline`."""
-    files = [f for f in cfg.ncbi_sequence_info if check_file(f)]
+MAX_SEQS_EUTILS = 50000
+
+
+def get_sequence_info(cfg, info, build_output_folder=None) -> None:
+    """Taxids (and the assembly specialization) of sequence accessions
+    (tax_util.get_sequence_info:318-437): NCBI e-utils when asked, or by
+    default for at most :data:`MAX_SEQS_EUTILS` sequences; else
+    accession2taxid files or prefixes, then e-utils for ``--level
+    assembly``."""
+    from ganon_tpu_torch.eutils import run_eutils
+
+    if not cfg.ncbi_sequence_info:
+        mode = (["eutils"] if len(info) <= MAX_SEQS_EUTILS
+                else ["nucl_gb", "nucl_wgs"])
+    elif "eutils" in cfg.ncbi_sequence_info:
+        mode = ["eutils"]
+    else:
+        mode = list(cfg.ncbi_sequence_info)
+
+    folder = build_output_folder or "."
+    if mode[0] == "eutils":
+        print_log("Retrieving sequence information from NCBI e-utils",
+                  cfg.quiet)
+        _update(info, run_eutils(info, folder, skip_taxid=False,
+                                 level=cfg.level, quiet=cfg.quiet))
+        return
+    files = _local_or_fetched(
+        cfg, mode, ACC2TXID_PREFIXES,
+        lambda base, e: (f"{base}/pub/taxonomy/accession2taxid/"
+                         f"{e}.accession2taxid.gz"),
+        build_output_folder)
     if not files:
         raise ValueError(
             "no valid accession2taxid file(s) via --ncbi-sequence-info"
@@ -303,6 +321,11 @@ def get_sequence_info(cfg, info) -> None:
     counts = parse_acc2txid(info, files)
     for f, cnt in counts.items():
         print_log(f" - {cnt} entries found in {os.path.basename(f)}", cfg.quiet)
+    if cfg.level == "assembly":
+        print_log("Retrieving assembly information from NCBI e-utils",
+                  cfg.quiet)
+        _update(info, run_eutils(info, folder, skip_taxid=True,
+                                 level="assembly", quiet=cfg.quiet))
 
 
 def parse_acc2txid(info, acc2txid_files) -> dict:
@@ -361,12 +384,96 @@ def parse_assembly_summary(info, assembly_summary_files, level) -> dict:
     return count
 
 
-def validate_taxonomy(info, tax, cfg):
-    """Validate nodes on the taxonomy and apply the --level rank
-    projection (build_update.py:860-1001)."""
+def _convert_nodes(info, tax, cfg, build_output_folder=None):
+    """Convert the node column to ``--convert-taxonomy``
+    (build_update.py:874-955); returns the target taxonomy.
+
+    ncbi->ncbi resolves the ids again on the newer taxdump; the GTDB
+    directions map through per-assembly conversion files
+    (``taxonomy.parse_gtdb_conversion_file``) and fold a node that maps
+    to several with an LCA on the target taxonomy.
+    """
+    from ganon_tpu_torch import acquire
+
+    tax_from = cfg.taxonomy.split("-")[0]
+    tax_to = cfg.convert_taxonomy.split("-")[0]
+    conv_files = list(getattr(cfg, "convert_taxonomy_files", []) or [])
+    gtdb_files = list(getattr(cfg, "convert_gtdb_files", []) or [])
+
+    if tax_from == "ncbi" and tax_to == "ncbi" and not cfg.taxonomy_files:
+        return tax  # already resolved on the latest fetched taxdump
+    print_log(
+        f" - converting taxonomy [{cfg.taxonomy} -> {cfg.convert_taxonomy}]",
+        cfg.quiet,
+    )
+
+    def load_target(kind):
+        folder = build_output_folder or "."
+        if kind == "ncbi":
+            return taxmod.load_ncbi(files=conv_files or [
+                acquire.fetch_taxdump(folder, cfg.quiet)])
+        return taxmod.load_gtdb(files=conv_files
+                                or acquire.fetch_gtdb_tax(folder, cfg.quiet))
+
+    def set_nodes(fn):
+        for row in info.values():
+            n = row["node"]
+            row["node"] = (fn(n) if n else None) or None
+
+    if tax_from == "ncbi" and tax_to == "ncbi":
+        target_tax = load_target("ncbi")
+        set_nodes(target_tax.latest)
+        return target_tax
+
+    if not gtdb_files:
+        raise ValueError(
+            "--convert-gtdb-files is required to convert "
+            f"[{cfg.taxonomy} -> {cfg.convert_taxonomy}] offline"
+        )
+    if tax_from == "gtdb" and tax_to == "gtdb":
+        target_tax = load_target("gtdb")
+        mapping = taxmod.gtdb_conversion_map(gtdb_files[0], gtdb_files[1])
+    elif tax_from == "gtdb" and tax_to == "ncbi":
+        target_tax = load_target("ncbi")
+        # each assembly's ncbi taxid projected to its ancestor at the gtdb
+        # node's rank before the LCA fold (no ancestor at that rank: it
+        # abstains); old taxdumps call the top rank superkingdom
+        mapping = {}
+        for node, taxids in taxmod.gtdb_to_ncbi_map(gtdb_files[0]).items():
+            rank = taxmod.GTDB_RANKS.get(node[0])
+            ranks = ("domain", "superkingdom") if rank == "domain" else (rank,)
+            projected = set()
+            for t in taxids:
+                t = target_tax.latest(t)
+                for r in ranks:
+                    p = target_tax.parent_rank(t, r) if t else None
+                    if p:
+                        projected.add(p)
+                        break
+            mapping[node] = projected
+    else:  # ncbi -> gtdb: a direct taxid match only
+        target_tax = load_target("gtdb")
+        mapping = taxmod.ncbi_to_gtdb_map(gtdb_files[0])
+
+    def fold(n):
+        nodes = sorted(mapping.get(n, ()))
+        return target_tax.lca(nodes) if nodes else None
+
+    set_nodes(fold)
+    return target_tax
+
+
+def validate_taxonomy(info, tax, cfg, build_output_folder=None):
+    """Validate nodes on the taxonomy, convert them to
+    ``--convert-taxonomy`` (which then becomes ``cfg.taxonomy``) and apply
+    the --level rank projection (build_update.py:860-1001); returns the
+    taxonomy the nodes are now on."""
     for row in info.values():
         n = row["node"]
         row["node"] = (tax.latest(n) if n is not None else None) or None
+    if getattr(cfg, "convert_taxonomy", ""):
+        tax = _convert_nodes(info, tax, cfg, build_output_folder)
+        cfg.taxonomy = cfg.convert_taxonomy
     if cfg.level and cfg.level not in ["leaves"] + CHOICES_LEVEL:
         for row in info.values():
             n = row["node"]
@@ -468,19 +575,40 @@ def write_info_file(info, filename) -> None:
                          row["specialization"], row["specialization_name"])])
 
 
+def _leaf_sizes(cfg, build_output_folder) -> dict:
+    """Leaf genome sizes from --genome-size-files, else from the files
+    fetched for the taxonomy (tax_util.py:77-105); {} (every size 1) when
+    they cannot be had."""
+    from ganon_tpu_torch.acquire import fetch_genome_size_files
+
+    files = cfg.genome_size_files
+    if not files:
+        try:
+            files = fetch_genome_size_files(cfg.taxonomy, build_output_folder,
+                                            cfg.quiet)
+        except (OSError, ValueError) as e:  # not found, or no source
+            print_log(f" - genome size files unavailable ({e}); using size 1",
+                      cfg.quiet)
+            files = []
+    return taxmod.parse_genome_size_files(files, cfg.taxonomy) if files else {}
+
+
 # --------------------------------------------------------------------------
 # main orchestration
+
+
+def check_device(device) -> None:
+    """Raise for ``"cuda"`` without CUDA: no entry point falls back to the
+    CPU, and each checks before it writes any file."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not available")
 
 
 def build_custom(cfg, which_call: str = "build_custom",
                  device="cuda") -> bool:
     """ganon build-custom: parse, resolve taxonomy, write the tables,
-    build on ``device`` and save the configuration. Raises before any
-    file is written for a branch that downloads, or for ``"cuda"``
-    without CUDA."""
-    check_offline(cfg)
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    build on ``device`` and save the configuration."""
+    check_device(device)
     files_output_folder = set_output_folder(cfg.db_prefix)
     build_output_folder = os.path.join(files_output_folder, "build/")
     target_info_file = os.path.join(build_output_folder, "target_info.tsv")
@@ -505,7 +633,7 @@ def build_custom(cfg, which_call: str = "build_custom",
                 raise ValueError("No valid input files found")
 
         if cfg.taxonomy != "skip":
-            tax = load_taxonomy(cfg)
+            tax = load_taxonomy(cfg, build_output_folder)
 
         info = load_input(cfg, input_files, build_output_folder)
         user_bins_col = "target"
@@ -519,12 +647,12 @@ def build_custom(cfg, which_call: str = "build_custom",
 
         if (tax or cfg.level == "assembly") and not cfg.input_file:
             if cfg.input_target == "sequence":
-                get_sequence_info(cfg, info)
+                get_sequence_info(cfg, info, build_output_folder)
             else:
-                get_file_info(cfg, info, tax)
+                get_file_info(cfg, info, tax, build_output_folder)
 
         if tax:
-            tax = validate_taxonomy(info, tax, cfg)
+            tax = validate_taxonomy(info, tax, cfg, build_output_folder)
             if not info:
                 raise ValueError("Unable to match taxonomy to targets")
 
@@ -548,10 +676,8 @@ def build_custom(cfg, which_call: str = "build_custom",
                 raise ValueError(
                     f"{user_bins_col} overlaps with taxonomic identifiers"
                 )
-            leaves_sizes = (
-                {} if cfg.skip_genome_size else
-                taxmod.parse_genome_size_files(cfg.genome_size_files,
-                                               cfg.taxonomy))
+            leaves_sizes = ({} if cfg.skip_genome_size else
+                            _leaf_sizes(cfg, build_output_folder))
             genome_sizes = taxmod.estimate_genome_sizes(
                 unique_nodes, tax, leaves_sizes
             )
@@ -626,6 +752,90 @@ def build_custom(cfg, which_call: str = "build_custom",
         print_log("Build finished successfully", cfg.quiet)
         return True
     raise ValueError("build failed - one or more database files not found")
+
+
+def update(cfg, device="cuda") -> bool:
+    """Update a database made by ``build`` or ``build-custom``
+    (build_update.py:143-280): the saved build's parameters fill those the
+    update leaves unset; a database made by ``build`` (its folder holds an
+    acquisition ``history.tsv``) gets a new snapshot with the recorded
+    selection and is rebuilt from it, any other is rebuilt from the given
+    ``--input``; with ``--output-db-prefix`` the snapshots, history,
+    summary link and configuration move to the new prefix's folder."""
+    check_device(device)
+    files_output_folder = set_output_folder(cfg.db_prefix)
+    config_file = os.path.join(files_output_folder, "config.pkl")
+    if not check_file(config_file):
+        raise ValueError(
+            f"no saved build configuration found at {config_file}; "
+            "run build/build-custom with the same --db-prefix first"
+        )
+    saved = load_config(config_file)
+    for key in (
+        "kmer_size", "window_size", "hash_functions", "max_fp", "filter_size",
+        "mode", "min_length", "taxonomy", "taxonomy_files", "level",
+        "input_target", "filter_type", "genome_size_files",
+    ):
+        unset = getattr(cfg, key, None) in (None, "", [], 0)
+        if key == "hash_functions":
+            # a defaulted -s 4 must not shadow the saved build's value
+            unset = unset or getattr(cfg, "hash_functions_defaulted", False)
+        if key in saved and unset:
+            setattr(cfg, key, saved[key])
+            if key == "hash_functions":
+                cfg.hash_functions_defaulted = saved.get(
+                    "hash_functions_defaulted", False)
+
+    acquired = False
+    if check_file(os.path.join(files_output_folder, "history.tsv")):
+        from ganon_tpu_torch import acquire
+
+        if load_state("update_download", files_output_folder):
+            print_log("Download finished - skipping", cfg.quiet)
+        else:
+            print_log("Downloading updated files", cfg.quiet)
+            acquire.acquire_update(files_output_folder,
+                                   threads=getattr(cfg, "threads", 1) or 1,
+                                   quiet=cfg.quiet)
+            save_state("update_download", files_output_folder)
+        version = acquire.current_version(files_output_folder)
+        cfg.input = [os.path.join(files_output_folder, version, "files")]
+        cfg.input_extension = "fna.gz"
+        cfg.input_recursive = True
+        cfg.input_target = "file"
+        cfg.ncbi_file_info = [
+            os.path.join(files_output_folder, "assembly_summary.txt")]
+        acquired = True
+
+    if cfg.output_db_prefix:
+        cfg.db_prefix = cfg.output_db_prefix
+    ok = build_custom(cfg, which_call="update", device=device)
+    if ok:
+        clear_states("update", files_output_folder)
+        if acquired and cfg.output_db_prefix:
+            _move_acquisition(files_output_folder,
+                              set_output_folder(cfg.output_db_prefix))
+    return ok
+
+
+def _move_acquisition(old_folder: str, new_folder: str) -> None:
+    """Move the snapshots, history and summary link to ``new_folder``
+    (which keeps its own ``config.pkl``), point that configuration at the
+    moved snapshot and remove ``old_folder``."""
+    os.makedirs(new_folder, exist_ok=True)
+    for entry in os.listdir(old_folder):
+        dst = os.path.join(new_folder, entry)
+        if entry == "config.pkl" or os.path.lexists(dst):
+            continue
+        shutil.move(os.path.join(old_folder, entry), dst)
+    new_config = load_config(os.path.join(new_folder, "config.pkl"))
+    version = os.path.basename(os.path.dirname(new_config["input"][0]))
+    new_config["input"] = [os.path.join(new_folder, version, "files")]
+    new_config["ncbi_file_info"] = [
+        os.path.join(new_folder, "assembly_summary.txt")]
+    with open(os.path.join(new_folder, "config.pkl"), "wb") as f:
+        pickle.dump(new_config, f)
+    shutil.rmtree(old_folder, ignore_errors=True)
 
 
 def save_config(cfg, config_file) -> None:

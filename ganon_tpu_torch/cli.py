@@ -1,10 +1,9 @@
 """CLI entry: ``python -m ganon_tpu_torch.cli <subcommand> ...``.
 
 Takes the same flags as ``ganon_tpu.cli`` (one shared Config).
-``classify`` and ``build-custom`` are ported and run on the card
+``classify``, ``build``, ``build-custom`` and ``update`` run on the card
 (``main(..., device="cpu")`` runs the plain versions); ``reassign``,
-``report`` and ``table`` are host code; ``build`` and ``update`` raise
-NotImplementedError naming the ROADMAP item that will port them.
+``report`` and ``table`` are host code.
 """
 
 from __future__ import annotations
@@ -14,13 +13,6 @@ import sys
 from ganon_tpu_torch.config import Config
 from ganon_tpu_torch.util import print_log
 
-# subcommand -> the ROADMAP queue 1 item that ports it
-_NOT_PORTED = {
-    "build": "'build and update with offline acquisition'",
-    "update": "'build and update with offline acquisition'",
-}
-
-
 def main(which: str = None, cfg=None, device="cuda", **kwargs) -> bool:
     if cfg is None:
         cfg = Config(which, **kwargs)
@@ -29,10 +21,18 @@ def main(which: str = None, cfg=None, device="cuda", **kwargs) -> bool:
         from ganon_tpu_torch.commands import classify
 
         return classify(cfg, device=device)
+    if cfg.which == "build":
+        from ganon_tpu_torch.commands import build
+
+        return build(cfg, device=device)
     if cfg.which == "build_custom":
         from ganon_tpu_torch.build import build_custom
 
         return build_custom(cfg, device=device)
+    if cfg.which == "update":
+        from ganon_tpu_torch.build import update
+
+        return update(cfg, device=device)
     if cfg.which == "reassign":
         from ganon_tpu_torch.reassign import ReassignConfig, reassign
 
@@ -110,18 +110,13 @@ def main(which: str = None, cfg=None, device="cuda", **kwargs) -> bool:
                 verbose=cfg.verbose,
             )
         )
-    if cfg.which in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.which} is not ported yet (ROADMAP queue 1, "
-            f"{_NOT_PORTED[cfg.which]})"
-        )
     raise ValueError(f"unknown subcommand: {cfg.which}")
 
 
 def main_cli() -> None:
     try:
         ok = main()
-    except (ValueError, FileNotFoundError, NotImplementedError) as e:
+    except (ValueError, FileNotFoundError) as e:
         print_log(f"ERROR: {e}")
         sys.exit(1)
     sys.exit(0 if ok else 1)

@@ -1,13 +1,17 @@
-"""Top-level command orchestration: ``classify``.
+"""Top-level command orchestration: ``classify`` and ``build``.
 
-Port of ``ganon_tpu.commands.classify``: database detection (``.hibf``
-before ``.ibf`` for each ``--db-prefix``), the engine, then EM
+Port of ``ganon_tpu.commands``. ``classify``: database detection
+(``.hibf`` before ``.ibf`` for each ``--db-prefix``), the engine, then EM
 reassignment (``--multiple-matches em``, the default) and the chained
 ``report`` (every database has a ``.tax`` and ``--skip-report`` is not
 given) over the output prefixes, one per ``--batch-reads`` prefix.
+``build``: a snapshot of the selected assemblies
+(:mod:`ganon_tpu_torch.acquire`), then ``build-custom`` on its files.
 """
 
 from __future__ import annotations
+
+import os
 
 from ganon_tpu_torch.util import check_file, find_rep_files, print_log
 
@@ -149,3 +153,80 @@ def _classify(cfg, device, pidx: int, pcount: int) -> bool:
             )
         )
     return True
+
+
+def build(cfg, device="cuda") -> bool:
+    """ganon build: acquire the reference genomes into ``{db}_files/``,
+    then build-custom on the snapshot's files on ``device``
+    (build_update.build, build_update.py:29-155). A finished download is
+    not repeated (the ``build_download`` state)."""
+    import shutil
+
+    from ganon_tpu_torch import acquire
+    from ganon_tpu_torch.build import build_custom, check_device, save_config
+    from ganon_tpu_torch.config import Config
+    from ganon_tpu_torch.util import load_state, save_state, set_output_folder
+
+    check_device(device)
+    files_output_folder = set_output_folder(cfg.db_prefix)
+    if cfg.restart and os.path.isdir(files_output_folder):
+        shutil.rmtree(files_output_folder)
+    os.makedirs(files_output_folder, exist_ok=True)
+
+    assembly_summary = os.path.join(files_output_folder,
+                                    "assembly_summary.txt")
+    if load_state("build_download", files_output_folder) and check_file(
+            assembly_summary):
+        print_log("Download finished - skipping", cfg.quiet)
+    else:
+        print_log(
+            "Downloading files from " + ",".join(cfg.source) + " ["
+            + ",".join(cfg.organism_group if cfg.organism_group
+                       else cfg.taxid) + "]",
+            cfg.quiet,
+        )
+        acquire.acquire(
+            files_output_folder,
+            sources=cfg.source,
+            organism_groups=cfg.organism_group,
+            taxids=cfg.taxid,
+            complete_genomes=cfg.complete_genomes,
+            reference_genomes=cfg.reference_genomes,
+            top=cfg.top,
+            gtdb=cfg.taxonomy == "gtdb",
+            threads=getattr(cfg, "threads", 1) or 1,
+            quiet=cfg.quiet,
+        )
+        save_state("build_download", files_output_folder)
+
+    params = {
+        "input": [os.path.join(files_output_folder,
+                               acquire.current_version(files_output_folder),
+                               "files")],
+        "input_extension": "fna.gz",
+        "input_recursive": True,
+        "input_target": "file",
+        "ncbi_file_info": [assembly_summary],
+    }
+    for key in (
+        "db_prefix", "level", "taxonomy", "taxonomy_files",
+        "genome_size_files", "skip_genome_size", "threads", "max_fp",
+        "filter_size", "kmer_size", "window_size", "hash_functions", "mode",
+        "min_length", "verbose", "quiet", "filter_type", "write_info_file",
+        "keep_files",
+    ):
+        if hasattr(cfg, key):
+            params[key] = getattr(cfg, key)
+    bc_cfg = Config("build-custom", **params)
+    bc_cfg.validate()
+    save_config(bc_cfg, os.path.join(files_output_folder, "config.pkl"))
+
+    ok = build_custom(bc_cfg, which_call="build", device=device)
+    if ok:
+        print_log("", cfg.quiet)
+        print_log(
+            files_output_folder + " contains reference sequences and "
+            "configuration files. Keep it to update the database later.",
+            cfg.quiet,
+        )
+    return ok

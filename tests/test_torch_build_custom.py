@@ -10,8 +10,14 @@ port's ``main(..., device="cpu")`` at the same database prefix and
 compares every file they write: the filter (npz by arrays and header,
 ``tpu-raw`` and reference formats byte for byte), ``.tax``,
 ``.info.tsv``, ``build/target_info.tsv`` and ``config.pkl`` (as loaded
-dicts). Branches that download raise NotImplementedError in the port
-before any file is written.
+dicts). The branches that fetch run offline: ``local_dir`` points at a
+copy of the files in the repository's layout (the taxdump, the genome
+sizes, the GTDB taxonomy), ``--ncbi-url`` at the same tree as a
+``file://`` URL (the assembly_summary and accession2taxid prefixes), and
+``eutils_url`` at a local e-utils stub (``ncbi_tree.serve_eutils``).
+``--convert-taxonomy`` runs in its four directions from local GTDB
+conversion files (``{acc} <tab> {t|f} <tab> {lineage} <tab> {taxid}``,
+one per GTDB version).
 """
 
 import gzip
@@ -29,6 +35,7 @@ from ganon_tpu.cli import main as jax_main
 from ganon_tpu.config import Config as JaxConfig
 from ganon_tpu_torch.cli import main as port_main
 from ganon_tpu_torch.config import Config as PortConfig
+from ncbi_tree import serve_eutils
 
 # accession, taxid, organism name, infraspecific name, plain .fna
 ASSEMBLIES = [
@@ -117,14 +124,61 @@ def data(tmp_path_factory):
     gsize = "#species_taxid\tname\trank\texpected_ungapped_length\n" + \
         "".join(f"{t}\tx\tspecies\t{4_000_000 + int(t)}\n"
                 for t in ("11", "12", "21", "22"))
-    return {
-        "dir": str(d), "files": files, "seqids": seqids,
-        "dmp": dmp, "taxdump": str(d / "taxdump.tar.gz"),
+    written = {
         "summary": _write(d / "assembly_summary.txt", summary),
         "a2t": _write(d / "nucl_gb.accession2taxid", a2t),
         "gtdb": _write(d / "bac120_taxonomy.tsv.gz", gtdb),
         "gtdb_meta": _write(d / "bac120_metadata.tsv.gz", meta),
         "gsize": _write(d / "species_genome_size.txt.gz", gsize),
+    }
+    repo = d / "repo"
+    for src, rel in (
+            (d / "taxdump.tar.gz",
+             "pub/taxonomy/new_taxdump/new_taxdump.tar.gz"),
+            (d / "species_genome_size.txt.gz",
+             "genomes/ASSEMBLY_REPORTS/species_genome_size.txt.gz"),
+            (d / "assembly_summary.txt",
+             "genomes/refseq/assembly_summary_refseq.txt"),
+            (d / "bac120_taxonomy.tsv.gz",
+             "releases/latest/bac120_taxonomy.tsv.gz")):
+        os.makedirs(repo / os.path.dirname(rel), exist_ok=True)
+        shutil.copyfile(src, repo / rel)
+    os.makedirs(repo / "pub/taxonomy/accession2taxid")
+    _write(repo / "pub/taxonomy/accession2taxid/nucl_gb.accession2taxid.gz",
+           a2t)
+    # a newer taxdump (21 merged into 22) and a newer GTDB release (one
+    # species renamed, one assembly dropped, one moved), with the
+    # conversion files of both releases
+    newer = d / "newer"
+    newer.mkdir()
+    nodes2 = "".join(f"{n}\t|\t{p}\t|\t{r}\t|\n" for n, p, r in NODES
+                     if n != "21")
+    names2 = "".join(f"{n}\t|\t{v}\t|\t\t|\tscientific name\t|\n"
+                     for n, v in NAMES.items() if n != "21")
+    ncbi2 = [_write(newer / "nodes.dmp", nodes2),
+             _write(newer / "names.dmp", names2),
+             _write(newer / "merged.dmp", "13\t|\t22\t|\n21\t|\t22\t|\n")]
+    gtdb_new = {a: lin.replace("s__Bacillus alpha", "s__Bacillus alphus")
+                for a, lin in GTDB.items() if a != "GCA_000002.1"}
+    gtdb_new["GCF_000003.2"] = "g__Bacillus;s__Bacillus gamma"
+    gtdb2 = _write(newer / "bac120_taxonomy.tsv.gz", "".join(
+        f"{'RS_' if a.startswith('GCF') else 'GB_'}{a}\t{GTDB_PREFIX}{lin}\n"
+        for a, lin in gtdb_new.items()))
+    taxid_of = {a[0]: a[1] for a in ASSEMBLIES + [MORE]}
+    # an assembly outside the inputs makes a node map to two: 95's
+    # s__Bacillus alpha to taxids 11 and 12, 226's taxid 11 to two species
+    taxid_of["GCF_000099.1"] = "12"
+    extra = {"95": ("GCF_000099.1", "g__Bacillus;s__Bacillus alpha", "12"),
+             "226": ("GCF_000099.1", "g__Bacillus;s__Bacillus beta", "11")}
+    conv = [_write(d / f"{v}_acc_rep_lin_ncbi.tsv.gz", "".join(
+        f"{a}\t{'t' if i % 2 else 'f'}\t{GTDB_PREFIX}{lin}\t{t}\n"
+        for i, (a, lin, t) in enumerate(
+            [(a, lin, taxid_of[a]) for a, lin in g.items()] + [extra[v]])))
+        for v, g in (("95", GTDB), ("226", gtdb_new))]
+    return {
+        "repo": str(repo), "ncbi2": ncbi2, "gtdb2": gtdb2, "conv": conv,
+        "dir": str(d), "files": files, "seqids": seqids,
+        "dmp": dmp, "taxdump": str(d / "taxdump.tar.gz"), **written,
     }
 
 
@@ -341,35 +395,66 @@ def test_build_custom_resume_and_restart(data, tmp_path):
     assert ti.count(b"\n") == 2
 
 
+@pytest.fixture(scope="module")
+def eutils(data):
+    """An e-utils stub that knows every sequence of the data: the first of
+    each assembly through esummary, the second only through efetch; its
+    assembly through elink."""
+    seqs = {}
+    for i, (acc, taxid, org, _, _) in enumerate(ASSEMBLIES + [MORE]):
+        for j, sid in enumerate(data["seqids"][acc]):
+            seqs[sid] = (2000 + j, taxid, str(500 + i), acc, org, j == 0)
+    url, _, stop = serve_eutils(seqs)
+    yield url
+    stop()
+
+
+@pytest.fixture
+def offline(data, eutils, tmp_path, monkeypatch):
+    """Every fetch served locally; the working directory a temporary one
+    (the JAX package fetches --convert-taxonomy's taxonomy into it)."""
+    monkeypatch.setenv("local_dir", data["repo"])
+    monkeypatch.setenv("eutils_url", eutils)
+    monkeypatch.chdir(tmp_path)
+    return data
+
+
 def _offline_cases(data):
     files = list(data["files"].values())
+    url = "file://" + data["repo"] + "/"
     return {
         "taxonomy_download": dict(input=files, taxonomy="ncbi",
-                                  skip_genome_size=True),
+                                  ncbi_file_info=[data["summary"]],
+                                  skip_genome_size=True, write_info_file=True),
         "assembly_summary_prefix": dict(input=files, taxonomy="ncbi",
                                         taxonomy_files=data["dmp"],
                                         ncbi_file_info=["refseq"],
-                                        skip_genome_size=True),
+                                        ncbi_url=url, level="assembly",
+                                        skip_genome_size=True,
+                                        write_info_file=True),
         "eutils_auto": dict(input=files, input_target="sequence",
                             taxonomy="ncbi", taxonomy_files=data["dmp"],
-                            skip_genome_size=True),
+                            skip_genome_size=True, write_info_file=True),
         "acc2txid_prefix": dict(input=files, input_target="sequence",
                                 taxonomy="ncbi", taxonomy_files=data["dmp"],
-                                ncbi_sequence_info=["nucl_gb"],
-                                skip_genome_size=True),
+                                ncbi_sequence_info=["nucl_gb"], ncbi_url=url,
+                                skip_genome_size=True, write_info_file=True),
         "assembly_eutils": dict(input=files, input_target="sequence",
                                 taxonomy="ncbi", level="assembly",
                                 taxonomy_files=data["dmp"],
                                 ncbi_sequence_info=[data["a2t"]],
-                                skip_genome_size=True),
+                                skip_genome_size=True, write_info_file=True),
         "genome_size_fetch": dict(input=files, taxonomy="ncbi",
                                   taxonomy_files=data["dmp"],
-                                  ncbi_file_info=[data["summary"]]),
+                                  ncbi_file_info=[data["summary"]],
+                                  write_info_file=True),
         "convert_taxonomy": dict(input=files, taxonomy="ncbi",
                                  taxonomy_files=data["dmp"],
                                  ncbi_file_info=[data["summary"]],
                                  skip_genome_size=True,
-                                 convert_taxonomy="gtdb"),
+                                 convert_taxonomy="gtdb",
+                                 convert_gtdb_files=[data["conv"][0]],
+                                 write_info_file=True, keep_files=False),
     }
 
 
@@ -378,13 +463,87 @@ def _offline_cases(data):
     "acc2txid_prefix", "assembly_eutils", "genome_size_fetch",
     "convert_taxonomy",
 ])
-def test_download_branches_raise_before_any_file(data, tmp_path, case):
-    prefix = tmp_path / "db" / "x"
-    cfg = PortConfig("build-custom", db_prefix=str(prefix), quiet=True,
-                     **_offline_cases(data)[case])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main(cfg=cfg, device="cpu")
-    assert not (tmp_path / "db").exists()
+def test_build_custom_offline_matches_jax(offline, tmp_path, case):
+    """Each branch that fetches, served offline, equals the JAX package's
+    run file for file."""
+    want, got = _both(tmp_path, case, **_offline_cases(offline)[case])
+    _compare(want, got)
+    assert any(n.endswith(".tax") for n in want)
+
+
+def _convert_cases(data):
+    files = list(data["files"].values())
+    gtdb = dict(input=files, taxonomy="gtdb", taxonomy_files=[data["gtdb"]],
+                skip_genome_size=True, write_info_file=True)
+    ncbi = dict(input=files, taxonomy="ncbi", taxonomy_files=data["dmp"],
+                ncbi_file_info=[data["summary"]], skip_genome_size=True,
+                write_info_file=True)
+    conv95, conv226 = data["conv"]
+    return {
+        "ncbi_ncbi": dict(**ncbi, convert_taxonomy="ncbi",
+                          convert_taxonomy_files=data["ncbi2"]),
+        "ncbi_ncbi_latest_fetched": dict(
+            **{**ncbi, "taxonomy_files": []}, convert_taxonomy="ncbi-latest"),
+        "gtdb_gtdb": dict(**gtdb, convert_taxonomy="gtdb-226",
+                          convert_taxonomy_files=[data["gtdb2"]],
+                          convert_gtdb_files=[conv95, conv226]),
+        "gtdb_ncbi": dict(**gtdb, convert_taxonomy="ncbi",
+                          convert_taxonomy_files=data["dmp"],
+                          convert_gtdb_files=[conv95]),
+        "gtdb_ncbi_genus": dict(**{**gtdb, "level": "genus"},
+                                convert_taxonomy="ncbi",
+                                convert_taxonomy_files=data["ncbi2"],
+                                convert_gtdb_files=[conv95]),
+        "gtdb_ncbi_fetched": dict(**{**gtdb, "keep_files": False},
+                                  convert_taxonomy="ncbi",
+                                  convert_gtdb_files=[conv95]),
+        "ncbi_gtdb": dict(**ncbi, convert_taxonomy="gtdb-226",
+                          convert_taxonomy_files=[data["gtdb2"]],
+                          convert_gtdb_files=[conv226]),
+        "ncbi_gtdb_assembly": dict(**{**ncbi, "level": "assembly"},
+                                   convert_taxonomy="gtdb",
+                                   convert_taxonomy_files=[data["gtdb"]],
+                                   convert_gtdb_files=[conv95]),
+    }
+
+
+@pytest.mark.parametrize("case", [
+    "ncbi_ncbi", "ncbi_ncbi_latest_fetched", "gtdb_gtdb", "gtdb_ncbi",
+    "gtdb_ncbi_genus", "gtdb_ncbi_fetched", "ncbi_gtdb", "ncbi_gtdb_assembly",
+])
+def test_convert_taxonomy_matches_jax(offline, tmp_path, case):
+    want, got = _both(tmp_path, case, **_convert_cases(offline)[case])
+    _compare(want, got)
+    tax = [v for k, v in got.items() if k.endswith(".tax")][0].decode()
+    target = _convert_cases(offline)[case]["convert_taxonomy"]
+    # the database is on the target taxonomy
+    assert ("s__" in tax) == target.startswith("gtdb")
+    cfg = pickle.loads([v for k, v in got.items()
+                        if k.endswith("config.pkl")][0])
+    assert cfg["taxonomy"] == target
+
+
+@pytest.mark.parametrize("pair", [("gtdb", "gtdb"), ("gtdb", "ncbi"),
+                                  ("ncbi", "gtdb")])
+def test_convert_without_gtdb_files_raises(offline, tmp_path, pair):
+    """The GTDB directions need --convert-gtdb-files: the same ValueError
+    in both packages."""
+    src, dst = pair
+    files = list(offline["files"].values())
+    params = dict(input=files, taxonomy=src, skip_genome_size=True,
+                  convert_taxonomy=dst, quiet=True,
+                  taxonomy_files=(offline["dmp"] if src == "ncbi"
+                                  else [offline["gtdb"]]),
+                  ncbi_file_info=[offline["summary"]])
+    errors = []
+    for config, run in ((JaxConfig, lambda c: jax_main(cfg=c)),
+                        (PortConfig, lambda c: port_main(cfg=c,
+                                                         device="cpu"))):
+        with pytest.raises(ValueError, match="--convert-gtdb-files") as e:
+            run(config("build-custom", db_prefix=str(tmp_path / config.__module__
+                                                     / "x"), **params))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 def test_build_custom_default_device_needs_cuda(data, tmp_path):
