@@ -10,9 +10,9 @@ Phases, one output line each:
              per source, all started together); ``nvcc -Xptxas -v`` of
              ``extract.cu``, ``scan.cu``, ``count.cu``, ``select.cu``,
              ``dedup.cu``, ``scatter.cu``, ``merge.cu``, ``bins.cu``,
-             ``psort.cu`` and ``gprobe.cu`` (registers, spills, static
-             shared memory) and
-             the extract blocks an SM at k 19, w 31;
+             ``psort.cu``, ``gprobe.cu`` and ``repack.cu`` (registers,
+             spills, static shared memory) and the extract blocks an SM
+             at k 19, w 31;
 2. build     1024 targets x 1 Mbp of random genomes (seeded): minimizers
              through the ``extract`` kernel, the IBF through ``scatter``,
              saved raw as ``db.ibf`` (``save_raw``, the ``tpu-raw``
@@ -56,7 +56,14 @@ Phases, one output line each:
              lengths (64 each of 0.25, 0.5, 1 and 2 Mbp), and ``db_b.ibf``,
              512 targets x 1 Mbp whose first 64 are ``T0..T63`` of
              ``db.ibf`` (names and genomes), each with a ``.tax``;
-3. kernels   the saved filters loaded and repacked, then each kernel (and
+3. kernels   the saved filters loaded: each bit-matrix uploaded as saved
+             and repacked into the query table on the card (``repack``,
+             one launch a flat filter or forest sub, counted as a main
+             path of its own; the raptor archives', the wide filter's and
+             a fresh mesh load's the same), db's load split into the file
+             read, the host's plan, the upload and the repack's card ms
+             (``filter_load_split_s``) and ``repack`` against its plain
+             version on db's whole matrix; then each kernel (and
              kernel mode) against its plain torch version on the same CUDA
              tensors at main-path shapes (8192 pairs of 150 bp; count on
              ``db.ibf`` and, in forest mode, on the forest's last sub; merge
@@ -100,7 +107,9 @@ extract_wide the wide-window route of ``extract`` (k 19, w 18,104: past a
              ``extract_wide`` (row ``extract_wide``);
 mesh         the (batch, bins) device mesh (K17) over eight views of
              ``cuda:0`` (2 x 4), while ``db``'s table is still cached: the
-             filter cut into column shards on the card (no host repack),
+             filter cut into column shards on the card (no host repack)
+             and loaded afresh onto the mesh (each shard repacked on its
+             view of the card, equal to the cut),
              its counts of 8192 pairs and ``ShardedClassifier``'s equal to
              one device's; ``count`` in shard mode and ``combine`` against
              their plain versions (combine beside ``torch.sum`` over the
@@ -193,7 +202,8 @@ pruned       the merged-bin pruned forest at the JAX benchmark's T8192
              views of the card (K17): its gated counts of 8192 pairs equal
              ``DevicePrunedForest.counts_gated``, and ``fine`` in shard
              mode against its plain version at shard 0;
-5. checks    every kernel mode launched on the main paths (builds, the
+5. checks    every kernel mode launched on the main paths (the filter
+             loads, builds, the
              ops library at db's and at the wide filter's widths, the
              sort_probes batch, the gather probe, the
              two build-custom runs, ``build_acquire``'s build and update,
@@ -213,7 +223,8 @@ time of one PyTorch call computing the same function where there is one;
 modes), ``scatter`` and its ranked and span modes, ``count``, ``gate``,
 ``fine``, ``fine_all``, ``fine_shard``, ``pack``, ``merge``,
 ``scatter_pruned``, ``combine``, ``bins``, ``tsum``, ``tsum_plan``,
-``bins_target``, ``probe_sort`` and ``gather_probe`` are also timed over
+``bins_target``, ``probe_sort``, ``gather_probe`` and ``repack`` are also
+timed over
 a run of back-to-back calls queued while the card sleeps, ``device_ms``
 and ``library_device_ms``, and by the card's activity under
 torch.profiler, ``profiled_ms`` and ``library_profiled_ms`` (null where no profiled window held every
@@ -227,8 +238,8 @@ cap overflows and final slots a read, the pair-spill retries, and the
 bytes fetched per batch against the dense layout's at the same B and K.
 Any failure raises (exit code 1); without CUDA the script
 exits 2 before any work. If a run nears the time limit, ``wall_s`` says
-where to cut: the host's filter loads (repacks), npz and raptor writers
-and the ``device="cpu"`` checks take most of it, the pair counts little.
+where to cut: the npz and raptor writers and the ``device="cpu"`` checks
+take most of it, the pair counts little.
 """
 
 from __future__ import annotations
@@ -375,6 +386,19 @@ def _extract_work(inbuf, L1: int, L2: int, w: int, n, mc: int,
             positions * EXTRACT_OPS_PER_POSITION, INT32_OPS_PER_S)
 
 
+def _repack_work(bits, plan, c0: int, width: int):
+    """(bytes, ops) of one repack of byte columns ``[c0, c0 + width)``:
+    the source words the window's kept bins name, read once a row (the
+    kernel loads no other word), and the window's bytes out; a load,
+    shift, AND and OR a kept bin and a row."""
+    import numpy as np
+
+    src = plan.src_of_dst[c0 * 8:(c0 + width) * 8]
+    src = src[src >= 0]
+    R = bits.shape[0]
+    return (R * (4 * len(np.unique(src >> 5)) + width), 4 * R * len(src))
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -464,6 +488,27 @@ class _LocalDevices:
         from ganon_tpu_torch.parallel import mesh as pmesh
 
         pmesh.local_devices = self._real
+
+
+def _counted_load(kernels, runs: list, load, what: str):
+    """``load()`` as a main path of its own: its launch counts appended to
+    ``runs``; it must launch ``repack`` once a table (a flat filter once,
+    a forest or raptor archive once a sub, on a mesh once a column shard)
+    and nothing else."""
+    import torch
+
+    kernels.reset_launches()
+    out = load()
+    torch.cuda.synchronize()
+    runs.append(dict(kernels.LAUNCHES))
+    repacks = len(getattr(out, "subs", [out])) * (
+        1 if out.mesh is None else out.mesh.shape["bins"])
+    other = {k: n for k, n in runs[-1].items() if n and k != "repack"}
+    if runs[-1]["repack"] != repacks or other:
+        raise AssertionError(f"{what} load: repack launched "
+                             f"{runs[-1]['repack']} times, {repacks} "
+                             f"expected; others {other}")
+    return out
 
 
 def _free_port() -> int:
@@ -1046,7 +1091,7 @@ def main() -> int:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for src in ("extract.cu", "scan.cu", "count.cu", "select.cu",
                     "dedup.cu", "scatter.cu", "merge.cu", "bins.cu",
-                    "psort.cu", "gprobe.cu")}
+                    "psort.cu", "gprobe.cu", "repack.cu")}
     for src, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
@@ -1505,18 +1550,56 @@ def main() -> int:
         raise AssertionError("the forest has one sub: K11 is not exercised")
 
     # 3. kernels vs plain at main-path shapes --------------------------------
-    # the saved filters, loaded and repacked into the query layout once;
-    # the CLI runs below find them in the process's filter cache
+    # the saved filters, loaded and repacked into the query layout on the
+    # card once (one repack a flat filter, one a forest sub); the CLI runs
+    # below find them in the process's filter cache
     load_s = {}
+    load_launches = []
     for key, path in (("db", db + ".ibf"), ("host", host + ".hibf"),
                       ("db_b", db_b + ".ibf")):
         t0 = time.perf_counter()
-        dev.load_device_filter(path, cuda)
-        torch.cuda.synchronize()
+        _counted_load(kernels, load_launches, lambda: dev.load_device_filter(
+            path, cuda), key)
         load_s[key] = time.perf_counter() - t0
     f = dev.load_device_filter(db + ".ibf", cuda)
     fh = dev.load_device_filter(host + ".hibf", cuda)
     fb = dev.load_device_filter(db_b + ".ibf", cuda)
+    # db's load split: the file read (IBF.load; a raw file is a memmap,
+    # so the pages are read by the upload, warm in the page cache), the
+    # host's plan, the bit-matrix upload, then the repack on the card
+    # (its row: queued card ms), equal to the loaded filter's table
+    t0 = time.perf_counter()
+    ibf_db = IBF.load(db + ".ibf")
+    t1 = time.perf_counter()
+    plan_db = q.repack_plan(ibf_db.bin_to_target_ids(),
+                            len(ibf_db.targets()))
+    t2 = time.perf_counter()
+    dbits = q.bits_tensor(ibf_db.bits).to(cuda)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    (rtbl,) = compare(
+        "repack", "ganon_tpu_torch/csrc/repack.cu",
+        "ganon_tpu/ops/ibf_query.py:162",
+        lambda: (q.repack_table(dbits, plan_db),),
+        lambda: (q.repack_table_plain(dbits, plan_db),), 5, 1,
+        _repack_work(dbits, plan_db, 0, plan_db.W8p), runs=5)
+    if not torch.equal(rtbl, f.tbl8):
+        raise AssertionError("repack: differs from the loaded filter's table")
+    load_split = {"read_s": t1 - t0, "plan_s": t2 - t1, "upload_s": t3 - t2,
+                  "repack_card_ms": rows[-1]["device_ms"]}
+    # a mesh load's narrow window: shard 1 of 4 of db's table (64 words a
+    # row, four rows a block step)
+    ws = q.shard_spans(plan_db.W8p, plan_db.byte_starts, plan_db.byte_ends,
+                       4)[0]
+    compare(
+        "repack_shard", "ganon_tpu_torch/csrc/repack.cu",
+        "ganon_tpu/ops/ibf_query.py:162",
+        lambda: (q.repack_table(dbits, plan_db, c0=ws, width=ws),),
+        lambda: (q.repack_table_plain(dbits, plan_db, c0=ws, width=ws),),
+        5, 1, _repack_work(dbits, plan_db, ws, ws), runs=5,
+        counted_as="repack")
+    del ibf_db, dbits, rtbl
+    torch.cuda.empty_cache()
     tgt, r1, r2 = _sample_pairs(np.random.default_rng(args.seed + 2), genomes,
                                 args.bench_pairs, args.read_len)
     lens = np.full(args.bench_pairs, args.read_len, np.int32)
@@ -1755,6 +1838,7 @@ def main() -> int:
     emit("kernels", {
         "pairs": args.bench_pairs, "L1": L1, "L2": L2, "mc": mc,
         "filter_load_s": load_s["db"],
+        "filter_load_split_s": load_split,
         "filter_load_s_host_db_b": [load_s["host"], load_s["db_b"]],
         "table_bytes": int(f.tbl8.numel()),
         "forest_sub_col0": col0, "union_targets": U,
@@ -2051,6 +2135,18 @@ def main() -> int:
     fm = f.with_mesh(mesh8)  # cut on the card from the packed table
     torch.cuda.synchronize()
     shard_s = time.perf_counter() - t0
+    # the same file loaded afresh onto the mesh (no cache): each of the
+    # four column shards repacked on its own view of the card from the
+    # uploaded bit-matrix, equal to the cut of the cached table
+    t0 = time.perf_counter()
+    fml = _counted_load(kernels, load_launches, lambda: dev._open_filter(
+        db + ".ibf", cuda, mesh8), "mesh")
+    mesh_load_s = time.perf_counter() - t0
+    if not all(torch.equal(a.tbl8, b.tbl8) for row in fml.table.shards
+               for a, b in zip(row, fm.table.shards[0])):
+        raise AssertionError("mesh: repacked shards differ from the cut")
+    del fml
+    torch.cuda.empty_cache()
     B = args.bench_pairs
     _, m1, m2 = _sample_pairs(np.random.default_rng(args.seed + 2), genomes,
                               B, args.read_len)
@@ -2239,6 +2335,7 @@ def main() -> int:
     emit("mesh", {
         "mesh": mesh8.shape, "devices": "8 views of cuda:0",
         "shard_cut_s": shard_s, "shard_target_spans": spans,
+        "mesh_load_s": mesh_load_s,
         "sharded_counts_pairs": B, "sharded_equals_single": True,
         "cli_pairs": args.pairs, "cli_seconds": mesh_cli_s,
         "cli_reads_per_s": args.pairs / mesh_cli_s,
@@ -2421,7 +2518,10 @@ def main() -> int:
     del wibf
     # select32 at T = wide targets, K = 4 (the adaptive start past 4096
     # targets), 8192 pairs
-    fw = dev.load_device_filter(wdb + ".ibf", cuda)
+    t0 = time.perf_counter()
+    fw = _counted_load(kernels, load_launches, lambda: dev.load_device_filter(
+        wdb + ".ibf", cuda), "wide")
+    wide_load_s = time.perf_counter() - t0
     _, a_, b_ = _sample_pairs(np.random.default_rng(args.seed + 10), wgen,
                               args.bench_pairs, args.read_len)
     wlens = np.full(args.bench_pairs, args.read_len, np.int32)
@@ -2632,6 +2732,7 @@ def main() -> int:
         "wide": {"targets": args.wide_targets,
                  "genome_len": args.wide_genome_len,
                  "build_s": w_build_s, "build_launches": w_build_launches,
+                 "filter_load_s": wide_load_s,
                  "pairs": args.wide_pairs, "random_pairs": n_wrand,
                  "pairs_above_0xffff": w_high, "seconds": w_s,
                  "reads_per_s": args.wide_pairs / w_s,
@@ -2791,8 +2892,8 @@ def main() -> int:
         _write_tax(p_ + ".tax", flat_forest_names,
                    [f"H{i % 8}" for i in range(len(flat_forest_names))])
         t0 = time.perf_counter()
-        dev.load_device_filter(p_ + ".hibf", cuda)
-        torch.cuda.synchronize()
+        _counted_load(kernels, load_launches, lambda: dev.load_device_filter(
+            p_ + ".hibf", cuda), os.path.basename(p_))
         rload_s[os.path.basename(p_)] = time.perf_counter() - t0
     fr = dev.load_device_filter(rdb + ".hibf", cuda)
     if not isinstance(fr, dev.DeviceRaptorHIBF) or len(fr.subs) != 4:
@@ -3450,7 +3551,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. checks ------------------------------------------------------------
-    main_runs = (build_launches, bc_launches, acq_launches, upd_launches,
+    main_runs = (*load_launches,
+                 build_launches, bc_launches, acq_launches, upd_launches,
                  ref_launches, sp_launches,
                  gprobe_launches, ops_launches, wide_launches,
                  wide_ops_launches,

@@ -61,14 +61,17 @@ import torch
 
 from ganon_tpu_torch import kernels
 from ganon_tpu_torch.ops.ibf_query import (
+    bits_tensor,
     bulk_target_counts_packed,
     clz64,
     combine,
     count_writes_every_cell,
     extract,
-    pack_table_u8,
     probe_sort,
     raptor_target_counts,
+    repack_plan,
+    repack_shards,
+    repack_table,
     shard_table,
     sub_descriptors,
     table_as_u32,
@@ -1011,23 +1014,22 @@ class ShardedTable:
     """A packed query table column-sharded over a mesh (K17).
 
     Port of the ``P(None, "bins")`` table of ``ganon_tpu.classify.device.
-    DeviceFilter`` with a mesh (``device.py:749-768``): the shards of
-    :func:`~ganon_tpu_torch.ops.ibf_query.shard_table`, shard ``j`` on
-    entry ``[i][j]`` of every batch row ``i``. ``tbl8`` (on the host or a
-    card) is cut one slice at a time straight onto the first row's
-    devices, and the other rows copy those shards (a copy per distinct
-    device, none where entries repeat), so no device ever holds more than
-    its own shards beside ``tbl8``. With ``cols`` (a raptor sub) the
-    combined counts are max-merged into those columns.
+    DeviceFilter`` with a mesh (``device.py:749-768``). ``shards`` are the
+    first batch row's :class:`~ganon_tpu_torch.ops.ibf_query.TableShard`s,
+    shard ``j`` on ``mesh.devices[0][j]``: cut from a packed table
+    (:func:`~ganon_tpu_torch.ops.ibf_query.shard_table`) or repacked on
+    their devices from the bit-matrix (:func:`~ganon_tpu_torch.ops.
+    ibf_query.repack_shards`, no whole table anywhere). The other rows
+    copy them (a copy per distinct device, none where entries repeat).
+    With ``cols`` (a raptor sub) the combined counts are max-merged into
+    those columns.
     """
 
-    def __init__(self, tbl8, byte_starts, byte_ends, num_targets: int, mesh,
-                 *, bin_size: int, hash_functions: int, cols=None):
+    def __init__(self, shards, num_targets: int, mesh, *, bin_size: int,
+                 hash_functions: int, cols=None):
         self.mesh = mesh
         self.num_targets = num_targets
         self.bin_size, self.hash_functions = bin_size, hash_functions
-        shards = shard_table(tbl8, byte_starts, byte_ends, mesh.shape["bins"],
-                             devices=mesh.devices[0])
         self.widths = [s.t_hi - s.t_lo for s in shards]
         self.shards = [[s.to(d) for s, d in zip(shards, row)]
                        for row in mesh.devices]
@@ -1083,11 +1085,13 @@ class ShardedTable:
 class DeviceFilter:
     """A flat IBF resident on one device, ready for batched counting.
 
-    The interleaved bit-matrix is repacked once (``pack_table_u8``, W8
-    padded to whole u32 words because the ``count`` kernel reads words)
-    and moved to ``device``; nothing else is copied per batch. With
-    ``mesh`` the host-packed table is cut straight into a
-    :class:`ShardedTable` (the whole table never goes to a card);
+    The interleaved bit-matrix goes to ``device`` as it is stored and is
+    repacked there once into the query table (``repack_table``: the
+    ``repack`` kernel on a card, its plain version on the CPU; W8 padded
+    to whole u32 words because the ``count`` kernel reads words); the
+    host computes only the plan, and nothing else is copied per batch.
+    With ``mesh`` each column shard of a :class:`ShardedTable` is
+    repacked on its own device (the whole table is made nowhere);
     ``device`` stays the home of the gathered counts.
     """
 
@@ -1096,36 +1100,39 @@ class DeviceFilter:
         self.ibf_config = ibf.ibf_config
         self.targets = ibf.targets()
         self.num_targets = len(self.targets)
-        tbl8, byte_starts, byte_ends = pack_table_u8(
-            ibf.bits, ibf.bin_to_target_ids(), self.num_targets
-        )
-        self.tbl8 = torch.from_numpy(table_as_u32(tbl8).view(np.uint8))
-        self.byte_starts = torch.from_numpy(byte_starts)
-        self.byte_ends = torch.from_numpy(byte_ends)
+        plan = repack_plan(ibf.bin_to_target_ids(), self.num_targets)
+        bits = bits_tensor(ibf.bits)
         self.target_fpr = ibf.target_fpr()
         self.mesh, self.batch_mult, self.table = None, 1, None
         if mesh is not None:
-            self._shard(mesh)
+            self._set_table(mesh, repack_shards(
+                bits, plan, mesh.shape["bins"], mesh.devices[0]))
         else:
-            for name in ("tbl8", "byte_starts", "byte_ends"):
-                setattr(self, name, getattr(self, name).to(self.device))
-
-    def _shard(self, mesh) -> None:
-        self.mesh, self.batch_mult = mesh, mesh.shape["batch"]
-        self.table = ShardedTable(
-            self.tbl8, self.byte_starts, self.byte_ends, self.num_targets,
-            mesh, bin_size=self.ibf_config.bin_size_bits,
-            hash_functions=self.ibf_config.hash_functions)
-        self.tbl8 = self.byte_starts = self.byte_ends = None
+            self.tbl8 = repack_table(bits.to(self.device), plan)
+            self.byte_starts = torch.from_numpy(plan.byte_starts).to(
+                self.device)
+            self.byte_ends = torch.from_numpy(plan.byte_ends).to(self.device)
 
     def with_mesh(self, mesh) -> "DeviceFilter":
         """This filter column-sharded over ``mesh``, cut slice by slice
-        from its packed table on its device (no host repack)."""
+        from its packed table on its device (no repack)."""
         if self.mesh is not None:
             raise ValueError("the filter is sharded already")
         out = copy.copy(self)
-        out._shard(mesh)
+        out._set_table(mesh, shard_table(
+            self.tbl8, self.byte_starts, self.byte_ends, mesh.shape["bins"],
+            devices=mesh.devices[0]))
         return out
+
+    def _set_table(self, mesh, shards) -> None:
+        """Shard over ``mesh`` with these first-row shards; the whole
+        table is dropped."""
+        self.mesh, self.batch_mult = mesh, mesh.shape["batch"]
+        self.table = ShardedTable(
+            shards, self.num_targets, mesh,
+            bin_size=self.ibf_config.bin_size_bits,
+            hash_functions=self.ibf_config.hash_functions)
+        self.tbl8 = self.byte_starts = self.byte_ends = None
 
     def to(self, device) -> "DeviceFilter":
         """The same filter with its tables on ``device`` (no repack); a
@@ -1268,10 +1275,11 @@ class RaptorSub:
             name: getattr(self, name).to(device) for name in names})
 
     def with_mesh(self, mesh) -> "RaptorSub":
-        table = ShardedTable(self.tbl8, self.byte_starts, self.byte_ends,
-                             int(self.cols.numel()), mesh,
-                             bin_size=self.bin_size,
-                             hash_functions=self.hash_funs, cols=self.cols)
+        table = ShardedTable(
+            shard_table(self.tbl8, self.byte_starts, self.byte_ends,
+                        mesh.shape["bins"], devices=mesh.devices[0]),
+            int(self.cols.numel()), mesh, bin_size=self.bin_size,
+            hash_functions=self.hash_funs, cols=self.cols)
         return dataclasses.replace(self, tbl8=None, byte_starts=None,
                                    byte_ends=None, table=table)
 
@@ -1283,11 +1291,13 @@ class DeviceRaptorHIBF:
     column-shards every sub's table (each sub's shards summed and
     clamped, then max-merged into its columns). Every sub-IBF is counted
     (see ``index.hibf.RaptorHIBF`` for why that equals the reference's
-    gated descent). Per sub: the technical bins' file positions (``bin_to_filename``, padded with -1 to the technical
-    bins or cut to them), the used positions as its local targets, merged
-    and empty bins mapped to the dropped id ``len(used)`` by
-    ``pack_table_u8``; a routing-only IBF (every bin merged) is skipped.
-    A user bin of several subs takes the largest of its counts.
+    gated descent). Per sub: the technical bins' file positions
+    (``bin_to_filename``, padded with -1 to the technical bins or cut to
+    them), the used positions as its local targets, merged and empty bins
+    mapped to the dropped id ``len(used)`` of its repack plan; its bits go
+    to the device and are repacked there (on a mesh, shard by shard, as
+    :class:`DeviceFilter`'s); a routing-only IBF (every bin merged) is
+    skipped. A user bin of several subs takes the largest of its counts.
     """
 
     def __init__(self, rhibf, device="cuda", mesh=None):
@@ -1298,8 +1308,6 @@ class DeviceRaptorHIBF:
         self.target_fpr = rhibf.target_fpr()
         self.mesh, self.batch_mult = None, 1
         self.subs = []
-        # with a mesh the host-packed tables are cut straight into shards
-        home = torch.device("cpu") if mesh is not None else self.device
         for (bits, _bins, bin_size, hash_funs), b2f in zip(
                 rhibf.ibfs, rhibf.bin_to_filename):
             tb = bits.shape[1] * 32
@@ -1311,26 +1319,30 @@ class DeviceRaptorHIBF:
                 continue  # routing only: its children are counted directly
             b2t_local = np.searchsorted(used, fpos).astype(np.int32)
             b2t_local[fpos < 0] = len(used)
-            tbl8, bstarts, bends = pack_table_u8(bits, b2t_local, len(used))
-            self.subs.append(RaptorSub(
-                tbl8=torch.from_numpy(
-                    table_as_u32(tbl8).view(np.uint8)).to(home),
-                byte_starts=torch.from_numpy(bstarts).to(home),
-                byte_ends=torch.from_numpy(bends).to(home),
+            plan = repack_plan(b2t_local, len(used))
+            sub = RaptorSub(
+                tbl8=None, byte_starts=None, byte_ends=None,
                 bin_size=int(bin_size), hash_funs=int(hash_funs),
-                cols=torch.from_numpy(used.astype(np.int32)).to(self.device),
-            ))
+                cols=torch.from_numpy(used.astype(np.int32)).to(self.device))
+            if mesh is None:
+                sub.tbl8 = repack_table(bits_tensor(bits).to(self.device),
+                                        plan)
+                sub.byte_starts, sub.byte_ends = (
+                    torch.from_numpy(a).to(self.device)
+                    for a in (plan.byte_starts, plan.byte_ends))
+            else:
+                sub.table = ShardedTable(
+                    repack_shards(bits_tensor(bits), plan, mesh.shape["bins"],
+                                  mesh.devices[0]),
+                    len(used), mesh, bin_size=sub.bin_size,
+                    hash_functions=sub.hash_funs, cols=sub.cols)
+            self.subs.append(sub)
         # the subs' descriptors for the one-launch count (none on a mesh)
         self.sub_desc = None
         if mesh is not None:
-            self._shard(mesh)
+            self.mesh, self.batch_mult = mesh, mesh.shape["batch"]
         else:
             self.sub_desc = sub_descriptors(self.subs)
-
-    def _shard(self, mesh) -> None:
-        self.mesh, self.batch_mult = mesh, mesh.shape["batch"]
-        self.subs = [s.with_mesh(mesh) for s in self.subs]
-        self.sub_desc = None
 
     def to(self, device) -> "DeviceRaptorHIBF":
         """The same archive with its tables on ``device`` (no repack)."""
@@ -1344,7 +1356,9 @@ class DeviceRaptorHIBF:
     def with_mesh(self, mesh) -> "DeviceRaptorHIBF":
         """This archive with every sub's table column-sharded."""
         out = copy.copy(self)
-        out._shard(mesh)
+        out.mesh, out.batch_mult = mesh, mesh.shape["batch"]
+        out.subs = [s.with_mesh(mesh) for s in self.subs]
+        out.sub_desc = None
         return out
 
     put_batch = DeviceFilter.put_batch
@@ -1512,8 +1526,10 @@ def load_device_filter(path: str, device="cuda", mesh=None):
     archive as a :class:`DeviceRaptorHIBF`, anything else as a
     :class:`DeviceHIBF`. With ``mesh`` the filter is sharded over it
     (``device`` its home), cut slice by slice from the cached
-    single-device filter of the same file where there is one, else packed
-    once on the host and cut straight onto the mesh's devices.
+    single-device filter of the same file where there is one, else each
+    column shard repacked on its own device from the bit-matrix uploaded
+    there (:func:`~ganon_tpu_torch.ops.ibf_query.repack_shards`; no host
+    table and no whole table on any device).
     """
     device = _resolve_device(device)
     st = os.stat(path)

@@ -48,7 +48,9 @@ whose status words and epochs :func:`scan_status` hands out, one buffer
 a device and stream; ``probe_sort`` orders each read's
 hashes by their first row before ``count`` (``csrc/psort.cu``);
 ``gather_probe`` is the port of the Pallas gather probe
-(``csrc/gprobe.cu``).
+(``csrc/gprobe.cu``); ``repack`` writes a filter's query table (or one
+column shard of it) from its interleaved bit-matrix at load
+(``csrc/repack.cu``).
 A run can so show that its main path went through every kernel mode.
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -69,7 +71,7 @@ from ganon_tpu_torch import BUILD_DIR
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
            "gate.cu", "fine.cu", "sort.cu", "dedup.cu", "shard.cu", "bins.cu",
-           "scan.cu", "psort.cu", "gprobe.cu")
+           "scan.cu", "psort.cu", "gprobe.cu", "repack.cu")
 HEADERS = ("ibf_hash.cuh", "scan.cuh", "dedup.cuh", "warp_bits.cuh",
            "sm_count.cuh")
 NVCC_FLAGS = (
@@ -170,6 +172,9 @@ _SIGNATURES = {
     # tbl, R, rows, N, partials, max_blocks (the partials' rows), status,
     # out
     "gather_probe": (_P, _L, _P, _L, _P, _I, _P, _P),
+    # bits, R, W, src_of_dst, n_dst, c0w (the first word column), wc (the
+    # output's words a row), tbl
+    "repack": (_P, _L, _L, _P, _L, _L, _L, _P),
 }
 
 # launch counters: each kernel, plus the modes counted apart

@@ -14,6 +14,10 @@ popcounts summed over that range.
 
 This module holds the classify kernels' wrappers:
 
+* :func:`repack_table` — the query table (or one column window of it)
+  from the interleaved bit-matrix at load, by the host's
+  :func:`repack_plan` (``csrc/repack.cu``); plain version
+  :func:`repack_table_plain`.
 * :func:`extract` — 2-bit unpack, canonical minimizers, mate join and
   compaction (``csrc/extract.cu``); plain version :func:`extract_plain`.
 * :func:`bulk_target_counts_packed` — hash rows, gather + AND, byte
@@ -30,7 +34,8 @@ This module holds the classify kernels' wrappers:
   :func:`probe_sort_plain`.
 
 :func:`shard_table` splits a packed table into the column shards of a
-device mesh's ``bins`` axis (K17).
+device mesh's ``bins`` axis (K17); :func:`repack_shards` repacks each
+shard on its own device instead.
 
 A wrapper given CPU tensors runs the plain torch version; given CUDA
 tensors it launches the kernel or raises.
@@ -38,6 +43,7 @@ tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -92,47 +98,167 @@ def ibf_row_indices_np(hashes: np.ndarray, *, bin_size: int, hash_functions: int
     return rows
 
 
+@dataclass(frozen=True)
+class RepackPlan:
+    """Where every bit of the query table comes from: the host half of the
+    repack, O(technical bins), made by :func:`repack_plan`.
+
+    ``byte_starts``/``byte_ends`` (int32 ``[T]``) are each target's byte
+    range; ``W8`` the table's bytes a row and ``W8p`` that padded to whole
+    u32 words (:func:`table_as_u32`'s padding); ``src_of_dst`` (int32
+    ``[W8p * 8]``) the source bin of each destination bit, -1 for a padding
+    bit; ``n_bins`` the least technical bins a source row must hold.
+    """
+
+    byte_starts: np.ndarray
+    byte_ends: np.ndarray
+    W8: int
+    W8p: int
+    src_of_dst: np.ndarray
+    n_bins: int
+
+
+def repack_plan(bin_to_target, num_targets: int) -> RepackPlan:
+    """The repack's plan for ``bin_to_target`` (target id a technical bin;
+    ``num_targets`` or more for a dropped bin: padding, a merged or an
+    empty raptor bin): the byte layout of ``ganon_tpu.ops.ibf_query.
+    pack_table_u8`` (every target's bins, in bin order, at the start of a
+    byte-aligned range padded to whole bytes; an empty target a zero-width
+    range). No loop over rows or bins."""
+    b2t = np.asarray(bin_to_target)
+    order = np.argsort(b2t, kind="stable")
+    sorted_t = b2t[order]
+    ids = np.arange(num_targets)
+    starts = np.searchsorted(sorted_t, ids, side="left")
+    ends = np.searchsorted(sorted_t, ids, side="right")
+    widths = ends - starts
+    pad_w = (widths + 7) // 8 * 8
+    pstarts = np.cumsum(pad_w) - pad_w
+    W8 = max(int(pad_w.sum()) // 8, 1)
+    W8p = -(-W8 // 4) * 4
+    # destination bit of every kept source bin; the kept bins sort
+    # together, from the first target's start
+    n_real = int(widths.sum())
+    lo = int(starts[0]) if num_targets else 0
+    src_bins = order[lo:lo + n_real]
+    local = np.arange(n_real, dtype=np.int64) - np.repeat(starts - lo, widths)
+    dst_bits = np.repeat(pstarts, widths) + local
+    src_of_dst = np.full(W8p * 8, -1, dtype=np.int32)
+    src_of_dst[dst_bits] = src_bins
+    return RepackPlan(
+        byte_starts=(pstarts // 8).astype(np.int32),
+        byte_ends=((pstarts + pad_w) // 8).astype(np.int32),
+        W8=W8, W8p=W8p, src_of_dst=src_of_dst,
+        n_bins=int(src_bins.max()) + 1 if n_real else 0)
+
+
+def bits_tensor(bits: np.ndarray) -> torch.Tensor:
+    """A host uint32 bit-matrix as the int32 tensor the repack takes,
+    aliasing it (a raw file's read-only memmap too: the repack only reads
+    it)."""
+    arr = np.ascontiguousarray(bits)
+    if arr.dtype.itemsize != 4 or arr.ndim != 2:
+        raise ValueError(f"bits must be a [R, W] matrix of 32-bit words, "
+                         f"got {arr.dtype} {arr.shape}")
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable")
+        return torch.from_numpy(arr.view(np.int32))
+
+
+# the plain repack's temporaries a chunk of rows (bytes)
+_PLAIN_REPACK_BYTES = 64 << 20
+
+
+def _check_repack(bits, plan, c0, width):
+    if bits.dtype != torch.int32 or bits.dim() != 2:
+        raise ValueError("bits must be an int32 [R, W] tensor")
+    if plan.n_bins > bits.shape[1] * 32:
+        raise ValueError(f"the plan reads bin {plan.n_bins - 1} of "
+                         f"{bits.shape[1] * 32}-bin rows")
+    if width is None:
+        width = plan.W8p - c0
+    if c0 < 0 or width < 0 or c0 % 4 or width % 4:
+        raise ValueError(f"column window [{c0}, {c0} + {width}) must start "
+                         "and span whole u32 words")
+    return width
+
+
+def repack_table_plain(bits: torch.Tensor, plan: RepackPlan, *, c0: int = 0,
+                       width: int | None = None) -> torch.Tensor:
+    """Plain version of :func:`repack_table` (any ``c0``, ``width``).
+
+    A chunk of rows at a time (temporaries of about 64 MB, so a table of
+    gigabytes never expands to a byte a bit):
+    for each bit position of a byte, the kept destination bits' source
+    words gathered, shifted down, and ORed into their bytes.
+    """
+    if width is None:
+        width = plan.W8p - c0
+    R = bits.shape[0]
+    out = torch.zeros((R, width), dtype=torch.uint8, device=bits.device)
+    d0, d1 = c0 * 8, min((c0 + width) * 8, plan.W8p * 8)
+    src = plan.src_of_dst[d0:max(d0, d1)]
+    dst = np.flatnonzero(src >= 0)
+    src = src[dst].astype(np.int64)
+    groups = []
+    for k in range(8):
+        sel = (dst & 7) == k
+        if sel.any():
+            groups.append((k, *(torch.from_numpy(a).to(bits.device) for a in (
+                dst[sel] >> 3, src[sel] >> 5, (src[sel] & 31).astype(
+                    np.int32)))))
+    rows = max(1, _PLAIN_REPACK_BYTES // max(1, 16 * len(src)))
+    for r0 in range(0, R if groups else 0, rows):
+        chunk, part = bits[r0:r0 + rows], out[r0:r0 + rows]
+        for k, byte, word, shift in groups:
+            v = ((chunk[:, word] >> shift) & 1).to(torch.uint8)
+            part[:, byte] |= v << k
+    return out
+
+
+def repack_table(bits: torch.Tensor, plan: RepackPlan, *, c0: int = 0,
+                 width: int | None = None) -> torch.Tensor:
+    """The query table's byte columns ``[c0, c0 + width)`` (default: the
+    whole ``W8p``-byte table), u8 ``[R, width]``, from the interleaved
+    bit-matrix ``bits`` (int32 ``[R, W]``) by ``plan``; bytes past
+    ``W8p`` are zero. ``c0`` and ``width`` are multiples of 4.
+
+    Given CUDA tensors, the ``repack`` kernel (``csrc/repack.cu``) stores
+    every output word once (no fill); given CPU tensors, the plain version.
+    """
+    width = _check_repack(bits, plan, c0, width)
+    if bits.device.type == "cpu":
+        return repack_table_plain(bits, plan, c0=c0, width=width)
+    kernels.check_cuda(bits)
+    R = bits.shape[0]
+    out = torch.empty((R, width), dtype=torch.uint8, device=bits.device)
+    if R and width:
+        src = torch.from_numpy(plan.src_of_dst).to(bits.device)
+        kernels.launch("repack", bits, R, bits.shape[1], src, src.numel(),
+                       c0 // 4, width // 4, out)
+    return out
+
+
 def pack_table_u8(bits: np.ndarray, bin_to_target: np.ndarray,
                   num_targets: int, row_chunk: int = 4096):
-    """Repack the interleaved bit-matrix into the byte-aligned query layout.
+    """Repack the interleaved bit-matrix into the byte-aligned query layout
+    on the host: ``ganon_tpu.ops.ibf_query.pack_table_u8``'s outputs,
+    through :func:`repack_plan` and :func:`repack_table_plain`, whose own
+    byte budget sizes its chunks (``row_chunk`` is kept for the JAX
+    function's signature and ignored).
 
     Layout: ``uint8[bin_size, W8]`` with every target's technical bins
     moved to a byte-aligned contiguous range (padding bins are zero).
     Returns ``(tbl8, byte_starts, byte_ends)`` with int32 [T] byte ranges.
     The on-disk format keeps the compact interleaved u32 layout; this
-    expansion costs at most 7 padding bins per target and happens once
-    at load.
+    expansion costs at most 7 padding bins per target. The loaders repack
+    on their device with :func:`repack_table` instead.
     """
-    b2t = np.asarray(bin_to_target)
-    R = bits.shape[0]
-    order = np.argsort(b2t, kind="stable")
-    sorted_t = b2t[order]
-    starts = np.searchsorted(sorted_t, np.arange(num_targets), side="left")
-    ends = np.searchsorted(sorted_t, np.arange(num_targets), side="right")
-    widths = ends - starts
-    pad_w = (widths + 7) // 8 * 8
-    pstarts = np.concatenate([[0], np.cumsum(pad_w)[:-1]])
-    TBP = int(np.sum(pad_w))
-    W8 = max(TBP // 8, 1)
-
-    # destination bit position for every real source bin; real bins sort
-    # before padding bins (id == num_targets), so they occupy [0, n_real)
-    n_real = int(widths.sum())
-    src_bins = order[:n_real]
-    local = np.arange(n_real, dtype=np.int64) - np.repeat(starts, widths)
-    dst_bits = np.repeat(pstarts, widths) + local
-
-    tbl8 = np.zeros((R, W8), dtype=np.uint8)
-    for r0 in range(0, R, row_chunk):
-        r1 = min(r0 + row_chunk, R)
-        chunk_bytes = bits[r0:r1].view(np.uint8).reshape(r1 - r0, -1)
-        unpacked = np.unpackbits(chunk_bytes, axis=1, bitorder="little")
-        out = np.zeros((r1 - r0, W8 * 8), dtype=np.uint8)
-        out[:, dst_bits] = unpacked[:, src_bins]
-        tbl8[r0:r1] = np.packbits(out, axis=1, bitorder="little")
-    byte_starts = (pstarts // 8).astype(np.int32)
-    byte_ends = ((pstarts + pad_w) // 8).astype(np.int32)
-    return tbl8, byte_starts, byte_ends
+    plan = repack_plan(bin_to_target, num_targets)
+    tbl = repack_table_plain(bits_tensor(bits), plan, width=plan.W8p)
+    return (np.ascontiguousarray(tbl.numpy()[:, :plan.W8]), plan.byte_starts,
+            plan.byte_ends)
 
 
 def table_as_u32(tbl8: np.ndarray) -> np.ndarray:
@@ -693,45 +819,72 @@ class TableShard:
                           self.t_hi)
 
 
-def shard_table(tbl8: torch.Tensor, byte_starts, byte_ends, nb: int,
-                devices=None) -> list[TableShard]:
-    """Split a packed table into ``nb`` column shards (K17).
-
-    Port of the column sharding of ``ganon_tpu.classify.device.
-    DeviceFilter`` with a mesh (``device.py:749-768``): ``W8`` is padded
-    with zero bytes to a multiple of ``4 * nb`` (JAX's alignment for its
-    u32 regime; the port always reads u32 words) and cut into ``nb`` equal
-    slices, so the table is never repacked on the host. Shard ``j`` is
-    allocated on ``devices[j]`` (default: ``tbl8``'s device) and its slice
-    copied straight there from ``tbl8`` (a host table or one on a card),
-    so no device holds more than its own shards beside ``tbl8``. A target
-    whose byte range crosses a shard edge appears in both shards, each
-    with its part of the range.
-    """
-    R, W8 = tbl8.shape
-    ws = -(-W8 // (4 * nb)) * 4
-    if devices is None:
-        devices = [tbl8.device] * nb
+def shard_spans(W8p: int, byte_starts, byte_ends, nb: int):
+    """The column cut of a ``W8p``-byte table into ``nb`` shards (K17):
+    ``W8p`` padded with zero bytes to a multiple of ``4 * nb`` (JAX's
+    alignment for its u32 regime; the port always reads u32 words) and cut
+    into ``nb`` equal slices of ``ws`` bytes. Returns ``ws`` and, a shard,
+    ``(c0, t_lo, t_hi, starts, ends)``: its first byte, the targets
+    ``t_lo .. t_hi - 1`` whose byte ranges meet ``[c0, c0 + ws)`` and their
+    ranges clipped to the shard and rebased (int32 numpy). A target whose
+    range crosses a shard edge is in both shards, each with its part."""
+    ws = -(-W8p // (4 * nb)) * 4
     bs = np.asarray(torch.as_tensor(byte_starts).cpu(), dtype=np.int64)
     be = np.asarray(torch.as_tensor(byte_ends).cpu(), dtype=np.int64)
-    shards = []
-    for j, d in zip(range(nb), devices):
+    spans = []
+    for j in range(nb):
         c0 = j * ws
         # the targets whose ranges meet [c0, c0 + ws): ends past c0,
         # starts before c0 + ws (the ranges ascend)
         t_lo = int(np.searchsorted(be, c0, side="right"))
         t_hi = int(np.searchsorted(bs, c0 + ws, side="left"))
+        spans.append((c0, t_lo, t_hi,
+                      np.clip(bs[t_lo:t_hi] - c0, 0, ws).astype(np.int32),
+                      np.clip(be[t_lo:t_hi] - c0, 0, ws).astype(np.int32)))
+    return ws, spans
+
+
+def shard_table(tbl8: torch.Tensor, byte_starts, byte_ends, nb: int,
+                devices=None) -> list[TableShard]:
+    """Split a packed table into ``nb`` column shards (K17).
+
+    Port of the column sharding of ``ganon_tpu.classify.device.
+    DeviceFilter`` with a mesh (``device.py:749-768``), cut as
+    :func:`shard_spans` says, so the table is never repacked. Shard ``j``
+    is allocated on ``devices[j]`` (default: ``tbl8``'s device) and its
+    slice copied straight there from ``tbl8`` (a host table or one on a
+    card), so no device holds more than its own shards beside ``tbl8``.
+    """
+    R, W8 = tbl8.shape
+    ws, spans = shard_spans(W8, byte_starts, byte_ends, nb)
+    if devices is None:
+        devices = [tbl8.device] * nb
+    shards = []
+    for (c0, t_lo, t_hi, bs, be), d in zip(spans, devices):
         part = torch.zeros((R, ws), dtype=torch.uint8, device=d)
         w = max(0, min(ws, W8 - c0))
         if w:
             part[:, :w].copy_(tbl8[:, c0:c0 + w])
+        shards.append(TableShard(part, torch.from_numpy(bs).to(d),
+                                 torch.from_numpy(be).to(d), c0, t_lo, t_hi))
+    return shards
+
+
+def repack_shards(bits: torch.Tensor, plan: RepackPlan, nb: int,
+                  devices) -> list[TableShard]:
+    """The ``nb`` column shards of :func:`shard_table`, each repacked on
+    its own device (``devices[j]``) from the bit-matrix ``bits`` (int32,
+    uploaded once a distinct device): no table is made whole anywhere."""
+    ws, spans = shard_spans(plan.W8p, plan.byte_starts, plan.byte_ends, nb)
+    on = {}
+    shards = []
+    for (c0, t_lo, t_hi, bs, be), d in zip(spans, devices):
+        if d not in on:
+            on[d] = bits.to(d)
         shards.append(TableShard(
-            part,
-            torch.from_numpy(np.clip(bs[t_lo:t_hi] - c0, 0, ws).astype(
-                np.int32)).to(d),
-            torch.from_numpy(np.clip(be[t_lo:t_hi] - c0, 0, ws).astype(
-                np.int32)).to(d),
-            c0, t_lo, t_hi))
+            repack_table(on[d], plan, c0=c0, width=ws),
+            torch.from_numpy(bs).to(d), torch.from_numpy(be).to(d), c0,
+            t_lo, t_hi))
     return shards
 
 

@@ -73,12 +73,20 @@ list's capacity and the passes over the row), T % 4 != 0 and K past and
 below the finals; count at rows of 1 to 256 words, h 1-5, in flat,
 forest, shard and column-max modes; every raptor sub in one launch
 against one launch a sub.
+The filter load's repack: the whole table and column windows at db's
+one-bin-a-target shape (row runs of 63, 65 and 1 rows), the wide
+filter's 2188-word rows, uneven, shuffled and dropped bins and a W8 off
+4, into garbage-filled memory; a table past 2^31 bytes; a refused
+launch raises; and flat, forest and raptor loads on the card (alone
+and on a mesh of views) with the host repacks made to raise, equal to
+the CPU's loads.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -2491,3 +2499,167 @@ def test_raptor_target_counts_one_launch_matches_per_sub(cuda):
     assert torch.equal(again, want)
     assert q.raptor_target_counts(rsubs, h[:0], n[:0],
                                   num_targets=T).shape == (0, T)
+
+
+def _repack_case(case):
+    """(bits u32 [R, W], bin_to_target, T) of a repack edge shape."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    R = {"rows_63": 63, "rows_65": 65, "one_row": 1}.get(case, 300)
+    if case in ("one_bin", "rows_63", "rows_65", "one_row"):
+        T = 1024  # db's shape: one bin a target, 8x padding
+        b2t = np.arange(T, dtype=np.int32)
+    elif case == "wide":  # the wide filter's 2188-word rows
+        T = 70_000
+        b2t = np.full(2188 * 32, T, dtype=np.int32)
+        b2t[:T] = np.arange(T)
+    elif case in ("uneven", "shuffled", "dropped"):
+        T = 300
+        widths = rng.integers(0 if case == "dropped" else 1, 41, size=T)
+        n = int(widths.sum())
+        b2t = np.full(-(-n // 32) * 32 + 32, T, dtype=np.int32)
+        b2t[:n] = np.repeat(np.arange(T), widths)
+        if case == "shuffled":
+            b2t = rng.permutation(b2t)
+        if case == "dropped":
+            b2t[rng.random(len(b2t)) < 0.2] = T
+    elif case == "w8_odd":
+        T = 5
+        b2t = np.full(32, T, dtype=np.int32)
+        b2t[:T] = np.arange(T)
+    else:
+        raise KeyError(case)
+    bits = rng.integers(0, 2**32, size=(R, len(b2t) // 32), dtype=np.uint32)
+    return bits, b2t, T
+
+
+@pytest.mark.parametrize("case", ["one_bin", "rows_63", "rows_65", "one_row",
+                                  "wide", "uneven", "shuffled", "dropped",
+                                  "w8_odd"])
+def test_repack_kernel_matches_plain(cuda, case):
+    """The whole table and column windows (2, 4 and 8 shards, one past
+    the table) against the plain version on the same card tensors, into
+    memory the allocator last held garbage in (the kernel stores every
+    word); one launch a call."""
+    bits, b2t, T = _repack_case(case)
+    plan = q.repack_plan(b2t, T)
+    dbits = q.bits_tensor(bits).to(cuda)
+    windows = [(0, None), (plan.W8p, 8)]
+    for nb in (2, 4, 8):
+        ws = -(-plan.W8p // (4 * nb)) * 4
+        windows += [(j * ws, ws) for j in range(nb)]
+    for c0, width in windows:
+        junk = torch.full((len(bits) * plan.W8p + 4096,), 0xA5,
+                          dtype=torch.uint8, device=cuda)
+        del junk
+        before = kernels.LAUNCHES["repack"]
+        got = q.repack_table(dbits, plan, c0=c0, width=width)
+        want = q.repack_table_plain(dbits, plan, c0=c0, width=width)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["repack"] == before + 1
+        assert got.shape == want.shape and torch.equal(got, want), (c0, width)
+    cpu = q.repack_table(q.bits_tensor(bits), plan)
+    assert torch.equal(q.repack_table(dbits, plan).cpu(), cpu)
+
+
+def test_repack_kernel_past_2_31_bytes(cuda):
+    """A table past 2^31 bytes (64-bit offsets): 2^20 + 3 rows of 2048
+    targets, one bin each; the rows past 2^31 bytes and a sample of the
+    rest against the plain version."""
+    T, R = 2048, (1 << 20) + 3
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dbits = torch.randint(-2**31, 2**31 - 1, (R, T // 32), generator=g,
+                          dtype=torch.int32, device=cuda)
+    plan = q.repack_plan(np.arange(T, dtype=np.int32), T)
+    got = q.repack_table(dbits, plan)
+    assert got.numel() > 2**31
+    rows = torch.cat([torch.arange(0, R, 4099, device=cuda),
+                      torch.arange(R - 70, R, device=cuda)])
+    want = q.repack_table_plain(dbits[rows].contiguous(), plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got[rows], want)
+    del got
+    torch.cuda.empty_cache()
+
+
+def test_repack_launch_failure_raises(cuda):
+    """A plan the C entry refuses (its map not whole u32 words of
+    destination bits) raises on the launch; nothing falls back."""
+    bits, b2t, T = _repack_case("uneven")
+    plan = q.repack_plan(b2t, T)
+    bad = dataclasses.replace(plan, src_of_dst=plan.src_of_dst[:-8])
+    dbits = q.bits_tensor(bits).to(cuda)
+    before = kernels.LAUNCHES["repack"]
+    with pytest.raises(RuntimeError, match="repack"):
+        q.repack_table(dbits, bad)
+    assert kernels.LAUNCHES["repack"] == before
+    with pytest.raises(ValueError, match="whole u32 words"):
+        q.repack_table(dbits, plan, c0=2)
+
+
+def test_filter_loads_on_cuda_never_repack_on_the_host(cuda, tmp_path,
+                                                       monkeypatch):
+    """Flat, forest and raptor loads on the card, alone and on a mesh of
+    views of the card, with the host repacks (``pack_table_u8`` and the
+    plain repack) made to raise: each load launches ``repack`` and its
+    tables equal the same load's on the CPU."""
+    from ganon_tpu_torch.index.builder import _HashExtractor
+    from ganon_tpu_torch.index.hibf import build_hibf
+    from ganon_tpu_torch.index.ibf import build_ibf
+    from ganon_tpu_torch.parallel.mesh import Mesh
+    from raptor_layout import write_raptor_layout
+
+    rng = np.random.default_rng(21)
+    sizes = (1500, 1700, 2500, 3000, 6000, 7000, 16000, 60000)
+    genomes = {f"T{t}": rng.integers(0, 4, size=n, dtype=np.uint8)
+               for t, n in enumerate(sizes)}
+    ex = _HashExtractor(19, 31, device="cpu")
+    for t, gn in genomes.items():
+        ex.add_encoded(t, gn)
+    th = ex.finish()
+    paths = {"flat": str(tmp_path / "db.ibf"),
+             "forest": str(tmp_path / "f.hibf"),
+             "raptor": str(tmp_path / "r.hibf")}
+    build_ibf(th, kmer_size=19, window_size=31, device="cpu").save_raw(
+        paths["flat"])
+    build_hibf(th, kmer_size=19, window_size=31, max_fp=0.05,
+               device="cpu").save(paths["forest"])
+    names = sorted(th)
+    write_raptor_layout(th, [(names[:3], [1]), (names[3:], [])],
+                        paths["raptor"], kmer_size=19, window_size=31,
+                        device="cpu")
+
+    def tables(f):
+        subs = getattr(f, "subs", [f])
+        out = []
+        for s in subs:
+            if s.tbl8 is not None:
+                out.append([s.tbl8.cpu()])
+            else:
+                out.append([sh.tbl8.cpu() for row in s.table.shards
+                            for sh in row])
+        return out
+
+    c0 = torch.device("cuda", torch.cuda.current_device())
+    cpu = torch.device("cpu")
+    want = {}
+    for key, path in paths.items():
+        for m in (None, (2, 2)):
+            mesh = m and Mesh([[cpu] * 2] * 2)
+            want[key, m] = tables(dev._open_filter(path, cpu, mesh))
+
+    def refuse(*a, **k):
+        raise AssertionError("a host repack ran on a card load")
+
+    monkeypatch.setattr(q, "repack_table_plain", refuse)
+    monkeypatch.setattr(q, "pack_table_u8", refuse)
+    for key, path in paths.items():
+        for m in (None, (2, 2)):
+            mesh = m and Mesh([[c0] * 2] * 2)
+            before = kernels.LAUNCHES["repack"]
+            f = dev._open_filter(path, c0, mesh)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["repack"] > before, (key, m)
+            got = tables(f)
+            assert len(got) == len(want[key, m])
+            for a, b in zip(got, want[key, m]):
+                assert all(torch.equal(x, y) for x, y in zip(a, b)), (key, m)

@@ -210,9 +210,10 @@ def test_sharded_table_fills_partials_only_for_the_tile_walk():
         ends = np.cumsum(widths).astype(np.int32)
         starts = np.concatenate([[0], ends[:-1]]).astype(np.int32)
         tbl8 = torch.zeros((16, W8), dtype=torch.uint8)
-        table = tdev.ShardedTable(tbl8, torch.from_numpy(starts),
-                                  torch.from_numpy(ends), len(widths), mesh,
-                                  bin_size=16, hash_functions=1)
+        table = tdev.ShardedTable(
+            q.shard_table(tbl8, torch.from_numpy(starts),
+                          torch.from_numpy(ends), 2, mesh.devices[0]),
+            len(widths), mesh, bin_size=16, hash_functions=1)
         assert table.fill_parts == fill, (W8, widths)
         assert all(s.device.type == "cpu" for s in table.spans)
 
@@ -235,24 +236,35 @@ def test_sharded_filter_from_packed_table(flat):
 
 
 def test_sharded_filter_uncached_cut_from_host(flat, monkeypatch):
-    """With nothing cached, a meshed load packs the table once on the
-    host and cuts it straight onto the shards' devices: no single-device
-    filter is made, and the counts equal one device's."""
+    """With nothing cached, a meshed load repacks each column shard on its
+    own device from the bit-matrix: no single-device filter and no whole
+    table are made, the shards equal the cut of one device's table, and
+    the counts equal one device's."""
     _, path = flat
     monkeypatch.setattr(tdev, "_FILTER_CACHE", {})
-    sources = []
+    windows = []
 
-    def spy(tbl8, *a, _real=tdev.shard_table, **k):
-        sources.append(tbl8)
-        return _real(tbl8, *a, **k)
+    def spy(bits, plan, *, _real=q.repack_table, **k):
+        windows.append((k.get("c0", 0), k.get("width")))
+        return _real(bits, plan, **k)
 
-    monkeypatch.setattr(tdev, "shard_table", spy)
+    monkeypatch.setattr(q, "repack_table", spy)
+    monkeypatch.setattr(tdev, "shard_table", None)  # nothing cuts a table
     mesh = _cpu_mesh(2, 4)
     meshed = tdev.load_device_filter(path, "cpu", mesh)
     assert len(tdev._FILTER_CACHE) == 1 and meshed.tbl8 is None
-    assert len(sources) == 1  # one cut, every batch row copies its shards
+    # one repack a shard, each its own window; every batch row copies them
+    ws = meshed.table.shards[0][0].tbl8.shape[1]
+    assert windows == [(j * ws, ws) for j in range(4)]
+    monkeypatch.undo()
     plain = tdev.DeviceFilter(IBF.load(path), "cpu")
-    assert torch.equal(sources[0], plain.tbl8)
+    cut = q.shard_table(plain.tbl8, plain.byte_starts, plain.byte_ends, 4)
+    for row in meshed.table.shards:
+        for s, c in zip(row, cut):
+            assert torch.equal(s.tbl8, c.tbl8)
+            assert torch.equal(s.byte_starts, c.byte_starts)
+            assert torch.equal(s.byte_ends, c.byte_ends)
+            assert (s.c0, s.t_lo, s.t_hi) == (c.c0, c.t_lo, c.t_hi)
     rng = np.random.default_rng(6)
     h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(11, 40)))
     n = torch.from_numpy(rng.integers(0, 41, size=11).astype(np.int32))
