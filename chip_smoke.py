@@ -144,7 +144,9 @@ longreads    the 32-bit counter layout (``select`` in its 32-bit mode) at
              path of their own (``tsum`` past one tile of targets, after
              its plan ``tsum_plan``), equal to their plain versions and
              the per-target two to the packed count, and the plan against
-             its plain version (row ``tsum_plan``);
+             its plain version (row ``tsum_plan``); ``repack`` of the wide
+             matrix whole against its plain version and the loaded
+             filter's table (row ``repack_wide``);
 hierarchy    524,288 pairs (25% from the forest's targets, 70% from the
              level-2 targets, 5% random) through the CLI with
              ``--db-prefix host db db_b --hierarchy-labels 1_host 2_refs
@@ -1101,6 +1103,13 @@ def main() -> int:
                       if "registers" in ln or "spill" in ln
                       or "Compiling entry" in ln]
         print(f"ptxas -v {src}:\n  " + "\n  ".join(ptxas[src]), flush=True)
+    # the repack kernel keeps its quads' words in registers: no spill
+    import re
+
+    spilled = [ln for ln in ptxas["repack.cu"]
+               if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    if spilled:
+        raise AssertionError(f"repack.cu spills: {spilled}")
     extract_blocks = kernels.library().ganon_extract_blocks_per_sm(19, 31)
     print(f"extract: {extract_blocks} blocks of 128 threads an SM at k 19, "
           f"w 31", flush=True)
@@ -1585,8 +1594,13 @@ def main() -> int:
         _repack_work(dbits, plan_db, 0, plan_db.W8p), runs=5)
     if not torch.equal(rtbl, f.tbl8):
         raise AssertionError("repack: differs from the loaded filter's table")
+    geo_db = q.repack_geometry(plan_db, *dbits.shape, 0, plan_db.W8p // 4)
     load_split = {"read_s": t1 - t0, "plan_s": t2 - t1, "upload_s": t3 - t2,
-                  "repack_card_ms": rows[-1]["device_ms"]}
+                  "repack_card_ms": rows[-1]["device_ms"],
+                  "repack_smem_bytes": geo_db.smem_bytes,
+                  "repack_blocks_per_sm":
+                  kernels.library().ganon_repack_blocks_per_sm(
+                      geo_db.smem_bytes)}
     # a mesh load's narrow window: shard 1 of 4 of db's table (64 words a
     # row, four rows a block step)
     ws = q.shard_spans(plan_db.W8p, plan_db.byte_starts, plan_db.byte_ends,
@@ -2620,6 +2634,20 @@ def main() -> int:
                              "count")
     wide_ops_ms = {n_: v[1:3] for n_, v in wide_ops.items()}
     wide_ops_device_ms = {n_: v[3] for n_, v in wide_ops.items()}
+    # the wide filter's whole matrix (rows of 2188 words) repacked into its
+    # table, against the plain version and the loaded filter's table
+    wplan = q.repack_plan(wb2t, Tw)
+    (wtbl,) = compare(
+        "repack_wide", "ganon_tpu_torch/csrc/repack.cu",
+        "ganon_tpu/ops/ibf_query.py:162",
+        lambda: (q.repack_table(wbits_d, wplan),),
+        lambda: (q.repack_table_plain(wbits_d, wplan),), 5, 1,
+        _repack_work(wbits_d, wplan, 0, wplan.W8p), runs=5,
+        counted_as="repack")
+    if not torch.equal(wtbl, fw.tbl8):
+        raise AssertionError("repack_wide: differs from the loaded filter's "
+                             "table")
+    del wtbl
     del fw, wh, wn, wo, wcounts, wsel, wbatch, win_np, a_, b_, wbits
     del wbits_d, wb2t_d, wcodes, woh, won, wrows, wmask, wide_ops, wpacked
     del wseg, wperm_d

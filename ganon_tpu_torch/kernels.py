@@ -172,9 +172,12 @@ _SIGNATURES = {
     # tbl, R, rows, N, partials, max_blocks (the partials' rows), status,
     # out
     "gather_probe": (_P, _L, _P, _L, _P, _I, _P, _P),
-    # bits, R, W, src_of_dst, n_dst, c0w (the first word column), wc (the
-    # output's words a row), tbl
-    "repack": (_P, _L, _L, _P, _L, _L, _L, _P),
+    # bits, R, W, runs, col_runs, n_dst (the plan's destination bits),
+    # tiles, n_tiles, c0w (the first word column), wc (the output's words
+    # a row), cq, nrb, stage_words, desc_cap, col_cap
+    # (ops.ibf_query.repack_geometry), tbl
+    "repack": (_P, _L, _L, _P, _P, _L, _P, _I, _L, _L, _I, _I, _I, _I, _I,
+               _P),
 }
 
 # launch counters: each kernel, plus the modes counted apart
@@ -263,6 +266,8 @@ def library() -> ctypes.CDLL:
         lib.ganon_set_device.restype = ctypes.c_int
         lib.ganon_extract_blocks_per_sm.argtypes = [ctypes.c_int] * 2
         lib.ganon_extract_blocks_per_sm.restype = ctypes.c_int
+        lib.ganon_repack_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.ganon_repack_blocks_per_sm.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -43,6 +43,7 @@ tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from dataclasses import dataclass
 
@@ -98,6 +99,12 @@ def ibf_row_indices_np(hashes: np.ndarray, *, bin_size: int, hash_functions: int
     return rows
 
 
+# output word columns of a plan tile: the plan keeps the span of source
+# words each tile's runs name (csrc/repack.cu's column tiles are made of
+# whole plan tiles, so a window copies only its tiles' spans)
+REPACK_TILE_WORDS = 32
+
+
 @dataclass(frozen=True)
 class RepackPlan:
     """Where every bit of the query table comes from: the host half of the
@@ -108,6 +115,16 @@ class RepackPlan:
     u32 words (:func:`table_as_u32`'s padding); ``src_of_dst`` (int32
     ``[W8p * 8]``) the source bin of each destination bit, -1 for a padding
     bit; ``n_bins`` the least technical bins a source row must hold.
+
+    The same map as runs, which the ``repack`` kernel reads: a run is
+    ``run_len`` consecutive kept destination bits of one output word,
+    from bit ``run_dst`` on, taken from consecutive bits of source word
+    ``run_word`` from bit ``run_bit`` on (all int32 ``[n_runs]``; a run
+    never crosses a source or a destination word). Word column ``c``'s
+    runs are ``col_runs[c]:col_runs[c + 1]`` (int32 ``[W8p // 4 + 1]``),
+    ordered by source word, then destination bit. Plan tile ``t`` (word
+    columns ``[t, t + 1) * REPACK_TILE_WORDS``) names source words
+    ``[tile_lo[t], tile_hi[t])`` (int32; both 0 where it has no run).
     """
 
     byte_starts: np.ndarray
@@ -116,6 +133,58 @@ class RepackPlan:
     W8p: int
     src_of_dst: np.ndarray
     n_bins: int
+    run_word: np.ndarray
+    run_bit: np.ndarray
+    run_dst: np.ndarray
+    run_len: np.ndarray
+    col_runs: np.ndarray
+    tile_lo: np.ndarray
+    tile_hi: np.ndarray
+
+    @functools.cached_property
+    def kernel_runs(self) -> np.ndarray:
+        """The runs as the ``repack`` kernel reads them, int32 ``[n_runs,
+        2]``: (source word << 5 | right rotation, destination mask)."""
+        rot = (self.run_bit - self.run_dst) & 31
+        mask = ((np.left_shift(1, self.run_len.astype(np.int64)) - 1)
+                << self.run_dst.astype(np.int64)).astype(np.uint32)
+        return np.stack([(self.run_word << 5) | rot, mask.view(np.int32)],
+                        axis=1)
+
+
+def _runs(src_of_dst: np.ndarray):
+    """(run_word, run_bit, run_dst, run_len, col_runs, tile_lo, tile_hi)
+    of a destination map (see :class:`RepackPlan`). No loop."""
+    n_cols = len(src_of_dst) // 32
+    d = np.flatnonzero(src_of_dst >= 0)
+    s = src_of_dst[d].astype(np.int64)
+    # a run breaks where either side's bits stop being consecutive, and at
+    # every destination or source word edge
+    brk = np.ones(len(d), dtype=bool)
+    brk[1:] = ((d[1:] != d[:-1] + 1) | (s[1:] != s[:-1] + 1)
+               | (d[1:] % 32 == 0) | (s[1:] % 32 == 0))
+    first = np.flatnonzero(brk)
+    length = np.diff(np.append(first, len(d)))
+    dst, src = d[first], s[first]
+    col, word = dst // 32, src // 32
+    key = col << 37 | word << 5 | dst % 32
+    if (np.diff(key) < 0).any():  # a column names words out of order
+        order = np.argsort(key, kind="stable")
+        col, word, dst, src, length = (a[order] for a in (col, word, dst,
+                                                          src, length))
+    col_runs = np.zeros(n_cols + 1, dtype=np.int64)
+    np.cumsum(np.bincount(col, minlength=n_cols), out=col_runs[1:])
+    n_tiles = -(-n_cols // REPACK_TILE_WORDS)
+    tile_lo = np.zeros(n_tiles, dtype=np.int32)
+    tile_hi = np.zeros(n_tiles, dtype=np.int32)
+    if len(col):
+        tile = col // REPACK_TILE_WORDS
+        at = np.flatnonzero(np.r_[True, tile[1:] != tile[:-1]])
+        tile_lo[tile[at]] = np.minimum.reduceat(word, at)
+        tile_hi[tile[at]] = np.maximum.reduceat(word, at) + 1
+    i32 = np.int32
+    return (word.astype(i32), (src % 32).astype(i32), (dst % 32).astype(i32),
+            length.astype(i32), col_runs.astype(i32), tile_lo, tile_hi)
 
 
 def repack_plan(bin_to_target, num_targets: int) -> RepackPlan:
@@ -124,7 +193,7 @@ def repack_plan(bin_to_target, num_targets: int) -> RepackPlan:
     empty raptor bin): the byte layout of ``ganon_tpu.ops.ibf_query.
     pack_table_u8`` (every target's bins, in bin order, at the start of a
     byte-aligned range padded to whole bytes; an empty target a zero-width
-    range). No loop over rows or bins."""
+    range), and its runs. No loop over rows or bins."""
     b2t = np.asarray(bin_to_target)
     order = np.argsort(b2t, kind="stable")
     sorted_t = b2t[order]
@@ -149,7 +218,9 @@ def repack_plan(bin_to_target, num_targets: int) -> RepackPlan:
         byte_starts=(pstarts // 8).astype(np.int32),
         byte_ends=((pstarts + pad_w) // 8).astype(np.int32),
         W8=W8, W8p=W8p, src_of_dst=src_of_dst,
-        n_bins=int(src_bins.max()) + 1 if n_real else 0)
+        n_bins=int(src_bins.max()) + 1 if n_real else 0,
+        **dict(zip(("run_word", "run_bit", "run_dst", "run_len", "col_runs",
+                    "tile_lo", "tile_hi"), _runs(src_of_dst))))
 
 
 def bits_tensor(bits: np.ndarray) -> torch.Tensor:
@@ -217,6 +288,108 @@ def repack_table_plain(bits: torch.Tensor, plan: RepackPlan, *, c0: int = 0,
     return out
 
 
+# csrc/repack.cu's launch geometry, kept equal to its constants: threads a
+# block (kThreads), rows a thread builds of each of its words (kRows),
+# plan tiles a kernel column tile (128 words, a warp's 512 bytes of a
+# row), the most words a ring stage holds, the ring's stages (kStages)
+_REPACK_THREADS = 256
+_REPACK_ROWS = 8
+_REPACK_KTILES = 4
+_REPACK_STAGE_WORDS = 8192
+_REPACK_STAGES = 4
+# a column tile's source: read through L1 (too wide a span for a stage,
+# or no run), staged a row segment at a time, or staged as whole rows
+REPACK_DIRECT, REPACK_SEGMENTS, REPACK_SLAB = 0, 1, 2
+
+
+@dataclass(frozen=True)
+class RepackGeometry:
+    """One ``repack`` launch's plan for the window of word columns
+    ``[c0w, c0w + wc)`` of ``R`` rows of ``W`` source words.
+
+    A column tile is the window's part of one kernel tile (``_REPACK_KTILES``
+    plan tiles). In each row an aligned 16-byte quad of output words
+    belongs to the tile that holds its first word in the window, so a tile
+    owns window columns ``[xa, xb)`` and may store up to 3 more, and its
+    runs are those of columns ``[xa, xd)``. ``tiles`` is int32 ``[n, 8]``:
+    ``xa, xb, xd``, the runs ``ra:rb``, the first source word ``lo`` and
+    the ``span`` its plan tiles name, and the ``mode`` that reads them.
+    A block's threads take ``cq`` quad slots (one more than a tile's
+    quads where the window cuts them unaligned) by ``nrb`` row batches of
+    ``_REPACK_ROWS`` rows; ``stage_words`` is a ring stage's size,
+    ``desc_cap`` the most runs and ``col_cap`` the most offsets a tile
+    keeps in shared memory.
+    """
+
+    tiles: np.ndarray
+    cq: int
+    nrb: int
+    stage_words: int
+    desc_cap: int
+    col_cap: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """The launch's dynamic shared memory: the ring, the runs (in
+        whole blocks of 16) and the CSR offsets."""
+        return (4 * _REPACK_STAGES * self.stage_words
+                + 8 * -(-self.desc_cap // 16) * 16 + 4 * self.col_cap)
+
+
+def repack_geometry(plan: RepackPlan, R: int, W: int, c0w: int,
+                    wc: int) -> RepackGeometry:
+    """The ``repack`` kernel's tiles for word columns ``[c0w, c0w + wc)``
+    (``wc`` >= 1) of ``R`` rows of ``W`` source words (vectorised over
+    tiles)."""
+    n_cols = len(plan.col_runs) - 1
+    kt = REPACK_TILE_WORDS * _REPACK_KTILES
+    odd = bool(wc % 4 or c0w % 4)
+    cq = -(-min(kt, wc) // 4) + odd
+    nrb = _REPACK_THREADS // cq
+    if wc % 4:  # a thread's rows share their place in the 16-byte grid
+        nrb = nrb // 4 * 4
+    rows = min(nrb * _REPACK_ROWS, R)
+    k = np.arange(c0w // kt, (c0w + wc - 1) // kt + 1, dtype=np.int64)
+    xa = np.maximum(k * kt - c0w, 0)
+    xb = np.minimum((k + 1) * kt - c0w, wc)
+    xd = np.minimum(xb + 3, wc) if odd else xb
+    ga = np.minimum(c0w + xa, n_cols)
+    gd = np.minimum(c0w + xd, n_cols)
+    ra = plan.col_runs[ga].astype(np.int64)
+    rb = plan.col_runs[gd].astype(np.int64)
+    # the span: the plan tiles that columns [ga, gd) meet (at most five)
+    lo = np.full(len(k), np.iinfo(np.int64).max)
+    hi = np.zeros(len(k), dtype=np.int64)
+    named = plan.tile_hi > plan.tile_lo
+    for o in range(_REPACK_KTILES + 1 if len(named) else 0):
+        t = ga // REPACK_TILE_WORDS + o
+        tc = np.minimum(t, len(named) - 1)
+        ok = (t * REPACK_TILE_WORDS < gd) & named[tc]
+        lo = np.where(ok, np.minimum(lo, plan.tile_lo[tc]), lo)
+        hi = np.where(ok, np.maximum(hi, plan.tile_hi[tc]), hi)
+    lo = np.where(rb > ra, lo, 0)
+    span = np.where(rb > ra, hi - lo, 0)
+    pitch = (span + 6) // 4 * 4  # a row segment, 16-byte aligned as in memory
+    slab = W <= pitch
+    need = np.where(slab, (rows * W + 6) // 4 * 4, rows * pitch)
+    staged = (rb > ra) & (need <= _REPACK_STAGE_WORDS)
+    mode = np.where(staged, np.where(slab, REPACK_SLAB, REPACK_SEGMENTS),
+                    REPACK_DIRECT)
+    tiles = np.stack([xa, xb, xd, ra, rb, lo, span, mode], axis=1)
+    return RepackGeometry(
+        tiles=np.ascontiguousarray(tiles, dtype=np.int32), cq=cq, nrb=nrb,
+        stage_words=int(need[staged].max()) if staged.any() else 4,
+        desc_cap=max(int((rb - ra).max()), 1),
+        col_cap=int((xd - xa).max()) + 1)
+
+
+def _repack_args(plan: RepackPlan, geo: RepackGeometry) -> np.ndarray:
+    """One int32 buffer for the kernel: the tiles (int4 pairs), the
+    plan's ``kernel_runs``, then ``col_runs``."""
+    return np.concatenate([geo.tiles.ravel(), plan.kernel_runs.ravel(),
+                           plan.col_runs])
+
+
 def repack_table(bits: torch.Tensor, plan: RepackPlan, *, c0: int = 0,
                  width: int | None = None) -> torch.Tensor:
     """The query table's byte columns ``[c0, c0 + width)`` (default: the
@@ -224,19 +397,28 @@ def repack_table(bits: torch.Tensor, plan: RepackPlan, *, c0: int = 0,
     bit-matrix ``bits`` (int32 ``[R, W]``) by ``plan``; bytes past
     ``W8p`` are zero. ``c0`` and ``width`` are multiples of 4.
 
-    Given CUDA tensors, the ``repack`` kernel (``csrc/repack.cu``) stores
-    every output word once (no fill); given CPU tensors, the plain version.
+    Given CUDA tensors, the ``repack`` kernel (``csrc/repack.cu``: the
+    plan's runs over source words staged in shared memory) stores every
+    output word once (no fill); given CPU tensors, the plain version.
     """
     width = _check_repack(bits, plan, c0, width)
     if bits.device.type == "cpu":
         return repack_table_plain(bits, plan, c0=c0, width=width)
     kernels.check_cuda(bits)
-    R = bits.shape[0]
+    R, W = bits.shape
     out = torch.empty((R, width), dtype=torch.uint8, device=bits.device)
     if R and width:
-        src = torch.from_numpy(plan.src_of_dst).to(bits.device)
-        kernels.launch("repack", bits, R, bits.shape[1], src, src.numel(),
-                       c0 // 4, width // 4, out)
+        geo = repack_geometry(plan, R, W, c0 // 4, width // 4)
+        # through pinned memory, so the upload does not wait on the stream
+        buf = torch.from_numpy(_repack_args(plan, geo)).pin_memory().to(
+            bits.device, non_blocking=True)
+        n = len(geo.tiles)
+        base = buf.data_ptr()
+        kernels.launch("repack", bits, R, W, base + 32 * n,
+                       base + 32 * n + 8 * len(plan.run_word),
+                       len(plan.src_of_dst), base, n, c0 // 4, width // 4,
+                       geo.cq, geo.nrb, geo.stage_words, geo.desc_cap,
+                       geo.col_cap, out)
     return out
 
 
@@ -853,7 +1035,8 @@ def shard_table(tbl8: torch.Tensor, byte_starts, byte_ends, nb: int,
     :func:`shard_spans` says, so the table is never repacked. Shard ``j``
     is allocated on ``devices[j]`` (default: ``tbl8``'s device) and its
     slice copied straight there from ``tbl8`` (a host table or one on a
-    card), so no device holds more than its own shards beside ``tbl8``.
+    card), so no device holds more than its own shards beside ``tbl8``;
+    only its bytes past ``W8`` are zero-filled.
     """
     R, W8 = tbl8.shape
     ws, spans = shard_spans(W8, byte_starts, byte_ends, nb)
@@ -861,10 +1044,12 @@ def shard_table(tbl8: torch.Tensor, byte_starts, byte_ends, nb: int,
         devices = [tbl8.device] * nb
     shards = []
     for (c0, t_lo, t_hi, bs, be), d in zip(spans, devices):
-        part = torch.zeros((R, ws), dtype=torch.uint8, device=d)
+        part = torch.empty((R, ws), dtype=torch.uint8, device=d)
         w = max(0, min(ws, W8 - c0))
         if w:
             part[:, :w].copy_(tbl8[:, c0:c0 + w])
+        if w < ws:
+            part[:, w:].zero_()
         shards.append(TableShard(part, torch.from_numpy(bs).to(d),
                                  torch.from_numpy(be).to(d), c0, t_lo, t_hi))
     return shards

@@ -76,10 +76,13 @@ against one launch a sub.
 The filter load's repack: the whole table and column windows at db's
 one-bin-a-target shape (row runs of 63, 65 and 1 rows), the wide
 filter's 2188-word rows, uneven, shuffled and dropped bins and a W8 off
-4, into garbage-filled memory; a table past 2^31 bytes; a refused
-launch raises; and flat, forest and raptor loads on the card (alone
-and on a mesh of views) with the host repacks made to raise, equal to
-the CPU's loads.
+4, into garbage-filled memory; rows of 2 and 3 words, a view 12 bytes
+off 16, fewer rows than a ring stage and one past three stages, runs cut
+at source-word edges, a shuffled wide layout read in place, windows off
+the 16-byte grid, and 200 calls on two streams; a table past 2^31 bytes;
+a refused launch raises; and flat, forest and raptor loads on the card
+(alone and on a mesh of views) with the host repacks made to raise,
+equal to the CPU's loads.
 Each test skips on a host without CUDA (the kernels have no CPU mode);
 on the H100 run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (the suite's ``conftest.py`` imports jax, which that machine lacks).
@@ -2526,6 +2529,23 @@ def _repack_case(case):
         T = 5
         b2t = np.full(32, T, dtype=np.int32)
         b2t[:T] = np.arange(T)
+    elif case == "two_words":  # a 64-bin forest or raptor sub
+        T = 64
+        b2t = np.arange(T, dtype=np.int32)
+    elif case == "three_words":  # uneven targets over 3-word rows
+        T = 40
+        b2t = np.full(96, T, dtype=np.int32)
+        cuts = np.sort(rng.choice(np.arange(1, 90), T - 1, replace=False))
+        b2t[:90] = np.repeat(np.arange(T), np.diff(np.r_[0, cuts, 90]))
+    elif case == "cross_words":  # 20 bins a target from bin 5: runs cut
+        T = 30                   # at source-word edges
+        b2t = np.full(640, T, dtype=np.int32)
+        b2t[5:605] = np.repeat(np.arange(T), 20)
+    elif case == "shuffled_wide":  # tiles name words all over 2188
+        T = 2000
+        b2t = np.full(2188 * 32, T, dtype=np.int32)
+        b2t[:T] = np.arange(T)
+        b2t = rng.permutation(b2t)
     else:
         raise KeyError(case)
     bits = rng.integers(0, 2**32, size=(R, len(b2t) // 32), dtype=np.uint32)
@@ -2559,6 +2579,85 @@ def test_repack_kernel_matches_plain(cuda, case):
         assert got.shape == want.shape and torch.equal(got, want), (c0, width)
     cpu = q.repack_table(q.bits_tensor(bits), plan)
     assert torch.equal(q.repack_table(dbits, plan).cpu(), cpu)
+
+
+def _repack_windows(plan):
+    """The whole table, one window past it, and the windows of 2, 3, 4
+    and 8 shards (3 cuts most tables off the 16-byte grid)."""
+    windows = [(0, None), (plan.W8p, 8)]
+    for nb in (2, 3, 4, 8):
+        ws = -(-plan.W8p // (4 * nb)) * 4
+        windows += [(j * ws, ws) for j in range(nb)]
+    return windows
+
+
+@pytest.mark.parametrize("case", ["two_words", "three_words", "view_off_16",
+                                  "below_a_stage", "stage_plus_one",
+                                  "cross_words", "shuffled_wide"])
+def test_repack_kernel_edge_cases(cuda, case):
+    """Source rows of 2 and 3 words; a view of 3-word rows one row in (12
+    bytes past a 16-byte boundary); fewer rows than one ring stage holds,
+    and one row past three stages; runs cut at source-word edges; a
+    shuffled wide layout whose column tiles name more words than a stage
+    holds (read in place). Each window against the plain version on the
+    same card tensors, into memory last filled with garbage, one launch
+    a call."""
+    layout = {"view_off_16": "three_words", "below_a_stage": "one_bin",
+              "stage_plus_one": "one_bin"}.get(case, case)
+    bits, b2t, T = _repack_case(layout)
+    plan = q.repack_plan(b2t, T)
+    W = bits.shape[1]
+    if case in ("below_a_stage", "stage_plus_one"):
+        rows = q.repack_geometry(plan, 1 << 20, W, 0, plan.W8p // 4).nrb * \
+            q._REPACK_ROWS
+        R = rows - 5 if case == "below_a_stage" else 3 * rows + 1
+        bits = np.random.default_rng(R).integers(0, 2**32, size=(R, W),
+                                                 dtype=np.uint32)
+    dbits = q.bits_tensor(bits).to(cuda)
+    if case == "view_off_16":
+        dbits = dbits[1:]
+        assert dbits.data_ptr() % 16 == 12 and dbits.is_contiguous()
+    R = dbits.shape[0]
+    modes = set(q.repack_geometry(plan, R, W, 0, plan.W8p // 4).tiles[:, 7])
+    if case == "shuffled_wide":
+        assert q.REPACK_DIRECT in modes
+    elif case == "cross_words":
+        assert (plan.run_len < 20).any() and (plan.run_bit == 0).any()
+    for c0, width in _repack_windows(plan):
+        junk = torch.full((R * plan.W8p + 4096,), 0xA5, dtype=torch.uint8,
+                          device=cuda)
+        del junk
+        before = kernels.LAUNCHES["repack"]
+        got = q.repack_table(dbits, plan, c0=c0, width=width)
+        want = q.repack_table_plain(dbits, plan, c0=c0, width=width)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["repack"] == before + 1
+        assert got.shape == want.shape and torch.equal(got, want), (c0, width)
+
+
+def test_repack_kernel_back_to_back_on_two_streams(cuda):
+    """200 calls queued back to back, alternating between two streams
+    (the ring's copy groups and barriers of many launches in flight at
+    once), each equal to the plain version of its window."""
+    bits, b2t, T = _repack_case("uneven")
+    plan = q.repack_plan(b2t, T)
+    dbits = q.bits_tensor(bits).to(cuda)
+    windows = _repack_windows(plan)
+    want = [q.repack_table_plain(dbits, plan, c0=c0, width=width)
+            for c0, width in windows]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+    before = kernels.LAUNCHES["repack"]
+    got = []
+    for i in range(200):
+        with torch.cuda.stream(streams[i % 2]):
+            c0, width = windows[i % len(windows)]
+            got.append(q.repack_table(dbits, plan, c0=c0, width=width))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["repack"] == before + 200
+    for i, g in enumerate(got):
+        assert torch.equal(g, want[i % len(windows)]), i
 
 
 def test_repack_kernel_past_2_31_bytes(cuda):

@@ -206,7 +206,257 @@ def test_bits_tensor_aliases_a_read_only_memmap(tmp_path):
 
 
 # --------------------------------------------------------------------------
-# the loaders' tables against the JAX loaders'
+# the plan's runs and tile spans, and a numpy walk of the kernel
+
+
+def _windows(plan, nbs=(2, 4, 8)):
+    """The whole table, one window past it, and every window of 2, 4 and
+    8 shards, as (c0, width) in bytes."""
+    out = [(0, plan.W8p), (plan.W8p, 8)]
+    for nb in nbs:
+        ws = -(-plan.W8p // (4 * nb)) * 4
+        out += [(j * ws, ws) for j in range(nb)]
+    return out
+
+
+def _rebuild(plan):
+    """src_of_dst from the runs alone."""
+    src = np.full(plan.W8p * 8, -1, dtype=np.int64)
+    col = np.repeat(np.arange(len(plan.col_runs) - 1), np.diff(plan.col_runs))
+    for c, w, b, d, n in zip(col, plan.run_word, plan.run_bit, plan.run_dst,
+                             plan.run_len):
+        src[c * 32 + d:c * 32 + d + n] = w * 32 + b + np.arange(n)
+    return src
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_runs_and_spans_rebuild_the_map(name):
+    """The runs rebuild ``src_of_dst`` exactly; each stays inside one
+    source and one destination word, ordered by source word within its
+    column; each plan tile's span is the least interval holding its
+    runs' words; and each window's tiles of the kernel geometry own every
+    column once, hold exactly its columns' runs, and span their words."""
+    bits, b2t, T = _case(name)
+    plan = q.repack_plan(b2t, T)
+    assert np.array_equal(_rebuild(plan), plan.src_of_dst)
+    for a in (plan.run_word, plan.run_bit, plan.run_dst, plan.run_len,
+              plan.col_runs, plan.tile_lo, plan.tile_hi):
+        assert a.dtype == np.int32
+    assert (plan.run_len >= 1).all()
+    assert (plan.run_bit + plan.run_len <= 32).all()
+    assert (plan.run_dst + plan.run_len <= 32).all()
+    assert len(plan.col_runs) == plan.W8p // 4 + 1
+    # the kernel's form: a run's first source bit rotated onto its first
+    # destination bit, its mask the run's bits
+    kr = plan.kernel_runs
+    assert kr.dtype == np.int32 and kr.shape == (len(plan.run_word), 2)
+    assert np.array_equal(kr[:, 0] >> 5, plan.run_word)
+    rot = (kr[:, 0] & 31).astype(np.int64)
+    first = np.left_shift(1, plan.run_bit.astype(np.int64))
+    rotated = ((first >> rot) | (first << ((32 - rot) & 31))) & 0xFFFFFFFF
+    mask = kr[:, 1].view(np.uint32).astype(np.int64)
+    assert np.array_equal(rotated & mask, 1 << plan.run_dst.astype(np.int64))
+    assert np.array_equal(mask >> plan.run_dst,
+                          (1 << plan.run_len.astype(np.int64)) - 1)
+    col = np.repeat(np.arange(plan.W8p // 4), np.diff(plan.col_runs))
+    key = col.astype(np.int64) << 40 | plan.run_word.astype(np.int64) << 5 \
+        | plan.run_dst
+    assert (np.diff(key) > 0).all()
+    tw = q.REPACK_TILE_WORDS
+    assert len(plan.tile_lo) == -(-(plan.W8p // 4) // tw)
+    for t in range(len(plan.tile_lo)):
+        words = plan.run_word[(col >= t * tw) & (col < (t + 1) * tw)]
+        want = (words.min(), words.max() + 1) if len(words) else (0, 0)
+        assert (plan.tile_lo[t], plan.tile_hi[t]) == want
+    R, W = bits.shape
+    for c0, width in _windows(plan):
+        c0w, wc = c0 // 4, width // 4
+        geo = q.repack_geometry(plan, R, W, c0w, wc)
+        xa, xb, xd, ra, rb, lo, span, mode = geo.tiles.T
+        assert xa[0] == 0 and xb[-1] == wc and (xa[1:] == xb[:-1]).all()
+        assert (xd >= xb).all() and (xd <= np.minimum(xb + 3, wc)).all()
+        n_cols = plan.W8p // 4
+        for t in range(len(xa)):
+            cols = np.arange(c0w + xa[t], c0w + xd[t])
+            cols = cols[cols < n_cols]
+            runs = np.flatnonzero(np.isin(col, cols))
+            assert np.array_equal(runs, np.arange(ra[t], rb[t]))
+            words = plan.run_word[runs]
+            assert (words >= lo[t]).all() and (words < lo[t] + span[t]).all()
+            assert (mode[t] == q.REPACK_DIRECT) == (
+                not len(runs) or mode[t] == q.REPACK_DIRECT)
+        assert geo.desc_cap >= (rb - ra).max()
+        assert geo.col_cap >= (xd - xa).max() + 1
+        assert geo.cq * geo.nrb <= q._REPACK_THREADS
+
+
+def _walk(bits, plan, c0, width, off0=0):
+    """A numpy walk of ``csrc/repack.cu`` over ``[c0, c0 + width)``: for
+    each column tile and row tile, the source words copied into a stage
+    of garbage as the kernel stages them (a row segment 16-byte aligned
+    as in memory, whole rows, or none: read in place), ``off0`` the
+    source pointer's word offset in its 16 bytes; then each thread's
+    quad of words over its rows, OR-ing its columns' runs (a rotation and
+    a mask each), and its stores (16 bytes where the quad is whole and
+    aligned). Returns the table, every word stored exactly once."""
+    R, W = bits.shape
+    c0w, wc = c0 // 4, width // 4
+    flat = bits.reshape(-1).astype(np.uint32)
+    out = np.full(R * wc, 0xDEADBEEF, dtype=np.uint32)
+    stored = np.zeros(R * wc, dtype=np.int64)
+    geo = q.repack_geometry(plan, R, W, c0w, wc)
+    n_cols = len(plan.col_runs) - 1
+    rot = ((plan.run_bit - plan.run_dst) & 31).astype(np.uint32)
+    mask = (((np.uint64(1) << plan.run_len.astype(np.uint64)) - np.uint64(1))
+            << plan.run_dst.astype(np.uint64)).astype(np.uint32)
+    rows = q._REPACK_ROWS
+    rt_rows = geo.nrb * rows
+    tid = np.arange(geo.cq * geo.nrb)
+    s, b = tid % geo.cq, tid // geo.cq
+    h = (-(b * wc)) & 3
+    k = np.arange(rows)
+    for xa, xb, xd, ra, rb, lo, span, mode in geo.tiles.astype(np.int64):
+        assert rb - ra <= geo.desc_cap and xd - xa + 1 <= geo.col_cap
+        dw = plan.run_word[ra:rb].astype(np.int64) - lo
+        off = plan.col_runs[np.minimum(c0w + xa + np.arange(xd - xa + 1),
+                                       n_cols)].astype(np.int64) - ra
+        qa = np.where((xa == 0) & (h > 0), -1, -((h - xa) // 4))
+        qq = qa + s
+        live = qq < -((h - xb) // 4)
+        x0 = h + 4 * qq
+        for r0 in range(0, R, rt_rows):
+            nrows = min(rt_rows, R - r0)
+            rr = b[:, None] + k[None, :] * geo.nrb  # [threads, rows]
+            ok = rr < nrows
+            stage = np.full(geo.stage_words, 0xA5A5A5A5, dtype=np.uint32)
+            if mode == q.REPACK_SEGMENTS:
+                pitch = (span + 6) // 4 * 4
+                for i in range(nrows):
+                    a = off0 + (r0 + i) * W + lo
+                    d = i * pitch + (a & 3)
+                    assert d + span <= (i + 1) * pitch
+                    g = (r0 + i) * W + lo
+                    stage[d:d + span] = flat[g:g + span]
+                base = rr * pitch + ((off0 + (r0 + rr) * W + lo) & 3)
+            elif mode == q.REPACK_SLAB:
+                a = off0 + r0 * W
+                assert (a & 3) + nrows * W <= geo.stage_words
+                stage[(a & 3):(a & 3) + nrows * W] = \
+                    flat[r0 * W:(r0 + nrows) * W]
+                base = (a & 3) + rr * W + lo
+            else:
+                base = np.minimum(r0 + rr, R - 1) * W + lo
+            src = flat if mode == q.REPACK_DIRECT else stage
+            for j in range(4):
+                x = x0 + j
+                valid = live & (x >= 0) & (x < wc)
+                i = np.where(valid, x - xa, 0)
+                p0, p1 = off[i], off[i + 1]
+                acc = np.zeros((len(tid), rows), dtype=np.uint32)
+                for m in range(int((p1 - p0)[valid].max(initial=0))):
+                    p = p0 + m
+                    on = valid & (p < p1)
+                    pc = np.where(on, p, 0)
+                    idx = base + dw[pc][:, None] if len(dw) else base
+                    assert (idx[on][ok[on]] >= 0).all()
+                    v = src[np.where(ok & on[:, None], idx, 0)]
+                    rr_ = rot[ra + pc][:, None]
+                    v = (v >> rr_) | (v << ((32 - rr_) & 31))
+                    acc |= np.where(on[:, None], v & mask[ra + pc][:, None],
+                                    0).astype(np.uint32)
+                at = ((r0 + rr) * wc + x[:, None])[valid[:, None] & ok]
+                out[at] = acc[valid[:, None] & ok]
+                np.add.at(stored, at, 1)
+            # a whole quad's four words lie in one aligned 16 bytes
+            whole = live & (x0 >= 0) & (x0 + 4 <= wc)
+            assert (((r0 + rr) * wc + x0[:, None])[whole[:, None] & ok]
+                    % 4 == 0).all()
+    assert (stored == 1).all()
+    return out.view(np.uint8).reshape(R, width)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_kernel_walk_matches_plain_and_jax(name):
+    """The kernel's algorithm, walked in numpy on the plan's runs, tiles
+    and staged spans, equals the plain version on the whole table, one
+    window past it and every 2, 4 and 8 shard window, at each offset of
+    the source pointer in its 16 bytes; the whole table is the JAX
+    package's ``pack_table_u8`` + ``table_as_u32``."""
+    bits, b2t, T = _case(name)
+    plan = q.repack_plan(b2t, T)
+    bt = q.bits_tensor(bits)
+    assert np.array_equal(_walk(bits.view(np.int32), plan, 0, plan.W8p),
+                          _jax_table(bits, b2t, T)[0])
+    for i, (c0, width) in enumerate(_windows(plan)):
+        want = q.repack_table_plain(bt, plan, c0=c0, width=width).numpy()
+        got = _walk(bits.view(np.int32), plan, c0, width, off0=i % 4)
+        assert np.array_equal(got, want), (c0, width)
+
+
+def _layout(kind, rng):
+    """(bin_to_target, T) of the walk's further layouts."""
+    if kind == "two-word-rows":  # a 64-bin forest or raptor sub
+        return np.arange(64, dtype=np.int32), 64
+    if kind == "three-word-rows":
+        T = 40
+        b2t = np.full(96, T, dtype=np.int32)
+        b2t[:90] = np.repeat(np.arange(T), np.diff(
+            np.r_[0, np.sort(rng.choice(np.arange(1, 90), T - 1,
+                                        replace=False)), 90]))
+        return b2t, T
+    if kind == "runs-cross-words":  # 20 bins a target from bin 5 on
+        T = 30
+        b2t = np.full(640, T, dtype=np.int32)
+        b2t[5:605] = np.repeat(np.arange(T), 20)
+        return b2t, T
+    if kind == "one-bin-wide":  # db's shape over several column tiles
+        T = 2000
+        b2t = np.full(2016, T, dtype=np.int32)
+        b2t[:T] = np.arange(T)
+        return b2t, T
+    if kind == "shuffled-wide":  # a column tile names words all over a row
+        T = 2000
+        b2t = np.full(2188 * 32, T, dtype=np.int32)
+        b2t[:T] = np.arange(T)
+        return rng.permutation(b2t), T
+    raise KeyError(kind)
+
+
+@pytest.mark.parametrize("rows", ["below-a-stage", "one-past-stages"])
+@pytest.mark.parametrize("kind", ["two-word-rows", "three-word-rows",
+                                  "runs-cross-words", "one-bin-wide",
+                                  "shuffled-wide"])
+def test_kernel_walk_edge_layouts(kind, rows):
+    """The walk on rows of 2 and 3 words (staged whole, off 16 bytes),
+    runs cut at source-word edges, db's shape over four column tiles (row
+    segments; 3 shards cut it off the 16-byte grid, so quads straddle the
+    tiles' edges), and a shuffled layout whose tiles name more words than
+    a stage holds (read in place); with fewer rows than a stage holds and
+    one row past a whole number of stages."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    b2t, T = _layout(kind, rng)
+    plan = q.repack_plan(b2t, T)
+    W = len(b2t) // 32
+    geo = q.repack_geometry(plan, 1 << 20, W, 0, plan.W8p // 4)
+    stage = geo.nrb * q._REPACK_ROWS
+    R = stage - 3 if rows == "below-a-stage" else 2 * stage + 1
+    bits = rng.integers(0, 2**32, size=(R, W), dtype=np.uint32)
+    modes = set(q.repack_geometry(plan, R, W, 0, plan.W8p // 4).tiles[:, 7])
+    if kind == "shuffled-wide":
+        assert q.REPACK_DIRECT in modes
+    if kind == "runs-cross-words":
+        assert (plan.run_len < 20).any() and (plan.run_bit == 0).any()
+    if kind == "one-bin-wide":
+        assert modes == {q.REPACK_SEGMENTS}
+    bt = q.bits_tensor(bits)
+    for i, (c0, width) in enumerate(_windows(plan, (3,))):
+        want = q.repack_table_plain(bt, plan, c0=c0, width=width).numpy()
+        got = _walk(bits.view(np.int32), plan, c0, width, off0=(i + 3) % 4)
+        assert np.array_equal(got, want), (c0, width)
+
+
+# --------------------------------------------------------------------------
+# the loaders' tables against the JAX loaders\'
 
 
 def _hashes(genomes):
