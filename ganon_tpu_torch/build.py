@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ganon_tpu_torch import taxonomy as taxmod
+from ganon_tpu_torch import trace
 from ganon_tpu_torch.index.builder import BuildConfig, run_build
 from ganon_tpu_torch.util import (
     check_file,
@@ -619,79 +620,80 @@ def build_custom(cfg, which_call: str = "build_custom",
     if load_state(which_call + "_parse", files_output_folder):
         print_log("Parse finished - skipping", cfg.quiet)
     else:
-        tax = None
-        input_files = []
-        shutil.rmtree(build_output_folder, ignore_errors=True)
-        os.makedirs(build_output_folder, exist_ok=True)
+        with trace.span("build.prepare"):
+            tax = None
+            input_files = []
+            shutil.rmtree(build_output_folder, ignore_errors=True)
+            os.makedirs(build_output_folder, exist_ok=True)
 
-        if cfg.input:
-            input_files = validate_input_files(
-                cfg.input, cfg.input_extension, cfg.quiet,
-                input_recursive=cfg.input_recursive,
-            )
-            if not input_files:
-                raise ValueError("No valid input files found")
-
-        if cfg.taxonomy != "skip":
-            tax = load_taxonomy(cfg, build_output_folder)
-
-        info = load_input(cfg, input_files, build_output_folder)
-        user_bins_col = "target"
-        if cfg.level in CHOICES_LEVEL:
-            user_bins_col = "specialization"
-        elif cfg.level and cfg.level not in CHOICES_INPUT_TARGET:
-            user_bins_col = "node"
-
-        if not info:
-            raise ValueError("Unable to parse input files")
-
-        if (tax or cfg.level == "assembly") and not cfg.input_file:
-            if cfg.input_target == "sequence":
-                get_sequence_info(cfg, info, build_output_folder)
-            else:
-                get_file_info(cfg, info, tax, build_output_folder)
-
-        if tax:
-            tax = validate_taxonomy(info, tax, cfg, build_output_folder)
-            if not info:
-                raise ValueError("Unable to match taxonomy to targets")
-
-        if cfg.level in CHOICES_LEVEL:
-            validate_specialization(info, cfg.quiet)
-            if not info:
-                raise ValueError("Unable to match specialization to targets")
-
-        if tax:
-            unique_nodes = np.array(
-                list(dict.fromkeys(r["node"] for r in info.values())),
-                dtype=object)
-            node_set = set(unique_nodes.tolist())
-            if (
-                user_bins_col == "target" and any(t in node_set for t in info)
-            ) or (
-                user_bins_col == "specialization"
-                and any(r["specialization"] in node_set
-                        for r in info.values())
-            ):
-                raise ValueError(
-                    f"{user_bins_col} overlaps with taxonomic identifiers"
+            if cfg.input:
+                input_files = validate_input_files(
+                    cfg.input, cfg.input_extension, cfg.quiet,
+                    input_recursive=cfg.input_recursive,
                 )
-            leaves_sizes = ({} if cfg.skip_genome_size else
-                            _leaf_sizes(cfg, build_output_folder))
-            genome_sizes = taxmod.estimate_genome_sizes(
-                unique_nodes, tax, leaves_sizes
-            )
-            tax.filter(unique_nodes)
-            write_tax(
-                cfg.db_prefix + ".tax", info, tax, genome_sizes, user_bins_col,
-                cfg.level, cfg.input_target,
-            )
+                if not input_files:
+                    raise ValueError("No valid input files found")
 
-        if cfg.write_info_file:
-            write_info_file(info, cfg.db_prefix + ".info.tsv")
+            if cfg.taxonomy != "skip":
+                tax = load_taxonomy(cfg, build_output_folder)
 
-        write_target_info(info, user_bins_col, target_info_file)
-        save_state(which_call + "_parse", files_output_folder)
+            info = load_input(cfg, input_files, build_output_folder)
+            user_bins_col = "target"
+            if cfg.level in CHOICES_LEVEL:
+                user_bins_col = "specialization"
+            elif cfg.level and cfg.level not in CHOICES_INPUT_TARGET:
+                user_bins_col = "node"
+
+            if not info:
+                raise ValueError("Unable to parse input files")
+
+            if (tax or cfg.level == "assembly") and not cfg.input_file:
+                if cfg.input_target == "sequence":
+                    get_sequence_info(cfg, info, build_output_folder)
+                else:
+                    get_file_info(cfg, info, tax, build_output_folder)
+
+            if tax:
+                tax = validate_taxonomy(info, tax, cfg, build_output_folder)
+                if not info:
+                    raise ValueError("Unable to match taxonomy to targets")
+
+            if cfg.level in CHOICES_LEVEL:
+                validate_specialization(info, cfg.quiet)
+                if not info:
+                    raise ValueError("Unable to match specialization to targets")
+
+            if tax:
+                unique_nodes = np.array(
+                    list(dict.fromkeys(r["node"] for r in info.values())),
+                    dtype=object)
+                node_set = set(unique_nodes.tolist())
+                if (
+                    user_bins_col == "target" and any(t in node_set for t in info)
+                ) or (
+                    user_bins_col == "specialization"
+                    and any(r["specialization"] in node_set
+                            for r in info.values())
+                ):
+                    raise ValueError(
+                        f"{user_bins_col} overlaps with taxonomic identifiers"
+                    )
+                leaves_sizes = ({} if cfg.skip_genome_size else
+                                _leaf_sizes(cfg, build_output_folder))
+                genome_sizes = taxmod.estimate_genome_sizes(
+                    unique_nodes, tax, leaves_sizes
+                )
+                tax.filter(unique_nodes)
+                write_tax(
+                    cfg.db_prefix + ".tax", info, tax, genome_sizes, user_bins_col,
+                    cfg.level, cfg.input_target,
+                )
+
+            if cfg.write_info_file:
+                write_info_file(info, cfg.db_prefix + ".info.tsv")
+
+            write_target_info(info, user_bins_col, target_info_file)
+            save_state(which_call + "_parse", files_output_folder)
 
     if load_state(which_call + "_run", files_output_folder):
         print_log("Build finished - skipping", cfg.quiet)

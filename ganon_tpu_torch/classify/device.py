@@ -59,7 +59,7 @@ import zipfile
 import numpy as np
 import torch
 
-from ganon_tpu_torch import kernels
+from ganon_tpu_torch import kernels, trace
 from ganon_tpu_torch.ops.ibf_query import (
     bits_tensor,
     bulk_target_counts_packed,
@@ -1147,10 +1147,13 @@ class DeviceFilter:
     def put_batch(self, arr):
         """A ``[B, ...]`` host array on the filter's device; with a mesh,
         its rows split over the ``batch`` axis (:func:`split_rows`: a list
-        of parts, each on its batch row's first device)."""
-        if self.mesh is None:
-            return torch.as_tensor(arr).to(self.device)
-        return split_rows(arr, self.mesh)
+        of parts, each on its batch row's first device). Span
+        ``dispatch.upload``, counter ``transfer.h2d_bytes``."""
+        trace.count("transfer.h2d_bytes", arr.nbytes)
+        with trace.span("dispatch.upload", cpu=False):
+            if self.mesh is None:
+                return torch.as_tensor(arr).to(self.device)
+            return split_rows(arr, self.mesh)
 
     def row_counts(self, i: int, hashes: torch.Tensor, n_hashes: torch.Tensor,
                    *, out: torch.Tensor | None = None,

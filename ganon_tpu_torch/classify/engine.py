@@ -27,18 +27,23 @@ type (:func:`ganon_tpu_torch.parallel.mesh.local_devices`), every filter
 is sharded over a ``(batch, bins)`` mesh of them
 (:mod:`ganon_tpu_torch.parallel.mesh`), as the JAX engine does; the
 results are gathered on ``cfg.device``. One device keeps the plain path.
+
+Every stage records a span of :mod:`ganon_tpu_torch.trace` (``engine.*``,
+``dispatch.*``, ``finish.*``, ``writer.*`` on the writer thread,
+``parse.batch`` on the parser's) and its counters; the returned
+``timing`` and each level's ``transfer`` are read from them.
 """
 
 from __future__ import annotations
 
 import sys
-import time as _time
 from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ganon_tpu_torch import trace
 from ganon_tpu_torch.classify import device as dev
 from ganon_tpu_torch.classify.lca import LCA, build_lca
 from ganon_tpu_torch.classify.thresholds import FprQueryMinCount
@@ -422,8 +427,9 @@ class _Out:
     """Lazy per-prefix output file handles + a background writer thread.
 
     One writer thread drains submitted jobs in order, so line formatting
-    and file I/O overlap the main thread's device waits. Direct
-    ``get().write()`` stays for the end-of-run writers (.rep/.sta).
+    and file I/O overlap the main thread's device waits; each job carries
+    its submitter's trace root (spans ``writer.format``, ``writer.write``).
+    Direct ``get().write()`` stays for the end-of-run writers (.rep/.sta).
     """
 
     _DONE = object()
@@ -443,18 +449,22 @@ class _Out:
                 try:
                     if job is self._DONE:
                         return
-                    path, payload = job
-                    if callable(payload):
-                        payload = payload()
-                    if payload:
-                        self._file(path).write(payload)
+                    path, payload, token = job
+                    with trace.within(token):
+                        if callable(payload):
+                            with trace.span("writer.format", cpu=False):
+                                payload = payload()
+                        if payload:
+                            with trace.span("writer.write", cpu=False):
+                                self._file(path).write(payload)
                 except BaseException as e:  # surfaced on drain/close
                     if self._err is None:
                         self._err = e
                 finally:
                     self._q.task_done()
 
-        self._t = threading.Thread(target=work, daemon=True)
+        self._t = threading.Thread(target=work, name="ganon-writer",
+                                   daemon=True)
         self._t.start()
 
     def _file(self, path: str, mode: str = "w"):
@@ -470,7 +480,10 @@ class _Out:
     def submit(self, path: str, payload):
         """Queue a write: a string, or a zero-arg callable returning one
         (formatting then runs on the writer thread)."""
-        self._q.put((path, payload))
+        token = trace.carry()
+        with trace.span("finish.submit", cpu=False):
+            self._q.put((path, payload, token))
+        trace.high("writer.queue_max", self._q.qsize())
         if self._err is not None:
             self.drain()
 
@@ -540,9 +553,35 @@ class _Runner:
         self.ready: deque = deque()
 
 
+# the returned ``timing``: its keys and the spans they read
+_TIMING = (("input_wait", "engine.input_wait"),
+           ("dispatch", "engine.dispatch"), ("fetch", "finish.fetch"),
+           ("finish", "engine.finish"), ("total", "engine.run"))
+
+
+def _walls(root) -> dict:
+    spans = trace.totals([root])["spans"]
+    return {k: spans[n]["wall_s"] if n in spans else 0.0
+            for k, n in _TIMING}
+
+
 def run_classify(cfg: ClassifyConfig) -> dict:
-    """Run the full classification; returns collected stats (for tests)."""
-    t_start = _time.monotonic()
+    """Run the full classification; returns collected stats (for tests).
+
+    ``timing`` is the wall split of the run's spans: ``input_wait``
+    (``engine.input_wait``), ``dispatch`` (``engine.dispatch``),
+    ``finish`` (``engine.finish``, which holds ``fetch``,
+    ``finish.fetch``'s wait for the device result) and ``total``
+    (``engine.run``)."""
+    with trace.span("engine.run") as run:
+        before = _walls(run.root)
+        stats = _run_classify(cfg, run)
+    after = _walls(run.root)
+    stats["timing"] = {k: after[k] - before[k] for k in after}
+    return stats
+
+
+def _run_classify(cfg: ClassifyConfig, run: trace.span) -> dict:
     cfg.validate()
     levels = parse_hierarchy(cfg)
     _check_device(cfg)
@@ -554,10 +593,6 @@ def run_classify(cfg: ClassifyConfig) -> dict:
     hierarchy_totals: dict[str, dict[str, Total]] = {
         lbl: {p: Total() for p in prefixes} for lbl in levels
     }
-    # wall-clock split of the main loop ("finish" includes the "fetch"
-    # wait for the device result)
-    timing = {"input_wait": 0.0, "dispatch": 0.0, "fetch": 0.0,
-              "finish": 0.0}
 
     out = _Out()
     for p in prefixes:
@@ -579,7 +614,8 @@ def run_classify(cfg: ClassifyConfig) -> dict:
     def ensure_ctx(r: _Runner) -> LevelContext:
         if r.ctx is not None:
             return r.ctx
-        r.ctx = LevelContext(r.level, cfg, mesh)
+        with trace.span("engine.context", level=r.label):
+            r.ctx = LevelContext(r.level, cfg, mesh)
         file_mode = "w" if (r.first or not cfg.output_single) else "a"
         r.one_files = {p: cfg.output_prefix + p + "." + r.level.output_file_one
                        for p in prefixes}
@@ -638,8 +674,9 @@ def run_classify(cfg: ClassifyConfig) -> dict:
                     if fld != "input_seqs":
                         setattr(tt, fld, getattr(tt, fld) + getattr(t, fld))
             if r.ctx is not None:
-                _fold_tallies(r.rep, r.ctx)
-                _write_rep(r.rep, r.ctx, cfg, r.label, out)
+                with trace.span("engine.rep", level=r.label):
+                    _fold_tallies(r.rep, r.ctx)
+                    _write_rep(r.rep, r.ctx, cfg, r.label, out)
             if r.li + 1 >= len(runners):
                 return
             nxt = runners[r.li + 1]
@@ -650,9 +687,9 @@ def run_classify(cfg: ClassifyConfig) -> dict:
 
     def finish_oldest() -> None:
         r, batch, disp = pending.popleft()
-        t0 = _time.monotonic()
-        lo = _finish_batch_fast((batch, disp), *r.finish_args, timing=timing)
-        timing["finish"] += _time.monotonic() - t0
+        with trace.span("engine.finish", cpu=False, level=r.label,
+                        reads=len(batch)):
+            lo = _finish_batch_fast((batch, disp), *r.finish_args)
         if not r.last:
             route_leftover(r, lo)
         r.inflight -= 1
@@ -663,11 +700,13 @@ def run_classify(cfg: ClassifyConfig) -> dict:
         the batch counts as in flight from the moment it leaves a queue."""
         r0 = runners[0]
         if not r0.source_done:
-            t0 = _time.monotonic()
-            batch = next(lvl0, None)
-            timing["input_wait"] += _time.monotonic() - t0
+            with trace.span("engine.input_wait", cpu=False):
+                batch = next(lvl0, None)
             if batch is not None:
                 totals[batch.prefix].input_seqs += len(batch)
+                trace.count("engine.reads", len(batch))
+                trace.count("engine.bases", int(batch.len1.sum()) + (
+                    int(batch.len2.sum()) if batch.paired else 0))
                 r0.inflight += 1
                 return r0, batch
             r0.source_done = True
@@ -687,15 +726,16 @@ def run_classify(cfg: ClassifyConfig) -> dict:
             break
         r, batch = nb
         ctx = ensure_ctx(r)
-        t0 = _time.monotonic()
-        disp = _dispatch_batch_fast(batch, ctx, cfg)
-        timing["dispatch"] += _time.monotonic() - t0
+        trace.count("engine.batches")
+        with trace.span("engine.dispatch", cpu=False, level=r.label,
+                        reads=len(batch)):
+            disp = _dispatch_batch_fast(batch, ctx, cfg)
         if disp is None:
-            t0 = _time.monotonic()
             while pending:
                 finish_oldest()
-            lo = _classify_batch(batch, *r.finish_args)
-            timing["finish"] += _time.monotonic() - t0
+            with trace.span("engine.finish", cpu=False, level=r.label,
+                            reads=len(batch)):
+                lo = _exact(batch, r.finish_args)
             if not r.last:
                 route_leftover(r, lo)
             r.inflight -= 1
@@ -705,27 +745,28 @@ def run_classify(cfg: ClassifyConfig) -> dict:
                 finish_oldest()
             pending.append((r, batch, disp))
 
-    # .rep totals trailer
-    for p in prefixes:
-        f = out.get(cfg.output_prefix + p + ".rep")
-        f.write(f"#total_classified\t{totals[p].seqs_classified}\n")
-        f.write(
-            f"#total_unclassified\t{totals[p].input_seqs - totals[p].seqs_classified}\n"
-        )
+    with trace.span("engine.rep"):
+        # .rep totals trailer
+        for p in prefixes:
+            f = out.get(cfg.output_prefix + p + ".rep")
+            f.write(f"#total_classified\t{totals[p].seqs_classified}\n")
+            f.write(
+                f"#total_unclassified\t{totals[p].input_seqs - totals[p].seqs_classified}\n"
+            )
 
-    out.close_all()
+    with trace.span("engine.drain"):
+        out.close_all()
 
     if cfg.output_stats:
-        _write_stats(cfg, totals, hierarchy_totals, levels, prefixes)
+        with trace.span("engine.rep"):
+            _write_stats(cfg, totals, hierarchy_totals, levels, prefixes)
 
     if not cfg.quiet:
-        _print_stats(totals, elapsed=_time.monotonic() - t_start)
+        _print_stats(totals, elapsed=run.elapsed_s())
 
-    timing["total"] = _time.monotonic() - t_start
     return {
         "totals": totals,
         "hierarchy_totals": hierarchy_totals,
-        "timing": timing,
         # per level: the result transfers and the final ragged slots
         "transfer": {r.label: dict(r.ctx.transfer,
                                    match_slots=r.ctx.match_slots,
@@ -761,7 +802,8 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
         return None
     batch_pad = _round_up(dev.bucket_len(len(batch), minimum=64),
                           f.batch_mult)
-    inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
+    with trace.span("dispatch.pack", cpu=False):
+        inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
     inbuf_d = f.put_batch(inbuf)
     # per-batch [T] matches_t is only consumed when fpr-query is off
     emit_mt = ctx.level.fpr_query >= 1.0
@@ -778,12 +820,13 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
             # compiled programs few); the device ignores caps >= B * S
             pair_cap = min(-(-int(batch_pad * ctx.pair_frac) // 256) * 256,
                            batch_pad * S)
-        packed = dev.classify_batch_packed_pruned(
-            f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
-            cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
-            L2=L2, max_groups=S, top_k=K, emit_matches_t=emit_mt,
-            match_cap=cap, pair_cap=pair_cap,
-        )
+        with trace.span("dispatch.enqueue", cpu=False):
+            packed = dev.classify_batch_packed_pruned(
+                f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
+                cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
+                L2=L2, max_groups=S, top_k=K, emit_matches_t=emit_mt,
+                match_cap=cap, pair_cap=pair_cap,
+            )
         pinfo = (S, f.group_size, -(-S // 2),
                  0 < pair_cap < batch_pad * S)
     else:
@@ -791,12 +834,13 @@ def _dispatch_batch_fast(batch: EncodedBatch, ctx: LevelContext,
         K = min(ctx.top_k_current, f.num_targets)
         pack16 = f.num_targets <= 0xFFFF and cfg.hashes_limit <= 0xFFFF
         cap = _match_cap(ctx, batch_pad, K, pack16)
-        packed = dev.classify_batch_packed(
-            f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
-            cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
-            L2=L2, top_k=K, emit_matches_t=emit_mt, pack16=pack16,
-            match_cap=cap,
-        )
+        with trace.span("dispatch.enqueue", cpu=False):
+            packed = dev.classify_batch_packed(
+                f, inbuf_d, ctx.specs[0].rel_cutoff, ctx.level.rel_filter,
+                cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
+                L2=L2, top_k=K, emit_matches_t=emit_mt, pack16=pack16,
+                match_cap=cap,
+            )
     return (_start_host_copy(packed), batch_pad, K, f.num_targets, emit_mt,
             False, pinfo, pack16, cap)
 
@@ -825,16 +869,20 @@ def _dispatch_batch_fast_multi(batch: EncodedBatch, ctx: LevelContext,
         return None
     batch_pad = _round_up(dev.bucket_len(len(batch), minimum=64),
                           max(f.batch_mult for f in ctx.filters))
-    inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
+    with trace.span("dispatch.pack", cpu=False):
+        inbuf, L1, L2 = dev.pack_batch_direct(batch, batch_pad)
+    inbuf_d = ctx.filters[0].put_batch(inbuf)
     K = min(ctx.top_k_current, U)
     emit_mt = ctx.level.fpr_query >= 1.0
     cap = _match_cap(ctx, batch_pad, K, True)
-    packed = dev.classify_batch_packed_multi(
-        ctx.filters, ctx.filter_colmap, ctx.filters[0].put_batch(inbuf),
-        [s.rel_cutoff for s in ctx.specs], ctx.level.rel_filter,
-        cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1, L2=L2,
-        num_union=U, top_k=K, emit_matches_t=emit_mt, match_cap=cap,
-    )
+    with trace.span("dispatch.enqueue", cpu=False):
+        packed = dev.classify_batch_packed_multi(
+            ctx.filters, ctx.filter_colmap, inbuf_d,
+            [s.rel_cutoff for s in ctx.specs], ctx.level.rel_filter,
+            cfg.hashes_limit, k=ctx.kmer_size, w=ctx.window_size, L1=L1,
+            L2=L2, num_union=U, top_k=K, emit_matches_t=emit_mt,
+            match_cap=cap,
+        )
     return (_start_host_copy(packed), batch_pad, K, U, emit_mt, True, None,
             True, cap)
 
@@ -849,28 +897,27 @@ def _start_host_copy(packed: torch.Tensor):
     """Enqueue the device->host copy now into pinned memory, with an event
     marking its completion; :func:`_fetch` waits on the event (reading
     the buffer before it would return stale bytes)."""
-    if packed.device.type != "cuda":
-        return packed, None
-    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-    host.copy_(packed, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(packed.device))
+    with trace.span("dispatch.copy", cpu=False):
+        if packed.device.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(packed.device))
     return host, done
 
 
-def _fetch(handle, timing=None) -> np.ndarray:
+def _fetch(handle) -> np.ndarray:
     """The host copy of a packed result, once its copy has completed."""
     host, done = handle
-    t0 = _time.monotonic()
-    if done is not None:
-        done.synchronize()
-    if timing is not None:
-        timing["fetch"] += _time.monotonic() - t0
+    with trace.span("finish.fetch", cpu=False):
+        if done is not None:
+            done.synchronize()
     return host.numpy()
 
 
 def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
-                       out, one_files, all_files, timing=None):
+                       out, one_files, all_files):
     """Fetch + finish an in-flight batch; escalates the ragged stream's
     slots on a cap overflow and the compact width on top-K overflow (both
     sticky for the level), retries a pruned batch whose pairs spilled
@@ -887,43 +934,63 @@ def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
            all_files)
     tr = ctx.transfer
     tr["ragged_batches" if cap > 0 else "dense_batches"] += 1
-    tr["fetched_bytes"] += handle[0].numel() * 4
-    tr["dense_bytes"] += 4 * (B_pad * K * (2 if has_win or not pack16 else 1)
-                              + (4 + n_extra) * B_pad
-                              + T * (2 if emit_mt else 1) + 3)
+    fetched = handle[0].numel() * 4
+    dense = 4 * (B_pad * K * (2 if has_win or not pack16 else 1)
+                 + (4 + n_extra) * B_pad + T * (2 if emit_mt else 1) + 3)
+    tr["fetched_bytes"] += fetched
+    tr["dense_bytes"] += dense
+    trace.count("transfer.d2h_bytes", fetched)
+    trace.count("transfer.dense_bytes", dense)
+
+    def redispatch(cause, pair_frac=None):
+        """Dispatch the batch again (at ``pair_frac`` instead of the
+        level's pair fraction when given) and finish it (the exact path
+        when the level has no fast path)."""
+        trace.count("engine.redispatches")
+        with trace.span("finish.redispatch", cpu=False, cause=cause):
+            if pair_frac is None:
+                disp = _dispatch_batch_fast(batch, ctx, cfg)
+            else:
+                saved, ctx.pair_frac = ctx.pair_frac, pair_frac
+                disp = _dispatch_batch_fast(batch, ctx, cfg)
+                ctx.pair_frac = saved
+            if disp is None:
+                return _exact(batch, fin)
+            return _finish_batch_fast((batch, disp), *fin)
+
     if cap > 0:
-        res = dev.unpack_batch_result_ragged(
-            _fetch(handle, timing), B_pad, cap, T, K, has_win,
-            n_extra=n_extra, has_matches_t=emit_mt)
+        packed = _fetch(handle)
+        with trace.span("finish.unpack", cpu=False):
+            res = dev.unpack_batch_result_ragged(
+                packed, B_pad, cap, T, K, has_win, n_extra=n_extra,
+                has_matches_t=emit_mt)
         if res["cap_overflow"]:
             # the stream outgrew the cap: double the slots per read
             # (sticky; the dense layout once they reach K) and re-dispatch.
             # A pipelined batch may land after a newer one went dense: the
             # ragged layout just proven too small is never brought back.
-            tr["cap_overflows"] += 1
             total = int(np.minimum(res["n_matches"], K).sum())
             need = -(-total // max(B_pad, 1)) + 1
             if ctx.match_slots is not None:
                 ctx.match_slots = max(ctx.match_slots * 2, need)
                 if ctx.match_slots >= K:
                     ctx.match_slots = None
-            disp = _dispatch_batch_fast(batch, ctx, cfg)
-            if disp is None:
-                return _classify_batch(batch, *fin)
-            return _finish_batch_fast((batch, disp), *fin, timing=timing)
+            tr["cap_overflows"] += 1
+            return redispatch("cap")
     else:
-        res = dev.unpack_batch_result(_fetch(handle, timing), B_pad, K, T,
-                                      has_matches_t=emit_mt, has_win=has_win,
-                                      n_extra=n_extra, pack16=pack16)
+        packed = _fetch(handle)
+        with trace.span("finish.unpack", cpu=False):
+            res = dev.unpack_batch_result(packed, B_pad, K, T,
+                                          has_matches_t=emit_mt,
+                                          has_win=has_win, n_extra=n_extra,
+                                          pack16=pack16)
     if not res["overflow"][:B0].any() and (
         res["n_matches"][:B0] > K
     ).any() and ctx.top_k_current < cfg.top_k_matches:
         # matches exceeded the adaptive compact width: widen to the
         # configured cap and re-dispatch this batch
         ctx.top_k_current = cfg.top_k_matches
-        disp = _dispatch_batch_fast(batch, ctx, cfg)
-        if disp is not None:
-            return _finish_batch_fast((batch, disp), *fin, timing=timing)
+        return redispatch("top_k")
     if (res["overflow"][:B0].any()
             or (res["n_matches"][:B0] > K).any()):
         if pinfo is not None and pinfo[3] and res["overflow"][:B0].any():
@@ -934,33 +1001,38 @@ def _finish_batch_fast(pending, ctx, cfg, rep, level_totals, first, last,
             # retry and takes the exact path below
             tr["pair_spill_retries"] += 1
             ctx.pair_frac += 0.5
-            saved, ctx.pair_frac = ctx.pair_frac, 0.0
-            disp = _dispatch_batch_fast(batch, ctx, cfg)
-            ctx.pair_frac = saved
-            if disp is not None:
-                return _finish_batch_fast((batch, disp), *fin, timing=timing)
-        return _classify_batch(batch, *fin)
+            return redispatch("pair_spill", pair_frac=0.0)
+        return _exact(batch, fin)
     if pinfo is not None:
-        # pruned matches carry lane ids (slot * gs + lane): rebuild each
-        # read's chosen groups from its u16 group words and map to global
-        # targets; entries past n_matches are clamped (every consumer
-        # masks by n_matches)
-        S, gs = pinfo[0], pinfo[1]
-        gsel = np.empty((B_pad, S), np.int64)
-        for i, wd in enumerate(res["extra_rows"]):
-            gsel[:, 2 * i] = wd & 0xFFFF
-            if 2 * i + 1 < S:
-                gsel[:, 2 * i + 1] = wd >> 16
-        lanes = res["top_idx"]
-        slot = np.minimum(lanes // gs, S - 1)
-        g = np.take_along_axis(gsel, slot, axis=1)
-        res["top_idx"] = np.minimum(g * gs + lanes % gs, T - 1).astype(
-            np.int32)
+        with trace.span("finish.unpack", cpu=False):
+            # pruned matches carry lane ids (slot * gs + lane): rebuild
+            # each read's chosen groups from its u16 group words and map
+            # to global targets; entries past n_matches are clamped
+            # (every consumer masks by n_matches)
+            S, gs = pinfo[0], pinfo[1]
+            gsel = np.empty((B_pad, S), np.int64)
+            for i, wd in enumerate(res["extra_rows"]):
+                gsel[:, 2 * i] = wd & 0xFFFF
+                if 2 * i + 1 < S:
+                    gsel[:, 2 * i + 1] = wd >> 16
+            lanes = res["top_idx"]
+            slot = np.minimum(lanes // gs, S - 1)
+            g = np.take_along_axis(gsel, slot, axis=1)
+            res["top_idx"] = np.minimum(g * gs + lanes % gs, T - 1).astype(
+                np.int32)
     nh = res["n_hashes"][:B0].astype(np.int64)
     l1 = batch.len1.astype(np.int64)
     l2 = (batch.len2.astype(np.int64) if batch.paired
           else np.zeros(B0, np.int64))
-    return _finish_batch_compact(batch, *fin, res, nh, l1, l2)
+    with trace.span("finish.assign", cpu=False):
+        return _finish_batch_compact(batch, *fin, res, nh, l1, l2)
+
+
+def _exact(batch, fin):
+    """The exact path of a batch the fast path could not finish."""
+    trace.count("engine.exact_batches")
+    with trace.span("finish.exact", cpu=False, reads=len(batch)):
+        return _classify_batch(batch, *fin)
 
 
 def _classify_batch(

@@ -4,19 +4,33 @@ Takes the same flags as ``ganon_tpu.cli`` (one shared Config).
 ``classify``, ``build``, ``build-custom`` and ``update`` run on the card
 (``main(..., device="cpu")`` runs the plain versions); ``reassign``,
 ``report`` and ``table`` are host code.
+
+Each command is one trace root, ``cmd.<which>``
+(:mod:`ganon_tpu_torch.trace`); ``--verbose`` on ``classify`` and
+``build-custom`` prints its span table and counters at the end.
 """
 
 from __future__ import annotations
 
 import sys
 
+from ganon_tpu_torch import trace
 from ganon_tpu_torch.config import Config
 from ganon_tpu_torch.util import print_log
+
 
 def main(which: str = None, cfg=None, device="cuda", **kwargs) -> bool:
     if cfg is None:
         cfg = Config(which, **kwargs)
     cfg.validate()
+    with trace.span("cmd." + cfg.which) as cmd:
+        ok = _run(cfg, device)
+    if cfg.which in ("classify", "build_custom") and cfg.verbose:
+        print(trace.table(cmd.root), file=sys.stderr)
+    return ok
+
+
+def _run(cfg, device) -> bool:
     if cfg.which == "classify":
         from ganon_tpu_torch.commands import classify
 

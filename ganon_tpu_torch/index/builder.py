@@ -27,14 +27,16 @@ busy. The piece length changes no result.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 import sys
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ganon_tpu_torch import trace
 from ganon_tpu_torch.classify.device import pack_codes_2bit
 from ganon_tpu_torch.index.ibf import IBF
 from ganon_tpu_torch.io.sequence import SequenceReader
@@ -487,69 +489,77 @@ def run_build(cfg: BuildConfig) -> IBF:
     cfg.validate()
     stats = BuildStats()
     phases: list[tuple[str, float]] = []  # StopClock analogue
-    t_phase = time.time()
-
-    def _mark(name: str) -> None:
-        nonlocal t_phase
-        now = time.time()
-        phases.append((name, now - t_phase))
-        t_phase = now
+    mark = functools.partial(_phase, phases)
 
     # the device check comes before any input is read
     pipe = DeviceBuildPipeline(cfg.kmer_size, cfg.window_size,
                                device=cfg.device)
     try:
-        input_map = parse_target_info(cfg.input_file, cfg.quiet, stats)
-        if not input_map:
-            raise ValueError("No valid input files")
-        for key, row in iter_pieces(
-            input_map, window_size=cfg.window_size,
-            min_length=cfg.min_length, stats=stats, threads=cfg.threads,
-        ):
-            pipe.add_encoded(key, row)
-        _mark("Ingest")
-        pipe.finish_counts()
-        _mark("Count")
-        # drop targets with zero hashes (sequences all too short)
-        hashes_count = {t: c for t, c in pipe.hashes_count().items() if c}
-        if not hashes_count:
-            raise ValueError("No valid sequences to build")
-        icfg = sizing.size_filter(
-            hashes_count,
-            kmer_size=cfg.kmer_size,
-            window_size=cfg.window_size,
-            max_fp=cfg.max_fp,
-            filter_size=cfg.filter_size,
-            hash_functions=cfg.hash_functions,
-            mode=cfg.mode,
-            tpu_sizing=cfg.tpu_sizing and _h_tunable(cfg),
-        )
-        _mark("EstimateParams")
-        splits = sizing.split_target_bins(icfg, hashes_count)
-        bits = pipe.scatter(icfg, splits, mesh=_build_mesh(cfg))
-        _mark("BuildIBF")
+        with mark("Ingest", "build.ingest"):
+            input_map = parse_target_info(cfg.input_file, cfg.quiet, stats)
+            if not input_map:
+                raise ValueError("No valid input files")
+            for key, row in iter_pieces(
+                input_map, window_size=cfg.window_size,
+                min_length=cfg.min_length, stats=stats, threads=cfg.threads,
+            ):
+                pipe.add_encoded(key, row)
+        with mark("Count", "build.count"):
+            pipe.finish_counts()
+        with mark("EstimateParams", "build.estimate"):
+            # drop targets with zero hashes (sequences all too short)
+            hashes_count = {t: c for t, c in pipe.hashes_count().items()
+                            if c}
+            if not hashes_count:
+                raise ValueError("No valid sequences to build")
+            icfg = sizing.size_filter(
+                hashes_count,
+                kmer_size=cfg.kmer_size,
+                window_size=cfg.window_size,
+                max_fp=cfg.max_fp,
+                filter_size=cfg.filter_size,
+                hash_functions=cfg.hash_functions,
+                mode=cfg.mode,
+                tpu_sizing=cfg.tpu_sizing and _h_tunable(cfg),
+            )
+        with mark("BuildIBF", "build.scatter"):
+            splits = sizing.split_target_bins(icfg, hashes_count)
+            bits = pipe.scatter(icfg, splits, mesh=_build_mesh(cfg))
     finally:
         pipe.close()
     ibf = IBF(
         bits, icfg, hashes_count,
         [(binno, target) for binno, target, _, _ in splits],
     )
-    return _finish_build(cfg, ibf, stats, phases, _mark)
+    return _finish_build(cfg, ibf, stats, phases, mark)
+
+
+@contextlib.contextmanager
+def _phase(phases, label: str, name: str):
+    """Span ``name``, its wall seconds appended to ``phases`` (when given)
+    as the StopClock phase ``label``."""
+    with trace.span(name) as sp:
+        yield sp
+    if phases is not None:
+        phases.append((label, sp.wall_s))
 
 
 def _finish_build(cfg: BuildConfig, ibf: IBF, stats: BuildStats,
                   phases=None, mark=None) -> IBF:
+    """Write the filter (phase ``WriteIBF``, span ``build.write``, through
+    ``mark(label, span name)``, by default recorded in ``phases``) and
+    print the build's summary."""
+    mark = mark or functools.partial(_phase, phases)
     if cfg.output_file:
-        if cfg.filter_format == "reference":
-            from ganon_tpu_torch.index import serialize
+        with mark("WriteIBF", "build.write"):
+            if cfg.filter_format == "reference":
+                from ganon_tpu_torch.index import serialize
 
-            serialize.write_ibf(ibf, cfg.output_file)
-        elif cfg.filter_format == "tpu-raw":
-            ibf.save_raw(cfg.output_file)
-        else:
-            ibf.save(cfg.output_file)
-        if mark is not None:
-            mark("WriteIBF")
+                serialize.write_ibf(ibf, cfg.output_file)
+            elif cfg.filter_format == "tpu-raw":
+                ibf.save_raw(cfg.output_file)
+            else:
+                ibf.save(cfg.output_file)
     if not cfg.quiet:
         c = ibf.ibf_config
         mb = (len(ibf.bits.tobytes())) / 1048576

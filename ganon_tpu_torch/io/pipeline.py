@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ganon_tpu_torch import trace
 from ganon_tpu_torch.io.sequence import SequenceReader
 from ganon_tpu_torch.ops.winnow import encode_seqs
 
@@ -340,24 +341,36 @@ def bucketed_batches(source, n_reads: int, max_bucket_bytes: int = 64 << 20,
 
 
 class ThreadedBatchSource:
-    """Run a batch generator on a background thread (bounded queue)."""
+    """Run a batch generator on a background thread (bounded queue),
+    each item a span ``parse.batch`` under the creator's trace root."""
 
     _DONE = object()
 
     def __init__(self, generator, max_queued: int = 8):
         self._q: queue.Queue = queue.Queue(maxsize=max_queued)
         self._err = None
+        token = trace.carry()
 
         def work():
+            items = iter(generator)
             try:
-                for item in generator:
-                    self._q.put(item)
+                with trace.within(token):
+                    while True:
+                        with trace.span("parse.batch", cpu=False) as sp:
+                            item = next(items, self._DONE)
+                            if item is not self._DONE:
+                                sp.set(reads=len(item))
+                        if item is self._DONE:
+                            break
+                        self._q.put(item)
+                        trace.high("parse.queue_max", self._q.qsize())
             except BaseException as e:  # surfaced on the consumer side
                 self._err = e
             finally:
                 self._q.put(self._DONE)
 
-        self._t = threading.Thread(target=work, daemon=True)
+        self._t = threading.Thread(target=work, name="ganon-parser",
+                                   daemon=True)
         self._t.start()
 
     def __iter__(self):

@@ -66,7 +66,7 @@ import subprocess
 
 import torch
 
-from ganon_tpu_torch import BUILD_DIR
+from ganon_tpu_torch import BUILD_DIR, trace
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("extract.cu", "count.cu", "merge.cu", "select.cu", "scatter.cu",
@@ -215,13 +215,21 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless the content-addressed library exists.
+    """Compile the kernels unless the content-addressed library exists
+    (span ``kernels.build``; counter ``kernels.builds``, the compiles).
 
     One ``nvcc -c`` per source, all started together, then one link.
     """
-    so = library_path()
-    if os.path.exists(so):
-        return so
+    with trace.span("kernels.build"):
+        so = library_path()
+        if os.path.exists(so):
+            return so
+        trace.count("kernels.builds")
+        _compile(so)
+    return so
+
+
+def _compile(so: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     objs = [f"{so}.{s}.{tag}.o" for s in SOURCES]
@@ -250,7 +258,6 @@ def build() -> str:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
-    return so
 
 
 def library() -> ctypes.CDLL:

@@ -13,7 +13,9 @@ match), rewrites ``.one`` (unique passthrough + winners) and ``.rep``
 come from the winners of the LAST EM iteration (pre-update
 probabilities), while ``.one`` winners are recomputed with the final
 post-update probabilities; all-zero probabilities fall back to each
-read's first match.
+read's first match. Spans: ``reassign.parse`` (``_load_all``),
+``reassign.em`` (``_em`` and the ``.one`` winners), ``reassign.write``
+(the ``.one`` and ``.rep`` files, the ``.all`` removal).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ganon_tpu_torch import trace
 from ganon_tpu_torch.util import find_rep_files
 
 
@@ -167,69 +170,71 @@ def reassign(cfg: ReassignConfig) -> bool:
 
         new_rep = []
         for hierarchy, af in all_files.items():
-            (
-                rnames, tnames, _r_s, t_s, k_s, seg_starts, seg_len,
-            ) = _load_all(af)
+            with trace.span("reassign.parse"):
+                (
+                    rnames, tnames, _r_s, t_s, k_s, seg_starts, seg_len,
+                ) = _load_all(af)
             n_targets = len(tnames)
             n_reads = len(seg_starts)
 
-            reassigned, prob = _em(
-                t_s, seg_starts, seg_len, n_targets,
-                cfg.max_iter, cfg.threshold,
-            )
-
-            if not cfg.skip_one:
-                one_out = (
-                    out_prefix + ".one"
-                    if len(all_files) == 1
-                    else out_prefix + "." + hierarchy + ".one"
+            with trace.span("reassign.em"):
+                reassigned, prob = _em(
+                    t_s, seg_starts, seg_len, n_targets,
+                    cfg.max_iter, cfg.threshold,
                 )
-                with open(one_out, "w") as f:
-                    if n_reads:
-                        seg_of_match = np.repeat(
-                            np.arange(n_reads), seg_len
-                        )
-                        win_pos = _winners(
-                            prob, t_s, seg_starts, seg_of_match
-                        )
-                        win_t = t_s[win_pos]
-                        win_k = k_s[win_pos]
-                        f.writelines(
-                            f"{rnames[r]}\t{tnames[win_t[r]]}\t{win_k[r]}\n"
-                            for r in range(n_reads)
-                        )
+                if not cfg.skip_one and n_reads:
+                    seg_of_match = np.repeat(np.arange(n_reads), seg_len)
+                    win_pos = _winners(prob, t_s, seg_starts, seg_of_match)
 
-            if rep_file_out:
-                tmap = {t: i for i, t in enumerate(tnames)}
-                with open(rep_file) as f:
-                    for line in f:
-                        if line[0] == "#":
-                            continue
-                        fields = line.rstrip("\n").split("\t")
-                        h_name, target = fields[0], fields[1]
-                        direct = fields[2]
-                        unique = int(fields[3])
-                        rank = fields[5] if len(fields) >= 6 else ""
-                        name = fields[6] if len(fields) >= 7 else ""
-                        if (
-                            hierarchy == "" or h_name == hierarchy
-                        ) and target in tmap:
-                            new_rep.append(
-                                [
-                                    h_name, target, direct, unique,
-                                    int(reassigned[tmap[target]]) - unique,
-                                    rank, name,
-                                ]
+            with trace.span("reassign.write"):
+                if not cfg.skip_one:
+                    one_out = (
+                        out_prefix + ".one"
+                        if len(all_files) == 1
+                        else out_prefix + "." + hierarchy + ".one"
+                    )
+                    with open(one_out, "w") as f:
+                        if n_reads:
+                            win_t = t_s[win_pos]
+                            win_k = k_s[win_pos]
+                            f.writelines(
+                                f"{rnames[r]}\t{tnames[win_t[r]]}\t"
+                                f"{win_k[r]}\n"
+                                for r in range(n_reads)
                             )
 
-        if rep_file_out:
-            with open(rep_file_out, "w") as f:
-                for row in new_rep:
-                    f.write("\t".join(str(v) for v in row) + "\n")
-                for info in rep_info:
-                    f.write(info + "\n")
+                if rep_file_out:
+                    tmap = {t: i for i, t in enumerate(tnames)}
+                    with open(rep_file) as f:
+                        for line in f:
+                            if line[0] == "#":
+                                continue
+                            fields = line.rstrip("\n").split("\t")
+                            h_name, target = fields[0], fields[1]
+                            direct = fields[2]
+                            unique = int(fields[3])
+                            rank = fields[5] if len(fields) >= 6 else ""
+                            name = fields[6] if len(fields) >= 7 else ""
+                            if (
+                                hierarchy == "" or h_name == hierarchy
+                            ) and target in tmap:
+                                new_rep.append(
+                                    [
+                                        h_name, target, direct, unique,
+                                        int(reassigned[tmap[target]]) - unique,
+                                        rank, name,
+                                    ]
+                                )
 
-        if cfg.remove_all:
-            for af in all_files.values():
-                os.remove(af)
+        with trace.span("reassign.write"):
+            if rep_file_out:
+                with open(rep_file_out, "w") as f:
+                    for row in new_rep:
+                        f.write("\t".join(str(v) for v in row) + "\n")
+                    for info in rep_info:
+                        f.write(info + "\n")
+
+            if cfg.remove_all:
+                for af in all_files.values():
+                    os.remove(af)
     return True

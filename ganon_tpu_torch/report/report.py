@@ -6,6 +6,8 @@ pandas), the equivalent of the reference report generator
 redistributes LCA reads to leaves, corrects abundances by genome size,
 computes cumulative lineage counts, filters (ranks, top-percentile,
 min/max count, taxids, names), sorts, and emits tsv/csv/text/bioboxes.
+Spans: ``report.tax`` (the taxonomy and genome sizes), ``report.tree``
+(the reports built and written).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from dataclasses import dataclass, field
 from math import ceil, floor
 
 from ganon_tpu_torch import taxonomy as taxmod
+from ganon_tpu_torch import trace
 
 DEFAULT_RANKS = [
     "domain", "phylum", "class", "order", "family", "genus", "species",
@@ -63,32 +66,34 @@ def report(cfg: ReportConfig) -> bool:
     if not rep_files:
         raise ValueError("no .rep input files found")
 
-    tax_kwargs = dict(root_node="1", root_name="root", root_rank="root")
-    genome_sizes = {}
-    if cfg.db_prefix:
-        dbp = [p if p.endswith(".tax") else p + ".tax" for p in cfg.db_prefix]
-        tax = taxmod.load_tax_files(dbp, **tax_kwargs)
-        if cfg.report_type in ("abundance", "corr"):
-            genome_sizes = taxmod.parse_genome_size_tax(dbp)
-    else:
-        if cfg.taxonomy == "skip":
-            tax = taxmod.dummy_tax(**tax_kwargs)
-        elif cfg.taxonomy.startswith("ncbi"):
-            tax = taxmod.load_ncbi(files=cfg.taxonomy_files, **tax_kwargs)
-        elif cfg.taxonomy.startswith("gtdb"):
-            tax = taxmod.load_gtdb(files=cfg.taxonomy_files, **tax_kwargs)
+    with trace.span("report.tax"):
+        tax_kwargs = dict(root_node="1", root_name="root", root_rank="root")
+        genome_sizes = {}
+        if cfg.db_prefix:
+            dbp = [p if p.endswith(".tax") else p + ".tax"
+                   for p in cfg.db_prefix]
+            tax = taxmod.load_tax_files(dbp, **tax_kwargs)
+            if cfg.report_type in ("abundance", "corr"):
+                genome_sizes = taxmod.parse_genome_size_tax(dbp)
         else:
-            raise ValueError(f"unknown taxonomy: {cfg.taxonomy}")
-        if cfg.report_type in ("abundance", "corr"):
-            if cfg.skip_genome_size or not cfg.genome_size_files:
-                leaves_sizes = {}
+            if cfg.taxonomy == "skip":
+                tax = taxmod.dummy_tax(**tax_kwargs)
+            elif cfg.taxonomy.startswith("ncbi"):
+                tax = taxmod.load_ncbi(files=cfg.taxonomy_files, **tax_kwargs)
+            elif cfg.taxonomy.startswith("gtdb"):
+                tax = taxmod.load_gtdb(files=cfg.taxonomy_files, **tax_kwargs)
             else:
-                leaves_sizes = taxmod.parse_genome_size_files(
-                    cfg.genome_size_files, cfg.taxonomy
+                raise ValueError(f"unknown taxonomy: {cfg.taxonomy}")
+            if cfg.report_type in ("abundance", "corr"):
+                if cfg.skip_genome_size or not cfg.genome_size_files:
+                    leaves_sizes = {}
+                else:
+                    leaves_sizes = taxmod.parse_genome_size_files(
+                        cfg.genome_size_files, cfg.taxonomy
+                    )
+                genome_sizes = taxmod.estimate_genome_sizes(
+                    tax.leaves(), tax, leaves_sizes
                 )
-            genome_sizes = taxmod.estimate_genome_sizes(
-                tax.leaves(), tax, leaves_sizes
-            )
 
     default_ranks = [tax.root_name] + DEFAULT_RANKS
     if cfg.ranks and cfg.ranks[0] == "all":
@@ -99,44 +104,46 @@ def report(cfg: ReportConfig) -> bool:
         fixed_ranks = [tax.root_name] + list(cfg.ranks)
 
     any_rep = False
-    for rep_file in rep_files:
-        reports, counts = parse_rep(rep_file, cfg.normalize)
-        if not reports:
-            _log(f" - nothing to report for {rep_file}", cfg.quiet)
-            continue
-        if cfg.skip_hierarchy or cfg.keep_hierarchy:
-            reports = remove_hierarchy(
-                reports, counts, cfg.skip_hierarchy, cfg.keep_hierarchy, cfg.quiet
-            )
+    with trace.span("report.tree"):
+        for rep_file in rep_files:
+            reports, counts = parse_rep(rep_file, cfg.normalize)
+            if not reports:
+                _log(f" - nothing to report for {rep_file}", cfg.quiet)
+                continue
+            if cfg.skip_hierarchy or cfg.keep_hierarchy:
+                reports = remove_hierarchy(
+                    reports, counts, cfg.skip_hierarchy, cfg.keep_hierarchy,
+                    cfg.quiet
+                )
 
-        p = pathlib.Path(rep_file)
-        rep_prefix = str(pathlib.Path(p.parent, p.stem))
-        if cfg.output_prefix:
-            out_prefix = (
-                cfg.output_prefix
-                if len(rep_files) == 1
-                else cfg.output_prefix + str(p.stem)
-            )
-        else:
-            out_prefix = rep_prefix
+            p = pathlib.Path(rep_file)
+            rep_prefix = str(pathlib.Path(p.parent, p.stem))
+            if cfg.output_prefix:
+                out_prefix = (
+                    cfg.output_prefix
+                    if len(rep_files) == 1
+                    else cfg.output_prefix + str(p.stem)
+                )
+            else:
+                out_prefix = rep_prefix
 
-        if cfg.split_hierarchy:
-            for h in reports:
-                if h in cfg.skip_hierarchy:
-                    continue
-                of = out_prefix + "." + h + ".tre"
+            if cfg.split_hierarchy:
+                for h in reports:
+                    if h in cfg.skip_hierarchy:
+                        continue
+                    of = out_prefix + "." + h + ".tre"
+                    if build_report(
+                        {h: reports[h]}, counts, tax, genome_sizes, of,
+                        fixed_ranks, default_ranks, cfg, rep_file,
+                    ):
+                        any_rep = True
+            else:
+                of = out_prefix + ".tre"
                 if build_report(
-                    {h: reports[h]}, counts, tax, genome_sizes, of,
+                    reports, counts, tax, genome_sizes, of,
                     fixed_ranks, default_ranks, cfg, rep_file,
                 ):
                     any_rep = True
-        else:
-            of = out_prefix + ".tre"
-            if build_report(
-                reports, counts, tax, genome_sizes, of,
-                fixed_ranks, default_ranks, cfg, rep_file,
-            ):
-                any_rep = True
     return any_rep
 
 
