@@ -1038,9 +1038,11 @@ class ShardedTable:
                                         dtype=torch.int32)
                            for a in ("t_lo", "t_hi"))
         # the partials' buffer needs a zero fill only where count's tile
-        # walk may leave a cell unstored (an empty byte range in a shard of
-        # 256 words or more); every other route stores every cell
-        self.fill_parts = not all(count_writes_every_cell(s) for s in shards)
+        # walk may leave a cell unstored (an empty byte range in a shard on
+        # that route); every other route stores every cell
+        self.fill_parts = not all(
+            count_writes_every_cell(s.tbl8, s.byte_starts, s.byte_ends)
+            for s in shards)
         self.cols = (None if cols is None else
                      [cols.to(row[0]) for row in mesh.devices])
 

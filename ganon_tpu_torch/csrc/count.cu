@@ -19,7 +19,7 @@
 //
 // Design: one block per read. The block hashes its minimizers into
 // shared memory (u64 multiply and __umul64hi on the card, no limbs), a
-// chunk of 128 at a time, then takes one of two layouts by the row's
+// chunk of 128 at a time, then takes one of three layouts by the row's
 // width W32 (u32 words), and sums the per-byte counts over each target's
 // byte range. Targets are contiguous byte ranges in ascending order. The
 // block owns its output row, so no atomics reach device memory; the
@@ -34,9 +34,30 @@
 //   registers. The groups of one warp fold by shuffles, then one shared
 //   atomic add a word and byte gives the per-byte counts. A row of 16
 //   words so keeps 16 hashes' gathers in flight a block, where one thread
-//   a word left 240 of 256 threads idle.
-// - Rows of 256 words or more (the flat 1024-target filter, the wide
-//   filters): the row in tiles of 2048 u32 words; consecutive threads read
+//   a word left 240 of 256 threads idle. Toward 256 words it degenerates
+//   to one group walking the hashes a row at a time, with the block's
+//   hashing, barriers and stores between reads (31% of the bound at the
+//   flat arc_cg_ibf table's 160 words).
+// - The ring route (rows of 96 to 512 words in whole 16-byte words,
+//   outside column-max mode; ops/ibf_query.py count_route picks it: the
+//   flat arc_cg_ibf table's 640 one-byte targets at 160 words, the
+//   1024-target table at 256): a
+//   thread owns one 16-byte word of the row, so a group of W32 / 4
+//   threads covers it, and each of the block's groups issues kRingDepth
+//   rows' 16-byte loads before their first use (three groups of 40
+//   threads at 160 words: 24 rows in flight a block, 8 blocks an SM).
+//   The rows' bits are counted a byte at a time by SIMD popcounts in
+//   packed bytes, flushed to shared memory before a byte can pass 255, so
+//   a thread holds four words of counters, not 16. The band's edges and
+//   the block's shape come from scripts/torch_count_select_ab.py's
+//   count_arc widths (PERF.md section 6): at 160 words, h 1, 0.089 ms of
+//   card against the narrow route's 0.203; faster than the narrow route
+//   and the tile walk at every width from 64 to 512 words (NVIDIA H100
+//   80GB HBM3, 700.00 W). Like the narrow route it stores every target of
+//   its row, so the flat caller allocates without a fill
+//   (count_writes_every_cell).
+// - Other rows of 256 words or more (the wide filters, rows off the
+//   16-byte grid): the row in tiles of 2048 u32 words; consecutive threads read
 //   consecutive words of the same row, so every gather is a coalesced row
 //   segment, and each thread owns its words' byte counters. After each
 //   tile the threads sum the byte ranges of the targets that intersect it
@@ -324,28 +345,136 @@ count_raptor_kernel(const Table* __restrict__ subs, int S, long long hmax,
     }
 }
 
+// The ring route: groups of W32 / 4 threads, one 16-byte word a thread,
+// each group kRingDepth rows in flight. Dynamic shared memory as
+// smem_bytes: the hashed rows, then the per-byte counts with byte x of
+// 16-byte word j at x * Q + j (a warp's flushes fall on distinct banks).
+constexpr int kRingThreads = 128;
+constexpr int kRingDepth = 8;
+constexpr int kRingMinBlocks = 8;
+constexpr int kRingRows = 31;  // rows a packed byte sum holds (31 x 8 bits)
+
+// the popcount of each byte of v, in that byte
+__device__ __forceinline__ unsigned byte_pop(unsigned v) {
+    v -= (v >> 1) & 0x55555555u;
+    v = (v & 0x33333333u) + ((v >> 2) & 0x33333333u);
+    return (v + (v >> 4)) & 0x0F0F0F0Fu;
+}
+
+__device__ __forceinline__ void and4(uint4& v, const uint4 w) {
+    v.x &= w.x;
+    v.y &= w.y;
+    v.z &= w.z;
+    v.w &= w.w;
+}
+
+__global__ void __launch_bounds__(kRingThreads, kRingMinBlocks)
+count_kernel_ring(Table tb, const long long* __restrict__ hashes, int M,
+                  const int* __restrict__ n_hashes, int* __restrict__ counts,
+                  long long ldc, long long col0, int clamp) {
+    extern __shared__ unsigned long long smem[];
+    const int h = (int)tb.h, T = (int)tb.T, Q = (int)(tb.W32 >> 2);
+    const int G = kRingThreads / Q;
+    const int g = threadIdx.x / Q, j = threadIdx.x - g * Q;
+    unsigned long long* rows = smem;
+    int* cnt = (int*)(smem + kHashChunk * h);
+    const long long b = blockIdx.x;
+    const int n = n_hashes[b], nvalid = min(n, M);
+    const long long* hrow = hashes + b * M;
+    for (int x = threadIdx.x; x < 16 * Q; x += kRingThreads) cnt[x] = 0;
+    const uint4* col = reinterpret_cast<const uint4*>(tb.tbl) + j;
+    for (int m0 = 0; m0 < nvalid; m0 += kHashChunk) {
+        const int mn = min(kHashChunk, nvalid - m0);
+        __syncthreads();  // readers of the previous chunk's rows are done
+        for (int q = threadIdx.x; q < mn * h; q += kRingThreads) {
+            const int m = q / h, s = q - m * h;
+            rows[q] = ganon_ibf_row((unsigned long long)hrow[m0 + m], s,
+                                    tb.bin_size, (int)tb.shift);
+        }
+        __syncthreads();
+        if (g >= G) continue;
+        // the group's hashes g, g + G, ...: kRingRows of them a flush
+        for (int m1 = g; m1 < mn; m1 += kRingRows * G) {
+            const int me = min(mn, m1 + kRingRows * G);
+            uint4 p = make_uint4(0, 0, 0, 0);
+            for (int m = m1; m < me; m += kRingDepth * G) {
+                uint4 v[kRingDepth];
+#pragma unroll
+                for (int u = 0; u < kRingDepth; ++u) {
+                    const int mu = m + u * G;
+                    v[u] = mu < me ? __ldg(col + (long long)rows[mu * h] * Q)
+                                   : make_uint4(0, 0, 0, 0);
+                }
+                for (int s = 1; s < h; ++s) {
+#pragma unroll
+                    for (int u = 0; u < kRingDepth; ++u) {
+                        const int mu = m + u * G;
+                        if (mu < me)
+                            and4(v[u], __ldg(col + (long long)rows[mu * h + s]
+                                                       * Q));
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < kRingDepth; ++u) {
+                    p.x += byte_pop(v[u].x);
+                    p.y += byte_pop(v[u].y);
+                    p.z += byte_pop(v[u].z);
+                    p.w += byte_pop(v[u].w);
+                }
+            }
+            const unsigned pw[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+#pragma unroll
+                for (int y = 0; y < 4; ++y)
+                    atomicAdd(cnt + (4 * k + y) * Q + j,
+                              (int)((pw[k] >> (8 * y)) & 0xFFu));
+        }
+    }
+    __syncthreads();
+    int* orow = counts + b * ldc + col0;
+    for (int t = threadIdx.x; t < T; t += kRingThreads) {
+        int acc = 0;
+        for (int x = tb.byte_starts[t], e = tb.byte_ends[t]; x < e; ++x)
+            acc += cnt[(x & 15) * Q + (x >> 4)];
+        orow[t] = clamp ? min(acc, n) : acc;
+    }
+}
+
 }  // namespace
 
+// ring: take the ring route (ops/ibf_query.py count_route chose it; here
+// only checked: no column-max mode, 16-byte rows on a 16-byte grid, at
+// least one group a block).
 extern "C" int ganon_count(const void* tbl, long long R, long long W8,
                            const void* byte_starts, const void* byte_ends,
                            int T, const void* hashes, long long B, int M,
                            const void* n_hashes, unsigned long long bin_size,
                            int h, int shift, void* counts, long long ldc,
-                           int col0, const void* cols, int clamp,
+                           int col0, const void* cols, int clamp, int ring,
                            void* stream) {
     (void)R;
     if (h < 1 || h > kMaxH || W8 % 4 || col0 < 0
         || (!cols && col0 + (long long)T > ldc) || (cols && col0 != 0)
-        || (cols && !clamp))
+        || (cols && !clamp)
+        || (ring && (cols || W8 % 16 || W8 / 16 > kRingThreads
+                     || (unsigned long long)tbl % 16)))
         return (int)cudaErrorInvalidValue;
     const Table tb{(const unsigned*)tbl, W8 / 4, (const int*)byte_starts,
                    (const int*)byte_ends, T, bin_size, h, shift,
                    (const int*)cols};
     auto kernel = tb.W32 < kThreads ? count_kernel<8> : count_kernel<6>;
-    kernel<<<(unsigned)B, kThreads, (size_t)smem_bytes(h, W8 / 4),
-             (cudaStream_t)stream>>>(
-        tb, (const long long*)hashes, M, (const int*)n_hashes, (int*)counts,
-        ldc, col0, clamp);
+    if (ring)
+        count_kernel_ring<<<(unsigned)B, kRingThreads,
+                            (size_t)smem_bytes(h, W8 / 4),
+                            (cudaStream_t)stream>>>(
+            tb, (const long long*)hashes, M, (const int*)n_hashes,
+            (int*)counts, ldc, col0, clamp);
+    else
+        kernel<<<(unsigned)B, kThreads, (size_t)smem_bytes(h, W8 / 4),
+                 (cudaStream_t)stream>>>(
+            tb, (const long long*)hashes, M, (const int*)n_hashes,
+            (int*)counts, ldc, col0, clamp);
     return (int)cudaGetLastError();
 }
 

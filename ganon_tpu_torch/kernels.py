@@ -12,7 +12,10 @@ turns into an exception.
 and mode: ``count_forest`` is ``count`` writing into a column range of a
 shared matrix, ``count_raptor`` is ``count`` in column-max mode (a raptor
 sub-IBF's targets max-merged into their columns: one launch a sub, or one
-launch a batch for every sub of an archive), ``select_winners`` is
+launch a batch for every sub of an archive), ``count_ring`` is the flat
+``count`` on its ring route (``ops.ibf_query.count_route``: rows of 96
+to 512 words; the recorder's ``count.ring_launches`` counts the route's
+launches in every mode), ``select_winners`` is
 ``select`` with the winners payload, ``select32`` is ``select`` in its
 32-bit mode (two [B*K] blocks of counts and ids: ``--longreads``, more
 than 65,535 targets),
@@ -91,9 +94,9 @@ _SIGNATURES = {
     "extract_wide": (_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P),
     # tbl, R, W8, byte_starts, byte_ends, T, hashes, B, M, n_hashes,
     # bin_size, h, shift, counts, ldc, col0, cols (NULL = not column-max),
-    # clamp (0 = a shard's partial sums)
+    # clamp (0 = a shard's partial sums), ring (1 = the ring route)
     "count": (_P, _L, _L, _P, _P, _I, _P, _L, _I, _P, _U, _I, _I, _P, _L,
-              _I, _P, _I),
+              _I, _P, _I, _I),
     # subs (int64 [S, 9] descriptors), S, hmax, wmax, hashes, B, M,
     # n_hashes, counts, T: every sub of a raptor archive in one launch
     "count_raptor": (_P, _I, _I, _L, _P, _L, _I, _P, _P, _L),
@@ -182,7 +185,8 @@ _SIGNATURES = {
 
 # launch counters: each kernel, plus the modes counted apart
 LAUNCHES = {name: 0 for name in (*_SIGNATURES, "dedup_rank", "count_forest",
-                                 "count_raptor", "select_winners",
+                                 "count_raptor", "count_ring",
+                                 "select_winners",
                                  "fine_all", "extract_build", "count_shard",
                                  "fine_shard", "scatter_span", "minimizers",
                                  "ragged_winners")}

@@ -50,7 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ganon_tpu_torch import kernels
+from ganon_tpu_torch import kernels, trace
 from ganon_tpu_torch.ops.winnow import as_i64, lsr, minimizers_masked
 
 # 2^64 / golden ratio — spreads the xor-folded value over the full range.
@@ -807,11 +807,13 @@ def bulk_target_counts_packed(
             bin_size=bin_size, hash_functions=hash_functions, out=out,
             col0=col0, cols=cols, clamp=clamp,
         )
-    counter = ("count_shard" if not clamp else "count" if out is None else
+    ring = count_route(tbl8, cols) == "ring"
+    counter = ("count_shard" if not clamp else
+               ("count_ring" if ring else "count") if out is None else
                "count_forest" if cols is None else "count_raptor")
     if out is None:
-        out, col0 = torch.zeros((B, T), dtype=torch.int32,
-                                device=hashes.device), 0
+        alloc = torch.empty if count_writes_every_cell(tbl8) else torch.zeros
+        out, col0 = alloc((B, T), dtype=torch.int32, device=hashes.device), 0
     kernels.check_cuda(tbl8, byte_starts, byte_ends, hashes, n_hashes, out,
                        *([] if cols is None else [cols]))
     if B == 0 or T == 0:
@@ -819,8 +821,10 @@ def bulk_target_counts_packed(
     kernels.launch(
         "count", tbl8, tbl8.shape[0], tbl8.shape[1], byte_starts, byte_ends,
         T, hashes, B, M, n_hashes, bin_size, hash_functions, clz64(bin_size),
-        out, out.shape[1], col0, cols, int(clamp), counter=counter,
+        out, out.shape[1], col0, cols, int(clamp), int(ring), counter=counter,
     )
+    if ring:
+        trace.count("count.ring_launches")
     return out
 
 
@@ -1073,23 +1077,44 @@ def repack_shards(bits: torch.Tensor, plan: RepackPlan, nb: int,
     return shards
 
 
-# count.cu takes rows of fewer u32 words than this (its threads a block)
-# on its narrow-row route, wider rows on its tile walk
+# count.cu's routes by the row's u32 words: the ring route from
+# COUNT_RING_WORDS[0] to COUNT_RING_WORDS[1] words, both included
+# (scripts/torch_count_select_ab.py's count_arc widths set its edges; the
+# forest and raptor subs and mesh shards of 16-64 words stay narrow), the
+# narrow route for other rows below COUNT_NARROW_WORDS (its threads a
+# block), the tile walk for other rows from it
 COUNT_NARROW_WORDS = 256
+COUNT_RING_WORDS = (96, 512)
 # the most shards combine's kernel takes by value (csrc/shard.cu
 # kMaxShards)
 COMBINE_MAX_SHARDS = 32
 
 
-def count_writes_every_cell(shard: "TableShard") -> bool:
-    """Whether ``count`` in shard mode stores every cell of the shard's
-    ``[B, t_hi - t_lo]`` partials on the card (so its buffer needs no
-    fill): the narrow-row route stores every target of its row; the tile
-    walk stores a target at the tile its byte range ends in, which misses
-    an empty range on a tile edge."""
-    if shard.tbl8.shape[1] // 4 < COUNT_NARROW_WORDS:
+def count_route(tbl8: torch.Tensor, cols: torch.Tensor | None = None) -> str:
+    """The route ``count`` takes on ``tbl8``: ``"ring"`` for rows in
+    :data:`COUNT_RING_WORDS` of whole 16-byte words on a 16-byte grid,
+    outside column-max mode (``cols``); else ``"narrow"`` below
+    :data:`COUNT_NARROW_WORDS` words, ``"tiles"`` from it."""
+    W32 = tbl8.shape[1] // 4
+    lo, hi = COUNT_RING_WORDS
+    if (cols is None and lo <= W32 <= hi and W32 % 4 == 0
+            and tbl8.data_ptr() % 16 == 0):
+        return "ring"
+    return "narrow" if W32 < COUNT_NARROW_WORDS else "tiles"
+
+
+def count_writes_every_cell(tbl8: torch.Tensor,
+                            byte_starts: torch.Tensor | None = None,
+                            byte_ends: torch.Tensor | None = None) -> bool:
+    """Whether ``count`` on ``tbl8`` (not in column-max mode) stores every
+    cell of its ``[B, T]`` output on the card, so the buffer needs no
+    fill: the narrow and ring routes store every target of their row;
+    the tile walk stores a target at the tile its byte range ends in,
+    which misses an empty range on a tile edge, so there the answer asks
+    the ranges (a wait on the card) and is no without them."""
+    if count_route(tbl8) != "tiles":
         return True
-    return bool((shard.byte_ends > shard.byte_starts).all())
+    return byte_starts is not None and bool((byte_ends > byte_starts).all())
 
 
 def _check_combine(parts, t_lo, t_hi, n_hashes, out, col0, cols):

@@ -26,6 +26,18 @@ filter's):
 * ``count_raptor``: 8192 reads on four raptor subs (17, 16, 16 and 16
   words; 1.3M, 0.7M, 0.35M and 0.18M rows) max-merged into [8192, 256]:
   four launches into a zeroed matrix (old) against one launch (new);
+* ``count_arc``: the ``arc_ibf_short`` cell's flat table, 640 one-byte
+  targets (160 words a row) over 9,490,000 rows (6.07 GB), one hash
+  function, 8192 reads of 48 slots (35-45 valid), through the flat
+  caller (``out`` allocated by it); beside it, each side's kernel alone
+  into a given ``out`` at that shape (``count_arc_kernel``), on the same
+  rows over 2,700,000 rows (``count_arc_2m7``: the table's span apart
+  from the route) and on 256-word rows over 9,490,000 rows
+  (``count_arc_w256``: the tile walk at the cell's span); then
+  ``count_ring_w<W32>[_h<h>]``: the old route against the ring route
+  forced (past the wrapper's choice), one-byte targets over 2,700,000
+  rows, at each width and hash count of ``RING_WIDTHS`` (where the band's
+  edges come from);
 * ``select``: 8192 reads at T = 1024, K 32, cutoffs 0.75 / 0.1 (counts:
   1-5 on 85% of the targets, one or two targets near n);
 * ``select_winners``: at U = 1472, K 32, rel-cutoff 0 (most targets
@@ -82,16 +94,25 @@ def _old_library(src: str) -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
+# rows (u32 words) and hash functions at which the ring route is timed
+# against the old route
+RING_WIDTHS = tuple((w, 1) for w in (64, 96, 128, 160, 192, 224, 252, 256,
+                                     320, 384, 512)) + ((160, 3), (256, 2))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True,
                     help="directory of the earlier count.cu, select.cu and "
                     "ibf_hash.cuh")
+    ap.add_argument("--old-count-ring", choices=("no", "yes"), default="no",
+                    help="whether the earlier ganon_count takes the ring "
+                    "route's flag (its last argument before the stream)")
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=29)
     ap.add_argument("--shapes", default="count,select",
-                    help="which kernels' shapes to run: count, select or "
-                    "both (comma-separated)")
+                    help="which kernels' shapes to run: count, select, "
+                    "count_arc (comma-separated)")
     args = ap.parse_args()
     shapes = set(args.shapes.split(","))
 
@@ -116,6 +137,9 @@ def main() -> int:
             fn = getattr(lib, f"ganon_{name}")
             fn.argtypes = list(kernels._SIGNATURES[name]) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+    if args.old_count_ring == "no":  # a count.cu from before the ring flag
+        old_c.ganon_count.argtypes = list(
+            kernels._SIGNATURES["count"][:-1]) + [ctypes.c_void_p]
 
     def call_old(lib, name, *a):
         cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
@@ -146,9 +170,10 @@ def main() -> int:
         T = bs.shape[0]
         if out is None:
             out = torch.zeros((B, T), dtype=torch.int32, device=cuda)
+        ring = [0] if args.old_count_ring == "yes" else []
         call_old(old_c, "count", tbl8, tbl8.shape[0], tbl8.shape[1], bs, be,
                  T, h, B, M, n, bin_size, hf, q.clz64(bin_size), out,
-                 out.shape[1], col0, cols, int(clamp))
+                 out.shape[1], col0, cols, int(clamp), *ring)
         return out
 
     turns, summary = [], {}
@@ -173,6 +198,60 @@ def main() -> int:
         for _ in range(args.reps):
             for side in order:
                 record(shape, side, sides[side])
+
+    def count_arc_part():
+        """The arc_ibf_short cell's shape and its diagnosis, old against
+        new."""
+        hf, B = 1, 8192
+        h, n = rand_hashes(B, 48, 35, 45)
+        for shape, R, W32, T, caller in (
+                ("count_arc", 9_490_000, 160, 640, True),
+                ("count_arc_kernel", 9_490_000, 160, 640, False),
+                ("count_arc_2m7", 2_700_000, 160, 640, False),
+                ("count_arc_w256", 9_490_000, 256, 1024, False)):
+            tb = table(R, W32, T)
+            bufs = [torch.empty((B, T), dtype=torch.int32, device=cuda)
+                    for _ in range(2)]
+            if caller:
+                old = (lambda tb=tb, R=R: old_count(tb, h, n, R, hf))
+                new = (lambda tb=tb, R=R: q.bulk_target_counts_packed(
+                    *tb, h, n, bin_size=R, hash_functions=hf))
+            else:
+                old = (lambda tb=tb, R=R, o=bufs[0]: old_count(
+                    tb, h, n, R, hf, out=o))
+                new = (lambda tb=tb, R=R, o=bufs[1]:
+                       q.bulk_target_counts_packed(
+                           *tb, h, n, bin_size=R, hash_functions=hf, out=o))
+            ab(shape, old, new, {"B": B, "R": R, "W32": W32, "T": T,
+                                 "h": hf, "caller": caller})
+            del tb, bufs, old, new
+            torch.cuda.empty_cache()
+        # the ring route's band: the old route at each width against the
+        # ring route forced, one-byte targets over 2,700,000 rows
+        R = 2_700_000
+        for W32, hw in RING_WIDTHS:
+            tb = table(R, W32, 4 * W32)
+            bufs = [torch.empty((B, 4 * W32), dtype=torch.int32,
+                                device=cuda) for _ in range(2)]
+            ab(f"count_ring_w{W32}" + (f"_h{hw}" if hw > 1 else ""),
+               lambda tb=tb, o=bufs[0], hw=hw: old_count(tb, h, n, R, hw,
+                                                         out=o),
+               lambda tb=tb, o=bufs[1], hw=hw: ring_count(tb, h, n, R, hw, o),
+               {"B": B, "R": R, "W32": W32, "T": 4 * W32, "h": hw,
+                "old_route": "narrow" if W32 < q.COUNT_NARROW_WORDS
+                else "tiles"})
+            del tb, bufs
+            torch.cuda.empty_cache()
+
+    def ring_count(tb, h, n, bin_size, hf, out):
+        """count on its ring route whatever the width (a kernel launch
+        past the wrapper's choice)."""
+        tbl8, bs, be = tb
+        kernels.launch("count", tbl8, tbl8.shape[0], tbl8.shape[1], bs, be,
+                       bs.shape[0], h, h.shape[0], h.shape[1], n, bin_size,
+                       hf, q.clz64(bin_size), out, out.shape[1], 0, None, 1,
+                       1, counter="count_ring")
+        return out
 
     def count_part():
         """count's four modes, old against new."""
@@ -311,6 +390,8 @@ def main() -> int:
                                     emit_matches_t=False),
            {"B": B, "C": S * gs, "K": 4, "cuts": cuts})
 
+    if "count_arc" in shapes:
+        count_arc_part()
     if "count" in shapes:
         count_part()
     if "select" in shapes:
@@ -322,8 +403,9 @@ def main() -> int:
         for side in sorted({t["side"] for t in turns if t["shape"] == shape}):
             mine = [t for t in turns
                     if t["shape"] == shape and t["side"] == side]
-            info[side] = {m: statistics.median(t[m] for t in mine)
-                          for m in ("ms", "profiled_ms")}
+            info[side] = {m: statistics.median(
+                [t[m] for t in mine if t[m] is not None] or [None])
+                for m in ("ms", "profiled_ms")}
     print(smi)
     print(json.dumps({"gpu": smi, "median": summary}))
     return 0

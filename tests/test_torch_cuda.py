@@ -72,7 +72,8 @@ paired and single-end; select in every mode with 2048 and 2049 kept entries (the
 list's capacity and the passes over the row), T % 4 != 0 and K past and
 below the finals; count at rows of 1 to 256 words, h 1-5, in flat,
 forest, shard and column-max modes; every raptor sub in one launch
-against one launch a sub.
+against one launch a sub; count's ring route at the flat arc_cg_ibf
+table's 160-word rows and on both sides of its band's edges.
 The filter load's repack: the whole table and column windows at db's
 one-bin-a-target shape (row runs of 63, 65 and 1 rows), the wide
 filter's 2188-word rows, uneven, shuffled and dropped bins and a W8 off
@@ -95,7 +96,7 @@ import numpy as np
 import pytest
 import torch
 
-from ganon_tpu_torch import kernels
+from ganon_tpu_torch import kernels, trace
 from ganon_tpu_torch.classify import device as dev
 from ganon_tpu_torch.index.ibf import _scatter_bits, scatter_hashes
 from ganon_tpu_torch.index.pruned import scatter_pruned, scatter_pruned_plain
@@ -2406,9 +2407,11 @@ def _narrow_table(rng, R, W32):
 @pytest.mark.parametrize("W32", [1, 7, 16, 17, 63, 64, 65, 255, 256])
 def test_count_kernel_narrow_rows_match_plain(cuda, W32):
     """count at rows of W32 words (narrow below 256: groups of threads a
-    hash; 256: the tile walk), h 1-5, more hashes than a shared-memory
-    chunk, in flat, forest, shard (clamp off) and column-max modes, equal
-    to the plain version; one launch each, under its mode's counter."""
+    hash; 256: the ring route, but in column-max mode the tile walk), h
+    1-5, more hashes than a shared-memory chunk, in flat, forest, shard
+    (clamp off) and column-max modes, equal to the plain version; one
+    launch each, under its mode's counter (the flat mode's on the ring
+    route: count_ring)."""
     rng = np.random.default_rng(W32)
     R, B, M = 509, 70, 150
     tbl8, starts, ends = (x.to(cuda) for x in _narrow_table(rng, R, W32))
@@ -2449,8 +2452,93 @@ def test_count_kernel_narrow_rows_match_plain(cuda, W32):
         assert torch.equal(fk, fp) and torch.equal(mk, mp), hf
         assert (fk[:, :col0] == -3).all() and (fk[:, col0 + T:] == -3).all()
         assert (part >= flat).all() and (flat > 0).any()
-        for name in ("count", "count_shard", "count_forest", "count_raptor"):
+        flat_counter = ("count_ring" if q.count_route(tbl8) == "ring"
+                        else "count")
+        for name in (flat_counter, "count_shard", "count_forest",
+                     "count_raptor"):
             assert kernels.LAUNCHES[name] == before[name] + 1, name
+
+
+@pytest.mark.parametrize("case,W32,hf", [
+    ("cell", 160, 1), ("cell", 160, 3), ("cell", 160, 5),
+    ("ranges", 160, 2), ("edges", 160, 1), ("forest", 160, 2),
+    ("ranges", 92, 1), ("ranges", 96, 1), ("ranges", 252, 4),
+    ("ranges", 256, 2), ("ranges", 512, 1), ("ranges", 516, 1),
+    ("ranges", 130, 1), ("offset", 160, 1),
+])
+def test_count_kernel_ring_route_matches_plain(cuda, case, W32, hf):
+    """count on its ring route (rows of 96 to 512 words) against the
+    plain version: the arc_cg_ibf table's 640 one-byte targets at h 1, 3
+    and 5; targets of several bytes and empty ranges, also with the clamp
+    off (shard mode); reads with n = 0, n past M and more hashes than a
+    shared-memory chunk and a packed byte sum hold; forest mode at col0 >
+    0 over other columns; widths on both sides of each edge, rows off
+    whole 16-byte words and a table off the 16-byte grid (those on their
+    old routes). Every cell of the flat output is stored (it comes from
+    garbage-filled memory); one launch under its mode's counter
+    (count_ring for the flat mode on the ring route), and the recorder's
+    count.ring_launches on the ring route."""
+    rng = np.random.default_rng([W32, hf, len(case)])
+    R, B = 4093, 300
+    M = 400 if case == "edges" else 48
+    if case == "cell":
+        W8 = 4 * W32
+        tbl8 = torch.from_numpy(rng.integers(0, 256, size=(R, W8),
+                                             dtype=np.uint8))
+        starts = torch.arange(W8, dtype=torch.int32)
+        ends = starts + 1
+    else:
+        tbl8, starts, ends = _narrow_table(rng, R, W32)
+    T = starts.shape[0]
+    h = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(B, M)))
+    n = torch.from_numpy(rng.integers(35, 46, size=B).astype(np.int32))
+    if case == "edges":
+        n = torch.from_numpy(rng.integers(0, M + 60, size=B).astype(np.int32))
+        n[:4] = torch.tensor([0, M, M + 1, 200])
+    else:
+        n[:2] = torch.tensor([0, M + 9])
+    tbl8 = tbl8.to(cuda)
+    if case == "offset":  # the same rows 4 bytes off the 16-byte grid
+        buf = torch.empty(tbl8.numel() + 4, dtype=torch.uint8, device=cuda)
+        buf[4:] = tbl8.reshape(-1)
+        tbl8 = buf[4:].view(tbl8.shape)
+    args = (tbl8, starts.to(cuda), ends.to(cuda), h.to(cuda), n.to(cuda))
+    kw = dict(bin_size=R - hf, hash_functions=hf)
+    route = q.count_route(tbl8)
+    assert route == ("ring" if 96 <= W32 <= 512 and W32 % 4 == 0
+                     and case != "offset" else
+                     "narrow" if W32 < 256 else "tiles")
+    before = dict(kernels.LAUNCHES)
+    with trace.span("cmd.count_test") as top:
+        if case == "forest":
+            ldc, col0 = T + 50, 37
+            got = torch.full((B, ldc), -5, dtype=torch.int32, device=cuda)
+            want = got.clone()
+            q.bulk_target_counts_packed(*args, out=got, col0=col0, **kw)
+            q.bulk_target_counts_packed_plain(*args, out=want, col0=col0,
+                                              **kw)
+            assert (got[:, :col0] == -5).all()
+            assert (got[:, col0 + T:] == -5).all()
+        else:
+            torch.full((B, T), -5, dtype=torch.int32, device=cuda)  # garbage
+            got = q.bulk_target_counts_packed(*args, **kw)
+            want = q.bulk_target_counts_packed_plain(*args, **kw)
+    assert top.root.counters.get("count.ring_launches", 0) == (
+        route == "ring")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if case == "forest":
+        want = want[:, col0:col0 + T]
+    assert (want[0] == 0).all() and (want > 0).any()
+    counter = ("count_forest" if case == "forest" else
+               "count_ring" if route == "ring" else "count")
+    for name in ("count", "count_forest", "count_ring", "count_shard"):
+        assert kernels.LAUNCHES[name] == before[name] + (name == counter), name
+    if case == "ranges":  # shard mode: the partial sums, the clamp off
+        part = q.bulk_target_counts_packed(*args, clamp=False, **kw)
+        assert torch.equal(part, q.bulk_target_counts_packed_plain(
+            *args, clamp=False, **kw))
+        assert kernels.LAUNCHES["count_shard"] == before["count_shard"] + 1
 
 
 def test_raptor_target_counts_one_launch_matches_per_sub(cuda):

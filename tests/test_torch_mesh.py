@@ -200,13 +200,15 @@ def test_sharded_table_forest_mode_writes_only_its_columns(split3):
 
 def test_sharded_table_fills_partials_only_for_the_tile_walk():
     """The partials' buffer skips its zero fill unless a shard takes
-    count's tile walk (rows of 256 words or more) with an empty byte
-    range, the one case where count leaves a cell unstored."""
+    count's tile walk (rows of 256 words or more outside the ring route's
+    96-512) with an empty byte range, the one case where count leaves a
+    cell unstored."""
     mesh = _cpu_mesh(1, 2)
     for W8, widths, fill in ((64, [8, 8, 16], False),
-                             (4096, [8, 8, 16], False),
+                             (8192, [8, 8, 16], False),
                              (64, [8, 0, 16], False),
-                             (4096, [8, 0, 16], True)):
+                             (4096, [8, 0, 16], False),  # the ring route
+                             (8192, [8, 0, 16], True)):
         ends = np.cumsum(widths).astype(np.int32)
         starts = np.concatenate([[0], ends[:-1]]).astype(np.int32)
         tbl8 = torch.zeros((16, W8), dtype=torch.uint8)

@@ -135,6 +135,53 @@ def test_bulk_target_counts_matches_jax_u8_and_u32(hf):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("W32,every", [
+    (160, True),  # the arc_ibf_short cell's 640-byte rows: the ring route
+    (255, True), (256, True),  # narrow, then the ring route
+    (512, True), (516, False),  # the ring route's upper edge
+    (16, True), (17, True), (64, True),  # forest and raptor subs, shards
+    (1024, False), (17_500, False),  # wide filters on the tile walk
+])
+def test_count_writes_every_cell_by_width(W32, every):
+    """``count_writes_every_cell`` answers for the flat caller (no ranges)
+    and the shards (their ranges) alike: yes on the narrow and ring
+    routes; on the tile walk only with every byte range non-empty, and no
+    when it is not asked the ranges."""
+    W8 = 4 * W32
+    tbl8 = torch.zeros((3, W8), dtype=torch.uint8)
+    ends = torch.tensor([W8 // 2, W8], dtype=torch.int32)
+    starts = torch.tensor([0, W8 // 2], dtype=torch.int32)
+    assert tq.count_writes_every_cell(tbl8) == every
+    assert tq.count_writes_every_cell(tbl8, starts, ends)
+    assert tq.count_writes_every_cell(tbl8, ends, ends) == every
+
+
+@pytest.mark.parametrize("W32,cols,offset,route", [
+    (160, False, 0, "ring"),  # the arc_ibf_short cell's 640-byte rows
+    (160, True, 0, "narrow"),  # column-max mode keeps its route
+    (92, False, 0, "narrow"), (96, False, 0, "ring"),  # the lower edge
+    (256, False, 0, "ring"),  # the 1024-target flat table
+    (512, False, 0, "ring"), (516, False, 0, "tiles"),  # the upper edge
+    (16, False, 0, "narrow"), (17, True, 0, "narrow"),  # forest, raptor
+    (64, False, 0, "narrow"),  # a mesh shard
+    (1024, False, 0, "tiles"), (17_500, False, 0, "tiles"),  # wide filters
+    (130, False, 0, "narrow"),  # rows off whole 16-byte words
+    (160, False, 4, "narrow"),  # a table off the 16-byte grid
+    (256, False, 4, "tiles"),
+])
+def test_count_route_by_width_mode_and_alignment(W32, cols, offset, route):
+    """``count_route``: the ring route for rows of 96 to 512 words in
+    whole 16-byte words on a 16-byte grid, outside column-max mode; the
+    narrow route below 256 words otherwise, the tile walk from 256."""
+    W8 = 4 * W32
+    buf = torch.zeros(3 * W8 + 32, dtype=torch.uint8)
+    base = (-buf.data_ptr()) % 16 + offset
+    tbl8 = buf[base:base + 3 * W8].view(3, W8)
+    assert tbl8.data_ptr() % 16 == offset
+    c = torch.zeros(2, dtype=torch.int32) if cols else None
+    assert tq.count_route(tbl8, c) == route
+
+
 def _counts_case(rng, B, T):
     n = rng.integers(0, 60, size=B).astype(np.int32)
     n[:3] = [0, 1, 70000 % 65536]  # empty read, a single hash, a big one
